@@ -236,16 +236,6 @@ def _pad_to_vectors(data: np.ndarray):
     return padded.reshape(n_vec, C.VECTOR_SIZE), n_vec
 
 
-def _word_tensor(a: np.ndarray) -> torch.Tensor:
-    """Unsigned NumPy words -> the signed tensor of their width."""
-    a = np.ascontiguousarray(a)
-    return torch.from_numpy(a.view(f"i{a.dtype.itemsize}"))
-
-
-def _as_words(t: torch.Tensor, ut) -> np.ndarray:
-    return t.numpy().view(ut)
-
-
 def compress(data: np.ndarray) -> CompressedColumn:
     """Compress a 1-D float64/float32 array on the host (adaptive
     ALP / ALP_RD per rowgroup)."""
@@ -330,15 +320,13 @@ def compress(data: np.ndarray) -> CompressedColumn:
         dict_pad = np.full((m, C.MAX_RD_DICTIONARY_SIZE), 0xFFFF, np.int64)
         dict_pad[:, :stt.actual_dictionary_size] = stt.left_parts_dict
         right, left_idx, exc_mask, left_raw = rd_encode_vectors(
-            _word_tensor(vectors[sel].view(tc.ut)),
+            fl.words_from_numpy(vectors[sel].view(tc.ut)),
             torch.full((m,), stt.right_bit_width), torch.from_numpy(dict_pad),
             torch.full((m,), stt.actual_dictionary_size))
-        pk_r = _as_words(fl.ffor_pack(
-            right, torch.zeros(m, dtype=right.dtype), stt.right_bit_width),
-            tc.ut)
-        pk_l = _as_words(fl.ffor_pack(
-            left_idx, torch.zeros(m, dtype=torch.int16), stt.left_bit_width),
-            np.uint16)
+        pk_r = fl.ffor_pack(right, torch.zeros(m, dtype=right.dtype),
+                            stt.right_bit_width).numpy().view(tc.ut)
+        pk_l = fl.ffor_pack(left_idx, torch.zeros(m, dtype=torch.int16),
+                            stt.left_bit_width).numpy().view(np.uint16)
         exc_mask = exc_mask.numpy()
         left_raw = left_raw.numpy().astype(np.uint16)
         for r, v in enumerate(sel):

@@ -25,7 +25,7 @@ import torch
 
 from .. import constants as C
 from ..constants import constants_for
-from ..ops.fastlanes import low_mask
+from ..ops.fastlanes import low_mask, narrow, words_from_numpy
 from . import falp as kfalp
 
 VECTOR_SIZE = C.VECTOR_SIZE
@@ -43,13 +43,6 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def _words(a: np.ndarray) -> torch.Tensor:
-    """NumPy words or patterns -> a tensor of the signed type of their
-    width (PyTorch has no arithmetic on its unsigned types)."""
-    a = np.ascontiguousarray(a)
-    return torch.from_numpy(a.view(f"i{a.dtype.itemsize}"))
 
 
 @dataclasses.dataclass
@@ -116,11 +109,7 @@ class DecodePlan:
             rmask = torch.where(rbw >= 64, low_mask(64),
                                 (one << rbw.clamp(max=63)) - 1)
             full = (self.rd_exc_left << rbw) | (cur & rmask)
-            if S < 64:
-                full = full & low_mask(S)
-                full = torch.where(full >= (1 << (S - 1)), full - (1 << S),
-                                   full)
-            flat[self.rd_exc_index] = full.to(flat.dtype)
+            flat[self.rd_exc_index] = narrow(full, S)
         return out
 
 
@@ -152,7 +141,7 @@ def build_plan(col, device=None) -> DecodePlan:
     rd_idx = np.nonzero(scheme == C.SCHEME_ALP_RD)[0]
 
     def put(a: np.ndarray) -> torch.Tensor:
-        return _words(a).to(dev) if a.dtype.kind in "ui" else \
+        return words_from_numpy(a).to(dev) if a.dtype.kind in "ui" else \
             torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     buckets = []

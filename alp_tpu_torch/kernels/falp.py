@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.fastlanes import low_mask, unffor_unpack
+from ..ops.fastlanes import narrow, unffor_unpack, widen
 from . import _build
 
 VECTOR_SIZE = 1024
@@ -177,19 +177,12 @@ def rd_plain(right, rbw, left, lbw, dictionary, dict_size) -> torch.Tensor:
     S = 64 if right.dtype == torch.int64 else 32
     n = right.shape[0]
     zeros = torch.zeros(n, dtype=right.dtype, device=right.device)
-    r = unffor_unpack(right, zeros, rbw).to(torch.int64)
-    if S < 64:
-        r = r & low_mask(S)
-    idx = unffor_unpack(left, zeros.to(torch.int16), lbw).to(torch.int64)
-    idx = idx & 0xFFFF
+    r = widen(unffor_unpack(right, zeros, rbw), S)
+    idx = widen(unffor_unpack(left, zeros.to(torch.int16), lbw), 16)
     last = (dict_size.to(torch.int64).clamp(max=8) - 1).clamp(min=0)
     idx = torch.minimum(idx, last[:, None])
-    entries = torch.gather(dictionary.to(torch.int64) & 0xFFFF, 1, idx)
-    glued = (entries << rbw) | r if rbw < S else r
-    if S < 64:
-        glued = glued & low_mask(S)
-        glued = torch.where(glued >= (1 << (S - 1)), glued - (1 << S), glued)
-    return glued.to(right.dtype)
+    entries = torch.gather(widen(dictionary, 16), 1, idx)
+    return narrow((entries << rbw) | r if rbw < S else r, S)
 
 
 def rd_decode_dict_f64(right, rbw, left, lbw, dictionary, dict_size,

@@ -19,6 +19,7 @@ decode kernels' plain versions use.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 VECTOR_SIZE = 1024
@@ -43,13 +44,20 @@ def srl(x: torch.Tensor, s: int) -> torch.Tensor:
     return x if s == 0 else (x >> s) & low_mask(64 - s)
 
 
-def _widen(x: torch.Tensor, bits: int) -> torch.Tensor:
+def words_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """NumPy words or bit patterns -> a tensor of the signed type of their
+    width, sharing memory (PyTorch lacks arithmetic on unsigned types)."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(f"i{a.dtype.itemsize}"))
+
+
+def widen(x: torch.Tensor, bits: int) -> torch.Tensor:
     """S-bit patterns -> zero-extended int64."""
     x = x.to(torch.int64)
     return x if bits == 64 else x & low_mask(bits)
 
 
-def _narrow(x: torch.Tensor, bits: int) -> torch.Tensor:
+def narrow(x: torch.Tensor, bits: int) -> torch.Tensor:
     """int64 -> the low S bits as the S-bit signed dtype (wrapping)."""
     if bits < 64:
         x = x & low_mask(bits)
@@ -69,14 +77,14 @@ def ffor_pack(values: torch.Tensor, base: torch.Tensor,
     words = torch.zeros((n, bw, L), dtype=torch.int64, device=values.device)
     if bw == 0:
         return words.reshape(n, 0).to(values.dtype)
-    delta = _widen(values, S) - _widen(base, S)[:, None]
+    delta = widen(values, S) - widen(base, S)[:, None]
     delta = (delta & low_mask(bw)).reshape(n, S, L)
     for v in range(S):
         w0, s0 = divmod(v * bw, S)
         words[:, w0] |= delta[:, v] << s0
         if s0 + bw > S:
             words[:, w0 + 1] |= srl(delta[:, v], S - s0)
-    return _narrow(words, S).reshape(n, bw * L)
+    return narrow(words, S).reshape(n, bw * L)
 
 
 def unffor_unpack(packed: torch.Tensor, base: torch.Tensor,
@@ -92,12 +100,12 @@ def unffor_unpack(packed: torch.Tensor, base: torch.Tensor,
         raise ValueError(f"expected {bw * L} words per vector, "
                          f"got {packed.shape[1]}")
     out = torch.zeros((n, S, L), dtype=torch.int64, device=packed.device)
-    words = _widen(packed, S).reshape(n, bw, L)
+    words = widen(packed, S).reshape(n, bw, L)
     for v in range(S if bw else 0):
         w0, s0 = divmod(v * bw, S)
         val = srl(words[:, w0], s0)
         if s0 + bw > S:
             val = val | (words[:, w0 + 1] << (S - s0))
         out[:, v] = val & low_mask(bw)
-    out = out.reshape(n, VECTOR_SIZE) + _widen(base, S)[:, None]
-    return _narrow(out, S)
+    out = out.reshape(n, VECTOR_SIZE) + widen(base, S)[:, None]
+    return narrow(out, S)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .fastlanes import low_mask, srl, word_bits
+from .fastlanes import low_mask, narrow, srl, widen, word_bits
 
 
 def rd_encode_vectors(bits: torch.Tensor, right_bw: torch.Tensor,
@@ -24,18 +24,14 @@ def rd_encode_vectors(bits: torch.Tensor, right_bw: torch.Tensor,
     [n, 1024] int16, exception mask [n, 1024] bool, raw left part
     [n, 1024] int64 in 0..0xFFFF)."""
     S = word_bits(bits.dtype)
-    b = bits.to(torch.int64)
-    if S < 64:
-        b = b & low_mask(S)
+    b = widen(bits, S)
     right = torch.empty_like(b)
     left_raw = torch.empty_like(b)
     for rbw in torch.unique(right_bw).tolist():
         sel = right_bw == rbw
         right[sel] = b[sel] & low_mask(rbw)
         left_raw[sel] = srl(b[sel], rbw) & 0xFFFF
-    if S < 64:
-        right = torch.where(right >= (1 << (S - 1)), right - (1 << S), right)
-    entries = left_dict.to(torch.int64) & 0xFFFF
+    entries = widen(left_dict, 16)
     # only entries below the rowgroup's dictionary size may match: a left
     # part equal to the 0xFFFF padding is an exception, as in rd.hpp:127-144
     valid = (torch.arange(entries.shape[1], device=bits.device)[None, :]
@@ -44,4 +40,4 @@ def rd_encode_vectors(bits: torch.Tensor, right_bw: torch.Tensor,
     in_dict = matches.any(dim=2)
     idx = matches.to(torch.int8).argmax(dim=2)
     idx = torch.where(in_dict, idx, dict_size.to(torch.int64)[:, None])
-    return right.to(bits.dtype), idx.to(torch.int16), ~in_dict, left_raw
+    return narrow(right, S), idx.to(torch.int16), ~in_dict, left_raw

@@ -221,13 +221,14 @@ def main() -> int:
         name: torch.from_numpy(exp.view(f"i{exp.dtype.itemsize}")).to(dev)
         for name, (_, exp) in columns.items()}
     torch.cuda.synchronize()
-    per_column = {}
     falp.reset_launches()
     td = time.perf_counter()
     for name, (col, _) in columns.items():
         before = dict(falp.LAUNCHES)
+        tw = time.perf_counter()
         out = alp_tpu_torch.decompress(col)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
         if out.shape != (col.n_values,) or out.device.type != "cuda":
             raise RuntimeError(f"{name}: decoded shape {tuple(out.shape)} "
                                f"on {out.device}")
@@ -239,9 +240,9 @@ def main() -> int:
                  if v != before[k]}
         if not moved:
             raise RuntimeError(f"{name}: no kernel launched")
-        per_column[name] = moved
-        print(f"  {name}: {col.n_values} values bit-exact, launches={moved}",
-              flush=True)
+        print(f"  {name}: {col.n_values} values bit-exact, "
+              f"launches={moved}, decompress wall {wall:.4f} s "
+              f"(host plan + copies + kernels)", flush=True)
     main_launches = dict(falp.LAUNCHES)
     decode_s = time.perf_counter() - td
     for k, v in main_launches.items():
@@ -283,6 +284,7 @@ def main() -> int:
     rows = []
     for k, names in timed.items():
         ms, plain_ms, bound_ms, copy_ms, by = [], [], [], [], "bytes"
+        decoded_gbs = []
         for name in names:
             plan = plans[name]
             col = columns[name][0]
@@ -308,9 +310,13 @@ def main() -> int:
             print(f"  {k} on {name}: {len(mine)} launches/decode, "
                   f"{nbytes} bytes, kernel {t_k:.4f} ms, plain {t_p:.4f} ms,"
                   f" bound {max(b_bytes, b_ops):.4f} ms ({by}), "
-                  f"copy_ {t_c:.4f} ms, "
-                  f"{nbytes / t_k / 1e6:.1f} GB/s", flush=True)
+                  f"copy_ {t_c:.4f} ms, moved {nbytes / t_k / 1e6:.1f} GB/s, "
+                  f"decoded {n_vals * out.element_size() / t_k / 1e6:.1f} "
+                  f"GB/s", flush=True)
+            decoded_gbs.append(n_vals * out.element_size() / t_k / 1e6)
             del out, src, dst
+        print(f"  {k}: mean decoded GB/s over {names}: "
+              f"{float(np.mean(decoded_gbs)):.1f}", flush=True)
         rows.append({
             "name": k, "route": "cuda", "source": "alp_tpu_torch/csrc/falp.cu",
             "replaces": KERNELS[k][0], "also_replaces": KERNELS[k][1],

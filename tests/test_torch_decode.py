@@ -32,13 +32,6 @@ def _bits(a):
     return a.view(np.uint64 if a.dtype.itemsize == 8 else np.uint32)
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    return torch.device("cuda")
-
-
 @pytest.mark.parametrize("name", sorted(COLUMNS))
 def test_decode_equals_jax_both_bridges(name):
     x = COLUMNS[name]
@@ -93,17 +86,3 @@ def test_port_roundtrip_of_its_own_blobs():
         col = alp_tpu_torch.CompressedColumn.from_bytes(blob)
         out = alp_tpu_torch.decompress(col, device="cpu")
         assert np.array_equal(_bits(out.numpy()), _bits(x)), name
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(COLUMNS))
-def test_cuda_decode_equals_input(name, cuda):
-    from alp_tpu_torch.kernels import falp
-    x = COLUMNS[name]
-    col = alp_tpu_torch.compress(x)
-    falp.reset_launches()
-    out = alp_tpu_torch.decompress(col)
-    assert out.device.type == "cuda"
-    assert sum(falp.LAUNCHES.values()) == len(
-        decode.build_plan(col, cuda).buckets)
-    assert np.array_equal(_bits(out.cpu().numpy()), _bits(x))

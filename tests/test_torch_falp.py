@@ -14,8 +14,8 @@ the exception scatter.  Tolerance: none; bits must be equal.
   slots are left out: there the dictionary lookup is a placeholder that the
   scatter overwrites, and the two plans place different ones.
 
-Tests marked ``cuda`` hold each CUDA kernel against its plain version on
-the card; they skip without one.
+``tests/test_torch_cuda.py`` holds the CUDA kernels against these plain
+versions on the card.
 """
 
 import dataclasses
@@ -36,13 +36,6 @@ from alp_tpu_torch.columns import route_columns
 from alp_tpu_torch.kernels import decode, falp
 
 N = 8                                    # vectors per synthetic column
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    return torch.device("cuda")
 
 
 def _alp_column(ints: np.ndarray, fac: int, exp: int):
@@ -218,32 +211,3 @@ def test_rd_wrapper_dtype_checked():
                                 48, torch.zeros((1, 64), dtype=torch.int16),
                                 1, torch.zeros((1, 8), dtype=torch.int16),
                                 torch.ones(1, dtype=torch.int32))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["bench_bw42_nyc29", "f64_alp_bw53_64",
-                                  "f32_alp", "f64_alp_rd", "f32_alp_rd",
-                                  "f64_mixed_alp_rd", "bench_bw0_gov26"])
-def test_cuda_kernels_equal_plain_versions(name, cuda):
-    import alp_tpu_torch
-    x = route_columns(np.random.default_rng(5),
-                      2 * C.N_VECTORS_PER_ROWGROUP)[name]
-    plan = decode.build_plan(alp_tpu_torch.compress(x), cuda)
-    vdt = torch.float64 if plan.f64 else torch.float32
-    bits = torch.int64 if plan.f64 else torch.int32
-    for bucket in plan.buckets:
-        got = torch.zeros((plan.n_vectors, 1024), dtype=vdt, device=cuda)
-        want = torch.zeros_like(got)
-        before = dict(falp.LAUNCHES)
-        plan.launch(bucket, got)
-        assert sum(falp.LAUNCHES.values()) == sum(before.values()) + 1
-        right = bucket.args[0]
-        if bucket.scheme == C.SCHEME_ALP:
-            want[bucket.rows] = falp.falp_plain(right, bucket.bw,
-                                                *bucket.args[1:])
-        else:
-            want.view(bits)[bucket.rows] = falp.rd_plain(
-                right, bucket.bw, bucket.args[1], bucket.lbw,
-                *bucket.args[2:])
-        torch.cuda.synchronize()
-        assert torch.equal(got.view(bits), want.view(bits))
