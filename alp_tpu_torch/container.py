@@ -64,10 +64,26 @@ class CompressedColumn:
     exc_positions: list            # u16 positions
     # format v2: exact per-vector max FFOR delta (0 for RD vectors)
     enc_max: np.ndarray | None = None
+    # device plans built by plan(), one per device; not serialised,
+    # compared or copied by dataclasses.replace
+    _plans: dict = dataclasses.field(default_factory=dict, init=False,
+                                     compare=False, repr=False)
 
     @property
     def n_rowgroups(self) -> int:
         return len(self.rg_scheme)
+
+    def plan(self, device=None):
+        """The column's decode plan on ``device`` (``None`` means
+        ``"cuda"``), built at the first call and kept for the next queries
+        (``alp_tpu/container.py:plan``).  ``decompress`` builds a fresh
+        one."""
+        from .kernels.decode import build_plan, resolve_device
+        dev = resolve_device(device)
+        key = str(dev)
+        if key not in self._plans:
+            self._plans[key] = build_plan(self, dev)
+        return self._plans[key]
 
     def compressed_size_bytes(self) -> int:
         return len(self.to_bytes())

@@ -42,53 +42,23 @@
 // shared memory with coalesced loads, then each thread extracts values
 // k, k + 256, ... so that the stores of a warp are contiguous.
 //
-// Arithmetic.  Integer products run in unsigned types (signed overflow is
-// undefined in C++); the conversion and the multiply use the _rn
-// intrinsics, which nvcc never contracts into an FMA; the build passes no
-// fast-math or flush-to-zero flag, so subnormals survive.
+// Arithmetic.  The unpack and the decode formula are fastlanes.cuh's,
+// shared with K7/K8 (exact_sum.cu); the build passes no fast-math or
+// flush-to-zero flag, so subnormals survive.
 
 #include <cstdint>
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "fastlanes.cuh"
+
 namespace {
 
-constexpr int kVector = 1024;
+using alp::kVector;
+using alp::Num;
+using alp::stage;
+using alp::unpack;
 constexpr int kThreads = 256;
-
-// Bits [slot * bw, (slot + 1) * bw) of value k's lane, 0 < bw <= S.
-template <typename W, int S>
-__device__ __forceinline__ W unpack(const W* w, int bw, int k) {
-  constexpr int L = kVector / S;
-  const int lane = k % L, slot = k / L;
-  const int off = slot * bw, w0 = off / S, s0 = off % S;
-  W u = static_cast<W>(w[w0 * L + lane] >> s0);
-  if (s0 + bw > S) u |= static_cast<W>(w[(w0 + 1) * L + lane] << (S - s0));
-  return bw >= S ? u : static_cast<W>(u & ((W(1) << bw) - W(1)));
-}
-
-// One vector's bw * L packed words, global -> shared, coalesced.
-template <typename W, int S>
-__device__ __forceinline__ void stage(W* sh, const W* src, int bw) {
-  const int nw = bw * (kVector / S);
-  for (int j = threadIdx.x; j < nw; j += blockDim.x) sh[j] = src[j];
-}
-
-template <typename F> struct Num;
-template <> struct Num<double> {
-  using U = uint64_t;
-  static constexpr int S = 64;
-  static __device__ __forceinline__ double decode(U m, double frac) {
-    return __dmul_rn(__ll2double_rn(static_cast<long long>(m)), frac);
-  }
-};
-template <> struct Num<float> {
-  using U = uint32_t;
-  static constexpr int S = 32;
-  static __device__ __forceinline__ float decode(U m, float frac) {
-    return __fmul_rn(__int2float_rn(static_cast<int>(m)), frac);
-  }
-};
 
 // K1 / K2: fused unFFOR + falp, one block per vector.
 template <typename F>

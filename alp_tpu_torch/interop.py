@@ -15,7 +15,8 @@ import numpy as np
 
 from .container import CompressedColumn
 
-_FIELDS = [f.name for f in dataclasses.fields(CompressedColumn)]
+_FIELDS = [f.name for f in dataclasses.fields(CompressedColumn)
+           if f.init]
 _RAGGED = ("packed", "left_packed", "exc_values", "exc_positions")
 
 

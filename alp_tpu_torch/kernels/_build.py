@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels: one ``nvcc`` call, ``ctypes``.
 
-Every ``alp_tpu_torch/csrc/*.cu`` source is compiled for Hopper (sm_90a)
-in a single ``nvcc`` invocation into a shared library with a plain C
+Every ``alp_tpu_torch/csrc/*.cu`` source (they share
+``csrc/fastlanes.cuh``) is compiled for Hopper (sm_90a) in a single
+``nvcc`` invocation into a shared library with a plain C
 interface, under ``alp_tpu_torch/_build/`` and named by a hash of the
 sources, the flags and the compiler's version.  No PyTorch header is
 included, so the build takes seconds.  The library is built at first use,
@@ -43,6 +44,15 @@ ENTRIES = {
     # right, rbw, left, lbw, dict, dict_size, rows, out, n, stream
     "alp_rd_f64": [_P, _I, _P, _I, _P, _P, _P, _P, _LL, _P],
     "alp_rd_f32": [_P, _I, _P, _I, _P, _P, _P, _P, _LL, _P],
+    # bits, vec, n, n_values, out, stream
+    "alp_exact_sum_f64": [_P, _P, _LL, _LL, _P, _P],
+    "alp_exact_sum_f32": [_P, _P, _LL, _LL, _P, _P],
+    # packed, bw, base, fact, frac, rows, exc_ptr, exc_index, exc_bits,
+    # n, n_values, out, stream
+    "alp_falp_exact_sum_f64": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                               _P, _P],
+    "alp_falp_exact_sum_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                               _P, _P],
 }
 
 

@@ -7,7 +7,11 @@ bit width, ALP_RD by right and left bit width, so mixed ALP / ALP_RD
 columns split into both kinds) and moves each bucket's packed words and
 per-vector metadata to the device once.  ``DecodePlan.run`` launches one
 kernel per bucket, each writing its vectors' values straight into their
-rows of the column's output, then scatters the exceptions.
+rows of the column's output, then scatters the exceptions.  For the
+exact SUM (``engine``) the plan also carries ``n_values`` and, built on
+the device at first use, the per-vector CSR of its ALP exceptions
+(``exc_ptr``) and the compact scratch layout of its ALP_RD vectors
+(``decode_rd``); ``decompress`` builds neither.
 
 The JAX package's plan also picks one of six f64 kernel variants per
 bucket and stages plan-time softfloat constants (``decode.py:219-401``);
@@ -19,6 +23,7 @@ ported: one kernel decodes every f64 bucket.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -62,6 +67,7 @@ class Bucket:
 @dataclasses.dataclass
 class DecodePlan:
     dtype: np.dtype
+    n_values: int
     n_vectors: int
     device: torch.device
     buckets: list
@@ -75,19 +81,80 @@ class DecodePlan:
     def f64(self) -> bool:
         return self.dtype == np.float64
 
-    def launch(self, bucket: Bucket, out: torch.Tensor) -> None:
-        """Decode one bucket into its rows of ``out`` [n_vectors, 1024]."""
+    @property
+    def bits_dtype(self) -> torch.dtype:
+        return _bits_dtype(self.dtype)
+
+    def launch(self, bucket: Bucket, out: torch.Tensor, rows=None) -> None:
+        """Decode one bucket into its rows of ``out`` [N, 1024] (values, or
+        bit patterns for ALP_RD): the vectors' own rows, or ``rows``."""
+        rows = bucket.rows if rows is None else rows
         if bucket.scheme == C.SCHEME_ALP:
             fn = (kfalp.falp_decode_f64 if self.f64
                   else kfalp.falp_decode_f32)
             fn(bucket.args[0], bucket.bw, *bucket.args[1:], out=out,
-               rows=bucket.rows)
+               rows=rows)
         else:
             fn = (kfalp.rd_decode_dict_f64 if self.f64
                   else kfalp.rd_decode_dict_f32)
             right, left, dictionary, dict_size = bucket.args
             fn(right, bucket.bw, left, bucket.lbw, dictionary, dict_size,
-               out=out.view(_bits_dtype(self.dtype)), rows=bucket.rows)
+               out=out.view(self.bits_dtype), rows=rows)
+
+    def patch_rd(self, flat: torch.Tensor, index: torch.Tensor) -> None:
+        """Scatter the ALP_RD exceptions' full bits into ``flat`` at
+        ``index`` (``rd_exc_index``, or its compact counterpart): the raw
+        left part above the right bits already decoded."""
+        if not index.numel():
+            return
+        S = 64 if self.f64 else 32
+        cur = flat[index].to(torch.int64)
+        rbw = self.rd_exc_rbw
+        one = torch.ones_like(rbw)
+        rmask = torch.where(rbw >= 64, low_mask(64),
+                            (one << rbw.clamp(max=63)) - 1)
+        full = (self.rd_exc_left << rbw) | (cur & rmask)
+        flat[index] = narrow(full, S)
+
+    @functools.cached_property
+    def exc_ptr(self) -> torch.Tensor:
+        """int64 [n_vectors + 1]: vector v's ALP exceptions are entries
+        exc_ptr[v] .. exc_ptr[v + 1] of ``exc_index`` and ``exc_bits``
+        (which are in vector order).  Built at the first SUM, on the
+        device; ``decompress`` never needs it."""
+        return torch.searchsorted(
+            self.exc_index // VECTOR_SIZE,
+            torch.arange(self.n_vectors + 1, device=self.device))
+
+    @functools.cached_property
+    def _rd_layout(self):
+        """(the scratch rows of each ALP_RD bucket, the vector id of every
+        scratch row, the RD exceptions' flat positions in the scratch)."""
+        rd = [b for b in self.buckets if b.scheme == C.SCHEME_ALP_RD]
+        vec = (torch.cat([b.rows for b in rd]) if rd else
+               torch.zeros(0, dtype=torch.int64, device=self.device))
+        order = torch.arange(vec.shape[0], device=self.device)
+        rows = list(torch.split(order, [b.n_vectors for b in rd]))
+        scratch_row = torch.zeros(self.n_vectors, dtype=torch.int64,
+                                  device=self.device)
+        scratch_row[vec] = order
+        index = (scratch_row[self.rd_exc_index // VECTOR_SIZE] * VECTOR_SIZE
+                 + self.rd_exc_index % VECTOR_SIZE)
+        return rows, vec, index
+
+    def decode_rd(self) -> tuple:
+        """The ALP_RD vectors alone, decoded (K3/K4) into a compact scratch
+        with their exceptions in: (bit patterns [n_rd, 1024], the vector
+        id of each row).  The SUM reads them so; the layout is built at
+        the first call and kept."""
+        rows, vec, index = self._rd_layout
+        scratch = torch.empty((vec.shape[0], VECTOR_SIZE),
+                              dtype=self.bits_dtype, device=self.device)
+        rd = [b for b in self.buckets if b.scheme == C.SCHEME_ALP_RD]
+        for bucket, r in zip(rd, rows):
+            self.launch(bucket, scratch, rows=r)
+        self.patch_rd(scratch.view(-1), index)
+        return scratch, vec
 
     def run(self) -> torch.Tensor:
         """The full bit-exact decode: [n_vectors, 1024] values on the
@@ -97,19 +164,10 @@ class DecodePlan:
                           dtype=_value_dtype(self.dtype), device=self.device)
         for bucket in self.buckets:
             self.launch(bucket, out)
-        flat = out.view(_bits_dtype(self.dtype)).view(-1)
+        flat = out.view(self.bits_dtype).view(-1)
         if self.exc_index.numel():
             flat[self.exc_index] = self.exc_bits
-        if self.rd_exc_index.numel():
-            # full bits: raw left part above the right bits already decoded
-            S = 64 if self.f64 else 32
-            cur = flat[self.rd_exc_index].to(torch.int64)
-            rbw = self.rd_exc_rbw
-            one = torch.ones_like(rbw)
-            rmask = torch.where(rbw >= 64, low_mask(64),
-                                (one << rbw.clamp(max=63)) - 1)
-            full = (self.rd_exc_left << rbw) | (cur & rmask)
-            flat[self.rd_exc_index] = narrow(full, S)
+        self.patch_rd(flat, self.rd_exc_index)
         return out
 
 
@@ -188,7 +246,7 @@ def build_plan(col, device=None) -> DecodePlan:
     rd_rbw = np.repeat(col.rd_right_bw[vec_rg[rd_vecs]].astype(np.int64),
                        rd_counts)
 
-    return DecodePlan(np.dtype(col.dtype), n_vec, dev, buckets,
+    return DecodePlan(np.dtype(col.dtype), col.n_values, n_vec, dev, buckets,
                       put(alp_flat), put(alp_bits), put(rd_flat),
                       put(rd_left), put(rd_rbw))
 

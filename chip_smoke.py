@@ -20,14 +20,24 @@ Phases, each printing its wall time:
 4. decode   ``alp_tpu_torch.decompress(col)`` on the card for every column
             (the main path: launch counts are set to 0 just before and
             read just after); the output's bits must equal the input's.
-5. kernels  each kernel against its plain PyTorch version on the card, on
+5. sum      ``alp_tpu_torch.query_sum(col)`` on the card for every column
+            (the SUM path, its launch counts set to 0 just before and read
+            just after), twice: the first call builds and keeps the plan,
+            the second reuses it.  Both must equal ``math.fsum`` of the
+            input bit for bit.  ``query_mean`` on a column of the first
+            97 vectors of each input must equal the exact rational mean
+            rounded once.
+6. kernels  each kernel against its plain PyTorch version on the card, on
             the same plans, bit for bit (tolerance 0: the codec is
-            lossless).
-6. timing   CUDA-event time of each kernel at the 256 MiB shapes, beside
+            lossless and the SUM totals are integers).
+7. timing   CUDA-event time of each kernel at the 256 MiB shapes, beside
             its bound (the bytes it must move at 3.35 TB/s, or its
-            operations at 67 TFLOP/s, whichever is larger), the plain
-            version's time and a device-to-device ``copy_`` of the decoded
-            bytes as a yardstick.
+            operations at the card's rate, whichever is larger) and the
+            plain version's time; as yardsticks, not the same function, a
+            device-to-device ``copy_`` of the decoded bytes (decode
+            kernels) and ``torch.sum`` of the decoded values (SUM kernels,
+            rounded, not exact).  No PyTorch call decodes ALP or sums
+            exactly, so ``library_ms`` is null.
 
 Then the nvidia-smi line, one JSON line with every kernel's numbers and,
 last, ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
@@ -39,14 +49,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import struct
 import subprocess
 import sys
 import time
+from fractions import Fraction
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FLOPS_PER_S = 67e12              # H100 non-tensor float32 peak
+INT32_LANES_PER_SM = 64          # Hopper: 4 sub-partitions x 16 INT32 lanes
 VECTOR = 1024
 ROWGROUP_VECTORS = 100
 SOURCE_VECTORS = 10 * ROWGROUP_VECTORS
@@ -63,6 +77,27 @@ KERNELS = {
     "rd_decode_dict_f64": ("alp_tpu/kernels/falp.py:1470", []),
     "rd_decode_dict_f32": ("alp_tpu/kernels/falp.py:1530", []),
 }
+SUM_KERNELS = {
+    "exact_sum_f64": "alp_tpu/kernels/falp.py:560",
+    "exact_sum_f32": "alp_tpu/kernels/falp.py:654",
+    "falp_decode_f64_exact_sum": "alp_tpu/kernels/falp.py:737",
+    "falp_decode_f32_exact_sum": "alp_tpu/kernels/falp.py:689",
+}
+# Integer operations a value of the SUM kernels, counted from
+# csrc/exact_sum.cu (32-bit operations; a 64-bit add, shift or select is
+# two; not counted from the SASS), as (every value, the unpack of a
+# bucket of bit width > 0, a nonzero finite value).  Every value: the load
+# or the wrapping FOR + FACT product (1 / 1 for K5/K6, 6 / 2 for K7/K8),
+# the pad mask (3), window() (8 / 7), the warp's range (2), the Fixed
+# digits and class (27 / 18), the class count (2).  The unpack: 15 / 12.
+# A nonzero finite value adds its signed digits (9 / 6), rel (2) and the
+# selects into the register windows (6 / 4, five operations each).  The
+# two float operations a value of K7/K8 are far below the card's FP64 and
+# FP32 rates.
+SUM_OPS = {"exact_sum_f64": (43, 0, 41), "exact_sum_f32": (33, 0, 28),
+           "falp_decode_f64_exact_sum": (48, 15, 41),
+           "falp_decode_f32_exact_sum": (34, 12, 28)}
+MEAN_VECTORS = 97                # query_mean columns: <= 99,328 values
 
 
 def phase(name: str, t0: float, detail: str = "") -> None:
@@ -70,11 +105,50 @@ def phase(name: str, t0: float, detail: str = "") -> None:
           flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
+        ["nvidia-smi", f"--query-gpu={query}",
+         "--format=csv,noheader,nounits" if "clocks" in query
+         else "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def same_float(a: float, b: float) -> bool:
+    """Equal bits (NaN: both NaN)."""
+    if math.isnan(a) or math.isnan(b):
+        return math.isnan(a) and math.isnan(b)
+    return struct.pack("<d", a) == struct.pack("<d", b)
+
+
+def special_answer(x: np.ndarray):
+    """The IEEE answer of SUM/MEAN over NaN or infinities, else None."""
+    pinf, ninf = bool(np.isposinf(x).any()), bool(np.isneginf(x).any())
+    if np.isnan(x).any() or (pinf and ninf):
+        return float("nan")
+    if pinf or ninf:
+        return float("inf") if pinf else float("-inf")
+    return None
+
+
+def fsum_reference(x: np.ndarray) -> float:
+    """math.fsum of the values (which refuses +Inf with -Inf)."""
+    answer = special_answer(x)
+    return answer if answer is not None else math.fsum(
+        x.astype(np.float64).tolist())
+
+
+def exact_mean_reference(x: np.ndarray) -> float:
+    """The exact rational mean rounded once: every value as an integer
+    times a power of two (np.frexp), summed in Python integers."""
+    answer = special_answer(x)
+    if answer is not None:
+        return answer
+    m, e = np.frexp(x.astype(np.float64))
+    digits = (m * 2.0 ** 53).astype(np.int64).tolist()
+    powers = (e.astype(np.int64) - 53).tolist()
+    low = min(powers)
+    total = sum(d << (p - low) for d, p in zip(digits, powers))
+    return float(Fraction(total, len(x)) * Fraction(2) ** low)
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +183,71 @@ def bucket_bytes(bucket, value_size: int) -> int:
     read = sum(t.numel() * t.element_size() for t in bucket.args)
     read += bucket.rows.numel() * bucket.rows.element_size()
     return read + bucket.n_vectors * VECTOR * value_size
+
+
+def nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def sum_parts(plan) -> list:
+    """The SUM kernel calls of a plan, as the SUM path makes them: one per
+    ALP bucket (K7/K8) and one over the ALP_RD scratch (K5/K6; the scratch
+    is decoded here, with K3/K4).  Each is a dict: kernel name, ``launch``
+    (adds into a totals tensor), ``plain`` (returns the plain totals),
+    ``bytes`` the kernel must move (every input read once, the totals
+    written once), ``values`` summed."""
+    import torch
+    from alp_tpu_torch.kernels import exact_sum as kes
+    width = 64 if plan.f64 else 32
+    out_bytes = (kes.WINDOWS[plan.bits_dtype] + 3) * 8
+    fused = (kes.falp_decode_f64_exact_sum if plan.f64
+             else kes.falp_decode_f32_exact_sum)
+    parts = []
+    for b in plan.buckets:
+        if b.scheme != 2:
+            continue
+        args = (b.args[0], b.bw, *b.args[1:], b.rows, plan.exc_ptr,
+                plan.exc_index, plan.exc_bits, plan.n_values)
+        n_exc = int((plan.exc_ptr[b.rows + 1] - plan.exc_ptr[b.rows]).sum())
+        parts.append({
+            "kernel": f"falp_decode_f{width}_exact_sum",
+            "launch": lambda out, a=args: fused(*a, out=out),
+            "plain": lambda a=args: kes.falp_exact_sum_plain(*a),
+            "bytes": (sum(nbytes(t) for t in b.args) + nbytes(b.rows)
+                      + (b.n_vectors + 1) * 8
+                      + n_exc * (8 + plan.exc_bits.element_size())
+                      + out_bytes),
+            "rows": b.rows, "bw": b.bw})
+    if any(b.scheme != 2 for b in plan.buckets):
+        scratch, vec = plan.decode_rd()
+        summed = kes.exact_sum_f64 if plan.f64 else kes.exact_sum_f32
+        parts.append({
+            "kernel": f"exact_sum_f{width}",
+            "launch": lambda out: summed(scratch, vec, plan.n_values,
+                                         out=out),
+            "plain": lambda: kes.exact_sum_plain(scratch, vec,
+                                                 plan.n_values),
+            "bytes": nbytes(scratch) + nbytes(vec) + out_bytes,
+            "rows": vec, "bw": 0})
+    return parts
+
+
+def sum_ops(plan, part, bits) -> tuple:
+    """(values summed, integer operations) of one SUM kernel call on this
+    run's data: SUM_OPS by value, nonzero finite values counted in the
+    decoded ``bits`` [n_vectors, 1024] of the column."""
+    import torch
+    base, unpack, digits = SUM_OPS[part["kernel"]]
+    rows = part["rows"]
+    pos = rows[:, None] * VECTOR + torch.arange(VECTOR, device=rows.device)
+    valid = pos < plan.n_values
+    b = bits[rows]
+    exp_bits, man_bits = (11, 52) if plan.f64 else (8, 23)
+    finite = ((b >> man_bits) & ((1 << exp_bits) - 1)) != (1 << exp_bits) - 1
+    nonzero = valid & finite & ((b << 1) != 0)
+    n_valid, n_nonzero = int(valid.sum()), int(nonzero.sum())
+    per_value = base + (unpack if part["bw"] else 0)
+    return n_valid, n_valid * per_value + n_nonzero * digits
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -151,6 +290,7 @@ def main() -> int:
         from alp_tpu_torch.columns import (BENCH_PROFILES, route_columns,
                                            tile_column)
         from alp_tpu_torch.kernels import _build, decode, falp
+        from alp_tpu_torch.kernels import exact_sum as kes
     except ImportError as e:
         print(f"chip_smoke: alp_tpu_torch is not importable: {e}",
               file=sys.stderr)
@@ -161,8 +301,13 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_sm_mhz = float(nvidia_smi("clocks.max.sm"))
+    int32_per_s = sms * INT32_LANES_PER_SM * max_sm_mhz * 1e6
     phase("env", t0, f"device={kind!r} nvidia-smi={smi!r} "
-          f"torch={torch.__version__} cuda={torch.version.cuda}")
+          f"torch={torch.__version__} cuda={torch.version.cuda} "
+          f"SMs={sms} max SM clock={max_sm_mhz} MHz "
+          f"INT32 issue rate={int32_per_s:.4g}/s")
 
     # 2. build
     t0 = time.perf_counter()
@@ -251,7 +396,54 @@ def main() -> int:
     del expected_dev
     phase("decode", t0, f"main path {decode_s:.3f}s launches={main_launches}")
 
-    # 5. kernels vs plain versions, on the card, same plans
+    # 5. sum: the SUM path, through the public entry points
+    t0 = time.perf_counter()
+    sums = {name: fsum_reference(exp) for name, (_, exp) in columns.items()}
+    ref_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    kes.reset_launches()
+    ts = time.perf_counter()
+    for name, (col, _) in columns.items():
+        before = dict(kes.LAUNCHES)
+        tw = time.perf_counter()
+        first = alp_tpu_torch.query_sum(col)
+        first_s = time.perf_counter() - tw
+        tw = time.perf_counter()
+        again = alp_tpu_torch.query_sum(col)
+        again_s = time.perf_counter() - tw
+        for got in (first, again):
+            if not same_float(got, sums[name]):
+                raise RuntimeError(f"{name}: query_sum {got!r} != math.fsum "
+                                   f"{sums[name]!r}")
+        moved = {k: v - before[k] for k, v in kes.LAUNCHES.items()
+                 if v != before[k]}
+        if not moved:
+            raise RuntimeError(f"{name}: no SUM kernel launched")
+        print(f"  {name}: query_sum {first.hex()} == math.fsum, launches "
+              f"(two calls)={moved}, first call {first_s:.4f} s "
+              f"(plan build + copies + kernels), cached plan "
+              f"{again_s * 1e3:.3f} ms", flush=True)
+    sum_launches = dict(kes.LAUNCHES)
+    sum_s = time.perf_counter() - ts
+    for k, v in sum_launches.items():
+        if v == 0:
+            raise RuntimeError(f"kernel {k} was not launched on the SUM path")
+    tm = time.perf_counter()
+    for name, (_, exp) in columns.items():
+        x = exp[:MEAN_VECTORS * VECTOR]
+        small = alp_tpu_torch.compress(x)
+        got = alp_tpu_torch.query_mean(small)
+        want = exact_mean_reference(x)
+        if not same_float(got, want):
+            raise RuntimeError(f"{name}: query_mean {got!r} != exact mean "
+                               f"{want!r} over {len(x)} values")
+    print(f"  query_mean == exact rational mean on {len(columns)} columns "
+          f"of {MEAN_VECTORS * VECTOR} values "
+          f"({time.perf_counter() - tm:.3f} s)")
+    phase("sum", t0, f"math.fsum references {ref_s:.3f}s, SUM path "
+          f"{sum_s:.3f}s launches={sum_launches}")
+
+    # 6. kernels vs plain versions, on the card, same plans
     t0 = time.perf_counter()
     errors = {k: 0.0 for k in KERNELS}
     plans = {}
@@ -272,10 +464,20 @@ def main() -> int:
                 raise RuntimeError(
                     f"{name}: {k} bucket bw={bucket.bw} lbw={bucket.lbw} "
                     f"differs from its plain version (max abs err {err})")
+    for k in SUM_KERNELS:
+        errors[k] = 0.0
+    for name, (col, _) in columns.items():
+        for part in sum_parts(col.plan(dev)):
+            got = part["launch"](kes.totals(col.plan(dev).bits_dtype, dev))
+            want = part["plain"]()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"{name}: {part['kernel']} totals "
+                                   f"{got.tolist()} != plain "
+                                   f"{want.tolist()}")
     phase("kernels", t0, "every bucket of every column: kernel bits == "
-          "plain bits (tolerance 0)")
+          "plain bits, SUM totals == plain totals (tolerance 0)")
 
-    # 6. timing at the 256 MiB shapes
+    # 7. timing at the 256 MiB shapes
     t0 = time.perf_counter()
     timed = {"falp_decode_f64": list(BENCH_PROFILES),
              "falp_decode_f32": ["f32_alp"],
@@ -296,11 +498,11 @@ def main() -> int:
             src = out.clone()
             dst = torch.empty_like(out)
             t_c = cuda_ms(lambda: dst.copy_(src), 20)
-            nbytes = sum(bucket_bytes(b, out.element_size()) for b in mine)
+            moved = sum(bucket_bytes(b, out.element_size()) for b in mine)
             n_vals = sum(b.n_vectors for b in mine) * VECTOR
             # falp: one int->float conversion and one multiply per value
             ops = 2 * n_vals if k.startswith("falp") else 0
-            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            b_bytes = moved / HBM_BYTES_PER_S * 1e3
             b_ops = ops / FLOPS_PER_S * 1e3
             by = "bytes" if b_bytes >= b_ops else "operations"
             ms.append(t_k)
@@ -308,9 +510,9 @@ def main() -> int:
             bound_ms.append(max(b_bytes, b_ops))
             copy_ms.append(t_c)
             print(f"  {k} on {name}: {len(mine)} launches/decode, "
-                  f"{nbytes} bytes, kernel {t_k:.4f} ms, plain {t_p:.4f} ms,"
+                  f"{moved} bytes, kernel {t_k:.4f} ms, plain {t_p:.4f} ms,"
                   f" bound {max(b_bytes, b_ops):.4f} ms ({by}), "
-                  f"copy_ {t_c:.4f} ms, moved {nbytes / t_k / 1e6:.1f} GB/s, "
+                  f"copy_ {t_c:.4f} ms, moved {moved / t_k / 1e6:.1f} GB/s, "
                   f"decoded {n_vals * out.element_size() / t_k / 1e6:.1f} "
                   f"GB/s", flush=True)
             decoded_gbs.append(n_vals * out.element_size() / t_k / 1e6)
@@ -323,9 +525,59 @@ def main() -> int:
             "launches": main_launches[k], "max_abs_err": errors[k],
             "ms": float(np.mean(ms)), "plain_ms": float(np.mean(plain_ms)),
             "bound_ms": float(np.mean(bound_ms)), "bound_by": by,
-            "library_ms": float(np.mean(copy_ms)),
-            "library_call": "Tensor.copy_ of the decoded bytes (a yardstick;"
-                            " no PyTorch call decodes ALP)",
+            "library_ms": None,
+            "yardstick_ms": float(np.mean(copy_ms)),
+            "yardstick": "Tensor.copy_ of the decoded bytes (not the same "
+                         "function: no PyTorch call decodes ALP)",
+            "timed_on": names,
+        })
+    timed = {"falp_decode_f64_exact_sum": list(BENCH_PROFILES),
+             "falp_decode_f32_exact_sum": ["f32_alp"],
+             "exact_sum_f64": ["f64_alp_rd"],
+             "exact_sum_f32": ["f32_alp_rd"]}
+    for k, names in timed.items():
+        ms, plain_ms, bound_ms, sum_ms, by = [], [], [], [], "bytes"
+        for name in names:
+            col = columns[name][0]
+            plan = col.plan(dev)
+            mine = [pt for pt in sum_parts(plan) if pt["kernel"] == k]
+            out = kes.totals(plan.bits_dtype, dev)
+            t_k = cuda_ms(lambda: [pt["launch"](out) for pt in mine], 20)
+            t_p = cuda_ms(lambda: [pt["plain"]() for pt in mine], 3)
+            values = plan.run()
+            t_s = cuda_ms(values.sum, 20)
+            moved = sum(pt["bytes"] for pt in mine)
+            counted = [sum_ops(plan, pt, values.view(plan.bits_dtype))
+                       for pt in mine]
+            n_vals = sum(c[0] for c in counted)
+            ops = sum(c[1] for c in counted)
+            b_bytes = moved / HBM_BYTES_PER_S * 1e3
+            b_ops = ops / int32_per_s * 1e3
+            by = "bytes" if b_bytes >= b_ops else "operations"
+            ms.append(t_k)
+            plain_ms.append(t_p)
+            bound_ms.append(max(b_bytes, b_ops))
+            sum_ms.append(t_s)
+            print(f"  {k} on {name}: {len(mine)} launches/query, {moved} "
+                  f"bytes, {n_vals} values, {ops} int ops, kernel "
+                  f"{t_k:.4f} ms, plain "
+                  f"{t_p:.4f} ms, bound {max(b_bytes, b_ops):.4f} ms ({by}; "
+                  f"bytes {b_bytes:.4f} ms, operations {b_ops:.4f} ms), "
+                  f"torch.sum {t_s:.4f} ms, {n_vals / t_k / 1e6:.1f} "
+                  f"Gvalues/s", flush=True)
+            del values, out
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": "alp_tpu_torch/csrc/exact_sum.cu",
+            "replaces": SUM_KERNELS[k], "also_replaces": [],
+            "launches": sum_launches[k], "max_abs_err": errors[k],
+            "ms": float(np.mean(ms)), "plain_ms": float(np.mean(plain_ms)),
+            "bound_ms": float(np.mean(bound_ms)), "bound_by": by,
+            "library_ms": None,
+            "yardstick_ms": float(np.mean(sum_ms)),
+            "yardstick": "torch.sum of the decoded values (not the same "
+                         "function: rounded, not exact; no PyTorch call "
+                         "sums exactly)",
             "timed_on": names,
         })
     phase("timing", t0)
