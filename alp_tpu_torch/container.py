@@ -80,6 +80,9 @@ class CompressedColumn:
         one."""
         from .kernels.decode import build_plan, resolve_device
         dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            # "cuda" and "cuda:N" of the current card share one plan
+            dev = torch.device("cuda", torch.cuda.current_device())
         key = str(dev)
         if key not in self._plans:
             self._plans[key] = build_plan(self, dev)

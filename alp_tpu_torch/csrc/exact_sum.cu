@@ -63,13 +63,15 @@
 // Bound.  K5/K6 read each decoded value once (8 or 4 bytes) and write a
 // few hundred bytes; K7/K8 read only the packed words and 32 bytes of
 // metadata a vector (bw * 128 bytes for bw-bit f64 words), so no decoded
-// value reaches device memory.  Their arithmetic is 60-110 integer
-// operations a nonzero value (field extraction, digits, the selects into
-// the register windows, and for K7/K8 the unpack and the FOR + FACT
-// product; chip_smoke.py's SUM_OPS counts them), which at the card's
-// INT32 issue rate (132 SMs x 64 lanes x 1.98 GHz on an H100 SXM) takes
-// longer than the bytes at 3.35 TB/s: all four are bound by operations,
-// K5/K6 by about twice their bytes, K7/K8 by far more.
+// value reaches device memory.  The exact sum itself needs about 18 (f64)
+// or 15 (f32) integer operations a nonzero value (field extraction, digit
+// split, signed int64 adds), and the fused decode 9-13 (f64) or 4-6 (f32)
+// more (the unpack, the FOR add and the FACT product; chip_smoke.py's
+// SUM_OPS counts them).  At the card's INT32 issue rate (132 SMs x 64
+// lanes x 1.98 GHz on an H100 SXM) against 3.35 TB/s, K5/K6 are bound by
+// their bytes and K7/K8, which read a few bits a value, by those
+// operations.  The register windows, the warps' range checks and their
+// reductions above are the design's overhead and are not in the bound.
 
 #include <climits>
 #include <cstdint>

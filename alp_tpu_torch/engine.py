@@ -26,6 +26,7 @@ at the first query and kept, as the JAX package keeps its own.
 
 from __future__ import annotations
 
+import dataclasses
 from fractions import Fraction
 
 import numpy as np
@@ -65,21 +66,51 @@ def query_mean(col, device=None) -> float:
     return float(Fraction(total, col.n_values << scale))
 
 
+@dataclasses.dataclass(frozen=True)
+class SumCall:
+    """One SUM kernel call of a plan: the kernel's name (a key of
+    ``exact_sum.LAUNCHES``), its wrapper's positional arguments, the real
+    vector id of each row it sums, and the bit width of its packed words
+    (0 for decoded bits)."""
+    kernel: str
+    args: tuple
+    rows: torch.Tensor
+    bw: int
+
+    def launch(self, out: torch.Tensor) -> torch.Tensor:
+        """The kernel (or, on a CPU tensor, its plain version) added into
+        ``out``."""
+        return kes.KERNELS[self.kernel][0](*self.args, out=out)
+
+    def plain(self) -> torch.Tensor:
+        """The plain version's totals on the same arguments."""
+        return kes.KERNELS[self.kernel][1](*self.args)
+
+
+def sum_calls(plan) -> list:
+    """The SUM kernel calls of a plan, in launch order: K7/K8 for each ALP
+    bucket, then K5/K6 over the ALP_RD vectors, which this decodes (K3/K4)
+    into the plan's compact scratch."""
+    width = "f64" if plan.f64 else "f32"
+    calls = [SumCall(f"falp_decode_{width}_exact_sum",
+                     (b.args[0], b.bw, *b.args[1:], b.rows, plan.exc_ptr,
+                      plan.exc_index, plan.exc_bits, plan.n_values),
+                     b.rows, b.bw)
+             for b in plan.buckets if b.scheme == C.SCHEME_ALP]
+    if any(b.scheme == C.SCHEME_ALP_RD for b in plan.buckets):
+        scratch, vec = plan.decode_rd()
+        calls.append(SumCall(f"exact_sum_{width}",
+                             (scratch, vec, plan.n_values), vec, 0))
+    return calls
+
+
 def exact_sum_totals(plan) -> torch.Tensor:
     """The steady-state device part of the SUM: the int64 [W + 3] column
     total of a plan (W windows, then the NaN, +Inf and -Inf counts), on
     the plan's device, with no host join and no synchronise."""
     out = kes.totals(plan.bits_dtype, plan.device)
-    fused = (kes.falp_decode_f64_exact_sum if plan.f64
-             else kes.falp_decode_f32_exact_sum)
-    for b in plan.buckets:
-        if b.scheme == C.SCHEME_ALP:
-            fused(b.args[0], b.bw, *b.args[1:], b.rows, plan.exc_ptr,
-                  plan.exc_index, plan.exc_bits, plan.n_values, out=out)
-    if any(b.scheme == C.SCHEME_ALP_RD for b in plan.buckets):
-        scratch, vec = plan.decode_rd()
-        (kes.exact_sum_f64 if plan.f64 else kes.exact_sum_f32)(
-            scratch, vec, plan.n_values, out=out)
+    for call in sum_calls(plan):
+        call.launch(out)
     return out
 
 

@@ -212,3 +212,15 @@ def falp_decode_f32_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr,
     ``out`` int64 [12])."""
     return _falp_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr,
                            exc_index, exc_bits, n_values, out, torch.float32)
+
+
+# kernel name (a key of LAUNCHES) -> (wrapper, plain version), each taking
+# the same positional arguments
+KERNELS = {
+    "exact_sum_f64": (exact_sum_f64, exact_sum_plain),
+    "exact_sum_f32": (exact_sum_f32, exact_sum_plain),
+    "falp_decode_f64_exact_sum": (falp_decode_f64_exact_sum,
+                                  falp_exact_sum_plain),
+    "falp_decode_f32_exact_sum": (falp_decode_f32_exact_sum,
+                                  falp_exact_sum_plain),
+}

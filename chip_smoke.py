@@ -31,13 +31,13 @@ Phases, each printing its wall time:
             the same plans, bit for bit (tolerance 0: the codec is
             lossless and the SUM totals are integers).
 7. timing   CUDA-event time of each kernel at the 256 MiB shapes, beside
-            its bound (the bytes it must move at 3.35 TB/s, or its
-            operations at the card's rate, whichever is larger) and the
-            plain version's time; as yardsticks, not the same function, a
-            device-to-device ``copy_`` of the decoded bytes (decode
-            kernels) and ``torch.sum`` of the decoded values (SUM kernels,
-            rounded, not exact).  No PyTorch call decodes ALP or sums
-            exactly, so ``library_ms`` is null.
+            its bound (the bytes it must move at 3.35 TB/s, or the
+            operations its function needs at the card's rate, whichever
+            is larger) and the plain version's time; as yardsticks, not
+            the same function, a device-to-device ``copy_`` of the decoded
+            bytes (decode kernels) and ``torch.sum`` of the decoded values
+            (SUM kernels, rounded, not exact).  No PyTorch call decodes
+            ALP or sums exactly, so ``library_ms`` is null.
 
 Then the nvidia-smi line, one JSON line with every kernel's numbers and,
 last, ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
@@ -83,20 +83,23 @@ SUM_KERNELS = {
     "falp_decode_f64_exact_sum": "alp_tpu/kernels/falp.py:737",
     "falp_decode_f32_exact_sum": "alp_tpu/kernels/falp.py:689",
 }
-# Integer operations a value of the SUM kernels, counted from
-# csrc/exact_sum.cu (32-bit operations; a 64-bit add, shift or select is
-# two; not counted from the SASS), as (every value, the unpack of a
-# bucket of bit width > 0, a nonzero finite value).  Every value: the load
-# or the wrapping FOR + FACT product (1 / 1 for K5/K6, 6 / 2 for K7/K8),
-# the pad mask (3), window() (8 / 7), the warp's range (2), the Fixed
-# digits and class (27 / 18), the class count (2).  The unpack: 15 / 12.
-# A nonzero finite value adds its signed digits (9 / 6), rel (2) and the
-# selects into the register windows (6 / 4, five operations each).  The
-# two float operations a value of K7/K8 are far below the card's FP64 and
-# FP32 rates.
-SUM_OPS = {"exact_sum_f64": (43, 0, 41), "exact_sum_f32": (33, 0, 28),
-           "falp_decode_f64_exact_sum": (48, 15, 41),
-           "falp_decode_f32_exact_sum": (34, 12, 28)}
+# Operations the exact SUM needs a value, counted from the algorithm and
+# not from the kernels' design (their register windows, the warps' range
+# checks and reductions are overhead of the design, not work of the
+# function): 32-bit integer operations, a 64-bit add or shift counting
+# two.  Every value: its exponent field (2) and the test for zero and the
+# specials (2).  A nonzero finite value: the mantissa with its implicit bit
+# (2), e_eff = max(e, 1) (1), window and shift (2), the digits of
+# m' << shift (3 funnel shifts f64, 2 f32) and the signed add of each digit
+# into its int64 window (2 each: 6 f64, 4 f32).  The fused decode (K7/K8)
+# adds, every value, the FOR add and the wrapping FACT product (2 + 3 f64,
+# 1 + 1 f32), at bit width > 0 the unpack of its field (4 f64, 2 f32), and
+# two float operations (the integer-to-float conversion and the product).
+SUM_OPS = {  # kernel -> (every value, nonzero finite value, unpack, float)
+    "exact_sum_f64": (4, 14, 0, 0), "exact_sum_f32": (4, 11, 0, 0),
+    "falp_decode_f64_exact_sum": (9, 14, 4, 2),
+    "falp_decode_f32_exact_sum": (6, 11, 2, 2)}
+FP64_FLOPS_PER_S = 34e12         # H100 SXM FP64 outside the tensor cores
 MEAN_VECTORS = 97                # query_mean columns: <= 99,328 values
 
 
@@ -189,56 +192,31 @@ def nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
-def sum_parts(plan) -> list:
-    """The SUM kernel calls of a plan, as the SUM path makes them: one per
-    ALP bucket (K7/K8) and one over the ALP_RD scratch (K5/K6; the scratch
-    is decoded here, with K3/K4).  Each is a dict: kernel name, ``launch``
-    (adds into a totals tensor), ``plain`` (returns the plain totals),
-    ``bytes`` the kernel must move (every input read once, the totals
-    written once), ``values`` summed."""
+def call_bytes(plan, call) -> int:
+    """Bytes a SUM kernel call must move: every input read once (for K7/K8
+    the packed words, metadata, row ids, the exception CSR's entries of its
+    vectors and their exceptions), the totals written once."""
     import torch
     from alp_tpu_torch.kernels import exact_sum as kes
-    width = 64 if plan.f64 else 32
-    out_bytes = (kes.WINDOWS[plan.bits_dtype] + 3) * 8
-    fused = (kes.falp_decode_f64_exact_sum if plan.f64
-             else kes.falp_decode_f32_exact_sum)
-    parts = []
-    for b in plan.buckets:
-        if b.scheme != 2:
-            continue
-        args = (b.args[0], b.bw, *b.args[1:], b.rows, plan.exc_ptr,
-                plan.exc_index, plan.exc_bits, plan.n_values)
-        n_exc = int((plan.exc_ptr[b.rows + 1] - plan.exc_ptr[b.rows]).sum())
-        parts.append({
-            "kernel": f"falp_decode_f{width}_exact_sum",
-            "launch": lambda out, a=args: fused(*a, out=out),
-            "plain": lambda a=args: kes.falp_exact_sum_plain(*a),
-            "bytes": (sum(nbytes(t) for t in b.args) + nbytes(b.rows)
-                      + (b.n_vectors + 1) * 8
-                      + n_exc * (8 + plan.exc_bits.element_size())
-                      + out_bytes),
-            "rows": b.rows, "bw": b.bw})
-    if any(b.scheme != 2 for b in plan.buckets):
-        scratch, vec = plan.decode_rd()
-        summed = kes.exact_sum_f64 if plan.f64 else kes.exact_sum_f32
-        parts.append({
-            "kernel": f"exact_sum_f{width}",
-            "launch": lambda out: summed(scratch, vec, plan.n_values,
-                                         out=out),
-            "plain": lambda: kes.exact_sum_plain(scratch, vec,
-                                                 plan.n_values),
-            "bytes": nbytes(scratch) + nbytes(vec) + out_bytes,
-            "rows": vec, "bw": 0})
-    return parts
+    out = (kes.WINDOWS[plan.bits_dtype] + 3) * 8
+    if not call.kernel.startswith("falp"):
+        return sum(nbytes(a) for a in call.args
+                   if isinstance(a, torch.Tensor)) + out
+    packed, _, base, fact, frac, rows = call.args[:6]
+    n_exc = int((plan.exc_ptr[rows + 1] - plan.exc_ptr[rows]).sum())
+    return (sum(nbytes(t) for t in (packed, base, fact, frac, rows))
+            + (rows.numel() + 1) * 8
+            + n_exc * (8 + plan.exc_bits.element_size()) + out)
 
 
-def sum_ops(plan, part, bits) -> tuple:
-    """(values summed, integer operations) of one SUM kernel call on this
-    run's data: SUM_OPS by value, nonzero finite values counted in the
-    decoded ``bits`` [n_vectors, 1024] of the column."""
+def sum_ops(plan, call, bits) -> tuple:
+    """(values summed, integer operations, float operations) that one SUM
+    kernel call needs on this run's data: SUM_OPS by value, the nonzero
+    finite values counted in the decoded ``bits`` [n_vectors, 1024] of the
+    column."""
     import torch
-    base, unpack, digits = SUM_OPS[part["kernel"]]
-    rows = part["rows"]
+    every, digits, unpack, flops = SUM_OPS[call.kernel]
+    rows = call.rows
     pos = rows[:, None] * VECTOR + torch.arange(VECTOR, device=rows.device)
     valid = pos < plan.n_values
     b = bits[rows]
@@ -246,8 +224,8 @@ def sum_ops(plan, part, bits) -> tuple:
     finite = ((b >> man_bits) & ((1 << exp_bits) - 1)) != (1 << exp_bits) - 1
     nonzero = valid & finite & ((b << 1) != 0)
     n_valid, n_nonzero = int(valid.sum()), int(nonzero.sum())
-    per_value = base + (unpack if part["bw"] else 0)
-    return n_valid, n_valid * per_value + n_nonzero * digits
+    per_value = every + (unpack if call.bw else 0)
+    return n_valid, n_valid * per_value + n_nonzero * digits, n_valid * flops
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -286,7 +264,7 @@ def main() -> int:
         return 1
     try:
         import alp_tpu_torch
-        from alp_tpu_torch import native
+        from alp_tpu_torch import engine, native
         from alp_tpu_torch.columns import (BENCH_PROFILES, route_columns,
                                            tile_column)
         from alp_tpu_torch.kernels import _build, decode, falp
@@ -445,7 +423,7 @@ def main() -> int:
 
     # 6. kernels vs plain versions, on the card, same plans
     t0 = time.perf_counter()
-    errors = {k: 0.0 for k in KERNELS}
+    errors = {k: 0.0 for k in (*KERNELS, *SUM_KERNELS)}
     plans = {}
     for name, (col, _) in columns.items():
         plan = decode.build_plan(col, dev)
@@ -464,14 +442,15 @@ def main() -> int:
                 raise RuntimeError(
                     f"{name}: {k} bucket bw={bucket.bw} lbw={bucket.lbw} "
                     f"differs from its plain version (max abs err {err})")
-    for k in SUM_KERNELS:
-        errors[k] = 0.0
     for name, (col, _) in columns.items():
-        for part in sum_parts(col.plan(dev)):
-            got = part["launch"](kes.totals(col.plan(dev).bits_dtype, dev))
-            want = part["plain"]()
-            if not torch.equal(got, want):
-                raise RuntimeError(f"{name}: {part['kernel']} totals "
+        plan = col.plan(dev)
+        for call in engine.sum_calls(plan):
+            got = call.launch(kes.totals(plan.bits_dtype, dev))
+            want = call.plain()
+            err = float((got - want).abs().max())
+            errors[call.kernel] = max(errors[call.kernel], err)
+            if err != 0.0 or not torch.equal(got, want):
+                raise RuntimeError(f"{name}: {call.kernel} totals "
                                    f"{got.tolist()} != plain "
                                    f"{want.tolist()}")
     phase("kernels", t0, "every bucket of every column: kernel bits == "
@@ -536,36 +515,41 @@ def main() -> int:
              "exact_sum_f64": ["f64_alp_rd"],
              "exact_sum_f32": ["f32_alp_rd"]}
     for k, names in timed.items():
-        ms, plain_ms, bound_ms, sum_ms, by = [], [], [], [], "bytes"
+        ms, plain_ms, bound_ms, sum_ms = [], [], [], []
+        by_bytes, by_ops = [], []
         for name in names:
             col = columns[name][0]
             plan = col.plan(dev)
-            mine = [pt for pt in sum_parts(plan) if pt["kernel"] == k]
+            mine = [c for c in engine.sum_calls(plan) if c.kernel == k]
             out = kes.totals(plan.bits_dtype, dev)
-            t_k = cuda_ms(lambda: [pt["launch"](out) for pt in mine], 20)
-            t_p = cuda_ms(lambda: [pt["plain"]() for pt in mine], 3)
+            t_k = cuda_ms(lambda: [c.launch(out) for c in mine], 20)
+            t_p = cuda_ms(lambda: [c.plain() for c in mine], 3)
             values = plan.run()
             t_s = cuda_ms(values.sum, 20)
-            moved = sum(pt["bytes"] for pt in mine)
-            counted = [sum_ops(plan, pt, values.view(plan.bits_dtype))
-                       for pt in mine]
+            moved = sum(call_bytes(plan, c) for c in mine)
+            counted = [sum_ops(plan, c, values.view(plan.bits_dtype))
+                       for c in mine]
             n_vals = sum(c[0] for c in counted)
-            ops = sum(c[1] for c in counted)
+            int_ops = sum(c[1] for c in counted)
+            fl_ops = sum(c[2] for c in counted)
+            fl_rate = FP64_FLOPS_PER_S if plan.f64 else FLOPS_PER_S
             b_bytes = moved / HBM_BYTES_PER_S * 1e3
-            b_ops = ops / int32_per_s * 1e3
-            by = "bytes" if b_bytes >= b_ops else "operations"
+            b_ops = max(int_ops / int32_per_s, fl_ops / fl_rate) * 1e3
             ms.append(t_k)
             plain_ms.append(t_p)
             bound_ms.append(max(b_bytes, b_ops))
+            by_bytes.append(b_bytes)
+            by_ops.append(b_ops)
             sum_ms.append(t_s)
             print(f"  {k} on {name}: {len(mine)} launches/query, {moved} "
-                  f"bytes, {n_vals} values, {ops} int ops, kernel "
-                  f"{t_k:.4f} ms, plain "
-                  f"{t_p:.4f} ms, bound {max(b_bytes, b_ops):.4f} ms ({by}; "
-                  f"bytes {b_bytes:.4f} ms, operations {b_ops:.4f} ms), "
+                  f"bytes, {n_vals} values, {int_ops} int ops, {fl_ops} "
+                  f"float ops, kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                  f"bound {max(b_bytes, b_ops):.4f} ms (bytes "
+                  f"{b_bytes:.4f} ms, operations {b_ops:.4f} ms), "
                   f"torch.sum {t_s:.4f} ms, {n_vals / t_k / 1e6:.1f} "
                   f"Gvalues/s", flush=True)
             del values, out
+        by = "bytes" if sum(by_bytes) >= sum(by_ops) else "operations"
         rows.append({
             "name": k, "route": "cuda",
             "source": "alp_tpu_torch/csrc/exact_sum.cu",

@@ -22,6 +22,7 @@ import torch
 
 import alp_tpu_torch
 from alp_tpu_torch import constants as C
+from alp_tpu_torch import engine
 from alp_tpu_torch.columns import route_columns
 from alp_tpu_torch.kernels import decode, falp
 from alp_tpu_torch.kernels import exact_sum as kes
@@ -158,23 +159,21 @@ SUM_CASES = _sum_cases()
 def test_sum_kernels_equal_plain_versions(name, cuda):
     col = alp_tpu_torch.compress(COLUMNS[name])
     plan = col.plan(cuda)
-    fused = (kes.falp_decode_f64_exact_sum if plan.f64
-             else kes.falp_decode_f32_exact_sum)
-    for b in plan.buckets:
-        if b.scheme != C.SCHEME_ALP:
-            continue
-        args = (b.args[0], b.bw, *b.args[1:], b.rows, plan.exc_ptr,
-                plan.exc_index, plan.exc_bits, plan.n_values)
-        before = sum(kes.LAUNCHES.values())
-        got = fused(*args)
-        assert sum(kes.LAUNCHES.values()) == before + 1
-        assert torch.equal(got, kes.falp_exact_sum_plain(*args))
-    scratch, vec = plan.decode_rd()
-    if vec.numel():
-        summed = kes.exact_sum_f64 if plan.f64 else kes.exact_sum_f32
-        got = summed(scratch, vec, plan.n_values)
-        assert torch.equal(got, kes.exact_sum_plain(scratch, vec,
-                                                    plan.n_values))
+    for call in engine.sum_calls(plan):
+        before = kes.LAUNCHES[call.kernel]
+        got = call.launch(kes.totals(plan.bits_dtype, cuda))
+        assert kes.LAUNCHES[call.kernel] == before + 1
+        assert torch.equal(got, call.plain()), (name, call.kernel, call.bw)
+
+
+def test_plan_is_kept_once_per_card(cuda):
+    col = alp_tpu_torch.compress(COLUMNS["bench_bw20_food_prices"])
+    plan = col.plan()
+    index = torch.cuda.current_device()
+    assert col.plan("cuda") is plan
+    assert col.plan(f"cuda:{index}") is plan
+    assert col.plan(torch.device("cuda", index)) is plan
+    assert list(col._plans) == [f"cuda:{index}"]
 
 
 @pytest.mark.parametrize("name", sorted(COLUMNS))

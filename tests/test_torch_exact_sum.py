@@ -121,6 +121,23 @@ def test_fused_k7_k8_equal_k5_k6_over_the_decode(name):
     assert torch.equal(engine.exact_sum_totals(plan), want), name
 
 
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_sum_calls_cover_every_vector_once(name):
+    col = alp_tpu_torch.compress(COLUMNS[name])
+    plan = decode.build_plan(col, "cpu")
+    calls = engine.sum_calls(plan)
+    width = "f64" if plan.f64 else "f32"
+    assert {c.kernel for c in calls} <= {f"falp_decode_{width}_exact_sum",
+                                         f"exact_sum_{width}"}
+    rows = torch.cat([c.rows for c in calls]).sort().values
+    assert torch.equal(rows, torch.arange(col.n_vectors))
+    out = kes.totals(plan.bits_dtype, "cpu")
+    for c in calls:
+        c.launch(out)
+    assert torch.equal(out, sum(c.plain() for c in calls))
+    assert torch.equal(out, engine.exact_sum_totals(plan))
+
+
 def test_plan_csr_and_rd_scratch():
     col = alp_tpu_torch.compress(COLUMNS["f64_mixed_alp_rd"])
     plan = decode.build_plan(col, "cpu")
