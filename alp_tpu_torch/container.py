@@ -10,7 +10,8 @@ exceptions) or ALP_RD (dictionary-coded left bits, raw right bits).
 * ``compress`` runs on the host: the native engine plans every rowgroup,
   encodes and packs the ALP vectors; ALP_RD rowgroups are split and packed
   with the PyTorch ops on the CPU.  Its blobs equal the JAX package's
-  byte for byte.
+  byte for byte.  ``compress(data, device=...)`` runs the same on a card
+  instead (``device_compress``, float64), to the same bytes.
 * ``decompress`` decodes on a device through the plan in
   ``kernels.decode``: the hand-written CUDA kernels on a card, their plain
   PyTorch versions when the caller asks for the CPU.
@@ -255,9 +256,16 @@ def _pad_to_vectors(data: np.ndarray):
     return padded.reshape(n_vec, C.VECTOR_SIZE), n_vec
 
 
-def compress(data: np.ndarray) -> CompressedColumn:
-    """Compress a 1-D float64/float32 array on the host (adaptive
-    ALP / ALP_RD per rowgroup)."""
+def compress(data: np.ndarray, device=False) -> CompressedColumn:
+    """Compress a 1-D float64/float32 array (adaptive ALP / ALP_RD per
+    rowgroup): on the host by default; with ``device`` (``True`` for
+    ``"cuda"``, or a device such as ``"cuda:1"``) through
+    ``device_compress.compress_device`` on that device, float64 only.
+    Both give the same blob."""
+    if device is not False:
+        from .device_compress import compress_device
+        return compress_device(data, device=None if device is True
+                               else device)
     data = np.ascontiguousarray(data)
     tc = constants_for(data.dtype)
     f64 = data.dtype == np.float64

@@ -28,7 +28,8 @@
 // Exactness.  Integer addition is exact and associative, so the order of
 // blocks, warps and atomics does not matter: the totals are the same on
 // every run and equal the plain version's (tolerance 0).  |digit| < 2^32
-// and fewer than 2^31 values (the wrappers check) keep every total within
+// and fewer than 2^31 values a call (the wrappers check; a longer column
+// is summed in runs, each into its own total) keep every total within
 // int64.
 //
 // Pad values.  The container pads a partial last vector with the column's
@@ -323,14 +324,14 @@ falp_exact_sum_kernel(const typename Num<F>::U* __restrict__ packed, int bw,
   acc.finish(out);
 }
 
-// Blocks for n vectors: as many as can be resident at once (at most one
-// per vector); each walks its share of the vectors.
+// Blocks for n vectors on card `dev` (the card of the tensors): as many
+// as can be resident at once (at most one per vector); each walks its
+// share of the vectors.
 template <typename K>
-cudaError_t grid_for(K kernel, long long n, unsigned* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+cudaError_t grid_for(K kernel, long long n, int dev, unsigned* blocks) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         kThreads, 0);
@@ -339,16 +340,19 @@ cudaError_t grid_for(K kernel, long long n, unsigned* blocks) {
   return err;
 }
 
+// A call sums fewer than 2^31 values (n rows of 1024); n_values only
+// bounds the positions that are summed.
 bool bad_size(long long n, long long n_values) {
-  return n < 0 || n > INT_MAX || n_values < 0 || n_values >= (1ll << 31);
+  return n < 0 || n * kVector >= (1ll << 31) || n_values < 0;
 }
 
 template <typename U>
 int launch_exact_sum(const void* bits, const void* vec, long long n,
-                     long long n_values, void* out, void* stream) {
+                     long long n_values, void* out, int dev,
+                     void* stream) {
   if (bad_size(n, n_values)) return static_cast<int>(cudaErrorInvalidValue);
   unsigned blocks = 0;
-  const cudaError_t err = grid_for(exact_sum_kernel<U>, n, &blocks);
+  const cudaError_t err = grid_for(exact_sum_kernel<U>, n, dev, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks)
     exact_sum_kernel<U><<<blocks, kThreads, 0,
@@ -364,12 +368,13 @@ int launch_falp_exact_sum(const void* packed, int bw, const void* base,
                           const void* rows, const void* exc_ptr,
                           const void* exc_index, const void* exc_bits,
                           long long n, long long n_values, void* out,
-                          void* stream) {
+                          int dev, void* stream) {
   using U = typename Num<F>::U;
   if (bad_size(n, n_values) || bw < 0 || bw > Num<F>::S)
     return static_cast<int>(cudaErrorInvalidValue);
   unsigned blocks = 0;
-  const cudaError_t err = grid_for(falp_exact_sum_kernel<F>, n, &blocks);
+  const cudaError_t err =
+      grid_for(falp_exact_sum_kernel<F>, n, dev, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks)
     falp_exact_sum_kernel<F><<<blocks, kThreads, 0,
@@ -386,38 +391,41 @@ int launch_falp_exact_sum(const void* packed, int bw, const void* base,
 
 }  // namespace
 
-// C interface (loaded with ctypes).  Pointers are device pointers; out is
-// the int64 [W + 3] column total, added into.  Every entry returns
-// cudaGetLastError() (or the error of its device query).
+// C interface (loaded with ctypes).  Pointers are device pointers on card
+// `dev`, which the caller has made current; out is the int64 [W + 3]
+// column total, added into.  Every entry returns cudaGetLastError() (or
+// the error of its device query).
 
 extern "C" int alp_exact_sum_f64(const void* bits, const void* vec,
                                  long long n, long long n_values, void* out,
-                                 void* stream) {
-  return launch_exact_sum<uint64_t>(bits, vec, n, n_values, out, stream);
+                                 int dev, void* stream) {
+  return launch_exact_sum<uint64_t>(bits, vec, n, n_values, out, dev,
+                                    stream);
 }
 
 extern "C" int alp_exact_sum_f32(const void* bits, const void* vec,
                                  long long n, long long n_values, void* out,
-                                 void* stream) {
-  return launch_exact_sum<uint32_t>(bits, vec, n, n_values, out, stream);
+                                 int dev, void* stream) {
+  return launch_exact_sum<uint32_t>(bits, vec, n, n_values, out, dev,
+                                    stream);
 }
 
 extern "C" int alp_falp_exact_sum_f64(
     const void* packed, int bw, const void* base, const void* fact,
     const void* frac, const void* rows, const void* exc_ptr,
     const void* exc_index, const void* exc_bits, long long n,
-    long long n_values, void* out, void* stream) {
+    long long n_values, void* out, int dev, void* stream) {
   return launch_falp_exact_sum<double>(packed, bw, base, fact, frac, rows,
                                        exc_ptr, exc_index, exc_bits, n,
-                                       n_values, out, stream);
+                                       n_values, out, dev, stream);
 }
 
 extern "C" int alp_falp_exact_sum_f32(
     const void* packed, int bw, const void* base, const void* fact,
     const void* frac, const void* rows, const void* exc_ptr,
     const void* exc_index, const void* exc_bits, long long n,
-    long long n_values, void* out, void* stream) {
+    long long n_values, void* out, int dev, void* stream) {
   return launch_falp_exact_sum<float>(packed, bw, base, fact, frac, rows,
                                       exc_ptr, exc_index, exc_bits, n,
-                                      n_values, out, stream);
+                                      n_values, out, dev, stream);
 }

@@ -1,8 +1,10 @@
 // Device helpers shared by the port's kernels: the FastLanes unpack of one
-// vector's packed words, their staging into shared memory, and the ALP
-// decode formula.  The decode kernels K1/K2 (falp.cu) and the fused
-// decode + exact-SUM kernels K7/K8 (exact_sum.cu) decode with these same
-// lines, so a value summed by K7 has the bits K1 writes.
+// vector's packed words and its inverse, the pack of one word, their
+// staging into shared memory, and the ALP decode formula.  The decode
+// kernels K1/K2 (falp.cu) and the fused decode + exact-SUM kernels K7/K8
+// (exact_sum.cu) decode with these same lines, so a value summed by K7 has
+// the bits K1 writes; the pack kernel K10 (ffor.cu) places each value with
+// the same slot_pos that unpack reads it with.
 //
 // Layout (reference FastLanes layout): for S-bit words a 1024-value
 // vector has L = 1024 / S lanes; value k lives in lane k % L at slot
@@ -21,15 +23,48 @@ namespace alp {
 
 constexpr int kVector = 1024;
 
+// Where slot `slot` of a lane lives at bit width bw: bits [slot * bw,
+// (slot + 1) * bw) of the lane's stream, i.e. from bit s0 of word w0 on
+// (spilling into word w0 + 1 when s0 + bw > S).
+template <int S>
+__device__ __forceinline__ void slot_pos(int bw, int slot, int& w0,
+                                         int& s0) {
+  const int off = slot * bw;
+  w0 = off / S;
+  s0 = off % S;
+}
+
 // Bits [slot * bw, (slot + 1) * bw) of value k's lane, 0 < bw <= S.
 template <typename W, int S>
 __device__ __forceinline__ W unpack(const W* w, int bw, int k) {
   constexpr int L = kVector / S;
   const int lane = k % L, slot = k / L;
-  const int off = slot * bw, w0 = off / S, s0 = off % S;
+  int w0, s0;
+  slot_pos<S>(bw, slot, w0, s0);
   W u = static_cast<W>(w[w0 * L + lane] >> s0);
   if (s0 + bw > S) u |= static_cast<W>(w[(w0 + 1) * L + lane] << (S - s0));
   return bw >= S ? u : static_cast<W>(u & ((W(1) << bw) - W(1)));
+}
+
+// The inverse of unpack: word w of lane `lane` of a vector packed at bit
+// width bw (0 < bw <= S), from the vector's values `vals` [1024] in value
+// order, each already reduced to its low bw bits.  The word holds the
+// slots whose bits meet [w * S, (w + 1) * S): the first may start in word
+// w - 1 and spill into w.
+template <typename W, int S>
+__device__ __forceinline__ W pack_word(const W* vals, int bw, int w,
+                                       int lane) {
+  constexpr int L = kVector / S;
+  const int first = (w * S) / bw;
+  const int last = min(S - 1, (w * S + S - 1) / bw);
+  W acc = 0;
+  for (int slot = first; slot <= last; ++slot) {
+    int w0, s0;
+    slot_pos<S>(bw, slot, w0, s0);
+    const W d = vals[slot * L + lane];
+    acc |= w0 == w ? static_cast<W>(d << s0) : static_cast<W>(d >> (S - s0));
+  }
+  return acc;
 }
 
 // One vector's bw * L packed words, global -> shared, coalesced.

@@ -1,0 +1,327 @@
+"""Device compression of float64 columns: planning, encode and pack on a card.
+
+Counterpart of ``alp_tpu/device_compress.py:compress_device`` (and of
+``alp_tpu.container.compress(..., device=True)``).  The column is staged
+to the device once (or is already there: ``values=``, e.g. the output of
+``decompress``); only the planner's small tables, the samples of ALP_RD
+rowgroups, the per-vector metadata, the packed words and the exceptions
+cross to the host.  The blob equals host compress's byte for byte
+(``container.compress``, itself equal to the JAX package's).
+
+1. Planning, every rowgroup on the device (the tail rowgroup too: its
+   vectors are whole once the last one is padded, so the sampler takes
+   the same 32-value strides from it).  K11 scores the 190 (e, f) pairs on
+   each sampled vector; ``ops.alp.first_level_vote`` picks each rowgroup's
+   scheme and top-k pairs; for ALP rowgroups with k > 1, K11 scores the k
+   pairs on every vector's stride and ``ops.alp.accept_scan`` picks its
+   pair.  ALP_RD rowgroups build their dictionary on the host from their
+   samples (``oracle.rd``).
+2. Encode: K9 encodes every vector with its pair and reduces the stats
+   that ``finalize_encode_stats`` turns into bit width, base, enc_max,
+   exception count and fill.
+3. Pack: K10 packs each bit width's vectors into one flat buffer in the
+   blob's vector order, exception slots patched with the fill; ALP_RD
+   vectors are split and looked up with ``ops.rd.rd_encode_vectors``, their
+   right parts packed by K10 at base 0 and their left indexes by
+   ``ops.fastlanes.ffor_pack``.
+4. The host assembles the ``CompressedColumn``.
+
+Unlike the JAX package there is no host re-plan or re-encode of "rare"
+vectors: Hopper's FP64 computes subnormals and |x| in [2^52, 2^104)
+exactly (``csrc/encode.cuh``).  ``device="cpu"`` runs every kernel's plain
+version.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from . import constants as C
+from .container import CompressedColumn, _pad_to_vectors
+from .kernels.decode import resolve_device
+from .kernels.encode import alp_encode_f64
+from .kernels.ffor import LANES, ffor_pack_f64
+from .kernels.score import first_level_scores_f64, second_level_scores_f64
+from .ops import fastlanes as fl
+from .ops.alp import accept_scan, bit_width_of, first_level_vote
+from .ops.rd import rd_encode_vectors
+from .oracle.rd import first_level_sample, rd_state_from_sample
+
+VECTOR = C.VECTOR_SIZE
+RG = C.N_VECTORS_PER_ROWGROUP
+SAMPLES = C.SAMPLES_PER_VECTOR
+STRIDE = VECTOR // SAMPLES
+# bytes compress_device copied from a card to the host (reset_to_host)
+TO_HOST = {"bytes": 0}
+
+
+def reset_to_host() -> None:
+    TO_HOST["bytes"] = 0
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    if t.is_cuda:
+        TO_HOST["bytes"] += t.numel() * t.element_size()
+    return t.cpu().numpy()
+
+
+def _f64_only(dtype) -> None:
+    if dtype in (np.float32, torch.float32):
+        raise NotImplementedError(
+            "device compress of float32 columns is not ported yet "
+            "(ROADMAP.md, item 6b); compress(data) runs on the host")
+    if dtype not in (np.float64, torch.float64):
+        raise TypeError(f"device compress takes float64, got {dtype}")
+
+
+def _stage(data, values, n_values, device) -> tuple:
+    """([n_vec, 1024] float64 on the device, n_values)."""
+    if (data is None) == (values is None):
+        raise ValueError("pass data or values")
+    if data is not None:
+        data = np.ascontiguousarray(data)
+        _f64_only(data.dtype)
+        if data.ndim != 1:
+            raise ValueError("data must be 1-D")
+        vectors, _ = _pad_to_vectors(data)
+        return torch.from_numpy(vectors).to(resolve_device(device)), len(data)
+    _f64_only(values.dtype)
+    if device is not None:
+        want = resolve_device(device)
+        if want.type != values.device.type or want.index not in (
+                None, values.device.index):
+            raise ValueError(f"values lie on {values.device}, not {want}")
+    flat = values.reshape(-1)
+    n_values = flat.numel() if n_values is None else n_values
+    n_vec = max(1, math.ceil(n_values / VECTOR))
+    if flat.numel() not in (n_values, n_vec * VECTOR):
+        raise ValueError(f"{flat.numel()} values for n_values {n_values}")
+    pad = n_vec * VECTOR - flat.numel()
+    if pad:    # container._pad_to_vectors: repeat the last value
+        last = (flat[-1:] if flat.numel() else
+                torch.zeros(1, dtype=flat.dtype, device=flat.device))
+        flat = torch.cat([flat, last.expand(pad)])
+    return flat.reshape(n_vec, VECTOR).contiguous(), n_values
+
+
+def _sampled_vectors(n_vectors: int) -> np.ndarray:
+    """The vectors whose 32-value stride the first-level sampler takes
+    from a rowgroup of ``n_vectors`` whole vectors (every 12th)."""
+    pos = first_level_sample(np.arange(n_vectors * VECTOR), 0)
+    ids = pos[::SAMPLES] // VECTOR
+    if not np.array_equal(pos.reshape(-1, SAMPLES),
+                          ids[:, None] * VECTOR + np.arange(0, VECTOR,
+                                                            STRIDE)):
+        raise RuntimeError("the sampler does not take whole strides")
+    return ids
+
+
+def _first_level(strides, n_vec: int, tc) -> tuple:
+    """Each rowgroup's (combos [n_rg, 5, 2], k [n_rg], is_rd [n_rg]) on the
+    device, and its sampled vector ids (a list of arrays)."""
+    n_full = n_vec // RG
+    groups = []
+    if n_full:
+        groups.append(np.arange(n_full)[:, None] * RG
+                      + _sampled_vectors(RG)[None, :])
+    if n_vec % RG:
+        groups.append(n_full * RG + _sampled_vectors(n_vec % RG)[None, :])
+    parts = []
+    for ids in groups:
+        est, ne = first_level_scores_f64(
+            strides[torch.from_numpy(ids).to(strides.device)])
+        parts.append(first_level_vote(est, ne, SAMPLES, tc))
+    combos, k, is_rd = (torch.cat(x) for x in zip(*parts))
+    return combos, k, is_rd, [row for ids in groups for row in ids]
+
+
+def finalize_encode_stats(n, exc_count, first, vmin, vmax) -> tuple:
+    """Per-vector analyze and patch quantities from K9's stats
+    (encoder.hpp:109-120, 382-399): (bit_width int32, base int64,
+    enc_max int64 (the uint64 max - base), exception count int32, fill
+    int64).  The fill is the vector's first non-exception n in value
+    order; a vector of exceptions only gets bit width 0, base 0 and fill
+    0."""
+    any_ok = first < VECTOR
+    mx = torch.where(any_ok, vmax, 0)
+    mn = torch.where(any_ok, vmin, 0)
+    enc_max = mx - mn                                 # modulo 2^64
+    k = first.clamp(max=VECTOR - 1).to(torch.int64)[:, None]
+    fill = torch.where(any_ok, torch.gather(n, 1, k)[:, 0], 0)
+    return bit_width_of(enc_max), mn, enc_max, exc_count, fill
+
+
+def _split(flat: np.ndarray, counts: np.ndarray) -> list:
+    return np.split(flat, np.cumsum(counts)[:-1])
+
+
+def _rd_states(strides, sample_ids: list, rd_np: np.ndarray, tc) -> dict:
+    """The ALP_RD rowgroups' states (cut and dictionary), built on the host
+    from their first-level samples: rowgroup -> ``oracle.rd.RdState``."""
+    rgs = np.nonzero(rd_np)[0]
+    if not rgs.size:
+        return {}
+    ids = np.concatenate([sample_ids[rg] for rg in rgs])
+    samples = _host(strides[torch.from_numpy(ids).to(strides.device)])
+    lens = [len(sample_ids[rg]) * SAMPLES for rg in rgs]
+    return {rg: rd_state_from_sample(sample, tc) for rg, sample in
+            zip(rgs.tolist(), _split(samples.reshape(-1), lens))}
+
+
+def _second_level(strides, combos, k, multi_any: bool) -> tuple:
+    """Each vector's (fac, exp), int32 [n_vec]: its rowgroup's first pair,
+    or, where the rowgroup kept k > 1 pairs, the accept scan's choice over
+    their scores on the vector's stride."""
+    fac = combos[:, 0, 1].contiguous()
+    exp = combos[:, 0, 0].contiguous()
+    if not multi_any:
+        return fac, exp
+    multi = k > 1
+    est = second_level_scores_f64(strides, combos.contiguous(),
+                                  torch.where(multi, k, 0))
+    fac2, exp2 = accept_scan(est, combos, k)
+    return torch.where(multi, fac2, fac), torch.where(multi, exp2, exp)
+
+
+def _exceptions(mask, raw) -> tuple:
+    """The exceptions of ``mask`` [n, 1024] in row-major order: their
+    positions in the row (u16) and their entries of ``raw`` [n, 1024], as
+    host arrays."""
+    at = mask.nonzero()
+    pos = _host(at[:, 1].to(torch.int16)).view(np.uint16)
+    return pos, _host(raw[at[:, 0], at[:, 1]])
+
+
+def _pack_rd(vectors, sel: np.ndarray, rbw: int, lbw: int, rd_states: dict,
+             flat, offsets_t) -> tuple:
+    """ALP_RD vectors ``sel`` of one (right, left) bit width: split and
+    look up (``ops.rd``), right parts packed by K10 at base 0 into
+    ``flat``, left indexes by ``ops.fastlanes.ffor_pack``.  Returns (left
+    words [m, lbw * 64] u16, exception positions, raw left parts (u16),
+    counts), on the host."""
+    dev = vectors.device
+    m = len(sel)
+    dict_pad = np.full((m, C.MAX_RD_DICTIONARY_SIZE), 0xFFFF, np.int64)
+    dict_size = np.zeros(m, np.int64)
+    for j, v in enumerate(sel.tolist()):
+        stt = rd_states[v // RG]
+        dict_pad[j, :stt.actual_dictionary_size] = stt.left_parts_dict
+        dict_size[j] = stt.actual_dictionary_size
+    sel_t = torch.from_numpy(sel).to(dev)
+    right, left_idx, exc_mask, left_raw = rd_encode_vectors(
+        vectors[sel_t].view(torch.int64), torch.full((m,), rbw, device=dev),
+        torch.from_numpy(dict_pad).to(dev),
+        torch.from_numpy(dict_size).to(dev))
+    ffor_pack_f64(right, torch.zeros(m, dtype=torch.int64, device=dev), rbw,
+                  out=flat, offsets=offsets_t[sel_t])
+    lefts = _host(fl.ffor_pack(left_idx,
+                               torch.zeros(m, dtype=torch.int16, device=dev),
+                               lbw)).view(np.uint16)
+    pos, raw = _exceptions(exc_mask, left_raw)
+    return lefts, pos, raw.astype(np.uint16), _host(exc_mask.sum(dim=1))
+
+
+def compress_device(data=None, *, values=None, n_values=None,
+                    device=None) -> CompressedColumn:
+    """Compress a float64 column with its hot path on a device.
+
+    ``data``: a 1-D numpy float64 array, staged to ``device`` once
+    (``None`` means ``"cuda"`` and raises when no card is present;
+    ``"cpu"`` runs the plain versions).  Or ``values``: a float64 tensor
+    already on the device, ``[n_vec, 1024]`` or flat, with ``n_values``
+    real values; a missing partial last vector is padded with the last
+    value (``container._pad_to_vectors``).  float32 raises
+    ``NotImplementedError``.  The blob equals ``container.compress``'s."""
+    tc = C.DOUBLE
+    vectors, n_values = _stage(data, values, n_values, device)
+    dev = vectors.device
+    n_vec = vectors.shape[0]
+    n_rg = math.ceil(n_vec / RG)
+    vec_rg = np.arange(n_vec) // RG
+    strides = vectors[:, ::STRIDE].contiguous()
+
+    # --- 1. planning -----------------------------------------------------
+    combos_rg, k_rg, rd_rg, sample_ids = _first_level(strides, n_vec, tc)
+    k_rg = torch.where(rd_rg, 0, k_rg)
+    combos_rg = torch.where(rd_rg[:, None, None], 0, combos_rg)
+    k_np, rd_np = _host(torch.stack([k_rg, rd_rg.to(torch.int32)]))
+    rd_np = rd_np.astype(bool)
+    rd_states = _rd_states(strides, sample_ids, rd_np, tc)
+    vec_rg_t = torch.from_numpy(vec_rg).to(dev)
+    is_rd_v = rd_rg[vec_rg_t]
+    fac, exp = _second_level(strides, combos_rg[vec_rg_t], k_rg[vec_rg_t],
+                             bool((k_np > 1).any()))
+
+    # --- 2. encode -------------------------------------------------------
+    alp_any = not rd_np.all()
+    zeros = torch.zeros(n_vec, dtype=torch.int64, device=dev)
+    bw, base, enc_max, n_exc = zeros, zeros, zeros, zeros
+    if alp_any:
+        n, exc, *stats = alp_encode_f64(vectors, exp, fac, stats=True)
+        bw, base, enc_max, n_exc, fill = finalize_encode_stats(n, *stats)
+        # ALP_RD vectors carry no ALP metadata (as host compress)
+        bw, base, enc_max, n_exc = (torch.where(is_rd_v, 0, x.to(torch.int64))
+                                    for x in (bw, base, enc_max, n_exc))
+    meta = _host(torch.stack([fac.to(torch.int64), exp.to(torch.int64), bw,
+                              base, enc_max, n_exc]))
+    bw_np, exc_count = meta[2], meta[5].astype(np.uint16)
+
+    # --- 3. pack every vector's words into one flat buffer ----------------
+    rbw_rg = np.zeros(n_rg, np.int64)
+    lbw_rg = np.zeros(n_rg, np.int64)
+    for rg, stt in rd_states.items():
+        rbw_rg[rg], lbw_rg[rg] = stt.right_bit_width, stt.left_bit_width
+    is_rd_np = rd_np[vec_rg]
+    words = np.where(is_rd_np, rbw_rg[vec_rg], bw_np) * LANES
+    offsets = np.zeros(n_vec + 1, np.int64)
+    np.cumsum(words, out=offsets[1:])
+    flat = torch.empty(int(offsets[-1]), dtype=torch.int64, device=dev)
+    offsets_t = torch.from_numpy(offsets[:-1]).to(dev)
+    alp_vec = np.nonzero(~is_rd_np)[0]
+    for b in np.unique(bw_np[alp_vec]).tolist():
+        if b:
+            sel = torch.from_numpy(alp_vec[bw_np[alp_vec] == b]).to(dev)
+            ffor_pack_f64(n, base, b, exc=exc, fill=fill, rows=sel, out=flat,
+                          offsets=offsets_t[sel])
+    exc_positions = [np.empty(0, np.uint16)] * n_vec
+    exc_values = [np.empty(0, np.float64)] * n_vec
+    if exc_count.any():
+        pos, val = _exceptions(exc & ~is_rd_v[:, None], vectors)
+        has = np.nonzero(exc_count)[0]
+        for v, p, x in zip(has.tolist(), _split(pos, exc_count[has]),
+                           _split(val, exc_count[has])):
+            exc_positions[v], exc_values[v] = p, x
+    left_packed = [np.empty(0, np.uint16)] * n_vec
+    rd_vec = np.nonzero(is_rd_np)[0]
+    widths = np.stack([rbw_rg[vec_rg[rd_vec]], lbw_rg[vec_rg[rd_vec]]], 1)
+    for rbw, lbw in sorted({tuple(w) for w in widths.tolist()}):
+        sel = rd_vec[(widths[:, 0] == rbw) & (widths[:, 1] == lbw)]
+        lefts, pos, raw, counts = _pack_rd(vectors, sel, rbw, lbw, rd_states,
+                                           flat, offsets_t)
+        for v, lw, p, x, c in zip(sel.tolist(), lefts, _split(pos, counts),
+                                  _split(raw, counts), counts.tolist()):
+            left_packed[v], exc_positions[v], exc_values[v] = lw, p, x
+            exc_count[v] = c
+
+    # --- 4. assemble -----------------------------------------------------
+    rd_dict = np.zeros((n_rg, C.MAX_RD_DICTIONARY_SIZE), np.uint16)
+    rd_dict_size = np.zeros(n_rg, np.uint8)
+    for rg, stt in rd_states.items():
+        rd_dict[rg, :stt.actual_dictionary_size] = stt.left_parts_dict
+        rd_dict_size[rg] = stt.actual_dictionary_size
+    return CompressedColumn(
+        dtype=np.dtype(np.float64), n_values=n_values, n_vectors=n_vec,
+        rg_scheme=np.where(rd_np, C.SCHEME_ALP_RD,
+                           C.SCHEME_ALP).astype(np.uint8),
+        rd_dict=rd_dict, rd_dict_size=rd_dict_size,
+        rd_left_bw=lbw_rg.astype(np.uint8),
+        rd_right_bw=rbw_rg.astype(np.uint8),
+        fac=meta[0].astype(np.uint8), exp=meta[1].astype(np.uint8),
+        bit_width=bw_np.astype(np.uint8), base=meta[3].astype(np.int64),
+        exc_count=exc_count,
+        packed=_split(_host(flat).view(np.uint64), words),
+        left_packed=left_packed, exc_values=exc_values,
+        exc_positions=exc_positions, enc_max=meta[4].view(np.uint64).copy())

@@ -19,9 +19,12 @@ Per column, ``exact_sum_totals(plan)`` runs on the plan's device:
 * the ALP_RD buckets decode with K3/K4 into one compact scratch, their
   exceptions are scattered in, and K5/K6 sum the scratch.
 
-Every kernel adds into one int64 ``[W + 3]`` tensor, which crosses to the
-host once.  The plan comes from ``CompressedColumn.plan(device)``, built
-at the first query and kept, as the JAX package keeps its own.
+The kernels add into int64 ``[W + 3]`` totals, one for each run of fewer
+than 2^31 values (one run for any column below that size), which cross to
+the host once; the host joins the runs as Python integers, so a column
+has no size limit of its own.  The plan comes from
+``CompressedColumn.plan(device)``, built at the first query and kept, as
+the JAX package keeps its own.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 
 from . import constants as C
 from .kernels import exact_sum as kes
-from .kernels.decode import resolve_device
+from .kernels.decode import VECTOR_SIZE, resolve_device
 
 # value dtype -> B, the power of two of the fixed-point scale
 _SCALE = {np.dtype(np.float64): 1075, np.dtype(np.float32): 150}
@@ -86,6 +89,26 @@ class SumCall:
         """The plain version's totals on the same arguments."""
         return kes.KERNELS[self.kernel][1](*self.args)
 
+    def split(self, max_rows: int) -> list:
+        """The call cut into calls of at most ``max_rows`` rows each (its
+        per-row arguments sliced; the rest shared)."""
+        n = self.rows.shape[0]
+        if n <= max_rows:
+            return [self]
+        per_row = _PER_ROW_ARGS[self.kernel]
+        return [SumCall(self.kernel,
+                        tuple(a[lo:lo + max_rows] if i in per_row else a
+                              for i, a in enumerate(self.args)),
+                        self.rows[lo:lo + max_rows], self.bw)
+                for lo in range(0, n, max_rows)]
+
+
+# kernel -> positions of its row-indexed arguments: K5/K6 (bits, vec, ...),
+# K7/K8 (packed, bw, base, fact, frac, rows, ...)
+_PER_ROW_ARGS = {"exact_sum_f64": (0, 1), "exact_sum_f32": (0, 1),
+                 "falp_decode_f64_exact_sum": (0, 2, 3, 4, 5),
+                 "falp_decode_f32_exact_sum": (0, 2, 3, 4, 5)}
+
 
 def sum_calls(plan) -> list:
     """The SUM kernel calls of a plan, in launch order: K7/K8 for each ALP
@@ -104,30 +127,43 @@ def sum_calls(plan) -> list:
     return calls
 
 
-def exact_sum_totals(plan) -> torch.Tensor:
-    """The steady-state device part of the SUM: the int64 [W + 3] column
-    total of a plan (W windows, then the NaN, +Inf and -Inf counts), on
-    the plan's device, with no host join and no synchronise."""
-    out = kes.totals(plan.bits_dtype, plan.device)
+def exact_sum_totals(plan, run_values: int = kes.MAX_VALUES
+                     ) -> torch.Tensor:
+    """The steady-state device part of the SUM: the int64 [runs, W + 3]
+    totals of a plan (W windows, then the NaN, +Inf and -Inf counts), on
+    the plan's device, with no host join and no synchronise.  Each row is
+    the total of a run of fewer than ``run_values`` values (whole vectors,
+    pad included), so no int64 total can overflow; a column of fewer than
+    2^31 values has one row.  The rows add up as integers
+    (``join_totals``)."""
+    max_rows = max(1, (run_values - 1) // VECTOR_SIZE)
+    runs = [kes.totals(plan.bits_dtype, plan.device)]
+    used = 0
     for call in sum_calls(plan):
-        call.launch(out)
-    return out
+        for part in call.split(max_rows):
+            n = part.rows.shape[0]
+            if used + n > max_rows:
+                runs.append(kes.totals(plan.bits_dtype, plan.device))
+                used = 0
+            part.launch(runs[-1])
+            used += n
+    return torch.stack(runs)
 
 
 def join_totals(totals: list, dtype) -> tuple:
-    """(total_int, nan, pinf, ninf, B): the host join of a column total,
-    ``total_int = sum_w totals[w] << 32 w`` = the column's exact sum times
-    2^B."""
-    W = len(totals) - 3
-    total = sum(int(t) << (32 * w) for w, t in enumerate(totals[:W]) if t)
-    return (total, int(totals[W]), int(totals[W + 1]), int(totals[W + 2]),
-            _SCALE[np.dtype(dtype)])
+    """(total_int, nan, pinf, ninf, B): the host join of a column's totals
+    (``exact_sum_totals(plan).tolist()``, or one total row), ``total_int =
+    sum over rows and w of totals[r][w] << 32 w`` = the column's exact sum
+    times 2^B."""
+    rows = totals if totals and isinstance(totals[0], list) else [totals]
+    W = len(rows[0]) - 3
+    total = sum(int(t) << (32 * w) for row in rows
+                for w, t in enumerate(row[:W]) if t)
+    counts = [sum(int(row[W + i]) for row in rows) for i in range(3)]
+    return (total, *counts, _SCALE[np.dtype(dtype)])
 
 
 def _sum_raw(col, dev) -> tuple:
-    if col.n_values >= kes.MAX_VALUES:
-        raise ValueError(f"{col.n_values} values: the exact SUM takes "
-                         "fewer than 2^31")
     plan = col.plan(dev)
     return join_totals(exact_sum_totals(plan).tolist(), col.dtype)
 

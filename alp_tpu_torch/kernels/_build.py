@@ -1,8 +1,9 @@
-"""Build and load the port's CUDA kernels: one ``nvcc`` call, ``ctypes``.
+"""Build and load the port's CUDA kernels: ``nvcc``, ``ctypes``.
 
-Every ``alp_tpu_torch/csrc/*.cu`` source (they share
-``csrc/fastlanes.cuh``) is compiled for Hopper (sm_90a) in a single
-``nvcc`` invocation into a shared library with a plain C
+Every ``alp_tpu_torch/csrc/*.cu`` source (they share the headers
+``csrc/fastlanes.cuh`` and ``csrc/encode.cuh``) is compiled for Hopper
+(sm_90a) by its own ``nvcc -c``, all started together, and the objects
+are linked by one more ``nvcc`` call into a shared library with a plain C
 interface, under ``alp_tpu_torch/_build/`` and named by a hash of the
 sources, the flags and the compiler's version.  No PyTorch header is
 included, so the build takes seconds.  The library is built at first use,
@@ -30,12 +31,13 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_D = ctypes.c_double
 # (name, argtypes) of every C entry in csrc/
 ENTRIES = {
     # packed, bw, base, fact, frac, rows, out, n, stream
@@ -44,15 +46,25 @@ ENTRIES = {
     # right, rbw, left, lbw, dict, dict_size, rows, out, n, stream
     "alp_rd_f64": [_P, _I, _P, _I, _P, _P, _P, _P, _LL, _P],
     "alp_rd_f32": [_P, _I, _P, _I, _P, _P, _P, _P, _LL, _P],
-    # bits, vec, n, n_values, out, stream
-    "alp_exact_sum_f64": [_P, _P, _LL, _LL, _P, _P],
-    "alp_exact_sum_f32": [_P, _P, _LL, _LL, _P, _P],
+    # bits, vec, n, n_values, out, device, stream
+    "alp_exact_sum_f64": [_P, _P, _LL, _LL, _P, _I, _P],
+    "alp_exact_sum_f32": [_P, _P, _LL, _LL, _P, _I, _P],
     # packed, bw, base, fact, frac, rows, exc_ptr, exc_index, exc_bits,
-    # n, n_values, out, stream
+    # n, n_values, out, device, stream
     "alp_falp_exact_sum_f64": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
-                               _P, _P],
+                               _P, _I, _P],
     "alp_falp_exact_sum_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
-                               _P, _P],
+                               _P, _I, _P],
+    # values, e, f, exp_tab, frac_tab, fact_tab, magic, upper, n, out_n,
+    # out_exc, exc_count, first, vmin, vmax, stream
+    "alp_encode_f64": [_P, _P, _P, _P, _P, _P, _D, _D, _LL, _P, _P, _P, _P,
+                       _P, _P, _P],
+    # in, rows, exc, fill, base, bw, offsets, m, out, stream
+    "alp_ffor_pack_f64": [_P, _P, _P, _P, _P, _I, _P, _LL, _P, _P],
+    # samples, ef, ef_per_segment, n_cand, k_count, n, exp_tab, frac_tab,
+    # fact_tab, magic, upper, exc_bits, est, non_exc, stream
+    "alp_score_pairs_f64": [_P, _P, _I, _I, _P, _LL, _P, _P, _P, _D, _D, _I,
+                            _P, _P, _P],
 }
 
 
@@ -91,19 +103,47 @@ def build() -> dict:
         return {"path": lib_file, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_file.with_name(f"{lib_file.name}.{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     t0 = time.perf_counter()
     try:
-        done = subprocess.run(
-            [nvcc, *FLAGS, "-o", str(tmp), *map(str, sources)],
-            check=True, capture_output=True, text=True, timeout=600)
+        log = _compile_all(nvcc, sources, objs)
+        subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                        *map(str, objs)], check=True, capture_output=True,
+                       text=True, timeout=600)
     except subprocess.CalledProcessError as e:
         raise KernelBuildError(
             f"nvcc failed:\n{e.stdout}\n{e.stderr}") from e
     except (OSError, subprocess.SubprocessError) as e:
         raise KernelBuildError(f"nvcc is not usable: {e}") from e
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib_file)
     return {"path": lib_file, "seconds": time.perf_counter() - t0,
-            "log": done.stdout + done.stderr}
+            "log": log}
+
+
+def _compile_all(nvcc: str, sources: list, objs: list) -> str:
+    """Compile every source to its object, one ``nvcc -c`` each, all at
+    once; returns their logs (ptxas's register counts).  Raises
+    ``CalledProcessError`` for the first that fails, after every one has
+    ended."""
+    procs = [subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    try:
+        done = [(p, *p.communicate(timeout=600)) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out, err in done:
+        if p.returncode:
+            raise subprocess.CalledProcessError(p.returncode, p.args, out,
+                                                err)
+    return "".join(out + err for _, out, err in done)
 
 
 @functools.cache

@@ -9,7 +9,8 @@ container's pad and is skipped, with ``vec`` the real vector id of each
 row.
 
 A CUDA tensor goes through the hand-written kernel in
-``csrc/exact_sum.cu``, on PyTorch's current stream, without a synchronise;
+``csrc/exact_sum.cu``, on the current stream of the tensors' card, its
+grid sized by that card's SM count, without a synchronise;
 a CPU tensor goes through the plain version beside it.  Integer sums are
 exact in any order, so the kernel's atomics give the plain version's
 totals exactly (tolerance 0).  ``LAUNCHES`` counts kernel launches per
@@ -35,7 +36,10 @@ from .falp import (VECTOR_SIZE, _check, _device_kind, _launch, _ptr,
                    falp_plain)
 
 WINDOWS = {torch.int64: 66, torch.int32: 9}   # bit-pattern dtype -> W
-MAX_VALUES = 1 << 31     # |digit| < 2^32: n < 2^31 keeps totals in int64
+# |digit| < 2^32: fewer than 2^31 values keep one int64 total exact, so a
+# call sums fewer than MAX_VALUES values (its rows times 1024) into ``out``
+# and ``engine.exact_sum_totals`` gives each such run its own total
+MAX_VALUES = 1 << 31
 LAUNCHES = {"exact_sum_f64": 0, "exact_sum_f32": 0,
             "falp_decode_f64_exact_sum": 0, "falp_decode_f32_exact_sum": 0}
 
@@ -55,10 +59,12 @@ def totals(dtype: torch.dtype, device) -> torch.Tensor:
     return torch.zeros(WINDOWS[dtype] + 3, dtype=torch.int64, device=device)
 
 
-def _check_n_values(n_values: int) -> None:
-    if not 0 <= n_values < MAX_VALUES:
-        raise ValueError(f"n_values {n_values} outside 0..2^31 - 1: the "
-                         "int64 window totals could overflow")
+def _check_size(n_rows: int, n_values: int) -> None:
+    if n_values < 0:
+        raise ValueError(f"n_values {n_values} is negative")
+    if n_rows * VECTOR_SIZE >= MAX_VALUES:
+        raise ValueError(f"{n_rows} rows: one call sums fewer than 2^31 "
+                         "values, or its int64 totals could overflow")
 
 
 def _out(out, dtype, device):
@@ -105,12 +111,13 @@ def _exact_sum(bits, vec, n_values, out, kernel):
     device = bits.device
     _check("bits", bits, bits.dtype, (n, VECTOR_SIZE), device)
     _check("vec", vec, torch.int64, (n,), device)
-    _check_n_values(n_values)
+    _check_size(n, n_values)
     out = _out(out, bits.dtype, device)
     if _device_kind(bits) == "cpu":
         out += exact_sum_plain(bits, vec, n_values)
         return out
-    _launch(kernel, _ptr(bits), _ptr(vec), n, n_values, _ptr(out))
+    _launch(kernel, device, _ptr(bits), _ptr(vec), n, n_values, _ptr(out),
+            device.index)
     LAUNCHES[kernel] += 1
     return out
 
@@ -182,15 +189,15 @@ def _falp_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
     _check("exc_bits", exc_bits, wtype, (n_exc,), device)
     if not 0 <= bw <= S:
         raise ValueError(f"bit width {bw} out of range 0..{S}")
-    _check_n_values(n_values)
+    _check_size(n, n_values)
     out = _out(out, wtype, device)
     if _device_kind(packed) == "cpu":
         out += falp_exact_sum_plain(packed, bw, base, fact, frac, rows,
                                     exc_ptr, exc_index, exc_bits, n_values)
         return out
-    _launch(entry, _ptr(packed), bw, _ptr(base), _ptr(fact),
+    _launch(entry, device, _ptr(packed), bw, _ptr(base), _ptr(fact),
             _ptr(frac), _ptr(rows), _ptr(exc_ptr), _ptr(exc_index),
-            _ptr(exc_bits), n, n_values, _ptr(out))
+            _ptr(exc_bits), n, n_values, _ptr(out), device.index)
     LAUNCHES[count] += 1
     return out
 

@@ -4,7 +4,8 @@ Each wrapper takes one bucket of vectors that share a bit width and writes
 their decoded values into rows ``rows`` of ``out`` (a fresh
 ``[n, 1024]`` tensor from ``torch.empty`` when ``out`` is None).  A CUDA
 tensor goes through the hand-written kernel in ``csrc/falp.cu`` (built by
-``_build``), on PyTorch's current stream, without a synchronise; a launch
+``_build``), on the current stream of the tensors' card, without a
+synchronise; a launch
 that is refused raises.  A CPU tensor goes through the plain version
 beside it, which computes the same function with PyTorch ops: unFFOR from
 ``ops.fastlanes``, the wrapping integer product, ``.to(float)`` (round to
@@ -74,9 +75,13 @@ def _store(out, rows, vals):
         out[rows] = vals
 
 
-def _launch(name, *args):
-    status = getattr(_build.lib(), "alp_" + name)(
-        *args, torch.cuda.current_stream().cuda_stream)
+def _launch(name, device, *args):
+    """Run the C entry ``alp_<name>`` on ``device``, the card of the
+    kernel's tensors: that card is made current for the call and the
+    launch goes to its current stream, whichever card was current."""
+    with torch.cuda.device(device):
+        status = getattr(_build.lib(), "alp_" + name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
     if status:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA "
                            f"error {status}")
@@ -116,8 +121,8 @@ def _falp(packed, bw, base, fact, frac, out, rows, ftype):
     if _device_kind(packed) == "cpu":
         _store(out, rows, falp_plain(packed, bw, base, fact, frac))
         return out
-    _launch(kernel, _ptr(packed), bw, _ptr(base), _ptr(fact), _ptr(frac),
-            _ptr(rows), _ptr(out), n)
+    _launch(kernel, device, _ptr(packed), bw, _ptr(base), _ptr(fact),
+            _ptr(frac), _ptr(rows), _ptr(out), n)
     LAUNCHES[count] += 1
     return out
 
@@ -165,8 +170,8 @@ def _rd(right, rbw, left, lbw, dictionary, dict_size, out, rows):
         _store(out, rows, rd_plain(right, rbw, left, lbw, dictionary,
                                    dict_size))
         return out
-    _launch(kernel, _ptr(right), rbw, _ptr(left), lbw, _ptr(dictionary),
-            _ptr(dict_size), _ptr(rows), _ptr(out), n)
+    _launch(kernel, device, _ptr(right), rbw, _ptr(left), lbw,
+            _ptr(dictionary), _ptr(dict_size), _ptr(rows), _ptr(out), n)
     LAUNCHES[count] += 1
     return out
 

@@ -1,0 +1,96 @@
+"""The port's FFOR pack kernel: wrapper, plain PyTorch version, count.
+
+    K10 ffor_pack_f64  <- alp_tpu/kernels/falp.py _ffor_planes_call, through
+                          ffor_planes_patch_f64 (exception slots patched)
+                          and ffor_planes_f64 (no patch)
+
+``ffor_pack_f64`` FOR-subtracts and bit-packs a bucket of vectors that
+share one bit width into the FastLanes words the ALPT blob stores, in
+``ops.fastlanes.ffor_pack``'s order.  A CUDA tensor goes through the
+hand-written kernel in ``csrc/ffor.cu`` on the current stream of its
+card, without a synchronise; a CPU tensor through the plain version
+beside it: the exception patch, then ``ops.fastlanes.ffor_pack``.
+``LAUNCHES`` counts kernel launches; plain runs do not count.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.fastlanes import ffor_pack
+from .falp import VECTOR_SIZE, _check, _device_kind, _launch, _ptr
+
+LAUNCHES = {"ffor_pack_f64": 0}
+LANES = VECTOR_SIZE // 64
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def ffor_plain(values, base, bw, exc=None, fill=None, rows=None):
+    """Plain version of K10: the [m, 16 * bw] int64 words of the bucket."""
+    src = values if rows is None else values[rows]
+    if exc is not None:
+        patch = exc if rows is None else exc[rows]
+        vfill = fill if rows is None else fill[rows]
+        src = torch.where(patch, vfill[:, None], src)
+    return ffor_pack(src, base if rows is None else base[rows], bw)
+
+
+def _word_index(offsets, bw):
+    return offsets[:, None] + torch.arange(LANES * bw, device=offsets.device)
+
+
+def ffor_pack_f64(values, base, bw, *, exc=None, fill=None, rows=None,
+                  out=None, offsets=None):
+    """K10.  values: int64 [N, 1024]; base: int64 [N], each vector's FOR
+    base; bw: the bucket's bit width, 1..64; exc (bool [N, 1024]) with
+    fill (int64 [N]): exception slots read the vector's fill before the
+    subtract.  rows: int64 [m], the vectors of the bucket (all N when
+    None).  Returns the [m, 16 * bw] int64 words; or, with ``out`` (flat
+    int64) and ``offsets`` (int64 [m]), writes row r's words from
+    ``out[offsets[r]]`` and returns ``out``."""
+    n = values.shape[0]
+    device = values.device
+    _check("values", values, torch.int64, (n, VECTOR_SIZE), device)
+    _check("base", base, torch.int64, (n,), device)
+    if (exc is None) != (fill is None):
+        raise ValueError("exc and fill go together")
+    if exc is not None:
+        _check("exc", exc, torch.bool, (n, VECTOR_SIZE), device)
+        _check("fill", fill, torch.int64, (n,), device)
+    m = n if rows is None else rows.shape[0]
+    if rows is not None:
+        _check("rows", rows, torch.int64, (m,), device)
+        if m:
+            lo, hi = (int(x) for x in torch.aminmax(rows))
+            if lo < 0 or hi >= n:
+                raise ValueError("rows reach outside values")
+    if (out is None) != (offsets is None):
+        raise ValueError("out and offsets go together")
+    if out is None:
+        out = torch.empty((m, LANES * bw), dtype=torch.int64, device=device)
+    else:
+        if out.dim() != 1:
+            raise ValueError("out must be flat")
+        _check("out", out, torch.int64, out.shape, device)
+        _check("offsets", offsets, torch.int64, (m,), device)
+        if m:
+            lo, hi = (int(x) for x in torch.aminmax(offsets))
+            if lo < 0 or hi + LANES * bw > out.numel():
+                raise ValueError("offsets reach outside out")
+    if not 1 <= bw <= 64:
+        raise ValueError(f"bit width {bw} out of range 1..64")
+    if _device_kind(values) == "cpu":
+        words = ffor_plain(values, base, bw, exc, fill, rows)
+        if offsets is None:
+            out.copy_(words)
+        else:
+            out[_word_index(offsets, bw)] = words
+        return out
+    _launch("ffor_pack_f64", device, _ptr(values), _ptr(rows), _ptr(exc),
+            _ptr(fill), _ptr(base), bw, _ptr(offsets), m, _ptr(out))
+    LAUNCHES["ffor_pack_f64"] += 1
+    return out

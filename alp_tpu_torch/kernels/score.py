@@ -1,0 +1,110 @@
+"""The port's (e, f) scoring kernel: wrappers, plain PyTorch version, count.
+
+    K11 score_pairs_f64  <- alp_tpu/kernels/score.py score_pairs_f64 (both
+                            planning levels) and first_level_scores_f64
+                            (its rows layout)
+
+``score_pairs_f64(samples, ef, k_count)`` scores candidate pairs (e, f)
+on segments of 32 samples as the reference's (e, f) search does
+(encoder.hpp:139-305: encode_value<SAFE=true>, the decode compared, the
+size estimate ``32 * bits(max - min) + exceptions * 80``).  Two wrappers
+shape its input for the two planning levels:
+
+* ``first_level_scores_f64(samples [R, V, 32])``: all 190 pairs of
+  ``ops.alp.ef_pairs_arrays`` on each sampled vector, for any V;
+* ``second_level_scores_f64(strides [n, 32], combos [n, 5, 2], k_count)``:
+  each vector's candidates on its 32-value stride.
+
+A CUDA tensor goes through the hand-written kernel in ``csrc/score.cu`` on
+the current stream of its card, without a synchronise; a CPU tensor
+through the plain version beside it.  ``LAUNCHES`` counts kernel launches;
+plain runs do not count.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import constants as C
+from ..ops.alp import bit_width_of, ef_pairs_arrays
+from .encode import (INT64_MAX, INT64_MIN, check_pairs, decoded_bits,
+                     round_cast, tables)
+from .falp import _check, _device_kind, _launch, _ptr
+
+LAUNCHES = {"score_pairs_f64": 0}
+SAMPLES = C.SAMPLES_PER_VECTOR
+EXC_BITS = C.DOUBLE.exception_size + C.EXCEPTION_POSITION_SIZE
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def score_plain(samples, ef, k_count=None) -> tuple:
+    """Plain version of K11: (est, non_exc), int32 [n, C]."""
+    t = tables(samples.device)
+    e, f = ef[..., 0].to(torch.int64), ef[..., 1].to(torch.int64)
+    v = samples[:, None, :]                                   # [n, 1, 32]
+    s = (v * t.exp[e][..., None]) * t.frac[f][..., None]     # [n, C, 32]
+    sb = s.view(torch.int64)
+    impossible = (((sb & 0x7FF0000000000000) == 0x7FF0000000000000)
+                  | (s > t.upper) | (s < -t.upper) | (sb == INT64_MIN))
+    n = round_cast(s, t.magic)
+    dec = decoded_bits(n, t.fact[f][..., None], t.frac[e][..., None])
+    ok = ~impossible & (dec == v.view(torch.int64))
+    non_exc = ok.sum(dim=-1, dtype=torch.int32)
+    mx = torch.where(ok, n, INT64_MIN).amax(dim=-1)
+    mn = torch.where(ok, n, INT64_MAX).amin(dim=-1)
+    est = SAMPLES * bit_width_of(mx - mn) + (SAMPLES - non_exc) * EXC_BITS
+    if k_count is not None:
+        live = (torch.arange(ef.shape[1], device=samples.device)[None, :]
+                < k_count[:, None])
+        est, non_exc = torch.where(live, est, 0), torch.where(live, non_exc, 0)
+    return est.to(torch.int32), non_exc
+
+
+def score_pairs_f64(samples, ef, k_count=None) -> tuple:
+    """K11.  samples: float64 [n, 32], one segment per row; ef: int32
+    [n, C, 2] candidate pairs (e, f) of each segment, or [1, C, 2] shared
+    by all; k_count: int32 [n] or None, the candidates of a segment past
+    its count are not scored and read 0.  Returns (est, non_exc), int32
+    [n, C]."""
+    n = samples.shape[0]
+    device = samples.device
+    _check("samples", samples, torch.float64, (n, SAMPLES), device)
+    if ef.dim() != 3 or ef.shape[0] not in (1, n) or ef.shape[2] != 2:
+        raise ValueError(f"ef must be [n or 1, C, 2], got {tuple(ef.shape)}")
+    _check("ef", ef, torch.int32, ef.shape, device)
+    check_pairs("ef", ef)
+    n_cand = ef.shape[1]
+    if k_count is not None:
+        _check("k_count", k_count, torch.int32, (n,), device)
+    if _device_kind(samples) == "cpu":
+        return score_plain(samples, ef, k_count)
+    est = torch.empty((n, n_cand), dtype=torch.int32, device=device)
+    non_exc = torch.empty_like(est)
+    _launch("score_pairs_f64", device, _ptr(samples), _ptr(ef),
+            int(ef.shape[0] != 1), n_cand, _ptr(k_count), n,
+            *tables(device).pointers(), EXC_BITS, _ptr(est), _ptr(non_exc))
+    LAUNCHES["score_pairs_f64"] += 1
+    return est, non_exc
+
+
+def first_level_scores_f64(samples) -> tuple:
+    """samples: float64 [R, V, 32], V sampled vectors of R rowgroups.
+    Returns (est, non_exc), int32 [R, V, P] over the P pairs of
+    ``ef_pairs_arrays`` (feed ``ops.alp.first_level_vote``)."""
+    R, V, _ = samples.shape
+    es, fs = ef_pairs_arrays(C.DOUBLE)
+    pairs = torch.stack([torch.from_numpy(es), torch.from_numpy(fs)], -1)
+    est, ne = score_pairs_f64(samples.reshape(R * V, SAMPLES),
+                              pairs[None].to(samples.device))
+    return est.reshape(R, V, -1), ne.reshape(R, V, -1)
+
+
+def second_level_scores_f64(strides, combos, k_count) -> torch.Tensor:
+    """strides: float64 [n, 32], each vector's 32-value stride; combos:
+    int32 [n, 5, 2] its candidates (e, f); k_count: int32 [n], how many
+    are real.  Returns est, int32 [n, 5] (feed ``ops.alp.accept_scan``)."""
+    return score_pairs_f64(strides, combos, k_count)[0]

@@ -71,10 +71,15 @@ def _dictionary(sample_bits: np.ndarray, right_bw: int, n_samples: int):
 
 def rd_encoder_init(data: np.ndarray, offset: int,
                     tc: TypeConstants) -> RdState:
-    """rd_encoder::init (rd.hpp:180-185): sample the rowgroup, sweep the
-    cut over [1, CUTTING_LIMIT] and keep the cheapest dictionary (the
+    """rd_encoder::init (rd.hpp:180-185): sample the rowgroup, then
+    :func:`rd_state_from_sample`."""
+    return rd_state_from_sample(first_level_sample(data, offset), tc)
+
+
+def rd_state_from_sample(sample: np.ndarray, tc: TypeConstants) -> RdState:
+    """The ALP_RD state of a rowgroup from its first-level sample: sweep
+    the cut over [1, CUTTING_LIMIT] and keep the cheapest dictionary (the
     first of equal estimates, find_best_dictionary, rd.hpp:89-104)."""
-    sample = first_level_sample(data, offset)
     bits = sample.view(tc.ut)
     best = None
     for cut in range(1, C.CUTTING_LIMIT + 1):

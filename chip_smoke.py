@@ -27,17 +27,30 @@ Phases, each printing its wall time:
             input bit for bit.  ``query_mean`` on a column of the first
             97 vectors of each input must equal the exact rational mean
             rounded once.
-6. kernels  each kernel against its plain PyTorch version on the card, on
+6. dcompress  ``alp_tpu_torch.compress_device`` on the card (the device
+            compress path, its launch counts set to 0 just before and read
+            just after) of every f64 column, the bench profiles and f64
+            ALP_RD at their full 256 MiB: the blob must equal host
+            ``compress`` of the same array, and so must the blob of the
+            round trip that stays on the card,
+            ``compress_device(values=decompress(col), n_values=...)``.
+            Prints each column's device and host compress walls, K9-K11
+            launches and the bytes copied to the host.
+7. kernels  each kernel against its plain PyTorch version on the card, on
             the same plans, bit for bit (tolerance 0: the codec is
-            lossless and the SUM totals are integers).
-7. timing   CUDA-event time of each kernel at the 256 MiB shapes, beside
+            lossless and the SUM totals are integers); K9-K11 on every call
+            of a second ``compress_device`` of every f64 column.
+8. timing   CUDA-event time of each kernel at the 256 MiB shapes (K9-K11:
+            their launches as the wrappers made them, without the
+            wrappers' synchronising range checks), beside
             its bound (the bytes it must move at 3.35 TB/s, or the
             operations its function needs at the card's rate, whichever
             is larger) and the plain version's time; as yardsticks, not
             the same function, a device-to-device ``copy_`` of the decoded
             bytes (decode kernels) and ``torch.sum`` of the decoded values
-            (SUM kernels, rounded, not exact).  No PyTorch call decodes
-            ALP or sums exactly, so ``library_ms`` is null.
+            (SUM kernels, rounded, not exact), a ``copy_`` of the bytes
+            K9-K11 read.  No PyTorch call decodes, encodes, packs or
+            scores ALP or sums exactly, so ``library_ms`` is null.
 
 Then the nvidia-smi line, one JSON line with every kernel's numbers and,
 last, ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
@@ -100,7 +113,40 @@ SUM_OPS = {  # kernel -> (every value, nonzero finite value, unpack, float)
     "falp_decode_f64_exact_sum": (9, 14, 4, 2),
     "falp_decode_f32_exact_sum": (6, 11, 2, 2)}
 FP64_FLOPS_PER_S = 34e12         # H100 SXM FP64 outside the tensor cores
+FP64_LANES_PER_SM = 64           # Hopper: 4 sub-partitions x 16 FP64 lanes
 MEAN_VECTORS = 97                # query_mean columns: <= 99,328 values
+DC_TIMED = ("bench_bw11_city_temperature", "bench_bw20_food_prices",
+            "bench_bw30_bitcoin", "bench_bw42_nyc29", "bench_bw0_gov26",
+            "f64_alp_rd")          # the 256 MiB f64 columns
+# device compress kernels: launch-count key -> (source, TPU site, others)
+DC_KERNELS = {
+    "score_pairs_f64": ("alp_tpu_torch/csrc/score.cu",
+                        "alp_tpu/kernels/score.py:533",
+                        ["alp_tpu/kernels/score.py:223"]),
+    "alp_encode_f64": ("alp_tpu_torch/csrc/encode.cu",
+                       "alp_tpu/kernels/encode.py:402",
+                       ["alp_tpu/kernels/encode.py:319"]),
+    "ffor_pack_f64": ("alp_tpu_torch/csrc/ffor.cu",
+                      "alp_tpu/kernels/falp.py:2605", []),
+}
+# Operations K9-K11 need, counted from the algorithm (32-bit integer
+# operations, a 64-bit one counting two; FP64 operations, each issued
+# once).  One encode + verify of a value (K9) or a trial (K11): FP64 the
+# two products of the scale, the magic add and subtract, the two
+# compares of the cast's range test, the cast, the int -> double and
+# the product by 10^-e (9); integer the wrapping 64-bit product n * FACT
+# (3) and the 64-bit comparison of the decoded bits (2).  K9 adds the
+# special test (4), the select of the replaced value (2) and the flag
+# (1); with its stats the min and max over the non-exceptions (2 x 4),
+# the count and the first index (2).  K11 adds the two FP64 compares with
+# +-ENCODING_UPPER_LIMIT and the test of s's exponent and of -0.0 (4
+# integer), then the min, max and count of each trial (9 integer) and
+# 5 integer a (segment, pair) for the bit length and the estimate.  K10
+# a value: the patch select (2), the wrapping subtract of the base (2),
+# the mask (2) and the shifts and or into its one or two words (4).
+DC_OPS = {  # per value or trial: (FP64, integer), stats or per-pair extra
+    "alp_encode_f64": (9, 12, 10), "score_pairs_f64": (11, 18, 5),
+    "ffor_pack_f64": (0, 10, 0)}
 
 
 def phase(name: str, t0: float, detail: str = "") -> None:
@@ -251,6 +297,143 @@ def max_abs_err(a, b) -> float:
 
 
 # ---------------------------------------------------------------------------
+# device compress (K9-K11) helpers
+# ---------------------------------------------------------------------------
+
+def dc_modules():
+    from alp_tpu_torch import device_compress as dc
+    from alp_tpu_torch.kernels import encode as kenc
+    from alp_tpu_torch.kernels import ffor as kffor
+    from alp_tpu_torch.kernels import score as kscore
+    return dc, kenc, kffor, kscore
+
+
+def dc_counts() -> dict:
+    _, kenc, kffor, kscore = dc_modules()
+    return {**kscore.LAUNCHES, **kenc.LAUNCHES, **kffor.LAUNCHES}
+
+
+def dc_reset() -> None:
+    _, kenc, kffor, kscore = dc_modules()
+    for module in (kenc, kffor, kscore):
+        module.reset_launches()
+
+
+def int_err(a, b) -> float:
+    """Largest difference of two integer or boolean tensors (0.0 when
+    their bits are equal)."""
+    import torch
+    if a.shape == b.shape and torch.equal(a, b):
+        return 0.0
+    if a.shape != b.shape:
+        return float("inf")
+    return float((a.double() - b.double()).abs().max())
+
+
+def dc_plain(name, args, kwargs):
+    """The plain version's outputs of one K9-K11 wrapper call."""
+    _, kenc, kffor, kscore = dc_modules()
+    if name == "alp_encode_f64":
+        return kenc.encode_plain(*args, **kwargs)
+    if name == "score_pairs_f64":
+        return kscore.score_plain(*args, **kwargs)
+    values, base, bw = args
+    return (kffor.ffor_plain(values, base, bw, kwargs.get("exc"),
+                             kwargs.get("fill"), kwargs.get("rows")),)
+
+
+def dc_outputs(name, got, args, kwargs):
+    """The outputs of one K9-K11 wrapper call, as ``dc_plain`` gives them
+    (K10: the call's own words of a shared buffer)."""
+    _, _, kffor, _ = dc_modules()
+    if name != "ffor_pack_f64":
+        return got
+    offsets = kwargs.get("offsets")
+    return (got if offsets is None
+            else got[kffor._word_index(offsets, args[2])],)
+
+
+def record_dc_calls(run):
+    """``run()`` with K9-K11's wrappers wrapped: each call launches its
+    kernel, then the plain version runs on the same inputs and the two are
+    compared.  Returns (run's result, [(name, args, kwargs, max_abs_err,
+    launches, outputs)]): ``launches`` the (C entry, device, arguments)
+    that the wrapper passed to ``_launch`` after its checks, for timing
+    the kernel alone (the wrappers' range checks read their indices back
+    to the host), ``outputs`` kept so those arguments' buffers live."""
+    import torch
+    dc, kenc, kffor, kscore = dc_modules()
+    calls, launched = [], []
+    real = {"alp_encode_f64": kenc.alp_encode_f64,
+            "ffor_pack_f64": kffor.ffor_pack_f64,
+            "score_pairs_f64": kscore.score_pairs_f64}
+    real_launch = kenc._launch
+
+    def capture(entry, device, *args):
+        launched.append((entry, device, args))
+        return real_launch(entry, device, *args)
+
+    def wrapped(name):
+        fn = real[name]
+
+        def call(*args, **kwargs):
+            first = len(launched)
+            got = fn(*args, **kwargs)
+            mine = [t.clone() for t in dc_outputs(name, got, args, kwargs)]
+            want = dc_plain(name, args, kwargs)
+            torch.cuda.synchronize()
+            err = max(int_err(a, b) for a, b in zip(mine, want))
+            if len(mine) != len(want):
+                err = float("inf")
+            calls.append((name, args, kwargs, err, launched[first:], got))
+            return got
+        return call
+
+    dc.alp_encode_f64 = wrapped("alp_encode_f64")
+    dc.ffor_pack_f64 = wrapped("ffor_pack_f64")
+    kscore.score_pairs_f64 = wrapped("score_pairs_f64")
+    for module in (kenc, kffor, kscore):
+        module._launch = capture
+    try:
+        result = run()
+    finally:
+        dc.alp_encode_f64 = real["alp_encode_f64"]
+        dc.ffor_pack_f64 = real["ffor_pack_f64"]
+        kscore.score_pairs_f64 = real["score_pairs_f64"]
+        for module in (kenc, kffor, kscore):
+            module._launch = real_launch
+    return result, calls
+
+
+def dc_work(name, args, kwargs) -> tuple:
+    """(bytes, FP64 operations, integer operations) one K9-K11 call needs
+    on this run's inputs: every input read once, every output written
+    once, DC_OPS a value or trial (K11: only the pairs a segment scores)."""
+    fp, it, extra = DC_OPS[name]
+    if name == "alp_encode_f64":
+        n = args[0].shape[0]
+        stats = kwargs.get("stats", True)
+        vals = n * VECTOR
+        moved = vals * (8 + 8 + 1) + n * 8 + (n * 24 if stats else 0)
+        return moved, vals * fp, vals * (it + (extra if stats else 0))
+    if name == "score_pairs_f64":
+        samples, ef = args[:2]
+        k = args[2] if len(args) > 2 else kwargs.get("k_count")
+        n, cand = samples.shape[0], ef.shape[1]
+        tasks = n * cand if k is None else int(k.clamp(max=cand).sum())
+        moved = (nbytes(samples) + nbytes(ef) + n * cand * 8
+                 + (nbytes(k) if k is not None else 0))
+        return moved, tasks * 32 * fp, tasks * (32 * it + extra)
+    values, base, bw = args
+    rows, exc = kwargs.get("rows"), kwargs.get("exc") is not None
+    m = values.shape[0] if rows is None else rows.shape[0]
+    per_row = (8 + 8 * exc + 8 * (rows is not None)
+               + 8 * (kwargs.get("offsets") is not None))
+    moved = m * VECTOR * (8 + exc) + m * per_row + m * 16 * bw * 8
+    return moved, 0, m * VECTOR * it
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -267,8 +450,12 @@ def main() -> int:
         from alp_tpu_torch import engine, native
         from alp_tpu_torch.columns import (BENCH_PROFILES, route_columns,
                                            tile_column)
+        from alp_tpu_torch import device_compress as dc
         from alp_tpu_torch.kernels import _build, decode, falp
+        from alp_tpu_torch.kernels import encode as kenc
         from alp_tpu_torch.kernels import exact_sum as kes
+        from alp_tpu_torch.kernels import ffor as kffor
+        from alp_tpu_torch.kernels import score as kscore
     except ImportError as e:
         print(f"chip_smoke: alp_tpu_torch is not importable: {e}",
               file=sys.stderr)
@@ -282,10 +469,12 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_sm_mhz = float(nvidia_smi("clocks.max.sm"))
     int32_per_s = sms * INT32_LANES_PER_SM * max_sm_mhz * 1e6
+    fp64_per_s = sms * FP64_LANES_PER_SM * max_sm_mhz * 1e6
     phase("env", t0, f"device={kind!r} nvidia-smi={smi!r} "
           f"torch={torch.__version__} cuda={torch.version.cuda} "
           f"SMs={sms} max SM clock={max_sm_mhz} MHz "
-          f"INT32 issue rate={int32_per_s:.4g}/s")
+          f"INT32 issue rate={int32_per_s:.4g}/s "
+          f"FP64 issue rate={fp64_per_s:.4g}/s")
 
     # 2. build
     t0 = time.perf_counter()
@@ -421,9 +610,61 @@ def main() -> int:
     phase("sum", t0, f"math.fsum references {ref_s:.3f}s, SUM path "
           f"{sum_s:.3f}s launches={sum_launches}")
 
-    # 6. kernels vs plain versions, on the card, same plans
+    # 6. dcompress: the device compress path, through the public entry
     t0 = time.perf_counter()
-    errors = {k: 0.0 for k in (*KERNELS, *SUM_KERNELS)}
+    f64_names = [name for name, (col, _) in columns.items()
+                 if col.dtype == np.float64]
+    host_blobs = {}
+    torch.cuda.synchronize()
+    dc_reset()
+    dc.reset_to_host()
+    tp = time.perf_counter()
+    for name in f64_names:
+        x = columns[name][1]
+        th = time.perf_counter()
+        want = alp_tpu_torch.compress(x)
+        host_s = time.perf_counter() - th
+        blob = want.to_bytes()
+        host_blobs[name] = blob
+        before, copied = dc_counts(), dc.TO_HOST["bytes"]
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        got = alp_tpu_torch.compress_device(x)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - tw
+        if got.to_bytes() != blob:
+            raise RuntimeError(f"{name}: compress_device blob differs from "
+                               f"host compress")
+        moved = {k: v - before[k] for k, v in dc_counts().items()}
+        copied = dc.TO_HOST["bytes"] - copied
+        decoded = alp_tpu_torch.decompress(want)
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        again = alp_tpu_torch.compress_device(values=decoded,
+                                              n_values=want.n_values)
+        torch.cuda.synchronize()
+        trip_s = time.perf_counter() - tw
+        if again.to_bytes() != blob:
+            raise RuntimeError(f"{name}: compress_device(values=decompress"
+                               f"(col)) blob differs from host compress")
+        del decoded
+        print(f"  {name}: {want.n_values} values, blob {len(blob)} bytes "
+              f"== host compress; device compress wall {dev_s:.4f} s "
+              f"(host compress {host_s:.4f} s), launches={moved}, "
+              f"{copied} bytes to the host; round trip from decompress "
+              f"{trip_s:.4f} s, same bytes", flush=True)
+    dc_launches = dc_counts()
+    dc_s = time.perf_counter() - tp
+    for k, v in dc_launches.items():
+        if v == 0:
+            raise RuntimeError(f"kernel {k} was not launched on the device "
+                               f"compress path")
+    phase("dcompress", t0, f"device compress path {dc_s:.3f}s "
+          f"launches={dc_launches} (two compress_device calls a column)")
+
+    # 7. kernels vs plain versions, on the card, same plans
+    t0 = time.perf_counter()
+    errors = {k: 0.0 for k in (*KERNELS, *SUM_KERNELS, *DC_KERNELS)}
     plans = {}
     for name, (col, _) in columns.items():
         plan = decode.build_plan(col, dev)
@@ -453,10 +694,25 @@ def main() -> int:
                 raise RuntimeError(f"{name}: {call.kernel} totals "
                                    f"{got.tolist()} != plain "
                                    f"{want.tolist()}")
+    dc_calls = {}
+    for name in f64_names:
+        got, calls = record_dc_calls(
+            lambda: alp_tpu_torch.compress_device(columns[name][1]))
+        if got.to_bytes() != host_blobs[name]:
+            raise RuntimeError(f"{name}: compress_device blob differs")
+        for k, _, _, err, _, _ in calls:
+            errors[k] = max(errors[k], err)
+            if err != 0.0:
+                raise RuntimeError(f"{name}: {k} differs from its plain "
+                                   f"version (max abs err {err})")
+        if name in DC_TIMED:
+            dc_calls[name] = calls
+        print(f"  {name}: {len(calls)} K9-K11 calls == plain", flush=True)
     phase("kernels", t0, "every bucket of every column: kernel bits == "
-          "plain bits, SUM totals == plain totals (tolerance 0)")
+          "plain bits, SUM totals == plain totals, every K9-K11 call of "
+          "compress_device == plain (tolerance 0)")
 
-    # 7. timing at the 256 MiB shapes
+    # 8. timing at the 256 MiB shapes
     t0 = time.perf_counter()
     timed = {"falp_decode_f64": list(BENCH_PROFILES),
              "falp_decode_f32": ["f32_alp"],
@@ -564,6 +820,61 @@ def main() -> int:
                          "sums exactly)",
             "timed_on": names,
         })
+    for k, (src, site, others) in DC_KERNELS.items():
+        ms, plain_ms, bound_ms, copy_ms, b_by_bytes, b_by_ops = ([] for _ in
+                                                                  range(6))
+        per_col = []
+        for name in DC_TIMED:
+            mine = [c for c in dc_calls[name] if c[0] == k]
+            if not mine:      # bw 0 packs nothing; ALP_RD encodes nothing
+                print(f"  {k} on {name}: no launch", flush=True)
+                continue
+            kernels = [ln for c in mine for ln in c[4]]
+            t_k = cuda_ms(lambda: [falp._launch(e, d, *a)
+                                   for e, d, a in kernels], 10)
+            t_p = cuda_ms(lambda: [dc_plain(k, c[1], c[2]) for c in mine],
+                          2)
+            src_t = mine[0][1][0]
+            dst = torch.empty_like(src_t)
+            t_c = cuda_ms(lambda: dst.copy_(src_t), 10)
+            work = [dc_work(k, c[1], c[2]) for c in mine]
+            moved = sum(w[0] for w in work)
+            fp_ops = sum(w[1] for w in work)
+            int_ops = sum(w[2] for w in work)
+            b_bytes = moved / HBM_BYTES_PER_S * 1e3
+            b_ops = max(fp_ops / fp64_per_s, int_ops / int32_per_s) * 1e3
+            ms.append(t_k)
+            plain_ms.append(t_p)
+            bound_ms.append(max(b_bytes, b_ops))
+            copy_ms.append(t_c)
+            b_by_bytes.append(b_bytes)
+            b_by_ops.append(b_ops)
+            per_col.append(len(kernels))
+            print(f"  {k} on {name}: {len(kernels)} launches/compress, "
+                  f"{moved} "
+                  f"bytes, {fp_ops} FP64 ops, {int_ops} int ops, kernel "
+                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+                  f"{max(b_bytes, b_ops):.4f} ms (bytes {b_bytes:.4f} ms, "
+                  f"operations {b_ops:.4f} ms), share "
+                  f"{max(b_bytes, b_ops) / t_k:.1%}, copy_ {t_c:.4f} ms",
+                  flush=True)
+            del dst
+        by = "bytes" if sum(b_by_bytes) >= sum(b_by_ops) else "operations"
+        rows.append({
+            "name": k, "route": "cuda", "source": src, "replaces": site,
+            "also_replaces": others, "launches": dc_launches[k],
+            "launches_per_column": per_col, "max_abs_err": errors[k],
+            "ms": float(np.mean(ms)), "plain_ms": float(np.mean(plain_ms)),
+            "bound_ms": float(np.mean(bound_ms)), "bound_by": by,
+            "library_ms": None,
+            "yardstick_ms": float(np.mean(copy_ms)),
+            "yardstick": "Tensor.copy_ of the first call's main input (not "
+                         "the same function: no PyTorch call encodes, "
+                         "packs or scores ALP)",
+            "timed_on": [n for n in DC_TIMED
+                         if any(c[0] == k for c in dc_calls[n])],
+        })
+    del dc_calls
     phase("timing", t0)
     phase("total", t_all)
 

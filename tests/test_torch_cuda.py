@@ -2,7 +2,9 @@
 
 Each kernel is held against its plain PyTorch version on the same plan
 buckets, bit for bit (the SUM kernels' integer totals exactly), the whole
-decode against the input, and ``query_sum`` against ``math.fsum``.  This file
+decode against the input, ``query_sum`` against ``math.fsum``, and the
+device compress kernels K9-K11 against their plain versions and
+``compress_device``'s blob against host compress's.  This file
 imports neither JAX nor ``alp_tpu``, so it runs on a machine with a card
 and no JAX:
 
@@ -25,7 +27,10 @@ from alp_tpu_torch import constants as C
 from alp_tpu_torch import engine
 from alp_tpu_torch.columns import route_columns
 from alp_tpu_torch.kernels import decode, falp
+from alp_tpu_torch.kernels import encode as kenc
 from alp_tpu_torch.kernels import exact_sum as kes
+from alp_tpu_torch.kernels import ffor as kffor
+from alp_tpu_torch.kernels import score as kscore
 
 pytestmark = pytest.mark.cuda
 COLUMNS = route_columns(np.random.default_rng(5),
@@ -81,12 +86,22 @@ def test_decode_on_card_equals_input(name, cuda):
 
 
 def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
-    def refuse(*args):
+    def refuse(*args, **kwargs):
         raise AssertionError("plain version called for a CUDA tensor")
     monkeypatch.setattr(falp, "falp_plain", refuse)
     monkeypatch.setattr(falp, "rd_plain", refuse)
-    col = alp_tpu_torch.compress(COLUMNS["f64_mixed_alp_rd"])
+    monkeypatch.setattr(kenc, "encode_plain", refuse)
+    monkeypatch.setattr(kffor, "ffor_plain", refuse)
+    monkeypatch.setattr(kscore, "score_plain", refuse)
+    x = COLUMNS["f64_mixed_alp_rd"]
+    col = alp_tpu_torch.compress(x)
     alp_tpu_torch.decompress(col)
+    for reset in (kenc.reset_launches, kffor.reset_launches,
+                  kscore.reset_launches):
+        reset()
+    assert alp_tpu_torch.compress_device(x).to_bytes() == col.to_bytes()
+    for launches in (kenc.LAUNCHES, kffor.LAUNCHES, kscore.LAUNCHES):
+        assert all(launches.values()), launches
     torch.cuda.synchronize()
 
 
@@ -208,3 +223,128 @@ def test_sum_kernels_refuse_cpu_out_for_cuda_input(cuda):
     with pytest.raises(ValueError):
         kes.exact_sum_f64(bits, vec, 2048,
                           out=torch.zeros(69, dtype=torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# device compress: K9-K11 and compress_device
+# ---------------------------------------------------------------------------
+
+F64 = sorted(name for name, x in COLUMNS.items() if x.dtype == np.float64)
+
+
+def _encode_case(rng, n=64):
+    vals = np.round(rng.uniform(-500, 500, (n, 1024)), 2)
+    vals[1] = rng.standard_normal(1024) * 1e6
+    vals[2, :6] = [np.nan, -np.inf, np.inf, -0.0, 0.0, 1e308]
+    vals[3] = np.nan
+    vals[4, 10:20] = [5e-324, -1e-310, 2.0**53, -(2.0**55), 2.0**60, 1e18,
+                      -1e17, 9.2e18, -9.3e18, 2.0**-1074]
+    e = rng.integers(0, 19, n).astype(np.int32)
+    f = np.minimum(rng.integers(0, 19, n), e).astype(np.int32)
+    return (torch.from_numpy(vals), torch.from_numpy(e),
+            torch.from_numpy(f))
+
+
+@pytest.mark.parametrize("stats", [True, False])
+def test_k9_equals_its_plain_version(cuda, stats):
+    vals, e, f = _encode_case(np.random.default_rng(1))
+    before = kenc.LAUNCHES["alp_encode_f64"]
+    got = kenc.alp_encode_f64(vals.to(cuda), e.to(cuda), f.to(cuda),
+                              stats=stats)
+    assert kenc.LAUNCHES["alp_encode_f64"] == before + 1
+    want = kenc.encode_plain(vals, e, f, stats)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("bw", [1, 7, 31, 32, 33, 52, 63, 64])
+def test_k10_equals_its_plain_version(cuda, bw):
+    rng = np.random.default_rng(bw)
+    t = torch.from_numpy
+    ints = t(rng.integers(-2**63, 2**63, (40, 1024), dtype=np.int64))
+    base = t(rng.integers(-2**63, 2**63, 40, dtype=np.int64))
+    exc = t(rng.random((40, 1024)) < 0.05)
+    fill = t(rng.integers(-2**40, 2**40, 40, dtype=np.int64))
+    rows = t(np.array([3, 39, 0, 17]))
+    for kw in ({}, {"exc": exc, "fill": fill}, {"rows": rows}):
+        dev = {k: v.to(cuda) for k, v in kw.items()}
+        got = kffor.ffor_pack_f64(ints.to(cuda), base.to(cuda), bw, **dev)
+        want = kffor.ffor_plain(ints, base, bw, kw.get("exc"),
+                                kw.get("fill"), kw.get("rows"))
+        assert torch.equal(got.cpu(), want), kw
+    out = torch.zeros(4 * 16 * bw + 5, dtype=torch.int64, device=cuda)
+    offsets = t(np.array([5, 5 + 48 * bw, 5 + 16 * bw, 5 + 32 * bw]))
+    kffor.ffor_pack_f64(ints.to(cuda), base.to(cuda), bw, rows=rows.to(cuda),
+                        out=out, offsets=offsets.to(cuda))
+    want = kffor.ffor_plain(ints, base, bw, rows=rows)
+    for r, o in enumerate(offsets.tolist()):
+        assert torch.equal(out[o:o + 16 * bw].cpu(), want[r])
+
+
+def test_k11_equals_its_plain_version(cuda):
+    rng = np.random.default_rng(2)
+    x = np.round(rng.uniform(-100, 100, (3, 9, 32)), 2)
+    x[0, 0, :6] = [np.nan, np.inf, -np.inf, -0.0, 5e-324, -(2.0**63)]
+    x[1, 1] = np.nan
+    x[2] = rng.standard_normal((9, 32)) * 1e12
+    samples = torch.from_numpy(x)
+    got = kscore.first_level_scores_f64(samples.to(cuda))
+    want = kscore.first_level_scores_f64(samples)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    strides = samples.reshape(-1, 32)
+    n = strides.shape[0]
+    e = rng.integers(0, 19, (n, 5))
+    combos = torch.from_numpy(np.stack(
+        [e, rng.integers(0, 19, (n, 5)) % (e + 1)], -1).astype(np.int32))
+    k = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32))
+    got = kscore.second_level_scores_f64(strides.to(cuda), combos.to(cuda),
+                                         k.to(cuda))
+    assert torch.equal(got.cpu(),
+                       kscore.second_level_scores_f64(strides, combos, k))
+
+
+@pytest.mark.parametrize("name", F64)
+def test_compress_device_equals_host_compress(name, cuda):
+    x = COLUMNS[name]
+    want = alp_tpu_torch.compress(x)
+    assert alp_tpu_torch.compress_device(x).to_bytes() == want.to_bytes()
+    assert alp_tpu_torch.compress(x, device=True).to_bytes() == \
+        want.to_bytes()
+    decoded = alp_tpu_torch.decompress(want)
+    got = alp_tpu_torch.compress_device(values=decoded,
+                                        n_values=want.n_values)
+    assert got.to_bytes() == want.to_bytes()
+
+
+def test_sum_in_runs_on_the_card(cuda):
+    x = COLUMNS["f64_mixed_alp_rd"]
+    plan = alp_tpu_torch.compress(x).plan(cuda)
+    whole = engine.exact_sum_totals(plan)
+    runs = engine.exact_sum_totals(plan, run_values=7 * 1024 + 1)
+    assert runs.shape[0] > 1
+    assert engine.join_totals(runs.tolist(), x.dtype) == \
+        engine.join_totals(whole.tolist(), x.dtype)
+
+
+def test_work_runs_on_the_tensors_card():
+    """Decode, SUM and device compress on card 1 while card 0 is
+    current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    x = COLUMNS["f64_mixed_alp_rd"]
+    col = alp_tpu_torch.compress(x)
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        out = alp_tpu_torch.decompress(col, other)
+        assert out.device == other
+        assert np.array_equal(out.cpu().numpy().view(np.uint64),
+                              x.view(np.uint64))
+        assert _same(alp_tpu_torch.query_sum(col, other), _fsum(x))
+        assert alp_tpu_torch.compress_device(x, device=other).to_bytes() \
+            == col.to_bytes()
+        got = alp_tpu_torch.compress_device(values=out,
+                                            n_values=col.n_values)
+        assert got.to_bytes() == col.to_bytes()
+        assert torch.cuda.current_device() == 0

@@ -24,6 +24,7 @@ from alp_tpu import engine as jengine
 
 import alp_tpu_torch
 from alp_tpu_torch import engine
+from alp_tpu_torch.kernels import exact_sum as kes
 
 
 def _same(a: float, b: float) -> bool:
@@ -202,7 +203,10 @@ def test_default_device_needs_a_card(monkeypatch):
 
 
 def test_too_many_values_raise():
-    col = alp_tpu_torch.compress(np.linspace(0, 1, 3000))
-    col.n_values = 1 << 31
+    """One kernel call sums fewer than 2^31 values: more could overflow
+    its int64 totals.  A column of more is summed in runs, each into its
+    own total (tests/test_torch_exact_sum.py::
+    test_sum_in_runs_equals_one_total)."""
     with pytest.raises(ValueError, match="2\\^31"):
-        alp_tpu_torch.query_sum(col, device="cpu")
+        kes._check_size(1 << 21, 1 << 31)
+    kes._check_size((1 << 21) - 1, 1 << 40)

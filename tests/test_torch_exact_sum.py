@@ -118,7 +118,7 @@ def test_fused_k7_k8_equal_k5_k6_over_the_decode(name):
         assert torch.equal(got, want), (name, b.bw)
     # and the whole column: the SUM path equals K5/K6 over the decode
     want = summed(decoded, torch.arange(col.n_vectors), col.n_values)
-    assert torch.equal(engine.exact_sum_totals(plan), want), name
+    assert torch.equal(engine.exact_sum_totals(plan), want[None]), name
 
 
 @pytest.mark.parametrize("name", sorted(COLUMNS))
@@ -135,7 +135,7 @@ def test_sum_calls_cover_every_vector_once(name):
     for c in calls:
         c.launch(out)
     assert torch.equal(out, sum(c.plain() for c in calls))
-    assert torch.equal(out, engine.exact_sum_totals(plan))
+    assert torch.equal(out[None], engine.exact_sum_totals(plan))
 
 
 def test_plan_csr_and_rd_scratch():
@@ -182,9 +182,54 @@ def test_wrappers_check_their_arguments():
     with pytest.raises(ValueError):
         kes.exact_sum_f64(rows[:, :512], vec, 10)
     with pytest.raises(ValueError):
-        kes.exact_sum_f64(rows, vec, 1 << 31)
+        kes.exact_sum_f64(rows, vec, -1)
     with pytest.raises(ValueError):
         kes.exact_sum_f64(rows, vec, 10, out=torch.zeros(12,
                                                          dtype=torch.int64))
     with pytest.raises(TypeError):
         kes.exact_sum_f64(rows, vec.to(torch.int32), 10)
+
+
+def _run_cases() -> dict:
+    rng = np.random.default_rng(41)
+    cases = dict(COLUMNS)
+    special = np.round(rng.uniform(-9, 9, 5000), 2)
+    special[[3, 1100, 2500, 4999]] = [np.nan, np.inf, -np.inf, -0.0]
+    cases["specials_tail"] = special
+    cases["subnormals"] = np.where(rng.random(4096) < 0.5, 5e-324,
+                                   rng.standard_normal(4096) * 1e300)
+    cases["one_value"] = np.array([0.1])
+    return cases
+
+
+RUN_CASES = _run_cases()
+
+
+@pytest.mark.parametrize("run_values", [1025, 3 * 1024 + 1])
+@pytest.mark.parametrize("name", sorted(RUN_CASES))
+def test_sum_in_runs_equals_one_total(name, run_values):
+    """A column summed in runs of fewer than ``run_values`` values, each
+    into its own int64 total, joins to the single total bit for bit (a
+    column of 2^31 values or more is summed so)."""
+    x = RUN_CASES[name]
+    col = alp_tpu_torch.compress(x)
+    plan = col.plan("cpu")
+    whole = engine.exact_sum_totals(plan)
+    runs = engine.exact_sum_totals(plan, run_values=run_values)
+    max_rows = (run_values - 1) // 1024
+    assert whole.shape[0] == 1
+    assert runs.shape[0] >= -(-col.n_vectors // max_rows)
+    assert torch.equal(runs.sum(dim=0), whole[0])
+    joined = engine.join_totals(runs.tolist(), x.dtype)
+    assert joined == engine.join_totals(whole.tolist(), x.dtype)
+    assert joined == engine.join_totals(whole[0].tolist(), x.dtype)
+
+
+def test_sum_call_split_keeps_rows_and_totals():
+    col = alp_tpu_torch.compress(COLUMNS["f64_mixed_alp_rd"])
+    plan = col.plan("cpu")
+    for call in engine.sum_calls(plan):
+        parts = call.split(7)
+        assert all(p.rows.shape[0] <= 7 for p in parts)
+        assert torch.equal(torch.cat([p.rows for p in parts]), call.rows)
+        assert torch.equal(sum(p.plain() for p in parts), call.plain())

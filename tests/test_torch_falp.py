@@ -211,3 +211,36 @@ def test_rd_wrapper_dtype_checked():
                                 48, torch.zeros((1, 64), dtype=torch.int16),
                                 1, torch.zeros((1, 8), dtype=torch.int16),
                                 torch.ones(1, dtype=torch.int32))
+
+
+def test_launch_runs_on_the_tensors_card(monkeypatch):
+    """A kernel launches with its tensors' card current and on that card's
+    stream, whichever card is current (no card is needed: the CUDA calls
+    are stood in for)."""
+    seen = []
+
+    class Device:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            seen.append(("current", self.device))
+
+        def __exit__(self, *exc):
+            seen.append(("restored", self.device))
+
+    class Stream:
+        def __init__(self, device):
+            self.cuda_stream = 1000 + torch.device(device).index
+
+    class Lib:
+        def alp_falp_f64(self, *args):
+            seen.append(("launch", args[-1]))
+            return 0
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    monkeypatch.setattr(falp._build, "lib", Lib)
+    falp._launch("falp_f64", torch.device("cuda", 1), 1, 2)
+    assert seen == [("current", torch.device("cuda", 1)), ("launch", 1001),
+                    ("restored", torch.device("cuda", 1))]
