@@ -260,8 +260,8 @@ def compress(data: np.ndarray, device=False) -> CompressedColumn:
     """Compress a 1-D float64/float32 array (adaptive ALP / ALP_RD per
     rowgroup): on the host by default; with ``device`` (``True`` for
     ``"cuda"``, or a device such as ``"cuda:1"``) through
-    ``device_compress.compress_device`` on that device, float64 only.
-    Both give the same blob."""
+    ``device_compress.compress_device`` on that device.  Both give the
+    same blob."""
     if device is not False:
         from .device_compress import compress_device
         return compress_device(data, device=None if device is True

@@ -1,29 +1,36 @@
-// Hand-written Hopper (sm_90a) FFOR pack kernel of alp_tpu_torch.
+// Hand-written Hopper (sm_90a) FFOR pack kernels of alp_tpu_torch.
 //
 //   K10 alp_ffor_pack_f64  replaces _ffor_planes_call
 //                          (alp_tpu/kernels/falp.py:2605), reached through
 //                          ffor_planes_patch_f64 (:2582; exception slots
 //                          take the vector's fill) and ffor_planes_f64
 //                          (:2575; no patch).
+//   K13 alp_ffor_pack_f32  replaces ffor_tile (:2635, body _ffor_kernel
+//                          :2482) at element_bits=32, which the f32 device
+//                          compress calls for the ALP vectors and the
+//                          ALP_RD right parts (at 64 bits ffor_tile is
+//                          K10's function).
 //
-// What it computes.  For each row r of a bucket that shares the bit width
-// bw (1..64, at run time): the source vector v = rows[r] of `in` [N, 1024]
-// (int64; v = r when rows is null), its exception slots replaced by
-// fill[v] when a mask is given, minus base[v] (wrapping, modulo 2^64),
-// reduced to the low bw bits and bit-packed in the FastLanes layout the
-// ALPT blob stores (16 lanes, value k in lane k % 16 at slot k / 16, word w
-// of lane i at w * 16 + i): 16 * bw words written from out[offsets[r]]
-// (r * 16 * bw when offsets is null), so every bucket of a column writes
-// into one flat buffer in the blob's vector order.  The word formula is
-// fastlanes.cuh's pack_word, the inverse of the unpack K1 decodes with:
-// both place slot s of a lane with the same slot_pos.
+// What they compute.  For each row r of a bucket that shares the bit
+// width bw (1..S, at run time; S = 64 for K10, 32 for K13): the source
+// vector v = rows[r] of `in` [N, 1024] (int64 / int32; v = r when rows is
+// null), its exception slots replaced by fill[v] when a mask is given,
+// minus base[v] (wrapping, modulo 2^S), reduced to the low bw bits and
+// bit-packed in the FastLanes layout the ALPT blob stores (L = 1024 / S
+// lanes, value k in lane k % L at slot k / L, word w of lane i at
+// w * L + i): L * bw words written from out[offsets[r]] (r * L * bw when
+// offsets is null), so every bucket of a column writes into one flat
+// buffer in the blob's vector order.  The word formula is fastlanes.cuh's
+// pack_word, the inverse of the unpack K1/K2 decode with: both place slot
+// s of a lane with the same slot_pos.  One template serves both widths.
 //
-// Bound.  Per value it reads 8 bytes of n and 1 byte of mask and writes
-// bw / 8 bytes: bytes, ~0.10 ms for a 256 MiB column at 3.35 TB/s.  One
-// block of 256 threads per row: the row's 1024 patched, rebased, masked
-// values go to shared memory with contiguous loads, then thread j writes
-// words j, j + 256, ... of the row, so the stores of a warp are contiguous
-// and each word reads the one or few slots that meet it from shared memory.
+// Bound.  Per value K10 reads 8 bytes of n and 1 byte of mask and writes
+// bw / 8 bytes, K13 4 + 1 and bw / 8: bytes, ~0.10 / ~0.07 ms for a
+// 256 MiB column at 3.35 TB/s.  One block of 256 threads per row: the
+// row's 1024 patched, rebased, masked values go to shared memory with
+// contiguous loads, then thread j writes words j, j + 256, ... of the row,
+// so the stores of a warp are contiguous and each word reads the one or
+// few slots that meet it from shared memory.
 
 #include <climits>
 #include <cstdint>
@@ -35,31 +42,46 @@ namespace {
 
 using alp::kVector;
 constexpr int kThreads = 256;
-constexpr int kLanes = kVector / 64;
 
+template <typename W, int S>
 __global__ void __launch_bounds__(kThreads)
-ffor_kernel(const uint64_t* __restrict__ in,
-            const long long* __restrict__ rows,
+ffor_kernel(const W* __restrict__ in, const long long* __restrict__ rows,
             const unsigned char* __restrict__ exc,
-            const uint64_t* __restrict__ fill,
-            const uint64_t* __restrict__ base, int bw,
-            const long long* __restrict__ offsets,
-            uint64_t* __restrict__ out) {
-  __shared__ uint64_t delta[kVector];
+            const W* __restrict__ fill, const W* __restrict__ base, int bw,
+            const long long* __restrict__ offsets, W* __restrict__ out) {
+  constexpr int kLanes = kVector / S;
+  __shared__ W delta[kVector];
   const long long r = blockIdx.x;
   const long long v = rows ? rows[r] : r;
-  const uint64_t b = base[v];
-  const uint64_t mask = bw >= 64 ? ~0ull : (1ull << bw) - 1ull;
-  const uint64_t fl = exc ? fill[v] : 0ull;
+  const W b = base[v];
+  const W mask = bw >= S ? static_cast<W>(~W(0))
+                         : static_cast<W>((W(1) << bw) - W(1));
+  const W fl = exc ? fill[v] : W(0);
   for (int k = threadIdx.x; k < kVector; k += kThreads) {
     const long long i = v * kVector + k;
-    const uint64_t x = (exc && exc[i]) ? fl : in[i];
-    delta[k] = (x - b) & mask;
+    const W x = (exc && exc[i]) ? fl : in[i];
+    delta[k] = static_cast<W>(x - b) & mask;
   }
   __syncthreads();
-  uint64_t* dst = out + (offsets ? offsets[r] : r * kLanes * bw);
+  W* dst = out + (offsets ? offsets[r] : r * kLanes * bw);
   for (int j = threadIdx.x; j < kLanes * bw; j += kThreads)
-    dst[j] = alp::pack_word<uint64_t, 64>(delta, bw, j / kLanes, j % kLanes);
+    dst[j] = alp::pack_word<W, S>(delta, bw, j / kLanes, j % kLanes);
+}
+
+template <typename W, int S>
+int launch(const void* in, const void* rows, const void* exc,
+           const void* fill, const void* base, int bw, const void* offsets,
+           long long m, void* out, void* stream) {
+  if (m < 0 || m > INT_MAX || bw < 1 || bw > S)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m)
+    ffor_kernel<W, S><<<static_cast<unsigned>(m), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const W*>(in), static_cast<const long long*>(rows),
+        static_cast<const unsigned char*>(exc), static_cast<const W*>(fill),
+        static_cast<const W*>(base), bw,
+        static_cast<const long long*>(offsets), static_cast<W*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -73,17 +95,17 @@ extern "C" int alp_ffor_pack_f64(const void* in, const void* rows,
                                  const void* base, int bw,
                                  const void* offsets, long long m, void* out,
                                  void* stream) {
-  if (m < 0 || m > INT_MAX || bw < 1 || bw > 64)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (m)
-    ffor_kernel<<<static_cast<unsigned>(m), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint64_t*>(in),
-        static_cast<const long long*>(rows),
-        static_cast<const unsigned char*>(exc),
-        static_cast<const uint64_t*>(fill),
-        static_cast<const uint64_t*>(base), bw,
-        static_cast<const long long*>(offsets),
-        static_cast<uint64_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch<uint64_t, 64>(in, rows, exc, fill, base, bw, offsets, m, out,
+                              stream);
+}
+
+// The 32-bit twin: in, fill, base and out int32, bw in 1..32; rows and
+// offsets int64.
+extern "C" int alp_ffor_pack_f32(const void* in, const void* rows,
+                                 const void* exc, const void* fill,
+                                 const void* base, int bw,
+                                 const void* offsets, long long m, void* out,
+                                 void* stream) {
+  return launch<uint32_t, 32>(in, rows, exc, fill, base, bw, offsets, m, out,
+                              stream);
 }

@@ -1,4 +1,5 @@
-"""Device compression of float64 columns: planning, encode and pack on a card.
+"""Device compression of float64 and float32 columns: planning, encode and
+pack on a card.
 
 Counterpart of ``alp_tpu/device_compress.py:compress_device`` (and of
 ``alp_tpu.container.compress(..., device=True)``).  The column is staged
@@ -8,28 +9,33 @@ rowgroups, the per-vector metadata, the packed words and the exceptions
 cross to the host.  The blob equals host compress's byte for byte
 (``container.compress``, itself equal to the JAX package's).
 
+The two precisions share every step; the kernels named are f64's, with
+f32's in brackets.
+
 1. Planning, every rowgroup on the device (the tail rowgroup too: its
    vectors are whole once the last one is padded, so the sampler takes
-   the same 32-value strides from it).  K11 scores the 190 (e, f) pairs on
-   each sampled vector; ``ops.alp.first_level_vote`` picks each rowgroup's
-   scheme and top-k pairs; for ALP rowgroups with k > 1, K11 scores the k
-   pairs on every vector's stride and ``ops.alp.accept_scan`` picks its
-   pair.  ALP_RD rowgroups build their dictionary on the host from their
-   samples (``oracle.rd``).
-2. Encode: K9 encodes every vector with its pair and reduces the stats
-   that ``finalize_encode_stats`` turns into bit width, base, enc_max,
-   exception count and fill.
-3. Pack: K10 packs each bit width's vectors into one flat buffer in the
-   blob's vector order, exception slots patched with the fill; ALP_RD
+   the same 32-value strides from it).  K11 (K14) scores the 190 (66)
+   (e, f) pairs on each sampled vector; ``ops.alp.first_level_vote`` picks
+   each rowgroup's scheme and top-k pairs; for ALP rowgroups with k > 1,
+   K11 (K14) scores the k pairs on every vector's stride and
+   ``ops.alp.accept_scan`` picks its pair.  ALP_RD rowgroups build their
+   dictionary on the host from their samples (``oracle.rd``).
+2. Encode: K9 (K12) encodes every vector with its pair and reduces the
+   stats that ``finalize_encode_stats`` turns into bit width, base,
+   enc_max, exception count and fill.
+3. Pack: K10 (K13) packs each bit width's vectors into one flat buffer in
+   the blob's vector order, exception slots patched with the fill; ALP_RD
    vectors are split and looked up with ``ops.rd.rd_encode_vectors``, their
-   right parts packed by K10 at base 0 and their left indexes by
+   right parts packed by K10 (K13) at base 0 and their left indexes by
    ``ops.fastlanes.ffor_pack``.
 4. The host assembles the ``CompressedColumn``.
 
 Unlike the JAX package there is no host re-plan or re-encode of "rare"
-vectors: Hopper's FP64 computes subnormals and |x| in [2^52, 2^104)
-exactly (``csrc/encode.cuh``).  ``device="cpu"`` runs every kernel's plain
-version.
+vectors or rowgroups, and no host planning of the tail: Hopper's FP64 and
+FP32 compute subnormals, and FP64 |x| in [2^52, 2^104), exactly
+(``csrc/encode.cuh``).  The f32 search follows the host engine, not the
+JAX package's TPU scorer, on -0.0 samples (``kernels.score``).
+``device="cpu"`` runs every kernel's plain version.
 """
 
 from __future__ import annotations
@@ -42,9 +48,10 @@ import torch
 from . import constants as C
 from .container import CompressedColumn, _pad_to_vectors
 from .kernels.decode import resolve_device
-from .kernels.encode import alp_encode_f64
-from .kernels.ffor import LANES, ffor_pack_f64
-from .kernels.score import first_level_scores_f64, second_level_scores_f64
+from .kernels.encode import alp_encode_f32, alp_encode_f64
+from .kernels.ffor import ffor_pack_f32, ffor_pack_f64
+from .kernels.score import (first_level_scores_f32, first_level_scores_f64,
+                            second_level_scores_f32, second_level_scores_f64)
 from .ops import fastlanes as fl
 from .ops.alp import accept_scan, bit_width_of, first_level_vote
 from .ops.rd import rd_encode_vectors
@@ -68,27 +75,24 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _f64_only(dtype) -> None:
-    if dtype in (np.float32, torch.float32):
-        raise NotImplementedError(
-            "device compress of float32 columns is not ported yet "
-            "(ROADMAP.md, item 6b); compress(data) runs on the host")
-    if dtype not in (np.float64, torch.float64):
-        raise TypeError(f"device compress takes float64, got {dtype}")
+def _float_only(dtype) -> None:
+    if dtype not in (np.float64, np.float32, torch.float64, torch.float32):
+        raise TypeError(f"device compress takes float64 or float32, got "
+                        f"{dtype}")
 
 
 def _stage(data, values, n_values, device) -> tuple:
-    """([n_vec, 1024] float64 on the device, n_values)."""
+    """([n_vec, 1024] float64 or float32 on the device, n_values)."""
     if (data is None) == (values is None):
         raise ValueError("pass data or values")
     if data is not None:
         data = np.ascontiguousarray(data)
-        _f64_only(data.dtype)
+        _float_only(data.dtype)
         if data.ndim != 1:
             raise ValueError("data must be 1-D")
         vectors, _ = _pad_to_vectors(data)
         return torch.from_numpy(vectors).to(resolve_device(device)), len(data)
-    _f64_only(values.dtype)
+    _float_only(values.dtype)
     if device is not None:
         want = resolve_device(device)
         if want.type != values.device.type or want.index not in (
@@ -129,26 +133,29 @@ def _first_level(strides, n_vec: int, tc) -> tuple:
                       + _sampled_vectors(RG)[None, :])
     if n_vec % RG:
         groups.append(n_full * RG + _sampled_vectors(n_vec % RG)[None, :])
+    score = (first_level_scores_f64 if tc is C.DOUBLE
+             else first_level_scores_f32)
     parts = []
     for ids in groups:
-        est, ne = first_level_scores_f64(
-            strides[torch.from_numpy(ids).to(strides.device)])
+        est, ne = score(strides[torch.from_numpy(ids).to(strides.device)])
         parts.append(first_level_vote(est, ne, SAMPLES, tc))
     combos, k, is_rd = (torch.cat(x) for x in zip(*parts))
     return combos, k, is_rd, [row for ids in groups for row in ids]
 
 
 def finalize_encode_stats(n, exc_count, first, vmin, vmax) -> tuple:
-    """Per-vector analyze and patch quantities from K9's stats
-    (encoder.hpp:109-120, 382-399): (bit_width int32, base int64,
-    enc_max int64 (the uint64 max - base), exception count int32, fill
-    int64).  The fill is the vector's first non-exception n in value
-    order; a vector of exceptions only gets bit width 0, base 0 and fill
-    0."""
+    """Per-vector analyze and patch quantities from K9's (K12's) stats
+    (encoder.hpp:109-120, 382-399): (bit_width int32, base, enc_max int64
+    (the unsigned max - base of n's width), exception count int32, fill;
+    base and fill of n's dtype).  The fill is the vector's first
+    non-exception n in value order; a vector of exceptions only gets bit
+    width 0, base 0 and fill 0."""
     any_ok = first < VECTOR
     mx = torch.where(any_ok, vmax, 0)
     mn = torch.where(any_ok, vmin, 0)
-    enc_max = mx - mn                                 # modulo 2^64
+    enc_max = mx.to(torch.int64) - mn.to(torch.int64)   # modulo 2^64
+    if n.dtype == torch.int32:
+        enc_max = enc_max & 0xFFFFFFFF                    # uint32(max - min)
     k = first.clamp(max=VECTOR - 1).to(torch.int64)[:, None]
     fill = torch.where(any_ok, torch.gather(n, 1, k)[:, 0], 0)
     return bit_width_of(enc_max), mn, enc_max, exc_count, fill
@@ -180,8 +187,9 @@ def _second_level(strides, combos, k, multi_any: bool) -> tuple:
     if not multi_any:
         return fac, exp
     multi = k > 1
-    est = second_level_scores_f64(strides, combos.contiguous(),
-                                  torch.where(multi, k, 0))
+    score = (second_level_scores_f64 if strides.dtype == torch.float64
+             else second_level_scores_f32)
+    est = score(strides, combos.contiguous(), torch.where(multi, k, 0))
     fac2, exp2 = accept_scan(est, combos, k)
     return torch.where(multi, fac2, fac), torch.where(multi, exp2, exp)
 
@@ -198,10 +206,10 @@ def _exceptions(mask, raw) -> tuple:
 def _pack_rd(vectors, sel: np.ndarray, rbw: int, lbw: int, rd_states: dict,
              flat, offsets_t) -> tuple:
     """ALP_RD vectors ``sel`` of one (right, left) bit width: split and
-    look up (``ops.rd``), right parts packed by K10 at base 0 into
-    ``flat``, left indexes by ``ops.fastlanes.ffor_pack``.  Returns (left
-    words [m, lbw * 64] u16, exception positions, raw left parts (u16),
-    counts), on the host."""
+    look up (``ops.rd``), right parts packed by K10 (K13) at base 0 into
+    ``flat`` (of the patterns' dtype), left indexes by
+    ``ops.fastlanes.ffor_pack``.  Returns (left words [m, lbw * 64] u16,
+    exception positions, raw left parts (u16), counts), on the host."""
     dev = vectors.device
     m = len(sel)
     dict_pad = np.full((m, C.MAX_RD_DICTIONARY_SIZE), 0xFFFF, np.int64)
@@ -212,11 +220,12 @@ def _pack_rd(vectors, sel: np.ndarray, rbw: int, lbw: int, rd_states: dict,
         dict_size[j] = stt.actual_dictionary_size
     sel_t = torch.from_numpy(sel).to(dev)
     right, left_idx, exc_mask, left_raw = rd_encode_vectors(
-        vectors[sel_t].view(torch.int64), torch.full((m,), rbw, device=dev),
+        vectors[sel_t].view(flat.dtype), torch.full((m,), rbw, device=dev),
         torch.from_numpy(dict_pad).to(dev),
         torch.from_numpy(dict_size).to(dev))
-    ffor_pack_f64(right, torch.zeros(m, dtype=torch.int64, device=dev), rbw,
-                  out=flat, offsets=offsets_t[sel_t])
+    pack = ffor_pack_f64 if flat.dtype == torch.int64 else ffor_pack_f32
+    pack(right, torch.zeros(m, dtype=flat.dtype, device=dev), rbw, out=flat,
+         offsets=offsets_t[sel_t])
     lefts = _host(fl.ffor_pack(left_idx,
                                torch.zeros(m, dtype=torch.int16, device=dev),
                                lbw)).view(np.uint16)
@@ -226,17 +235,22 @@ def _pack_rd(vectors, sel: np.ndarray, rbw: int, lbw: int, rd_states: dict,
 
 def compress_device(data=None, *, values=None, n_values=None,
                     device=None) -> CompressedColumn:
-    """Compress a float64 column with its hot path on a device.
+    """Compress a float64 or float32 column with its hot path on a device.
 
-    ``data``: a 1-D numpy float64 array, staged to ``device`` once
-    (``None`` means ``"cuda"`` and raises when no card is present;
-    ``"cpu"`` runs the plain versions).  Or ``values``: a float64 tensor
-    already on the device, ``[n_vec, 1024]`` or flat, with ``n_values``
-    real values; a missing partial last vector is padded with the last
-    value (``container._pad_to_vectors``).  float32 raises
-    ``NotImplementedError``.  The blob equals ``container.compress``'s."""
-    tc = C.DOUBLE
+    ``data``: a 1-D numpy float64 or float32 array, staged to ``device``
+    once (``None`` means ``"cuda"`` and raises when no card is present;
+    ``"cpu"`` runs the plain versions).  Or ``values``: a float64 or
+    float32 tensor already on the device, ``[n_vec, 1024]`` or flat, with
+    ``n_values`` real values; a missing partial last vector is padded with
+    the last value (``container._pad_to_vectors``).  Other dtypes raise
+    ``TypeError``.  The blob equals ``container.compress``'s."""
     vectors, n_values = _stage(data, values, n_values, device)
+    f64 = vectors.dtype == torch.float64
+    tc = C.DOUBLE if f64 else C.FLOAT
+    word = torch.int64 if f64 else torch.int32       # n and packed words
+    lanes = VECTOR // tc.exact_type_bit_size
+    encode = alp_encode_f64 if f64 else alp_encode_f32
+    pack = ffor_pack_f64 if f64 else ffor_pack_f32
     dev = vectors.device
     n_vec = vectors.shape[0]
     n_rg = math.ceil(n_vec / RG)
@@ -258,15 +272,15 @@ def compress_device(data=None, *, values=None, n_values=None,
     # --- 2. encode -------------------------------------------------------
     alp_any = not rd_np.all()
     zeros = torch.zeros(n_vec, dtype=torch.int64, device=dev)
-    bw, base, enc_max, n_exc = zeros, zeros, zeros, zeros
+    alp_meta = [zeros] * 4                 # bw, base, enc_max, n_exc
     if alp_any:
-        n, exc, *stats = alp_encode_f64(vectors, exp, fac, stats=True)
+        n, exc, *stats = encode(vectors, exp, fac, stats=True)
         bw, base, enc_max, n_exc, fill = finalize_encode_stats(n, *stats)
         # ALP_RD vectors carry no ALP metadata (as host compress)
-        bw, base, enc_max, n_exc = (torch.where(is_rd_v, 0, x.to(torch.int64))
-                                    for x in (bw, base, enc_max, n_exc))
-    meta = _host(torch.stack([fac.to(torch.int64), exp.to(torch.int64), bw,
-                              base, enc_max, n_exc]))
+        alp_meta = [torch.where(is_rd_v, 0, x.to(torch.int64))
+                    for x in (bw, base, enc_max, n_exc)]
+    meta = _host(torch.stack([fac.to(torch.int64), exp.to(torch.int64),
+                              *alp_meta]))
     bw_np, exc_count = meta[2], meta[5].astype(np.uint16)
 
     # --- 3. pack every vector's words into one flat buffer ----------------
@@ -275,19 +289,19 @@ def compress_device(data=None, *, values=None, n_values=None,
     for rg, stt in rd_states.items():
         rbw_rg[rg], lbw_rg[rg] = stt.right_bit_width, stt.left_bit_width
     is_rd_np = rd_np[vec_rg]
-    words = np.where(is_rd_np, rbw_rg[vec_rg], bw_np) * LANES
+    words = np.where(is_rd_np, rbw_rg[vec_rg], bw_np) * lanes
     offsets = np.zeros(n_vec + 1, np.int64)
     np.cumsum(words, out=offsets[1:])
-    flat = torch.empty(int(offsets[-1]), dtype=torch.int64, device=dev)
+    flat = torch.empty(int(offsets[-1]), dtype=word, device=dev)
     offsets_t = torch.from_numpy(offsets[:-1]).to(dev)
     alp_vec = np.nonzero(~is_rd_np)[0]
     for b in np.unique(bw_np[alp_vec]).tolist():
         if b:
             sel = torch.from_numpy(alp_vec[bw_np[alp_vec] == b]).to(dev)
-            ffor_pack_f64(n, base, b, exc=exc, fill=fill, rows=sel, out=flat,
-                          offsets=offsets_t[sel])
+            pack(n, base, b, exc=exc, fill=fill, rows=sel, out=flat,
+                 offsets=offsets_t[sel])
     exc_positions = [np.empty(0, np.uint16)] * n_vec
-    exc_values = [np.empty(0, np.float64)] * n_vec
+    exc_values = [np.empty(0, tc.pt)] * n_vec
     if exc_count.any():
         pos, val = _exceptions(exc & ~is_rd_v[:, None], vectors)
         has = np.nonzero(exc_count)[0]
@@ -313,15 +327,15 @@ def compress_device(data=None, *, values=None, n_values=None,
         rd_dict[rg, :stt.actual_dictionary_size] = stt.left_parts_dict
         rd_dict_size[rg] = stt.actual_dictionary_size
     return CompressedColumn(
-        dtype=np.dtype(np.float64), n_values=n_values, n_vectors=n_vec,
+        dtype=np.dtype(tc.pt), n_values=n_values, n_vectors=n_vec,
         rg_scheme=np.where(rd_np, C.SCHEME_ALP_RD,
                            C.SCHEME_ALP).astype(np.uint8),
         rd_dict=rd_dict, rd_dict_size=rd_dict_size,
         rd_left_bw=lbw_rg.astype(np.uint8),
         rd_right_bw=rbw_rg.astype(np.uint8),
         fac=meta[0].astype(np.uint8), exp=meta[1].astype(np.uint8),
-        bit_width=bw_np.astype(np.uint8), base=meta[3].astype(np.int64),
+        bit_width=bw_np.astype(np.uint8), base=meta[3].astype(tc.st),
         exc_count=exc_count,
-        packed=_split(_host(flat).view(np.uint64), words),
+        packed=_split(_host(flat).view(tc.ut), words),
         left_packed=left_packed, exc_values=exc_values,
         exc_positions=exc_positions, enc_max=meta[4].view(np.uint64).copy())

@@ -38,6 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _D = ctypes.c_double
+_F = ctypes.c_float
 # (name, argtypes) of every C entry in csrc/
 ENTRIES = {
     # packed, bw, base, fact, frac, rows, out, n, stream
@@ -59,12 +60,21 @@ ENTRIES = {
     # out_exc, exc_count, first, vmin, vmax, stream
     "alp_encode_f64": [_P, _P, _P, _P, _P, _P, _D, _D, _LL, _P, _P, _P, _P,
                        _P, _P, _P],
+    # values, e, f, exp_tab, frac_tab, fact_tab, fact_len, magic, upper,
+    # limit, n, out_n, out_exc, exc_count, first, vmin, vmax, stream
+    "alp_encode_f32": [_P, _P, _P, _P, _P, _P, _I, _F, _F, _D, _LL, _P, _P,
+                       _P, _P, _P, _P, _P],
     # in, rows, exc, fill, base, bw, offsets, m, out, stream
     "alp_ffor_pack_f64": [_P, _P, _P, _P, _P, _I, _P, _LL, _P, _P],
+    "alp_ffor_pack_f32": [_P, _P, _P, _P, _P, _I, _P, _LL, _P, _P],
     # samples, ef, ef_per_segment, n_cand, k_count, n, exp_tab, frac_tab,
     # fact_tab, magic, upper, exc_bits, est, non_exc, stream
     "alp_score_pairs_f64": [_P, _P, _I, _I, _P, _LL, _P, _P, _P, _D, _D, _I,
                             _P, _P, _P],
+    # samples, ef, ef_per_segment, n_cand, k_count, n, exp_tab, frac_tab,
+    # fact_tab, fact_len, magic, upper, limit, exc_bits, est, non_exc, stream
+    "alp_score_pairs_f32": [_P, _P, _I, _I, _P, _LL, _P, _P, _P, _I, _F, _F,
+                            _D, _I, _P, _P, _P],
 }
 
 

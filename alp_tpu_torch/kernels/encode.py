@@ -1,21 +1,26 @@
-"""The port's ALP f64 encode kernel: wrapper, plain PyTorch version, count.
+"""The port's ALP encode kernels: wrappers, plain PyTorch versions, counts.
 
-    K9 alp_encode_f64  <- alp_tpu/kernels/encode.py alp_encode_f64_tiles_stats
-                          (stats on) and alp_encode_f64_tiles (stats off)
+    K9  alp_encode_f64  <- alp_tpu/kernels/encode.py alp_encode_f64_tiles_stats
+                           (stats on) and alp_encode_f64_tiles (stats off)
+    K12 alp_encode_f32  <- alp_encode_f32_tiles_stats (stats on) and
+                           alp_encode_f32_tiles (stats off)
 
 ``alp_encode_f64(values, e, f, stats=True)`` encodes every value of
 ``values`` [n, 1024] (float64) with its vector's pair (e[v], f[v]) as the
 host engine's encode_simdized does: NaN, +-Inf and -0.0 replaced by
 ENCODING_UPPER_LIMIT, the magic round, the x86 cast, and the decode
-compared bit for bit.  A CUDA tensor goes through the hand-written kernel
+compared bit for bit.  ``alp_encode_f32`` is its float32 twin (int32 n,
+the decode compared as a float, the pair f == 10 past the FACT table
+always an exception).  A CUDA tensor goes through the hand-written kernels
 in ``csrc/encode.cu`` on the current stream of its card, without a
-synchronise; a CPU tensor through the plain version beside it, which
-repeats the arithmetic with PyTorch ops (separate ops, so nothing is fused
+synchronise; a CPU tensor through the plain versions beside them, which
+repeat the arithmetic with PyTorch ops (separate ops, so nothing is fused
 into an FMA).  ``LAUNCHES`` counts kernel launches; plain runs do not
 count.
 
-This module also keeps what K9 and K11 (``kernels.score``) share: the
-constant tables on a device (``tables``) and the plain encode steps.
+This module also keeps what the encode and the scorers (``kernels.score``)
+share: the constant tables on a device (``tables``) and the plain encode
+steps.
 """
 
 from __future__ import annotations
@@ -26,12 +31,16 @@ import functools
 import torch
 
 from .. import constants as C
+from ..ops.fastlanes import narrow
 from .falp import VECTOR_SIZE, _check, _device_kind, _launch, _ptr
 
-LAUNCHES = {"alp_encode_f64": 0}
+LAUNCHES = {"alp_encode_f64": 0, "alp_encode_f32": 0}
 INT64_MIN = -(1 << 63)
 INT64_MAX = (1 << 63) - 1
+INT32_MIN = -(1 << 31)
+INT32_MAX = (1 << 31) - 1
 _TWO63 = 2.0 ** 63
+_TWO31 = 2.0 ** 31
 
 
 def reset_launches() -> None:
@@ -41,36 +50,41 @@ def reset_launches() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Tables:
-    """The f64 constant tables (``constants.DOUBLE``) on one device, and
-    the encode's two scalars."""
-    exp: torch.Tensor          # float64: 10^i
-    frac: torch.Tensor         # float64: 10^-i
-    fact: torch.Tensor         # int64: 10^i
-    magic: float               # 2^52 + 2^51
-    upper: float               # ENCODING_UPPER_LIMIT
+    """One precision's constant tables (``constants.DOUBLE`` or
+    ``constants.FLOAT``) on one device, and the encode's two scalars."""
+    exp: torch.Tensor          # float: 10^i
+    frac: torch.Tensor         # float: 10^-i
+    fact: torch.Tensor         # int64 / int32: 10^i
+    magic: float               # 2^52 + 2^51 / 2^23 + 2^22
+    upper: float               # ENCODING_UPPER_LIMIT in the precision
 
     def pointers(self) -> tuple:
-        return (_ptr(self.exp), _ptr(self.frac), _ptr(self.fact),
-                self.magic, self.upper)
+        """The tables' arguments of the precision's C entries: f32 adds the
+        FACT table's length and ENCODING_UPPER_LIMIT as a double."""
+        head = (_ptr(self.exp), _ptr(self.frac), _ptr(self.fact))
+        if self.exp.dtype == torch.float64:
+            return head + (self.magic, self.upper)
+        return head + (self.fact.numel(), self.magic, self.upper,
+                       C.ENCODING_UPPER_LIMIT)
 
 
-def tables(device) -> Tables:
-    return _tables(str(torch.device(device)))
+def tables(device, tc=C.DOUBLE) -> Tables:
+    return _tables(str(torch.device(device)), tc.pt == C.DOUBLE.pt)
 
 
-def check_pairs(name: str, idx: torch.Tensor) -> None:
+def check_pairs(name: str, idx: torch.Tensor, tc=C.DOUBLE) -> None:
     """Exponents and factors index the tables: each must lie in
     0..max_exponent (one synchronising read of their range)."""
     if idx.numel():
         lo, hi = (int(x) for x in torch.aminmax(idx))
-        if lo < 0 or hi > C.DOUBLE.max_exponent:
+        if lo < 0 or hi > tc.max_exponent:
             raise ValueError(f"{name}: exponents and factors lie in "
-                             f"0..{C.DOUBLE.max_exponent}, got {lo}..{hi}")
+                             f"0..{tc.max_exponent}, got {lo}..{hi}")
 
 
 @functools.cache
-def _tables(device: str) -> Tables:
-    tc = C.DOUBLE
+def _tables(device: str, f64: bool) -> Tables:
+    tc = C.DOUBLE if f64 else C.FLOAT
     return Tables(torch.from_numpy(tc.exp_arr).to(device),
                   torch.from_numpy(tc.frac_arr).to(device),
                   torch.from_numpy(tc.fact_arr).to(device),
@@ -105,8 +119,47 @@ def is_special(bits: torch.Tensor) -> torch.Tensor:
             | (bits == INT64_MIN))
 
 
+def cast_x86_32(r: torch.Tensor) -> torch.Tensor:
+    """x86 cvttss2si: truncation; NaN and values outside [-2^31, 2^31)
+    give INT32_MIN."""
+    ok = (r >= -_TWO31) & (r < _TWO31)
+    n = torch.where(ok, r, 0.0).to(torch.int32)
+    return torch.where(ok, n, INT32_MIN)
+
+
+def round_cast32(s: torch.Tensor, magic: float) -> torch.Tensor:
+    return cast_x86_32((s + magic) - magic)
+
+
+def decodes_to32(n, e, f, v, t: Tables) -> torch.Tensor:
+    """decode_value32(n, f, e) == v as floats: RN(float(int32(uint32(n) *
+    FACT[f]))) * 10^-e, the product taken in int64 and narrowed to 32 bits;
+    False where f is past the FACT table (the reference's NaN decode), which
+    is never indexed."""
+    last = t.fact.numel() - 1
+    m = narrow(n.to(torch.int64) * t.fact[f.clamp(max=last)].to(torch.int64),
+               32)
+    return (m.to(torch.float32) * t.frac[e] == v) & (f <= last)
+
+
+def is_special32(bits: torch.Tensor) -> torch.Tensor:
+    """NaN, +-Inf and -0.0 among int32 f32 bit patterns."""
+    return ((bits & 0x7FFFFFFF) >= 0x7F800000) | (bits == INT32_MIN)
+
+
+def _stats(n, exc, lo: int, hi: int) -> tuple:
+    """exc_count, first non-exception index, min and max of n over the
+    non-exceptions (``hi`` and ``lo`` when none), per vector."""
+    ok = ~exc
+    k = torch.arange(VECTOR_SIZE, device=n.device)
+    return (exc.sum(dim=1, dtype=torch.int32),
+            torch.where(ok, k, VECTOR_SIZE).amin(dim=1).to(torch.int32),
+            torch.where(ok, n, hi).amin(dim=1),
+            torch.where(ok, n, lo).amax(dim=1))
+
+
 # ---------------------------------------------------------------------------
-# K9
+# K9 / K12
 # ---------------------------------------------------------------------------
 
 def encode_plain(values, e, f, stats=True) -> tuple:
@@ -121,12 +174,52 @@ def encode_plain(values, e, f, stats=True) -> tuple:
         vr.view(torch.int64)
     if not stats:
         return n, exc
-    ok = ~exc
-    k = torch.arange(VECTOR_SIZE, device=values.device)
-    return (n, exc, exc.sum(dim=1, dtype=torch.int32),
-            torch.where(ok, k, VECTOR_SIZE).amin(dim=1).to(torch.int32),
-            torch.where(ok, n, INT64_MAX).amin(dim=1),
-            torch.where(ok, n, INT64_MIN).amax(dim=1))
+    return (n, exc) + _stats(n, exc, INT64_MIN, INT64_MAX)
+
+
+def encode_plain_f32(values, e, f, stats=True) -> tuple:
+    """Plain version of K12: (n, exc) or (n, exc, exc_count, first, vmin,
+    vmax), as ``alp_encode_f32`` returns."""
+    t = tables(values.device, C.FLOAT)
+    e, f = e.to(torch.int64)[:, None], f.to(torch.int64)[:, None]
+    vr = torch.where(is_special32(values.view(torch.int32)), t.upper, values)
+    s = (vr * t.exp[e]) * t.frac[f]
+    n = round_cast32(s, t.magic)
+    exc = ~decodes_to32(n, e, f, vr, t)
+    if not stats:
+        return n, exc
+    return (n, exc) + _stats(n, exc, INT32_MIN, INT32_MAX)
+
+
+def _encode(values, e, f, stats, tc) -> tuple:
+    f64 = tc is C.DOUBLE
+    ftype, itype = ((torch.float64, torch.int64) if f64
+                    else (torch.float32, torch.int32))
+    n_vec = values.shape[0]
+    device = values.device
+    _check("values", values, ftype, (n_vec, VECTOR_SIZE), device)
+    _check("e", e, torch.int32, (n_vec,), device)
+    _check("f", f, torch.int32, (n_vec,), device)
+    check_pairs("e", e, tc)
+    check_pairs("f", f, tc)
+    if _device_kind(values) == "cpu":
+        return (encode_plain if f64 else encode_plain_f32)(values, e, f,
+                                                           stats)
+    n = torch.empty((n_vec, VECTOR_SIZE), dtype=itype, device=device)
+    exc = torch.empty((n_vec, VECTOR_SIZE), dtype=torch.bool, device=device)
+    out = (n, exc)
+    if stats:
+        out += (torch.empty(n_vec, dtype=torch.int32, device=device),
+                torch.empty(n_vec, dtype=torch.int32, device=device),
+                torch.empty(n_vec, dtype=itype, device=device),
+                torch.empty(n_vec, dtype=itype, device=device))
+    stat_ptrs = [_ptr(x) for x in out[2:]] if stats else [None] * 4
+    name = "encode_f64" if f64 else "encode_f32"
+    _launch(name, device, _ptr(values), _ptr(e), _ptr(f),
+            *tables(device, tc).pointers(), n_vec, _ptr(n), _ptr(exc),
+            *stat_ptrs)
+    LAUNCHES["alp_" + name] += 1
+    return out
 
 
 def alp_encode_f64(values, e, f, stats=True) -> tuple:
@@ -137,26 +230,13 @@ def alp_encode_f64(values, e, f, stats=True) -> tuple:
     non-exception index in value order (int32, 1024 when none) and the
     int64 min and max of n over the non-exceptions (INT64_MAX and
     INT64_MIN when none)."""
-    n_vec = values.shape[0]
-    device = values.device
-    _check("values", values, torch.float64, (n_vec, VECTOR_SIZE), device)
-    _check("e", e, torch.int32, (n_vec,), device)
-    _check("f", f, torch.int32, (n_vec,), device)
-    check_pairs("e", e)
-    check_pairs("f", f)
-    if _device_kind(values) == "cpu":
-        return encode_plain(values, e, f, stats)
-    n = torch.empty((n_vec, VECTOR_SIZE), dtype=torch.int64, device=device)
-    exc = torch.empty((n_vec, VECTOR_SIZE), dtype=torch.bool, device=device)
-    out = (n, exc)
-    if stats:
-        out += (torch.empty(n_vec, dtype=torch.int32, device=device),
-                torch.empty(n_vec, dtype=torch.int32, device=device),
-                torch.empty(n_vec, dtype=torch.int64, device=device),
-                torch.empty(n_vec, dtype=torch.int64, device=device))
-    stat_ptrs = [_ptr(x) for x in out[2:]] if stats else [None] * 4
-    _launch("encode_f64", device, _ptr(values), _ptr(e), _ptr(f),
-            *tables(device).pointers(), n_vec, _ptr(n), _ptr(exc),
-            *stat_ptrs)
-    LAUNCHES["alp_encode_f64"] += 1
-    return out
+    return _encode(values, e, f, stats, C.DOUBLE)
+
+
+def alp_encode_f32(values, e, f, stats=True) -> tuple:
+    """K12, the float32 twin of K9.  values: float32 [n, 1024]; e, f: int32
+    [n] in 0..10.  Returns n (int32 [n, 1024]) and exc (bool [n, 1024]);
+    with ``stats``, also the exception count and first non-exception index
+    (int32) and the int32 min and max of n over the non-exceptions
+    (INT32_MAX and INT32_MIN when none)."""
+    return _encode(values, e, f, stats, C.FLOAT)

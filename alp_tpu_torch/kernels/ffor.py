@@ -1,15 +1,17 @@
-"""The port's FFOR pack kernel: wrapper, plain PyTorch version, count.
+"""The port's FFOR pack kernels: wrappers, plain PyTorch version, counts.
 
     K10 ffor_pack_f64  <- alp_tpu/kernels/falp.py _ffor_planes_call, through
                           ffor_planes_patch_f64 (exception slots patched)
                           and ffor_planes_f64 (no patch)
+    K13 ffor_pack_f32  <- ffor_tile at element_bits=32
 
-``ffor_pack_f64`` FOR-subtracts and bit-packs a bucket of vectors that
-share one bit width into the FastLanes words the ALPT blob stores, in
-``ops.fastlanes.ffor_pack``'s order.  A CUDA tensor goes through the
-hand-written kernel in ``csrc/ffor.cu`` on the current stream of its
+``ffor_pack_f64`` FOR-subtracts and bit-packs a bucket of int64 vectors
+that share one bit width into the FastLanes words the ALPT blob stores, in
+``ops.fastlanes.ffor_pack``'s order; ``ffor_pack_f32`` does the same over
+int32 vectors (32 lanes, modulo 2^32).  A CUDA tensor goes through the
+hand-written kernels in ``csrc/ffor.cu`` on the current stream of its
 card, without a synchronise; a CPU tensor through the plain version
-beside it: the exception patch, then ``ops.fastlanes.ffor_pack``.
+beside them: the exception patch, then ``ops.fastlanes.ffor_pack``.
 ``LAUNCHES`` counts kernel launches; plain runs do not count.
 """
 
@@ -20,8 +22,9 @@ import torch
 from ..ops.fastlanes import ffor_pack
 from .falp import VECTOR_SIZE, _check, _device_kind, _launch, _ptr
 
-LAUNCHES = {"ffor_pack_f64": 0}
-LANES = VECTOR_SIZE // 64
+LAUNCHES = {"ffor_pack_f64": 0, "ffor_pack_f32": 0}
+# word dtype -> (word bits, C entry)
+_WORDS = {torch.int64: (64, "ffor_pack_f64"), torch.int32: (32, "ffor_pack_f32")}
 
 
 def reset_launches() -> None:
@@ -30,7 +33,8 @@ def reset_launches() -> None:
 
 
 def ffor_plain(values, base, bw, exc=None, fill=None, rows=None):
-    """Plain version of K10: the [m, 16 * bw] int64 words of the bucket."""
+    """Plain version of K10 and K13: the [m, L * bw] words of the bucket
+    (L = 16 for int64 values, 32 for int32)."""
     src = values if rows is None else values[rows]
     if exc is not None:
         patch = exc if rows is None else exc[rows]
@@ -39,8 +43,8 @@ def ffor_plain(values, base, bw, exc=None, fill=None, rows=None):
     return ffor_pack(src, base if rows is None else base[rows], bw)
 
 
-def _word_index(offsets, bw):
-    return offsets[:, None] + torch.arange(LANES * bw, device=offsets.device)
+def _word_index(offsets, bw, lanes):
+    return offsets[:, None] + torch.arange(lanes * bw, device=offsets.device)
 
 
 def ffor_pack_f64(values, base, bw, *, exc=None, fill=None, rows=None,
@@ -52,15 +56,30 @@ def ffor_pack_f64(values, base, bw, *, exc=None, fill=None, rows=None,
     None).  Returns the [m, 16 * bw] int64 words; or, with ``out`` (flat
     int64) and ``offsets`` (int64 [m]), writes row r's words from
     ``out[offsets[r]]`` and returns ``out``."""
+    return _pack(values, base, bw, exc, fill, rows, out, offsets,
+                 torch.int64)
+
+
+def ffor_pack_f32(values, base, bw, *, exc=None, fill=None, rows=None,
+                  out=None, offsets=None):
+    """K13, the 32-bit twin of K10: values, base, fill and out int32; bw
+    1..32; 32 * bw words a vector (rows and offsets stay int64)."""
+    return _pack(values, base, bw, exc, fill, rows, out, offsets,
+                 torch.int32)
+
+
+def _pack(values, base, bw, exc, fill, rows, out, offsets, word):
+    S, name = _WORDS[word]
+    lanes = VECTOR_SIZE // S
     n = values.shape[0]
     device = values.device
-    _check("values", values, torch.int64, (n, VECTOR_SIZE), device)
-    _check("base", base, torch.int64, (n,), device)
+    _check("values", values, word, (n, VECTOR_SIZE), device)
+    _check("base", base, word, (n,), device)
     if (exc is None) != (fill is None):
         raise ValueError("exc and fill go together")
     if exc is not None:
         _check("exc", exc, torch.bool, (n, VECTOR_SIZE), device)
-        _check("fill", fill, torch.int64, (n,), device)
+        _check("fill", fill, word, (n,), device)
     m = n if rows is None else rows.shape[0]
     if rows is not None:
         _check("rows", rows, torch.int64, (m,), device)
@@ -70,27 +89,27 @@ def ffor_pack_f64(values, base, bw, *, exc=None, fill=None, rows=None,
                 raise ValueError("rows reach outside values")
     if (out is None) != (offsets is None):
         raise ValueError("out and offsets go together")
+    if not 1 <= bw <= S:
+        raise ValueError(f"bit width {bw} out of range 1..{S}")
     if out is None:
-        out = torch.empty((m, LANES * bw), dtype=torch.int64, device=device)
+        out = torch.empty((m, lanes * bw), dtype=word, device=device)
     else:
         if out.dim() != 1:
             raise ValueError("out must be flat")
-        _check("out", out, torch.int64, out.shape, device)
+        _check("out", out, word, out.shape, device)
         _check("offsets", offsets, torch.int64, (m,), device)
         if m:
             lo, hi = (int(x) for x in torch.aminmax(offsets))
-            if lo < 0 or hi + LANES * bw > out.numel():
+            if lo < 0 or hi + lanes * bw > out.numel():
                 raise ValueError("offsets reach outside out")
-    if not 1 <= bw <= 64:
-        raise ValueError(f"bit width {bw} out of range 1..64")
     if _device_kind(values) == "cpu":
         words = ffor_plain(values, base, bw, exc, fill, rows)
         if offsets is None:
             out.copy_(words)
         else:
-            out[_word_index(offsets, bw)] = words
+            out[_word_index(offsets, bw, lanes)] = words
         return out
-    _launch("ffor_pack_f64", device, _ptr(values), _ptr(rows), _ptr(exc),
-            _ptr(fill), _ptr(base), bw, _ptr(offsets), m, _ptr(out))
-    LAUNCHES["ffor_pack_f64"] += 1
+    _launch(name, device, _ptr(values), _ptr(rows), _ptr(exc), _ptr(fill),
+            _ptr(base), bw, _ptr(offsets), m, _ptr(out))
+    LAUNCHES[name] += 1
     return out

@@ -27,9 +27,11 @@ from .fastlanes import srl
 
 
 def bit_width_of(delta: torch.Tensor) -> torch.Tensor:
-    """int32 bit length of int64 bit patterns read as unsigned (0 for
-    0)."""
+    """int32 bit length of int64 or int32 bit patterns read as unsigned
+    of their own width (0 for 0): an int32 delta is not sign-extended."""
     x = delta.to(torch.int64)
+    if delta.dtype == torch.int32:
+        x = x & 0xFFFFFFFF
     bw = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
     for s in (32, 16, 8, 4, 2, 1):
         big = srl(x, s) != 0

@@ -29,18 +29,19 @@ Phases, each printing its wall time:
             rounded once.
 6. dcompress  ``alp_tpu_torch.compress_device`` on the card (the device
             compress path, its launch counts set to 0 just before and read
-            just after) of every f64 column, the bench profiles and f64
-            ALP_RD at their full 256 MiB: the blob must equal host
-            ``compress`` of the same array, and so must the blob of the
-            round trip that stays on the card,
-            ``compress_device(values=decompress(col), n_values=...)``.
-            Prints each column's device and host compress walls, K9-K11
-            launches and the bytes copied to the host.
+            just after) of every column: the f64 ones (the bench profiles
+            and f64 ALP_RD at their full 256 MiB) with K9-K11, then f32 ALP
+            and f32 ALP_RD as 256 MiB arrays (65,536 vectors) with
+            K12-K14: the blob must equal host ``compress`` of the same
+            array, and so must the blob of the round trip that stays on
+            the card, ``compress_device(values=decompress(col),
+            n_values=...)``.  Prints each column's device and host
+            compress walls, launches and the bytes copied to the host.
 7. kernels  each kernel against its plain PyTorch version on the card, on
             the same plans, bit for bit (tolerance 0: the codec is
-            lossless and the SUM totals are integers); K9-K11 on every call
-            of a second ``compress_device`` of every f64 column.
-8. timing   CUDA-event time of each kernel at the 256 MiB shapes (K9-K11:
+            lossless and the SUM totals are integers); K9-K14 on every
+            call of a second ``compress_device`` of every column.
+8. timing   CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
             their launches as the wrappers made them, without the
             wrappers' synchronising range checks), beside
             its bound (the bytes it must move at 3.35 TB/s, or the
@@ -49,7 +50,7 @@ Phases, each printing its wall time:
             the same function, a device-to-device ``copy_`` of the decoded
             bytes (decode kernels) and ``torch.sum`` of the decoded values
             (SUM kernels, rounded, not exact), a ``copy_`` of the bytes
-            K9-K11 read.  No PyTorch call decodes, encodes, packs or
+            K9-K14 read.  No PyTorch call decodes, encodes, packs or
             scores ALP or sums exactly, so ``library_ms`` is null.
 
 Then the nvidia-smi line, one JSON line with every kernel's numbers and,
@@ -114,23 +115,33 @@ SUM_OPS = {  # kernel -> (every value, nonzero finite value, unpack, float)
     "falp_decode_f32_exact_sum": (6, 11, 2, 2)}
 FP64_FLOPS_PER_S = 34e12         # H100 SXM FP64 outside the tensor cores
 FP64_LANES_PER_SM = 64           # Hopper: 4 sub-partitions x 16 FP64 lanes
+FP32_LANES_PER_SM = 128          # Hopper: 4 sub-partitions x 32 FP32 lanes
 MEAN_VECTORS = 97                # query_mean columns: <= 99,328 values
 DC_TIMED = ("bench_bw11_city_temperature", "bench_bw20_food_prices",
             "bench_bw30_bitcoin", "bench_bw42_nyc29", "bench_bw0_gov26",
             "f64_alp_rd")          # the 256 MiB f64 columns
-# device compress kernels: launch-count key -> (source, TPU site, others)
+DC_TIMED32 = ("f32_alp", "f32_alp_rd")   # the 256 MiB f32 columns
+# device compress kernels: launch-count key -> (source, TPU site, others,
+# the columns it is timed on)
 DC_KERNELS = {
     "score_pairs_f64": ("alp_tpu_torch/csrc/score.cu",
                         "alp_tpu/kernels/score.py:533",
-                        ["alp_tpu/kernels/score.py:223"]),
+                        ["alp_tpu/kernels/score.py:223"], DC_TIMED),
     "alp_encode_f64": ("alp_tpu_torch/csrc/encode.cu",
                        "alp_tpu/kernels/encode.py:402",
-                       ["alp_tpu/kernels/encode.py:319"]),
+                       ["alp_tpu/kernels/encode.py:319"], DC_TIMED),
     "ffor_pack_f64": ("alp_tpu_torch/csrc/ffor.cu",
-                      "alp_tpu/kernels/falp.py:2605", []),
+                      "alp_tpu/kernels/falp.py:2605", [], DC_TIMED),
+    "score_pairs_f32": ("alp_tpu_torch/csrc/score.cu",
+                        "alp_tpu/kernels/score.py:498", [], DC_TIMED32),
+    "alp_encode_f32": ("alp_tpu_torch/csrc/encode.cu",
+                       "alp_tpu/kernels/encode.py:238",
+                       ["alp_tpu/kernels/encode.py:165"], DC_TIMED32),
+    "ffor_pack_f32": ("alp_tpu_torch/csrc/ffor.cu",
+                      "alp_tpu/kernels/falp.py:2635", [], DC_TIMED32),
 }
-# Operations K9-K11 need, counted from the algorithm (32-bit integer
-# operations, a 64-bit one counting two; FP64 operations, each issued
+# Operations K9-K14 need, counted from the algorithm (32-bit integer
+# operations, a 64-bit one counting two; float operations, each issued
 # once).  One encode + verify of a value (K9) or a trial (K11): FP64 the
 # two products of the scale, the magic add and subtract, the two
 # compares of the cast's range test, the cast, the int -> double and
@@ -144,9 +155,28 @@ DC_KERNELS = {
 # 5 integer a (segment, pair) for the bit length and the estimate.  K10
 # a value: the patch select (2), the wrapping subtract of the base (2),
 # the mask (2) and the shifts and or into its one or two words (4).
-DC_OPS = {  # per value or trial: (FP64, integer), stats or per-pair extra
-    "alp_encode_f64": (9, 12, 10), "score_pairs_f64": (11, 18, 5),
-    "ffor_pack_f64": (0, 10, 0)}
+# The f32 twins: one encode + verify (K12) or trial (K14) is FP32 the two
+# products, the magic add and subtract, the two range compares, the cast,
+# the int -> float, the product by 10^-e and the float comparison of the
+# decode (10); integer the 32-bit product n * FACT (1).  K12 adds the
+# special test (2), the select (1) and the flag (1); with its stats the
+# min, max, count and first index (4).  K14 adds the float -> double of s
+# and its two FP64 compares with +-ENCODING_UPPER_LIMIT (3 FP64), the
+# tests for not finite and -0.0 (2), the select of INT32_MIN (1), then
+# the min, max and count (3), and 5 a (segment, pair).  K13 a value: the
+# patch select, the subtract, the mask (1 each) and the shifts and or into
+# its one or two words (4).
+DC_OPS = {  # per value or trial: (FP64, FP32, integer), stats/pair extra
+    "alp_encode_f64": (9, 0, 12, 10), "score_pairs_f64": (11, 0, 18, 5),
+    "ffor_pack_f64": (0, 0, 10, 0),
+    "alp_encode_f32": (0, 10, 5, 4), "score_pairs_f32": (3, 10, 7, 5),
+    "ffor_pack_f32": (0, 0, 7, 0)}
+DC_WRAPPERS = {  # launch-count key -> (module holding it, plain version)
+    "alp_encode_f64": ("dc", "encode_plain"),
+    "alp_encode_f32": ("dc", "encode_plain_f32"),
+    "ffor_pack_f64": ("dc", "ffor_plain"), "ffor_pack_f32": ("dc", "ffor_plain"),
+    "score_pairs_f64": ("kscore", "score_plain"),
+    "score_pairs_f32": ("kscore", "score_plain_f32")}
 
 
 def phase(name: str, t0: float, detail: str = "") -> None:
@@ -297,7 +327,7 @@ def max_abs_err(a, b) -> float:
 
 
 # ---------------------------------------------------------------------------
-# device compress (K9-K11) helpers
+# device compress (K9-K14) helpers
 # ---------------------------------------------------------------------------
 
 def dc_modules():
@@ -331,30 +361,31 @@ def int_err(a, b) -> float:
 
 
 def dc_plain(name, args, kwargs):
-    """The plain version's outputs of one K9-K11 wrapper call."""
+    """The plain version's outputs of one K9-K14 wrapper call."""
     _, kenc, kffor, kscore = dc_modules()
-    if name == "alp_encode_f64":
-        return kenc.encode_plain(*args, **kwargs)
-    if name == "score_pairs_f64":
-        return kscore.score_plain(*args, **kwargs)
+    if name.startswith("alp_encode"):
+        return getattr(kenc, DC_WRAPPERS[name][1])(*args, **kwargs)
+    if name.startswith("score_pairs"):
+        return getattr(kscore, DC_WRAPPERS[name][1])(*args, **kwargs)
     values, base, bw = args
     return (kffor.ffor_plain(values, base, bw, kwargs.get("exc"),
                              kwargs.get("fill"), kwargs.get("rows")),)
 
 
 def dc_outputs(name, got, args, kwargs):
-    """The outputs of one K9-K11 wrapper call, as ``dc_plain`` gives them
-    (K10: the call's own words of a shared buffer)."""
+    """The outputs of one K9-K14 wrapper call, as ``dc_plain`` gives them
+    (K10/K13: the call's own words of a shared buffer)."""
     _, _, kffor, _ = dc_modules()
-    if name != "ffor_pack_f64":
+    if not name.startswith("ffor_pack"):
         return got
     offsets = kwargs.get("offsets")
+    lanes = VECTOR // (8 * args[0].element_size())
     return (got if offsets is None
-            else got[kffor._word_index(offsets, args[2])],)
+            else got[kffor._word_index(offsets, args[2], lanes)],)
 
 
 def record_dc_calls(run):
-    """``run()`` with K9-K11's wrappers wrapped: each call launches its
+    """``run()`` with K9-K14's wrappers wrapped: each call launches its
     kernel, then the plain version runs on the same inputs and the two are
     compared.  Returns (run's result, [(name, args, kwargs, max_abs_err,
     launches, outputs)]): ``launches`` the (C entry, device, arguments)
@@ -364,9 +395,9 @@ def record_dc_calls(run):
     import torch
     dc, kenc, kffor, kscore = dc_modules()
     calls, launched = [], []
-    real = {"alp_encode_f64": kenc.alp_encode_f64,
-            "ffor_pack_f64": kffor.ffor_pack_f64,
-            "score_pairs_f64": kscore.score_pairs_f64}
+    holders = {"dc": dc, "kscore": kscore}
+    real = {name: getattr(holders[where], name)
+            for name, (where, _) in DC_WRAPPERS.items()}
     real_launch = kenc._launch
 
     def capture(entry, device, *args):
@@ -389,48 +420,51 @@ def record_dc_calls(run):
             return got
         return call
 
-    dc.alp_encode_f64 = wrapped("alp_encode_f64")
-    dc.ffor_pack_f64 = wrapped("ffor_pack_f64")
-    kscore.score_pairs_f64 = wrapped("score_pairs_f64")
+    for name, (where, _) in DC_WRAPPERS.items():
+        setattr(holders[where], name, wrapped(name))
     for module in (kenc, kffor, kscore):
         module._launch = capture
     try:
         result = run()
     finally:
-        dc.alp_encode_f64 = real["alp_encode_f64"]
-        dc.ffor_pack_f64 = real["ffor_pack_f64"]
-        kscore.score_pairs_f64 = real["score_pairs_f64"]
+        for name, (where, _) in DC_WRAPPERS.items():
+            setattr(holders[where], name, real[name])
         for module in (kenc, kffor, kscore):
             module._launch = real_launch
     return result, calls
 
 
 def dc_work(name, args, kwargs) -> tuple:
-    """(bytes, FP64 operations, integer operations) one K9-K11 call needs
-    on this run's inputs: every input read once, every output written
-    once, DC_OPS a value or trial (K11: only the pairs a segment scores)."""
-    fp, it, extra = DC_OPS[name]
-    if name == "alp_encode_f64":
+    """(bytes, FP64 operations, FP32 operations, integer operations) one
+    K9-K14 call needs on this run's inputs: every input read once, every
+    output written once, DC_OPS a value or trial (K11/K14: only the pairs
+    a segment scores)."""
+    fp64, fp32, it, extra = DC_OPS[name]
+    w = args[0].element_size()             # 8 for f64 / int64, 4 for f32
+    if name.startswith("alp_encode"):
         n = args[0].shape[0]
         stats = kwargs.get("stats", True)
         vals = n * VECTOR
-        moved = vals * (8 + 8 + 1) + n * 8 + (n * 24 if stats else 0)
-        return moved, vals * fp, vals * (it + (extra if stats else 0))
-    if name == "score_pairs_f64":
+        moved = (vals * (w + w + 1) + n * 8
+                 + (n * (8 + 2 * w) if stats else 0))
+        return (moved, vals * fp64, vals * fp32,
+                vals * (it + (extra if stats else 0)))
+    if name.startswith("score_pairs"):
         samples, ef = args[:2]
         k = args[2] if len(args) > 2 else kwargs.get("k_count")
         n, cand = samples.shape[0], ef.shape[1]
         tasks = n * cand if k is None else int(k.clamp(max=cand).sum())
         moved = (nbytes(samples) + nbytes(ef) + n * cand * 8
                  + (nbytes(k) if k is not None else 0))
-        return moved, tasks * 32 * fp, tasks * (32 * it + extra)
+        return (moved, tasks * 32 * fp64, tasks * 32 * fp32,
+                tasks * (32 * it + extra))
     values, base, bw = args
     rows, exc = kwargs.get("rows"), kwargs.get("exc") is not None
     m = values.shape[0] if rows is None else rows.shape[0]
-    per_row = (8 + 8 * exc + 8 * (rows is not None)
+    per_row = (w + w * exc + 8 * (rows is not None)
                + 8 * (kwargs.get("offsets") is not None))
-    moved = m * VECTOR * (8 + exc) + m * per_row + m * 16 * bw * 8
-    return moved, 0, m * VECTOR * it
+    moved = m * VECTOR * (w + exc) + m * per_row + m * VECTOR * bw // 8
+    return moved, 0, 0, m * VECTOR * it
 
 
 # ---------------------------------------------------------------------------
@@ -470,11 +504,13 @@ def main() -> int:
     max_sm_mhz = float(nvidia_smi("clocks.max.sm"))
     int32_per_s = sms * INT32_LANES_PER_SM * max_sm_mhz * 1e6
     fp64_per_s = sms * FP64_LANES_PER_SM * max_sm_mhz * 1e6
+    fp32_per_s = sms * FP32_LANES_PER_SM * max_sm_mhz * 1e6
     phase("env", t0, f"device={kind!r} nvidia-smi={smi!r} "
           f"torch={torch.__version__} cuda={torch.version.cuda} "
           f"SMs={sms} max SM clock={max_sm_mhz} MHz "
           f"INT32 issue rate={int32_per_s:.4g}/s "
-          f"FP64 issue rate={fp64_per_s:.4g}/s")
+          f"FP64 issue rate={fp64_per_s:.4g}/s "
+          f"FP32 issue rate={fp32_per_s:.4g}/s")
 
     # 2. build
     t0 = time.perf_counter()
@@ -612,14 +648,12 @@ def main() -> int:
 
     # 6. dcompress: the device compress path, through the public entry
     t0 = time.perf_counter()
-    f64_names = [name for name, (col, _) in columns.items()
-                 if col.dtype == np.float64]
     host_blobs = {}
     torch.cuda.synchronize()
     dc_reset()
     dc.reset_to_host()
     tp = time.perf_counter()
-    for name in f64_names:
+    for name in columns:
         x = columns[name][1]
         th = time.perf_counter()
         want = alp_tpu_torch.compress(x)
@@ -695,7 +729,7 @@ def main() -> int:
                                    f"{got.tolist()} != plain "
                                    f"{want.tolist()}")
     dc_calls = {}
-    for name in f64_names:
+    for name in columns:
         got, calls = record_dc_calls(
             lambda: alp_tpu_torch.compress_device(columns[name][1]))
         if got.to_bytes() != host_blobs[name]:
@@ -705,11 +739,11 @@ def main() -> int:
             if err != 0.0:
                 raise RuntimeError(f"{name}: {k} differs from its plain "
                                    f"version (max abs err {err})")
-        if name in DC_TIMED:
+        if name in DC_TIMED + DC_TIMED32:
             dc_calls[name] = calls
-        print(f"  {name}: {len(calls)} K9-K11 calls == plain", flush=True)
+        print(f"  {name}: {len(calls)} K9-K14 calls == plain", flush=True)
     phase("kernels", t0, "every bucket of every column: kernel bits == "
-          "plain bits, SUM totals == plain totals, every K9-K11 call of "
+          "plain bits, SUM totals == plain totals, every K9-K14 call of "
           "compress_device == plain (tolerance 0)")
 
     # 8. timing at the 256 MiB shapes
@@ -820,11 +854,11 @@ def main() -> int:
                          "sums exactly)",
             "timed_on": names,
         })
-    for k, (src, site, others) in DC_KERNELS.items():
+    for k, (src, site, others, timed_on) in DC_KERNELS.items():
         ms, plain_ms, bound_ms, copy_ms, b_by_bytes, b_by_ops = ([] for _ in
                                                                   range(6))
         per_col = []
-        for name in DC_TIMED:
+        for name in timed_on:
             mine = [c for c in dc_calls[name] if c[0] == k]
             if not mine:      # bw 0 packs nothing; ALP_RD encodes nothing
                 print(f"  {k} on {name}: no launch", flush=True)
@@ -838,11 +872,11 @@ def main() -> int:
             dst = torch.empty_like(src_t)
             t_c = cuda_ms(lambda: dst.copy_(src_t), 10)
             work = [dc_work(k, c[1], c[2]) for c in mine]
-            moved = sum(w[0] for w in work)
-            fp_ops = sum(w[1] for w in work)
-            int_ops = sum(w[2] for w in work)
+            moved, fp_ops, fp32_ops, int_ops = (sum(w[i] for w in work)
+                                                for i in range(4))
             b_bytes = moved / HBM_BYTES_PER_S * 1e3
-            b_ops = max(fp_ops / fp64_per_s, int_ops / int32_per_s) * 1e3
+            b_ops = max(fp_ops / fp64_per_s, fp32_ops / fp32_per_s,
+                        int_ops / int32_per_s) * 1e3
             ms.append(t_k)
             plain_ms.append(t_p)
             bound_ms.append(max(b_bytes, b_ops))
@@ -851,8 +885,8 @@ def main() -> int:
             b_by_ops.append(b_ops)
             per_col.append(len(kernels))
             print(f"  {k} on {name}: {len(kernels)} launches/compress, "
-                  f"{moved} "
-                  f"bytes, {fp_ops} FP64 ops, {int_ops} int ops, kernel "
+                  f"{moved} bytes, {fp_ops} FP64 ops, {fp32_ops} FP32 ops, "
+                  f"{int_ops} int ops, kernel "
                   f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound "
                   f"{max(b_bytes, b_ops):.4f} ms (bytes {b_bytes:.4f} ms, "
                   f"operations {b_ops:.4f} ms), share "
@@ -871,7 +905,7 @@ def main() -> int:
             "yardstick": "Tensor.copy_ of the first call's main input (not "
                          "the same function: no PyTorch call encodes, "
                          "packs or scores ALP)",
-            "timed_on": [n for n in DC_TIMED
+            "timed_on": [n for n in timed_on
                          if any(c[0] == k for c in dc_calls[n])],
         })
     del dc_calls

@@ -3,8 +3,8 @@
 Each kernel is held against its plain PyTorch version on the same plan
 buckets, bit for bit (the SUM kernels' integer totals exactly), the whole
 decode against the input, ``query_sum`` against ``math.fsum``, and the
-device compress kernels K9-K11 against their plain versions and
-``compress_device``'s blob against host compress's.  This file
+device compress kernels K9-K14 against their plain versions and
+``compress_device``'s blob against host compress's, in both precisions.  This file
 imports neither JAX nor ``alp_tpu``, so it runs on a machine with a card
 and no JAX:
 
@@ -91,8 +91,10 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     monkeypatch.setattr(falp, "falp_plain", refuse)
     monkeypatch.setattr(falp, "rd_plain", refuse)
     monkeypatch.setattr(kenc, "encode_plain", refuse)
+    monkeypatch.setattr(kenc, "encode_plain_f32", refuse)
     monkeypatch.setattr(kffor, "ffor_plain", refuse)
     monkeypatch.setattr(kscore, "score_plain", refuse)
+    monkeypatch.setattr(kscore, "score_plain_f32", refuse)
     x = COLUMNS["f64_mixed_alp_rd"]
     col = alp_tpu_torch.compress(x)
     alp_tpu_torch.decompress(col)
@@ -100,6 +102,10 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
                   kscore.reset_launches):
         reset()
     assert alp_tpu_torch.compress_device(x).to_bytes() == col.to_bytes()
+    for name in ("f32_alp", "f32_alp_rd"):
+        x32 = COLUMNS[name]
+        assert alp_tpu_torch.compress_device(x32).to_bytes() == \
+            alp_tpu_torch.compress(x32).to_bytes()
     for launches in (kenc.LAUNCHES, kffor.LAUNCHES, kscore.LAUNCHES):
         assert all(launches.values()), launches
     torch.cuda.synchronize()
@@ -230,6 +236,7 @@ def test_sum_kernels_refuse_cpu_out_for_cuda_input(cuda):
 # ---------------------------------------------------------------------------
 
 F64 = sorted(name for name, x in COLUMNS.items() if x.dtype == np.float64)
+F32 = sorted(name for name, x in COLUMNS.items() if x.dtype == np.float32)
 
 
 def _encode_case(rng, n=64):
@@ -305,7 +312,87 @@ def test_k11_equals_its_plain_version(cuda):
                        kscore.second_level_scores_f64(strides, combos, k))
 
 
-@pytest.mark.parametrize("name", F64)
+def _encode_case32(rng, n=64):
+    vals = np.round(rng.uniform(-500, 500, (n, 1024)), 2).astype(np.float32)
+    vals[1] = rng.standard_normal(1024).astype(np.float32) * 1e4
+    vals[2, :6] = [np.nan, -np.inf, np.inf, -0.0, 0.0, 3e38]
+    vals[3] = np.nan
+    vals[4, 10:20] = [1e-44, -1e-40, 1.4e-45, 2.2e7, -2.2e7, 2147483520.0,
+                      -2147483648.0, 1e30, -1e30, 21474836.0]
+    e = rng.integers(0, 11, n).astype(np.int32)
+    f = np.minimum(rng.integers(0, 11, n), e).astype(np.int32)
+    e[:2], f[:2] = 10, 10                 # past the FACT table: all exceptions
+    return (torch.from_numpy(vals), torch.from_numpy(e),
+            torch.from_numpy(f))
+
+
+@pytest.mark.parametrize("stats", [True, False])
+def test_k12_equals_its_plain_version(cuda, stats):
+    vals, e, f = _encode_case32(np.random.default_rng(1))
+    before = kenc.LAUNCHES["alp_encode_f32"]
+    got = kenc.alp_encode_f32(vals.to(cuda), e.to(cuda), f.to(cuda),
+                              stats=stats)
+    assert kenc.LAUNCHES["alp_encode_f32"] == before + 1
+    want = kenc.encode_plain_f32(vals, e, f, stats)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("bw", [1, 7, 15, 16, 17, 31, 32])
+def test_k13_equals_its_plain_version(cuda, bw):
+    rng = np.random.default_rng(bw)
+    t = torch.from_numpy
+    ints = t(rng.integers(-2**31, 2**31, (40, 1024)).astype(np.int32))
+    base = t(rng.integers(-2**31, 2**31, 40).astype(np.int32))
+    exc = t(rng.random((40, 1024)) < 0.05)
+    fill = t(rng.integers(-2**20, 2**20, 40).astype(np.int32))
+    rows = t(np.array([3, 39, 0, 17]))
+    for kw in ({}, {"exc": exc, "fill": fill}, {"rows": rows}):
+        dev = {k: v.to(cuda) for k, v in kw.items()}
+        before = kffor.LAUNCHES["ffor_pack_f32"]
+        got = kffor.ffor_pack_f32(ints.to(cuda), base.to(cuda), bw, **dev)
+        assert kffor.LAUNCHES["ffor_pack_f32"] == before + 1
+        want = kffor.ffor_plain(ints, base, bw, kw.get("exc"),
+                                kw.get("fill"), kw.get("rows"))
+        assert torch.equal(got.cpu(), want), kw
+    out = torch.zeros(4 * 32 * bw + 5, dtype=torch.int32, device=cuda)
+    offsets = t(np.array([5, 5 + 96 * bw, 5 + 32 * bw, 5 + 64 * bw]))
+    kffor.ffor_pack_f32(ints.to(cuda), base.to(cuda), bw, rows=rows.to(cuda),
+                        out=out, offsets=offsets.to(cuda))
+    want = kffor.ffor_plain(ints, base, bw, rows=rows)
+    for r, o in enumerate(offsets.tolist()):
+        assert torch.equal(out[o:o + 32 * bw].cpu(), want[r])
+
+
+def test_k14_equals_its_plain_version(cuda):
+    rng = np.random.default_rng(2)
+    x = np.round(rng.uniform(-100, 100, (3, 9, 32)), 2).astype(np.float32)
+    x[0, 0, :8] = [np.nan, np.inf, -np.inf, -0.0, 1e-44, -2147483648.0,
+                   3e38, 2.2e7]
+    x[0, 1, ::2] = -0.0
+    x[1, 1] = np.nan
+    x[2] = rng.standard_normal((9, 32)).astype(np.float32) * 1e4
+    samples = torch.from_numpy(x)
+    before = kscore.LAUNCHES["score_pairs_f32"]
+    got = kscore.first_level_scores_f32(samples.to(cuda))
+    assert kscore.LAUNCHES["score_pairs_f32"] == before + 1
+    want = kscore.first_level_scores_f32(samples)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    strides = samples.reshape(-1, 32)
+    n = strides.shape[0]
+    e = rng.integers(0, 11, (n, 5))
+    combos = torch.from_numpy(np.stack(
+        [e, rng.integers(0, 11, (n, 5)) % (e + 1)], -1).astype(np.int32))
+    k = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32))
+    got = kscore.second_level_scores_f32(strides.to(cuda), combos.to(cuda),
+                                         k.to(cuda))
+    assert torch.equal(got.cpu(),
+                       kscore.second_level_scores_f32(strides, combos, k))
+
+
+@pytest.mark.parametrize("name", F64 + F32)
 def test_compress_device_equals_host_compress(name, cuda):
     x = COLUMNS[name]
     want = alp_tpu_torch.compress(x)
@@ -347,4 +434,7 @@ def test_work_runs_on_the_tensors_card():
         got = alp_tpu_torch.compress_device(values=out,
                                             n_values=col.n_values)
         assert got.to_bytes() == col.to_bytes()
+        x32 = COLUMNS["f32_alp_rd"]
+        assert alp_tpu_torch.compress_device(x32, device=other).to_bytes() \
+            == alp_tpu_torch.compress(x32).to_bytes()
         assert torch.cuda.current_device() == 0

@@ -124,13 +124,24 @@ def test_blob_equals_the_jax_device_compress():
 
 
 def test_float32_and_missing_card_raise(monkeypatch):
+    """float32 compresses now (tests/test_torch_device_compress_f32.py holds
+    its blobs); other dtypes raise TypeError, and so does a missing card."""
     x32 = np.ones(3000, np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        alp_tpu_torch.compress_device(x32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        alp_tpu_torch.compress(x32, device="cpu")
-    with pytest.raises(NotImplementedError):
-        alp_tpu_torch.compress_device(values=torch.ones(10), device="cpu")
+    want = jcontainer.compress(x32).to_bytes()
+    assert alp_tpu_torch.compress_device(x32, device="cpu").to_bytes() == want
+    assert alp_tpu_torch.compress(x32, device="cpu").to_bytes() == want
+    got = alp_tpu_torch.compress_device(values=torch.ones(10), device="cpu")
+    assert got.to_bytes() == jcontainer.compress(np.ones(10, np.float32)
+                                                 ).to_bytes()
+    for bad in (np.ones(10, np.float16), np.arange(10)):
+        with pytest.raises(TypeError):
+            alp_tpu_torch.compress_device(bad, device="cpu")
+        with pytest.raises(TypeError):
+            alp_tpu_torch.compress(bad, device="cpu")
+    with pytest.raises(TypeError):
+        alp_tpu_torch.compress_device(values=torch.ones(10,
+                                                        dtype=torch.float16),
+                                      device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: alp_tpu_torch.compress_device(np.ones(10)),
                  lambda: alp_tpu_torch.compress(np.ones(10), device=True),
