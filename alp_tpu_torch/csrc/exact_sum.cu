@@ -37,6 +37,15 @@
 // the row's real vector id (rows[i]), so a compact scratch of decoded
 // ALP_RD rows masks correctly.
 //
+// Key range (query_filter_sum).  Each kernel has a second instantiation,
+// Filter = true, that sums a value only if its IEEE-754 total-order key
+// (vector.cuh order_key) lies in [klo, khi]: SUM(v) WHERE lo <= v <= hi.
+// The test joins the pad test in ok[], so the filtered kernels share every
+// other line with the plain SUM; query_sum's instantiations (Filter =
+// false) compile to the kernels they were before the flag.  This adds no
+// TPU site: the JAX package filters in its one-hot MXU pass
+// (alp_tpu/engine.py _filter_sum_mxu), here the predicate rides the SUM.
+//
 // Exceptions (K7/K8).  The formula's value at an exception slot is a
 // placeholder.  A vector with exceptions writes its decoded bits to shared
 // memory, and the block overwrites its slots with the true bits, read
@@ -78,12 +87,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "fastlanes.cuh"
+#include "vector.cuh"
 
 namespace {
 
 using alp::kVector;
 using alp::Num;
+using alp::order_key;
 using alp::stage;
 using alp::unpack;
 constexpr int kThreads = 256;
@@ -248,12 +258,24 @@ __device__ __forceinline__ void zero_row(long long* row) {
   __syncthreads();
 }
 
+// Whether value bits b are summed: always, or (Filter) if klo <= key <= khi.
+template <bool Filter, typename U>
+__device__ __forceinline__ bool selected(U b, U klo, U khi) {
+  if constexpr (Filter) {
+    const U key = order_key(b);
+    return klo <= key && key <= khi;
+  } else {
+    return true;
+  }
+}
+
 // K5 / K6: rows of decoded bit patterns, row i of vector vec[i].
-template <typename U>
+template <typename U, bool Filter>
 __global__ void __launch_bounds__(kThreads)
 exact_sum_kernel(const U* __restrict__ bits,
                  const long long* __restrict__ vec, long long n,
-                 long long n_values, long long* __restrict__ out) {
+                 long long n_values, U klo, U khi,
+                 long long* __restrict__ out) {
   __shared__ long long row[Fixed<U>::W + 3];
   zero_row<U>(row);
   Acc<U> acc(row);
@@ -265,7 +287,7 @@ exact_sum_kernel(const U* __restrict__ bits,
     for (int r = 0; r < kPer; ++r) {
       const int k = threadIdx.x + r * kThreads;
       b[r] = bits[i * kVector + k];
-      ok[r] = first + k < n_values;
+      ok[r] = first + k < n_values && selected<Filter>(b[r], klo, khi);
     }
     acc.add(b, ok);
   }
@@ -273,7 +295,7 @@ exact_sum_kernel(const U* __restrict__ bits,
 }
 
 // K7 / K8: the falp decode of K1 / K2, its exceptions substituted, summed.
-template <typename F>
+template <typename F, bool Filter>
 __global__ void __launch_bounds__(kThreads)
 falp_exact_sum_kernel(const typename Num<F>::U* __restrict__ packed, int bw,
                       const typename Num<F>::U* __restrict__ base,
@@ -284,6 +306,7 @@ falp_exact_sum_kernel(const typename Num<F>::U* __restrict__ packed, int bw,
                       const long long* __restrict__ exc_index,
                       const typename Num<F>::U* __restrict__ exc_bits,
                       long long n, long long n_values,
+                      typename Num<F>::U klo, typename Num<F>::U khi,
                       long long* __restrict__ out) {
   using U = typename Num<F>::U;
   constexpr int S = Num<F>::S;
@@ -319,6 +342,11 @@ falp_exact_sum_kernel(const typename Num<F>::U* __restrict__ packed, int bw,
 #pragma unroll
       for (int r = 0; r < kPer; ++r) b[r] = vals[threadIdx.x + r * kThreads];
     }
+    if constexpr (Filter) {
+#pragma unroll
+      for (int r = 0; r < kPer; ++r)
+        ok[r] = ok[r] && selected<Filter>(b[r], klo, khi);
+    }
     acc.add(b, ok);
   }
   acc.finish(out);
@@ -346,45 +374,47 @@ bool bad_size(long long n, long long n_values) {
   return n < 0 || n * kVector >= (1ll << 31) || n_values < 0;
 }
 
-template <typename U>
+template <typename U, bool Filter>
 int launch_exact_sum(const void* bits, const void* vec, long long n,
-                     long long n_values, void* out, int dev,
+                     long long n_values, U klo, U khi, void* out, int dev,
                      void* stream) {
   if (bad_size(n, n_values)) return static_cast<int>(cudaErrorInvalidValue);
   unsigned blocks = 0;
-  const cudaError_t err = grid_for(exact_sum_kernel<U>, n, dev, &blocks);
+  const cudaError_t err =
+      grid_for(exact_sum_kernel<U, Filter>, n, dev, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks)
-    exact_sum_kernel<U><<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+    exact_sum_kernel<U, Filter><<<blocks, kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const U*>(bits), static_cast<const long long*>(vec), n,
-        n_values, static_cast<long long*>(out));
+        n_values, klo, khi, static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename F>
+template <typename F, bool Filter>
 int launch_falp_exact_sum(const void* packed, int bw, const void* base,
                           const void* fact, const void* frac,
                           const void* rows, const void* exc_ptr,
                           const void* exc_index, const void* exc_bits,
-                          long long n, long long n_values, void* out,
-                          int dev, void* stream) {
+                          long long n, long long n_values,
+                          typename Num<F>::U klo, typename Num<F>::U khi,
+                          void* out, int dev, void* stream) {
   using U = typename Num<F>::U;
   if (bad_size(n, n_values) || bw < 0 || bw > Num<F>::S)
     return static_cast<int>(cudaErrorInvalidValue);
   unsigned blocks = 0;
   const cudaError_t err =
-      grid_for(falp_exact_sum_kernel<F>, n, dev, &blocks);
+      grid_for(falp_exact_sum_kernel<F, Filter>, n, dev, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks)
-    falp_exact_sum_kernel<F><<<blocks, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+    falp_exact_sum_kernel<F, Filter><<<blocks, kThreads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const U*>(packed), bw, static_cast<const U*>(base),
         static_cast<const U*>(fact), static_cast<const F*>(frac),
         static_cast<const long long*>(rows),
         static_cast<const long long*>(exc_ptr),
         static_cast<const long long*>(exc_index),
-        static_cast<const U*>(exc_bits), n, n_values,
+        static_cast<const U*>(exc_bits), n, n_values, klo, khi,
         static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -399,15 +429,15 @@ int launch_falp_exact_sum(const void* packed, int bw, const void* base,
 extern "C" int alp_exact_sum_f64(const void* bits, const void* vec,
                                  long long n, long long n_values, void* out,
                                  int dev, void* stream) {
-  return launch_exact_sum<uint64_t>(bits, vec, n, n_values, out, dev,
-                                    stream);
+  return launch_exact_sum<uint64_t, false>(bits, vec, n, n_values, 0, 0,
+                                           out, dev, stream);
 }
 
 extern "C" int alp_exact_sum_f32(const void* bits, const void* vec,
                                  long long n, long long n_values, void* out,
                                  int dev, void* stream) {
-  return launch_exact_sum<uint32_t>(bits, vec, n, n_values, out, dev,
-                                    stream);
+  return launch_exact_sum<uint32_t, false>(bits, vec, n, n_values, 0, 0,
+                                           out, dev, stream);
 }
 
 extern "C" int alp_falp_exact_sum_f64(
@@ -415,9 +445,9 @@ extern "C" int alp_falp_exact_sum_f64(
     const void* frac, const void* rows, const void* exc_ptr,
     const void* exc_index, const void* exc_bits, long long n,
     long long n_values, void* out, int dev, void* stream) {
-  return launch_falp_exact_sum<double>(packed, bw, base, fact, frac, rows,
-                                       exc_ptr, exc_index, exc_bits, n,
-                                       n_values, out, dev, stream);
+  return launch_falp_exact_sum<double, false>(
+      packed, bw, base, fact, frac, rows, exc_ptr, exc_index, exc_bits, n,
+      n_values, 0, 0, out, dev, stream);
 }
 
 extern "C" int alp_falp_exact_sum_f32(
@@ -425,7 +455,53 @@ extern "C" int alp_falp_exact_sum_f32(
     const void* frac, const void* rows, const void* exc_ptr,
     const void* exc_index, const void* exc_bits, long long n,
     long long n_values, void* out, int dev, void* stream) {
-  return launch_falp_exact_sum<float>(packed, bw, base, fact, frac, rows,
-                                      exc_ptr, exc_index, exc_bits, n,
-                                      n_values, out, dev, stream);
+  return launch_falp_exact_sum<float, false>(
+      packed, bw, base, fact, frac, rows, exc_ptr, exc_index, exc_bits, n,
+      n_values, 0, 0, out, dev, stream);
+}
+
+// The filtered twins (Filter = true): the same arguments and the key range
+// [klo, khi] (unsigned keys; the f32 entries use their low 32 bits) just
+// before out.
+
+extern "C" int alp_exact_sum_where_f64(const void* bits, const void* vec,
+                                       long long n, long long n_values,
+                                       unsigned long long klo,
+                                       unsigned long long khi, void* out,
+                                       int dev, void* stream) {
+  return launch_exact_sum<uint64_t, true>(bits, vec, n, n_values, klo, khi,
+                                          out, dev, stream);
+}
+
+extern "C" int alp_exact_sum_where_f32(const void* bits, const void* vec,
+                                       long long n, long long n_values,
+                                       unsigned long long klo,
+                                       unsigned long long khi, void* out,
+                                       int dev, void* stream) {
+  return launch_exact_sum<uint32_t, true>(
+      bits, vec, n, n_values, static_cast<uint32_t>(klo),
+      static_cast<uint32_t>(khi), out, dev, stream);
+}
+
+extern "C" int alp_falp_exact_sum_where_f64(
+    const void* packed, int bw, const void* base, const void* fact,
+    const void* frac, const void* rows, const void* exc_ptr,
+    const void* exc_index, const void* exc_bits, long long n,
+    long long n_values, unsigned long long klo, unsigned long long khi,
+    void* out, int dev, void* stream) {
+  return launch_falp_exact_sum<double, true>(
+      packed, bw, base, fact, frac, rows, exc_ptr, exc_index, exc_bits, n,
+      n_values, klo, khi, out, dev, stream);
+}
+
+extern "C" int alp_falp_exact_sum_where_f32(
+    const void* packed, int bw, const void* base, const void* fact,
+    const void* frac, const void* rows, const void* exc_ptr,
+    const void* exc_index, const void* exc_bits, long long n,
+    long long n_values, unsigned long long klo, unsigned long long khi,
+    void* out, int dev, void* stream) {
+  return launch_falp_exact_sum<float, true>(
+      packed, bw, base, fact, frac, rows, exc_ptr, exc_index, exc_bits, n,
+      n_values, static_cast<uint32_t>(klo), static_cast<uint32_t>(khi), out,
+      dev, stream);
 }

@@ -1,0 +1,334 @@
+// Hand-written Hopper (sm_90a) key kernels of alp_tpu_torch: the
+// predicate and order queries (COUNT WHERE, MIN/MAX, TOP-K, histogram).
+//
+//   K15 key_counts    prefix counts of total-order keys, fused with the
+//                     decode.  Replaces, in alp_tpu/kernels/falp.py, the
+//                     COUNT kernels falp_decode_f64_variant_count (:890),
+//                     falp_decode_f64_count (:1190), falp_decode_f32_count
+//                     (:1299), rd_decode_dict_f64_count (:1578) and
+//                     rd_decode_dict_f32_count (:2353), and the
+//                     multi-threshold prefix counts
+//                     falp_decode_f64_variant_prefix_counts (:1112),
+//                     rd_decode_dict_f64_prefix_counts (:1677),
+//                     falp_decode_f32_prefix_counts (:1788) and
+//                     rd_decode_dict_f32_prefix_counts (:1881).
+//   K16 key_extremes  the least and the largest key of each vector, fused
+//                     with the decode.  Replaces the key-max kernels
+//                     falp_decode_f64_variant_keymax (:1052),
+//                     rd_decode_dict_f64_keymax (:1624),
+//                     falp_decode_f32_keymax (:1746) and
+//                     rd_decode_dict_f32_keymax (:1830); their `invert`
+//                     (smallest-first TOP-K) is the least key here.
+//
+// Each is one template over the four routes of vector.cuh (ALP f64, ALP
+// f32, ALP_RD f64, ALP_RD f32), so eight C entries.
+//
+// K15.  E ascending thresholds thr_0 < ... < thr_{E-1} (unsigned keys; E
+// at most kMaxThr, which keeps a block's static shared memory under
+// 48 KB).  Every value of the bucket that is not pad adds 1 to bin
+// p = #{thresholds < key}, found by a binary search in shared memory; the
+// warp's lanes that share a bin add to the block's shared histogram with
+// one atomic (__match_any_sync), and each block adds its nonzero bins to
+// the global int64 [E + 1] bins once.  #{key <= thr_e} is the sum of bins
+// 0..e.  The TPU kernels instead compare every key with every threshold
+// in its 128 lanes and leave the exceptions and the pad to host
+// corrections; here the exceptions are written in and the pad skipped, so
+// the counts are final.
+//
+// K16.  A thread's least and largest key over its values, then warp
+// shuffles, one shared row a block, and thread 0 writes the pair at row
+// rows[i] of out [n_vectors, 2].  The TPU kernels keep a key max per lane
+// column of 128 lanes in biased i32 words; Hopper compares 64-bit
+// integers, so the key is one unsigned word.
+//
+// Bound.  Both read only the packed words, the metadata, the row ids and
+// the exceptions of their vectors (a few bits a value) and write a few
+// bins or two keys a vector, so they are bound by operations: the decode's
+// (K1-K4's unpack, FOR add, FACT product, conversion and product, or the
+// RD glue), about 3 for the key, then ceil(log2(E + 1)) search steps (K15)
+// or 2 compares (K16) a value, at the INT32 issue rate.  chip_smoke.py
+// counts them (KEY_OPS).  The design is the simple one: one block of 256
+// threads walks the vectors of its share, the vector is decoded into
+// shared memory before it is read, and no thread block keeps values in
+// registers across the exception pass.  Cutting the shared-memory round
+// trip and the shared atomics is work for a later change.
+
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "vector.cuh"
+
+namespace {
+
+using alp::AlpVector;
+using alp::kVector;
+using alp::order_key;
+using alp::RdVector;
+constexpr int kThreads = 256;
+constexpr int kMaxThr = 2048;
+constexpr unsigned kFull = 0xffffffffu;
+
+// K15: prefix-count bins of the keys of rows 0..n-1 (vector rows[i]).
+template <class V>
+__global__ void __launch_bounds__(kThreads)
+key_counts_kernel(V src, const long long* __restrict__ rows, long long n,
+                  long long n_values, const typename V::U* __restrict__ thr,
+                  int E, unsigned long long* __restrict__ bins) {
+  using U = typename V::U;
+  __shared__ typename V::Shared sh;
+  __shared__ U vals[kVector];
+  __shared__ U th[kMaxThr];
+  __shared__ unsigned hist[kMaxThr + 1];
+  for (int j = threadIdx.x; j < E; j += kThreads) th[j] = thr[j];
+  for (int j = threadIdx.x; j <= E; j += kThreads) hist[j] = 0;
+  const int lane = threadIdx.x & 31;
+  for (long long i = blockIdx.x; i < n; i += gridDim.x) {
+    const long long vec = rows[i];
+    src.decode(sh, vals, i, vec);            // ends in a barrier
+    const long long valid = n_values - vec * kVector;
+    for (int k = threadIdx.x; k < kVector; k += kThreads) {
+      int p = -1;                            // -1: pad, counted nowhere
+      if (k < valid) {
+        const U key = order_key(vals[k]);
+        int lo = 0, hi = E;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (th[mid] < key)
+            lo = mid + 1;
+          else
+            hi = mid;
+        }
+        p = lo;
+      }
+      const unsigned peers = __match_any_sync(kFull, p);
+      if (p >= 0 && lane == __ffs(peers) - 1)
+        atomicAdd(&hist[p], static_cast<unsigned>(__popc(peers)));
+    }
+    __syncthreads();                         // vals is read
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j <= E; j += kThreads)
+    if (hist[j]) atomicAdd(&bins[j], static_cast<unsigned long long>(hist[j]));
+}
+
+// unsigned min / max of any width (uint64_t is unsigned long here)
+template <typename U>
+__device__ __forceinline__ U umin(U a, U b) { return b < a ? b : a; }
+template <typename U>
+__device__ __forceinline__ U umax(U a, U b) { return a < b ? b : a; }
+
+template <typename U>
+__device__ __forceinline__ U warp_min(U v) {
+  for (int o = 16; o; o >>= 1) v = umin(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+template <typename U>
+__device__ __forceinline__ U warp_max(U v) {
+  for (int o = 16; o; o >>= 1) v = umax(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// K16: (least key, largest key) of each vector into out[rows[i]].
+template <class V>
+__global__ void __launch_bounds__(kThreads)
+key_extremes_kernel(V src, const long long* __restrict__ rows, long long n,
+                    long long n_values, typename V::U* __restrict__ out) {
+  using U = typename V::U;
+  constexpr int kWarps = kThreads / 32;
+  __shared__ typename V::Shared sh;
+  __shared__ U vals[kVector];
+  __shared__ U wlo[kWarps], whi[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (long long i = blockIdx.x; i < n; i += gridDim.x) {
+    const long long vec = rows[i];
+    src.decode(sh, vals, i, vec);
+    const long long valid = n_values - vec * kVector;
+    U lo = static_cast<U>(~U(0)), hi = 0;
+    for (int k = threadIdx.x; k < kVector; k += kThreads) {
+      if (k < valid) {
+        const U key = order_key(vals[k]);
+        lo = umin(lo, key);
+        hi = umax(hi, key);
+      }
+    }
+    lo = warp_min(lo);
+    hi = warp_max(hi);
+    if (lane == 0) {
+      wlo[warp] = lo;
+      whi[warp] = hi;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < kWarps; ++w) {
+        lo = umin(lo, wlo[w]);
+        hi = umax(hi, whi[w]);
+      }
+      out[vec * 2] = lo;
+      out[vec * 2 + 1] = hi;
+    }
+    __syncthreads();                         // vals and the rows are read
+  }
+}
+
+// Blocks for n vectors on card `dev`: as many as can be resident at once
+// (at most one per vector); each walks its share of the vectors.
+template <typename K>
+cudaError_t grid_for(K kernel, long long n, int dev, unsigned* blocks) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+  const long long cap = max(static_cast<long long>(sms) * per_sm, 1ll);
+  *blocks = static_cast<unsigned>(n < cap ? n : cap);
+  return err;
+}
+
+// Thresholds, bins and out are optional per kernel: E < 0 launches K16.
+template <class V>
+int launch(const V& src, const void* rows, long long n, long long n_values,
+           const void* thr, int E, void* bins, void* out, int dev,
+           void* stream) {
+  using U = typename V::U;
+  if (n < 0 || n_values < 0 || E > kMaxThr || E == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  unsigned blocks = 0;
+  const auto* r = static_cast<const long long*>(rows);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (E > 0) {
+    const cudaError_t err = grid_for(key_counts_kernel<V>, n, dev, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (blocks)
+      key_counts_kernel<V><<<blocks, kThreads, 0, s>>>(
+          src, r, n, n_values, static_cast<const U*>(thr), E,
+          static_cast<unsigned long long*>(bins));
+  } else {
+    const cudaError_t err =
+        grid_for(key_extremes_kernel<V>, n, dev, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (blocks)
+      key_extremes_kernel<V><<<blocks, kThreads, 0, s>>>(
+          src, r, n, n_values, static_cast<U*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename F>
+AlpVector<F> alp_route(const void* packed, int bw, const void* base,
+                       const void* fact, const void* frac,
+                       const void* exc_ptr, const void* exc_index,
+                       const void* exc_bits) {
+  using U = typename alp::Num<F>::U;
+  return {static_cast<const U*>(packed), bw, static_cast<const U*>(base),
+          static_cast<const U*>(fact), static_cast<const F*>(frac),
+          static_cast<const long long*>(exc_ptr),
+          static_cast<const long long*>(exc_index),
+          static_cast<const U*>(exc_bits)};
+}
+
+template <typename U, int S>
+RdVector<U, S> rd_route(const void* right, int rbw, const void* left,
+                        int lbw, const void* dict, const void* dict_size,
+                        const void* exc_ptr, const void* exc_index,
+                        const void* exc_left) {
+  return {static_cast<const U*>(right), rbw,
+          static_cast<const uint16_t*>(left), lbw,
+          static_cast<const uint16_t*>(dict),
+          static_cast<const int*>(dict_size),
+          static_cast<const long long*>(exc_ptr),
+          static_cast<const long long*>(exc_index),
+          static_cast<const long long*>(exc_left)};
+}
+
+bool bad_alp(int bw, int S) { return bw < 0 || bw > S; }
+bool bad_rd(int rbw, int lbw, int S) {
+  return rbw < 0 || rbw > S || lbw < 0 || lbw > 16;
+}
+
+}  // namespace
+
+// C interface (loaded with ctypes).  Pointers are device pointers on card
+// `dev`, which the caller has made current.  ALP entries take K1/K2's
+// bucket arguments and the plan's ALP exception CSR (exc_bits: true
+// bits); RD entries K3/K4's and the RD exception CSR (exc_left: raw left
+// parts).  K15 adds into bins (int64 [E + 1]); thr holds E ascending
+// unsigned keys (uint64 for f64, uint32 for f32), 1 <= E <= 2048.  K16
+// writes out (keys, [n_vectors, 2]) at rows rows[i].  Every entry returns
+// cudaGetLastError() (or the error of its device query).
+
+#define ALP_ARGS                                                          \
+  const void *packed, int bw, const void *base, const void *fact,         \
+      const void *frac, const void *rows, const void *exc_ptr,            \
+      const void *exc_index, const void *exc_bits, long long n,           \
+      long long n_values
+#define RD_ARGS                                                           \
+  const void *right, int rbw, const void *left, int lbw, const void *dict, \
+      const void *dict_size, const void *rows, const void *exc_ptr,       \
+      const void *exc_index, const void *exc_left, long long n,           \
+      long long n_values
+#define ALP_ROUTE(F)                                                      \
+  alp_route<F>(packed, bw, base, fact, frac, exc_ptr, exc_index, exc_bits)
+#define RD_ROUTE(U, S)                                                    \
+  rd_route<U, S>(right, rbw, left, lbw, dict, dict_size, exc_ptr,         \
+                 exc_index, exc_left)
+
+extern "C" int alp_key_counts_alp_f64(ALP_ARGS, const void* thr, int E,
+                                      void* bins, int dev, void* stream) {
+  if (bad_alp(bw, 64) || E < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(ALP_ROUTE(double), rows, n, n_values, thr, E, bins, nullptr,
+                dev, stream);
+}
+
+extern "C" int alp_key_counts_alp_f32(ALP_ARGS, const void* thr, int E,
+                                      void* bins, int dev, void* stream) {
+  if (bad_alp(bw, 32) || E < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(ALP_ROUTE(float), rows, n, n_values, thr, E, bins, nullptr,
+                dev, stream);
+}
+
+extern "C" int alp_key_counts_rd_f64(RD_ARGS, const void* thr, int E,
+                                     void* bins, int dev, void* stream) {
+  if (bad_rd(rbw, lbw, 64) || E < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(RD_ROUTE(uint64_t, 64), rows, n, n_values, thr, E, bins,
+                nullptr, dev, stream);
+}
+
+extern "C" int alp_key_counts_rd_f32(RD_ARGS, const void* thr, int E,
+                                     void* bins, int dev, void* stream) {
+  if (bad_rd(rbw, lbw, 32) || E < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(RD_ROUTE(uint32_t, 32), rows, n, n_values, thr, E, bins,
+                nullptr, dev, stream);
+}
+
+extern "C" int alp_key_extremes_alp_f64(ALP_ARGS, void* out, int dev,
+                                        void* stream) {
+  if (bad_alp(bw, 64)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(ALP_ROUTE(double), rows, n, n_values, nullptr, -1, nullptr,
+                out, dev, stream);
+}
+
+extern "C" int alp_key_extremes_alp_f32(ALP_ARGS, void* out, int dev,
+                                        void* stream) {
+  if (bad_alp(bw, 32)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(ALP_ROUTE(float), rows, n, n_values, nullptr, -1, nullptr,
+                out, dev, stream);
+}
+
+extern "C" int alp_key_extremes_rd_f64(RD_ARGS, void* out, int dev,
+                                       void* stream) {
+  if (bad_rd(rbw, lbw, 64)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(RD_ROUTE(uint64_t, 64), rows, n, n_values, nullptr, -1,
+                nullptr, out, dev, stream);
+}
+
+extern "C" int alp_key_extremes_rd_f32(RD_ARGS, void* out, int dev,
+                                       void* stream) {
+  if (bad_rd(rbw, lbw, 32)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(RD_ROUTE(uint32_t, 32), rows, n, n_values, nullptr, -1,
+                nullptr, out, dev, stream);
+}

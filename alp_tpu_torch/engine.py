@@ -1,8 +1,26 @@
-"""Exact SUM and MEAN of a compressed column on a device.
+"""The query engine over a compressed column on a device.
 
-Counterpart of the SUM path of ``alp_tpu/engine.py`` (``query_sum``,
-``query_mean``, ``_finish_sum``, ``_f64_fixed``/``_f32_fixed``,
-``make_exact_sum_step``).  A finite value is ``m' * 2^(e_eff - B)`` (B =
+Counterpart of ``alp_tpu/engine.py``'s SUM path and its predicate and order
+queries.  Every answer equals the JAX package's bit for bit.
+
+* ``query_sum`` / ``query_mean`` (exact, K5-K8) and ``query_filter_sum``
+  (the same kernels with a key range);
+* ``query_filter_count``, ``query_min`` / ``query_max``, ``query_topk``
+  and ``query_histogram`` over the IEEE-754 total-order keys of the
+  values, through K15 ``key_counts`` (prefix counts of keys at given
+  thresholds) and K16 ``key_extremes`` (each vector's least and largest
+  key), both fused with the decode;
+* ``query_scan`` (the full decode), ``query_count_exceptions`` and
+  ``query_compression``, thin wrappers.
+
+Keys: -0.0 counts as +0.0, and bounds are rounded to the column dtype
+first (``_float_key``), so an f32 column compares against ``f32(lo)``.
+The kernels write each vector's exceptions in from the plan's per-vector
+CSRs and skip the pad of a partial last vector, so no host correction is
+left (the JAX package's ``_pred_corrections`` and its kin have no
+counterpart).
+
+The SUM.  A finite value is ``m' * 2^(e_eff - B)`` (B =
 1075 for f64, 150 for f32); the kernels add the signed 32-bit digits of
 the integer ``m' << e_eff`` into int64 windows over the whole exponent
 range and count NaN, +Inf and -Inf apart.  The host joins the windows
@@ -37,7 +55,9 @@ import torch
 
 from . import constants as C
 from .kernels import exact_sum as kes
+from .kernels import keys as kkeys
 from .kernels.decode import VECTOR_SIZE, resolve_device
+from .ops.keys import bias, biased_keys
 
 # value dtype -> B, the power of two of the fixed-point scale
 _SCALE = {np.dtype(np.float64): 1075, np.dtype(np.float32): 150}
@@ -73,21 +93,24 @@ def query_mean(col, device=None) -> float:
 class SumCall:
     """One SUM kernel call of a plan: the kernel's name (a key of
     ``exact_sum.LAUNCHES``), its wrapper's positional arguments, the real
-    vector id of each row it sums, and the bit width of its packed words
-    (0 for decoded bits)."""
+    vector id of each row it sums, the bit width of its packed words (0
+    for decoded bits), and the key range it filters by (None: every
+    value)."""
     kernel: str
     args: tuple
     rows: torch.Tensor
     bw: int
+    key_range: tuple | None = None
 
     def launch(self, out: torch.Tensor) -> torch.Tensor:
         """The kernel (or, on a CPU tensor, its plain version) added into
         ``out``."""
-        return kes.KERNELS[self.kernel][0](*self.args, out=out)
+        return kes.KERNELS[self.kernel][0](*self.args, out=out,
+                                           key_range=self.key_range)
 
     def plain(self) -> torch.Tensor:
         """The plain version's totals on the same arguments."""
-        return kes.KERNELS[self.kernel][1](*self.args)
+        return kes.KERNELS[self.kernel][1](*self.args, self.key_range)
 
     def split(self, max_rows: int) -> list:
         """The call cut into calls of at most ``max_rows`` rows each (its
@@ -99,7 +122,8 @@ class SumCall:
         return [SumCall(self.kernel,
                         tuple(a[lo:lo + max_rows] if i in per_row else a
                               for i, a in enumerate(self.args)),
-                        self.rows[lo:lo + max_rows], self.bw)
+                        self.rows[lo:lo + max_rows], self.bw,
+                        self.key_range)
                 for lo in range(0, n, max_rows)]
 
 
@@ -110,36 +134,39 @@ _PER_ROW_ARGS = {"exact_sum_f64": (0, 1), "exact_sum_f32": (0, 1),
                  "falp_decode_f32_exact_sum": (0, 2, 3, 4, 5)}
 
 
-def sum_calls(plan) -> list:
+def sum_calls(plan, key_range=None) -> list:
     """The SUM kernel calls of a plan, in launch order: K7/K8 for each ALP
     bucket, then K5/K6 over the ALP_RD vectors, which this decodes (K3/K4)
-    into the plan's compact scratch."""
+    into the plan's compact scratch.  With ``key_range=(klo, khi)``
+    (unsigned keys) each sums only the values whose key lies in it."""
     width = "f64" if plan.f64 else "f32"
     calls = [SumCall(f"falp_decode_{width}_exact_sum",
                      (b.args[0], b.bw, *b.args[1:], b.rows, plan.exc_ptr,
                       plan.exc_index, plan.exc_bits, plan.n_values),
-                     b.rows, b.bw)
+                     b.rows, b.bw, key_range)
              for b in plan.buckets if b.scheme == C.SCHEME_ALP]
     if any(b.scheme == C.SCHEME_ALP_RD for b in plan.buckets):
         scratch, vec = plan.decode_rd()
         calls.append(SumCall(f"exact_sum_{width}",
-                             (scratch, vec, plan.n_values), vec, 0))
+                             (scratch, vec, plan.n_values), vec, 0,
+                             key_range))
     return calls
 
 
-def exact_sum_totals(plan, run_values: int = kes.MAX_VALUES
-                     ) -> torch.Tensor:
+def exact_sum_totals(plan, run_values: int = kes.MAX_VALUES,
+                     key_range=None) -> torch.Tensor:
     """The steady-state device part of the SUM: the int64 [runs, W + 3]
     totals of a plan (W windows, then the NaN, +Inf and -Inf counts), on
     the plan's device, with no host join and no synchronise.  Each row is
     the total of a run of fewer than ``run_values`` values (whole vectors,
     pad included), so no int64 total can overflow; a column of fewer than
     2^31 values has one row.  The rows add up as integers
-    (``join_totals``)."""
+    (``join_totals``).  ``key_range``: only the values whose key lies in
+    it (``query_filter_sum``)."""
     max_rows = max(1, (run_values - 1) // VECTOR_SIZE)
     runs = [kes.totals(plan.bits_dtype, plan.device)]
     used = 0
-    for call in sum_calls(plan):
+    for call in sum_calls(plan, key_range):
         for part in call.split(max_rows):
             n = part.rows.shape[0]
             if used + n > max_rows:
@@ -217,3 +244,311 @@ def host_sum_raw(values: np.ndarray) -> tuple:
         total += v
         counts[cls] += 1
     return total, counts[1], counts[2], counts[3], _SCALE[values.dtype]
+
+
+# ---------------------------------------------------------------------------
+# Predicate and order queries: total-order keys, K15 and K16
+# ---------------------------------------------------------------------------
+
+def _key_type(dtype):
+    return np.uint64 if np.dtype(dtype) == np.float64 else np.uint32
+
+
+def _float_key(v: float, dtype) -> int:
+    """The total-order key of a float, rounded to ``dtype`` first (inverse
+    of :func:`_key_float`); -0.0 takes +0.0's key, so bounds behave like
+    IEEE compares at zero (``alp_tpu/engine.py:1312``)."""
+    if np.dtype(dtype) == np.float64:
+        b = int(np.float64(v).view(np.uint64))
+        if b == 1 << 63:
+            b = 0
+        return (~b) & ((1 << 64) - 1) if b >> 63 else b | (1 << 63)
+    b = int(np.float32(v).view(np.uint32))
+    if b == 1 << 31:
+        b = 0
+    return (~b) & ((1 << 32) - 1) if b >> 31 else b | (1 << 31)
+
+
+def _float_keys(values, dtype) -> np.ndarray:
+    """``[_float_key(v, dtype) for v in values]`` as unsigned numpy keys."""
+    ut = _key_type(dtype)
+    b = np.asarray(values, np.float64).astype(dtype).view(ut)
+    sbit = ut(1) << ut(8 * b.itemsize - 1)
+    b = np.where(b == sbit, ut(0), b)
+    return np.where((b & sbit) != 0, ~b, b | sbit)
+
+
+def _key_float(k: int, dtype) -> float:
+    """The float of a total-order key (a Python float, also for f32)."""
+    if np.dtype(dtype) == np.float64:
+        b = (k ^ (1 << 63)) if k >> 63 else (~k) & ((1 << 64) - 1)
+        return float(np.uint64(b).view(np.float64))
+    b = (k ^ (1 << 31)) if k >> 31 else (~k) & ((1 << 32) - 1)
+    return float(np.uint32(b).view(np.float32))
+
+
+def _pred_key(bits: np.ndarray, klo: int, khi: int) -> np.ndarray:
+    """Host mirror of the kernels' predicate on f64/f32 bit patterns
+    (unsigned numpy words): total-order key in [klo, khi], -0.0 as +0.0."""
+    ut = bits.dtype.type
+    sbit = ut(1) << ut(bits.dtype.itemsize * 8 - 1)
+    b = np.where(bits == sbit, ut(0), bits)
+    key = np.where((b & sbit) != 0, ~b, b | sbit)
+    return (key >= ut(klo)) & (key <= ut(khi))
+
+
+def _keys_to_values(keys: np.ndarray, dtype) -> np.ndarray:
+    """Unsigned total-order keys -> values of ``dtype``, as
+    ``np.array([_key_float(k, dtype) for k in keys], dtype)`` gives them:
+    an f32 value passes through a Python float, so a signaling NaN comes
+    out quiet, as in the JAX package's TOP-K."""
+    ut = keys.dtype.type
+    sbit = ut(1) << ut(keys.dtype.itemsize * 8 - 1)
+    bits = np.where((keys & sbit) != 0, keys ^ sbit, ~keys)
+    if np.dtype(dtype) == np.float64:
+        return bits.view(np.float64)
+    return bits.view(np.float32).astype(np.float64).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyCall:
+    """The key kernels' arguments for one bucket of a plan: its scheme
+    (``"alp"`` or ``"rd"``, a key of ``keys.KERNELS``), the wrappers'
+    positional arguments up to ``n_values``, the bucket's vector ids and
+    bit width."""
+    scheme: str
+    args: tuple
+    rows: torch.Tensor
+    bw: int
+
+    def counts(self, thresholds: torch.Tensor,
+               out: torch.Tensor) -> torch.Tensor:
+        """K15 (on a CPU tensor its plain version) added into ``out``."""
+        return kkeys.KERNELS[self.scheme]["key_counts"][0](
+            *self.args, thresholds, out=out)
+
+    def counts_plain(self, thresholds: torch.Tensor) -> torch.Tensor:
+        return kkeys.KERNELS[self.scheme]["key_counts"][1](*self.args,
+                                                           thresholds)
+
+    def extremes(self, out: torch.Tensor) -> torch.Tensor:
+        """K16 into rows ``rows`` of ``out`` [n_vectors, 2]."""
+        return kkeys.KERNELS[self.scheme]["key_extremes"][0](*self.args,
+                                                             out=out)
+
+    def extremes_plain(self) -> torch.Tensor:
+        """The plain version's [n, 2] keys of the bucket's vectors."""
+        return kkeys.KERNELS[self.scheme]["key_extremes"][1](*self.args)
+
+
+def key_calls(plan) -> list:
+    """One :class:`KeyCall` per bucket of a plan: ALP buckets with the
+    plan's ALP exception CSR, ALP_RD buckets with its RD one."""
+    calls = []
+    for b in plan.buckets:
+        if b.scheme == C.SCHEME_ALP:
+            calls.append(KeyCall("alp", (
+                b.args[0], b.bw, *b.args[1:], b.rows, plan.exc_ptr,
+                plan.exc_index, plan.exc_bits, plan.n_values), b.rows, b.bw))
+        else:
+            right, left, dictionary, dict_size = b.args
+            calls.append(KeyCall("rd", (
+                right, b.bw, left, b.lbw, dictionary, dict_size, b.rows,
+                plan.rd_exc_ptr, plan.rd_exc_index, plan.rd_exc_left,
+                plan.n_values), b.rows, b.bw))
+    return calls
+
+
+def key_count_bins(plan, thresholds: np.ndarray) -> torch.Tensor:
+    """The device part of the counting queries: K15 over every bucket into
+    one int64 [E + 1] bins tensor on the plan's device, for E ascending
+    unsigned keys ``thresholds``; ``#{key <= thresholds[e]}`` is the sum
+    of bins 0..e.  No synchronise."""
+    kt = _key_type(plan.dtype)
+    thr = torch.from_numpy(np.ascontiguousarray(thresholds, kt).view(
+        f"i{kt().itemsize}")).to(plan.device)
+    out = torch.zeros(len(thresholds) + 1, dtype=torch.int64,
+                      device=plan.device)
+    for call in key_calls(plan):
+        call.counts(thr, out)
+    return out
+
+
+def prefix_counts(plan, thresholds) -> np.ndarray:
+    """int64 ``#{value key <= t}`` for every unsigned key ``t`` of
+    ``thresholds`` (any order, repeats allowed), in one K15 pass a
+    bucket."""
+    thr = np.asarray(thresholds, dtype=_key_type(plan.dtype))
+    if not thr.size:
+        return np.zeros(0, np.int64)
+    uniq = np.unique(thr)
+    bins = key_count_bins(plan, uniq).cpu().numpy()
+    return np.cumsum(bins)[:-1][np.searchsorted(uniq, thr)]
+
+
+def vector_extremes(plan) -> torch.Tensor:
+    """K16 over every bucket: [n_vectors, 2] (least key, largest key) of
+    each vector's values, unsigned keys in the bit patterns' dtype, on the
+    plan's device."""
+    out = torch.empty((plan.n_vectors, 2), dtype=plan.bits_dtype,
+                      device=plan.device)
+    for call in key_calls(plan):
+        call.extremes(out)
+    return out
+
+
+def _count_keys(plan, klo: int, khi: int) -> int:
+    """COUNT of the values whose key lies in [klo, khi]: K15 at the
+    thresholds [klo - 1, khi] (only [khi] when klo is 0)."""
+    if klo > khi:
+        return 0
+    if klo == 0:
+        return int(prefix_counts(plan, [khi])[0])
+    below, upto = prefix_counts(plan, [klo - 1, khi]).tolist()
+    return upto - below
+
+
+def query_filter_count(col, lo: float, hi: float, device=None) -> int:
+    """SELECT COUNT(*) WHERE lo <= v <= hi (``alp_tpu/engine.py:1336``).
+    ``lo``/``hi`` are rounded to the column dtype first, and +-0.0 compare
+    equal.  ``device=None`` means ``"cuda"``."""
+    dev = resolve_device(device)
+    if col.n_values == 0:
+        return 0
+    return _count_keys(col.plan(dev), _float_key(lo, col.dtype),
+                       _float_key(hi, col.dtype))
+
+
+def _extreme_key(col, device, largest: bool) -> int:
+    dev = resolve_device(device)
+    if col.n_values == 0:
+        raise ValueError("MIN/MAX of an empty column")
+    ext = bias(vector_extremes(col.plan(dev)))
+    best = ext[:, 1].max() if largest else ext[:, 0].min()
+    width = 64 if col.dtype == np.float64 else 32
+    return int(bias(best)) & ((1 << width) - 1)
+
+
+def query_min(col, device=None) -> float:
+    """MIN(column) in the total order (-NaN < -Inf < ... < +Inf < +NaN; an
+    all-zero column gives +0.0), from K16's per-vector least keys."""
+    return _key_float(_extreme_key(col, device, False), col.dtype)
+
+
+def query_max(col, device=None) -> float:
+    """MAX(column) in the same order, from K16's per-vector largest keys."""
+    return _key_float(_extreme_key(col, device, True), col.dtype)
+
+
+def query_topk(col, k: int, largest: bool = True,
+               device=None) -> np.ndarray:
+    """TOP-K(column): the k largest (or smallest) values, sorted, in the
+    total order with +-0 as +0.0 (``alp_tpu/engine.py:1081``).
+
+    For k <= n_vectors: K16 gives each vector's best key, ``t`` is the
+    k-th best of those (``torch.topk``), every value beyond ``t`` lies in
+    one of the < k vectors whose best is beyond ``t`` and is decoded
+    exactly (``decode_vectors``), and the rest of the answer is ``t``
+    repeated; K15 at [t - 1, t] counts the ties, which must suffice.  For
+    larger k the full decode and ``torch.topk`` of the keys."""
+    dev = resolve_device(device)
+    k = min(int(k), col.n_values)
+    if k == 0:
+        return np.empty(0, col.dtype)
+    plan = col.plan(dev)
+    kt = _key_type(col.dtype)
+    width = 64 if col.dtype == np.float64 else 32
+    mask = (1 << width) - 1
+
+    def work(biased):           # larger is better, for both orders
+        return biased if largest else ~biased
+
+    if k > plan.n_vectors:
+        bits = plan.run().view(plan.bits_dtype).reshape(-1)[:col.n_values]
+        best = torch.topk(work(biased_keys(bits)), k).values
+    else:
+        ext = bias(vector_extremes(plan))
+        vbest = work(ext[:, 1] if largest else ext[:, 0])
+        t = torch.topk(vbest, k).values[-1]
+        cands = torch.nonzero(vbest > t).flatten()
+        vals = plan.decode_vectors(cands).view(plan.bits_dtype)
+        pos = (cands[:, None] * VECTOR_SIZE
+               + torch.arange(VECTOR_SIZE, device=dev))
+        w = work(biased_keys(vals))[pos < col.n_values]
+        above = torch.sort(w[w > t], descending=True).values
+        n_above = above.shape[0]
+        if n_above < k:
+            tk = int(bias(work(t))) & mask        # t as an unsigned key
+            ties = _count_keys(plan, tk, tk)
+            if ties < k - n_above:
+                raise RuntimeError(f"TOP-K: {ties} values equal the "
+                                   f"threshold, {k - n_above} needed")
+        best = torch.cat([above, t.expand(max(k - n_above, 0))])[:k]
+    keys = bias(work(best)).cpu().numpy().view(kt)
+    return _keys_to_values(keys, col.dtype)
+
+
+def query_histogram(col, edges, device=None) -> np.ndarray:
+    """GROUP-BY-bin COUNT, ``np.histogram``-compatible: ``len(edges) - 1``
+    bins ``[edges[i], edges[i + 1])`` with the last bin closed, bounds
+    rounded to the column dtype and +-0 as one (``alp_tpu/engine.py:1156``).
+    One K15 pass a bucket at the thresholds ``key(e_i) - 1`` of every edge
+    and ``key(e_last)``, for any number of edges."""
+    edges = [float(e) for e in edges]
+    if len(edges) < 2 or any(a >= b for a, b in zip(edges, edges[1:])):
+        raise ValueError("edges must be >= 2 strictly increasing values")
+    dev = resolve_device(device)
+    E = len(edges)
+    if col.n_values == 0:
+        return np.zeros(E - 1, np.int64)
+    kt = _key_type(col.dtype)
+    keys = _float_keys(edges, col.dtype)
+    # "< e_i" is "<= key(e_i) - 1"; the last bin closes with "<= key(e_last)"
+    khis = np.concatenate([keys - kt(1), keys[-1:]])
+    p = prefix_counts(col.plan(dev), khis)
+    out = np.diff(p[:E])
+    out[-1] += p[E] - p[E - 1]
+    return out
+
+
+def query_filter_sum(col, lo: float, hi: float, device=None):
+    """SELECT SUM(v) WHERE lo <= v <= hi, exact: the correctly rounded sum
+    of the selected values (``math.fsum`` of them), as the column dtype's
+    scalar (an f32 column rounds the double result once more, as
+    ``alp_tpu/engine.py:3941`` does).  An empty selection gives 0.0.  K5-K8
+    with the key range [key(lo), key(hi)]."""
+    dev = resolve_device(device)
+    if col.n_values == 0:
+        return 0.0
+    klo, khi = _float_key(lo, col.dtype), _float_key(hi, col.dtype)
+    if klo > khi:
+        return 0.0
+    totals = exact_sum_totals(col.plan(dev), key_range=(klo, khi))
+    return np.dtype(col.dtype).type(
+        _finish_sum(*join_totals(totals.tolist(), col.dtype)))
+
+
+def query_count_exceptions(col) -> int:
+    """The number of exceptions, from the metadata alone."""
+    return int(np.asarray(col.exc_count, np.int64).sum())
+
+
+def query_scan(col, device=None) -> tuple:
+    """SCAN: (the kept plan, its full decode [n_vectors, 1024] of values
+    on the device), for downstream operators."""
+    plan = col.plan(resolve_device(device))
+    return plan, plan.run()
+
+
+def query_compression(data: np.ndarray, *, device=False) -> tuple:
+    """COMPRESSION: (the compressed column, {"seconds",
+    "throughput_gbps", "bits_per_value"}); ``device`` as in
+    ``container.compress`` (False: on the host)."""
+    import time
+
+    from . import container
+    t0 = time.perf_counter()
+    cc = container.compress(data, device=device)
+    dt = time.perf_counter() - t0
+    return cc, {"seconds": dt, "throughput_gbps": data.nbytes / dt / 1e9,
+                "bits_per_value": cc.bits_per_value()}

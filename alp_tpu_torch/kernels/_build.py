@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels: ``nvcc``, ``ctypes``.
 
 Every ``alp_tpu_torch/csrc/*.cu`` source (they share the headers
-``csrc/fastlanes.cuh`` and ``csrc/encode.cuh``) is compiled for Hopper
+``csrc/fastlanes.cuh``, ``csrc/vector.cuh`` and ``csrc/encode.cuh``) is
+compiled for Hopper
 (sm_90a) by its own ``nvcc -c``, all started together, and the objects
 are linked by one more ``nvcc`` call into a shared library with a plain C
 interface, under ``alp_tpu_torch/_build/`` and named by a hash of the
@@ -39,6 +40,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _D = ctypes.c_double
 _F = ctypes.c_float
+_ULL = ctypes.c_ulonglong
 # (name, argtypes) of every C entry in csrc/
 ENTRIES = {
     # packed, bw, base, fact, frac, rows, out, n, stream
@@ -56,6 +58,34 @@ ENTRIES = {
                                _P, _I, _P],
     "alp_falp_exact_sum_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
                                _P, _I, _P],
+    # the same with the key range klo, khi just before out
+    "alp_exact_sum_where_f64": [_P, _P, _LL, _LL, _ULL, _ULL, _P, _I, _P],
+    "alp_exact_sum_where_f32": [_P, _P, _LL, _LL, _ULL, _ULL, _P, _I, _P],
+    "alp_falp_exact_sum_where_f64": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                     _LL, _ULL, _ULL, _P, _I, _P],
+    "alp_falp_exact_sum_where_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                     _LL, _ULL, _ULL, _P, _I, _P],
+    # packed, bw, base, fact, frac, rows, exc_ptr, exc_index, exc_bits, n,
+    # n_values, thr, E, bins, device, stream
+    "alp_key_counts_alp_f64": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                               _P, _I, _P, _I, _P],
+    "alp_key_counts_alp_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                               _P, _I, _P, _I, _P],
+    # right, rbw, left, lbw, dict, dict_size, rows, exc_ptr, exc_index,
+    # exc_left, n, n_values, thr, E, bins, device, stream
+    "alp_key_counts_rd_f64": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
+                              _LL, _P, _I, _P, _I, _P],
+    "alp_key_counts_rd_f32": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
+                              _LL, _P, _I, _P, _I, _P],
+    # the K15 arguments up to n_values, then out, device, stream
+    "alp_key_extremes_alp_f64": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                 _LL, _P, _I, _P],
+    "alp_key_extremes_alp_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                 _LL, _P, _I, _P],
+    "alp_key_extremes_rd_f64": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
+                                _LL, _P, _I, _P],
+    "alp_key_extremes_rd_f32": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
+                                _LL, _P, _I, _P],
     # values, e, f, exp_tab, frac_tab, fact_tab, magic, upper, n, out_n,
     # out_exc, exc_count, first, vmin, vmax, stream
     "alp_encode_f64": [_P, _P, _P, _P, _P, _P, _D, _D, _LL, _P, _P, _P, _P,

@@ -11,7 +11,10 @@ rows of the column's output, then scatters the exceptions.  For the
 exact SUM (``engine``) the plan also carries ``n_values`` and, built on
 the device at first use, the per-vector CSR of its ALP exceptions
 (``exc_ptr``) and the compact scratch layout of its ALP_RD vectors
-(``decode_rd``); ``decompress`` builds neither.
+(``decode_rd``); the key kernels of the predicate and order queries also
+read the CSR of its ALP_RD exceptions (``rd_exc_ptr``), and TOP-K decodes
+a few vectors exactly (``decode_vectors``).  ``decompress`` builds none of
+these.
 
 The JAX package's plan also picks one of six f64 kernel variants per
 bucket and stages plan-time softfloat constants (``decode.py:219-401``);
@@ -31,6 +34,7 @@ import torch
 from .. import constants as C
 from ..constants import constants_for
 from ..ops.fastlanes import low_mask, narrow, words_from_numpy
+from . import exact_sum as kes
 from . import falp as kfalp
 
 VECTOR_SIZE = C.VECTOR_SIZE
@@ -105,16 +109,10 @@ class DecodePlan:
         """Scatter the ALP_RD exceptions' full bits into ``flat`` at
         ``index`` (``rd_exc_index``, or its compact counterpart): the raw
         left part above the right bits already decoded."""
-        if not index.numel():
-            return
-        S = 64 if self.f64 else 32
-        cur = flat[index].to(torch.int64)
-        rbw = self.rd_exc_rbw
-        one = torch.ones_like(rbw)
-        rmask = torch.where(rbw >= 64, low_mask(64),
-                            (one << rbw.clamp(max=63)) - 1)
-        full = (self.rd_exc_left << rbw) | (cur & rmask)
-        flat[index] = narrow(full, S)
+        if index.numel():
+            flat[index] = rd_exception_bits(flat[index], self.rd_exc_left,
+                                            self.rd_exc_rbw,
+                                            64 if self.f64 else 32)
 
     @functools.cached_property
     def exc_ptr(self) -> torch.Tensor:
@@ -122,9 +120,43 @@ class DecodePlan:
         exc_ptr[v] .. exc_ptr[v + 1] of ``exc_index`` and ``exc_bits``
         (which are in vector order).  Built at the first SUM, on the
         device; ``decompress`` never needs it."""
-        return torch.searchsorted(
-            self.exc_index // VECTOR_SIZE,
-            torch.arange(self.n_vectors + 1, device=self.device))
+        return _csr(self.exc_index, self.n_vectors, self.device)
+
+    @functools.cached_property
+    def rd_exc_ptr(self) -> torch.Tensor:
+        """The same CSR over ``rd_exc_index`` / ``rd_exc_left`` /
+        ``rd_exc_rbw``, the ALP_RD exceptions; built at the first query
+        that reads it."""
+        return _csr(self.rd_exc_index, self.n_vectors, self.device)
+
+    def decode_vectors(self, vec_ids: torch.Tensor) -> torch.Tensor:
+        """The exact values of vectors ``vec_ids`` (int64 [m], distinct),
+        [m, 1024] on the plan's device, their exceptions in (the pad of a
+        partial last vector is left as decoded).  Each bucket's selected
+        rows go through its kernel (K1-K4) into their rows of the output,
+        then both exception kinds are written in from their CSRs."""
+        m = vec_ids.shape[0]
+        out = torch.empty((m, VECTOR_SIZE), dtype=_value_dtype(self.dtype),
+                          device=self.device)
+        slot = torch.full((self.n_vectors,), -1, dtype=torch.int64,
+                          device=self.device)
+        slot[vec_ids] = torch.arange(m, device=self.device)
+        for bucket in self.buckets:
+            picked = slot[bucket.rows]
+            sel = torch.nonzero(picked >= 0).flatten()
+            if not sel.numel():
+                continue
+            part = dataclasses.replace(
+                bucket, rows=bucket.rows[sel],
+                args=tuple(a[sel] for a in bucket.args))
+            self.launch(part, out, rows=picked[sel])
+        bits = out.view(self.bits_dtype)
+        kes.patch_exceptions(bits, vec_ids, self.exc_ptr, self.exc_index,
+                             self.exc_bits)
+        patch_rd_exceptions(bits, vec_ids, self.rd_exc_ptr,
+                            self.rd_exc_index, self.rd_exc_left,
+                            self.rd_exc_rbw)
+        return out
 
     @functools.cached_property
     def _rd_layout(self):
@@ -169,6 +201,42 @@ class DecodePlan:
             flat[self.exc_index] = self.exc_bits
         self.patch_rd(flat, self.rd_exc_index)
         return out
+
+
+def rd_exception_bits(cur: torch.Tensor, left: torch.Tensor,
+                      rbw: torch.Tensor, S: int) -> torch.Tensor:
+    """The full S-bit patterns of ALP_RD exceptions: each raw left part
+    (int64) above the low ``rbw`` bits of the decoded pattern ``cur``."""
+    cur = cur.to(torch.int64)
+    one = torch.ones_like(rbw)
+    rmask = torch.where(rbw >= 64, low_mask(64),
+                        (one << rbw.clamp(max=63)) - 1)
+    return narrow((left << rbw) | (cur & rmask), S)
+
+
+def patch_rd_exceptions(bits, rows, exc_ptr, exc_index, exc_left,
+                        rbw) -> None:
+    """Write the full bits of every ALP_RD exception of vectors ``rows``
+    into ``bits`` [n, 1024] (row i = vector rows[i]), from a per-vector
+    CSR over ``exc_index`` (flat positions) and ``exc_left`` (raw left
+    parts); ``rbw`` is the right bit width of every exception (a tensor
+    of them, or one int)."""
+    row, entry = kes.csr_entries(exc_ptr, rows)
+    if not entry.numel():
+        return
+    col = exc_index[entry] & (VECTOR_SIZE - 1)
+    left = exc_left[entry]
+    rbw = (rbw[entry] if isinstance(rbw, torch.Tensor)
+           else torch.full_like(left, rbw))
+    bits[row, col] = rd_exception_bits(bits[row, col], left, rbw,
+                                       8 * bits.element_size())
+
+
+def _csr(index: torch.Tensor, n_vectors: int, device) -> torch.Tensor:
+    """int64 [n_vectors + 1] row pointers of flat positions ``index``
+    (in vector order)."""
+    return torch.searchsorted(index // VECTOR_SIZE,
+                              torch.arange(n_vectors + 1, device=device))
 
 
 def _value_dtype(dtype) -> torch.dtype:

@@ -6,7 +6,9 @@ an int64 ``[W + 3]`` column total (``totals(dtype, device)``): W windows of
 counts of NaN, +Inf and -Inf.  ``engine`` joins the windows with Python
 integers and rounds once.  Position ``vec * 1024 + k >= n_values`` is the
 container's pad and is skipped, with ``vec`` the real vector id of each
-row.
+row.  With ``key_range=(klo, khi)`` (unsigned IEEE-754 total-order keys,
+``ops.keys``) a value is summed only if ``klo <= key <= khi``: the
+filtered instantiation of the same kernel, ``query_filter_sum``'s path.
 
 A CUDA tensor goes through the hand-written kernel in
 ``csrc/exact_sum.cu``, on the current stream of the tensors' card, its
@@ -32,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.fastlanes import widen
+from ..ops.keys import in_key_range
 from .falp import (VECTOR_SIZE, _check, _device_kind, _launch, _ptr,
                    falp_plain)
 
@@ -75,15 +78,18 @@ def _out(out, dtype, device):
 
 
 def exact_sum_plain(bits: torch.Tensor, vec: torch.Tensor,
-                    n_values: int) -> torch.Tensor:
+                    n_values: int, key_range=None) -> torch.Tensor:
     """Plain version of K5/K6: the int64 [W + 3] totals of ``bits``
     [n, 1024] (int64 f64 or int32 f32 patterns), row i being vector
-    ``vec[i]``."""
+    ``vec[i]``; with ``key_range``, of the values whose key lies in it."""
     S, EB, MB = _FIELDS[bits.dtype]
     W = WINDOWS[bits.dtype]
     pos = vec[:, None] * VECTOR_SIZE + torch.arange(VECTOR_SIZE,
                                                     device=bits.device)
-    b = widen(bits, S)[pos < n_values]
+    keep = pos < n_values
+    if key_range is not None:
+        keep &= in_key_range(bits, *key_range)
+    b = widen(bits, S)[keep]
     e = (b >> MB) & ((1 << EB) - 1)
     m = b & ((1 << MB) - 1)
     neg = ((b >> (S - 1)) & 1) != 0
@@ -106,35 +112,71 @@ def exact_sum_plain(bits: torch.Tensor, vec: torch.Tensor,
     return out
 
 
-def _exact_sum(bits, vec, n_values, out, kernel):
+def _key_range_args(key_range, S: int) -> tuple:
+    """The C arguments of a key range: () for none, else (klo, khi) as
+    unsigned S-bit keys; raises on a key out of range."""
+    if key_range is None:
+        return ()
+    klo, khi = (int(k) for k in key_range)
+    if not (0 <= klo < 1 << S and 0 <= khi < 1 << S):
+        raise ValueError(f"key range {key_range} out of 0..2^{S} - 1")
+    return klo, khi
+
+
+def _entry(name: str, key_range) -> str:
+    """The C entry of a SUM kernel, filtered (``_where``) or not."""
+    if key_range is None:
+        return name
+    head, width = name.rsplit("_", 1)
+    return f"{head}_where_{width}"
+
+
+def _exact_sum(bits, vec, n_values, out, kernel, key_range):
     n = bits.shape[0]
     device = bits.device
     _check("bits", bits, bits.dtype, (n, VECTOR_SIZE), device)
     _check("vec", vec, torch.int64, (n,), device)
     _check_size(n, n_values)
+    keys = _key_range_args(key_range, _FIELDS[bits.dtype][0])
     out = _out(out, bits.dtype, device)
     if _device_kind(bits) == "cpu":
-        out += exact_sum_plain(bits, vec, n_values)
+        out += exact_sum_plain(bits, vec, n_values, key_range)
         return out
-    _launch(kernel, device, _ptr(bits), _ptr(vec), n, n_values, _ptr(out),
-            device.index)
+    _launch(_entry(kernel, key_range), device, _ptr(bits), _ptr(vec), n,
+            n_values, *keys, _ptr(out), device.index)
     LAUNCHES[kernel] += 1
     return out
 
 
-def exact_sum_f64(bits, vec, n_values, out=None):
+def exact_sum_f64(bits, vec, n_values, out=None, key_range=None):
     """K5.  bits: int64 [n, 1024] decoded f64 patterns; vec: int64 [n],
-    the vector id of each row; adds into ``out`` (int64 [69])."""
+    the vector id of each row; adds into ``out`` (int64 [69]); with
+    ``key_range=(klo, khi)`` only the values whose key lies in it."""
     if bits.dtype != torch.int64:
         raise TypeError("exact_sum_f64 takes int64 bit patterns")
-    return _exact_sum(bits, vec, n_values, out, "exact_sum_f64")
+    return _exact_sum(bits, vec, n_values, out, "exact_sum_f64", key_range)
 
 
-def exact_sum_f32(bits, vec, n_values, out=None):
+def exact_sum_f32(bits, vec, n_values, out=None, key_range=None):
     """K6: the f32 twin of K5 (int32 patterns; ``out`` int64 [12])."""
     if bits.dtype != torch.int32:
         raise TypeError("exact_sum_f32 takes int32 bit patterns")
-    return _exact_sum(bits, vec, n_values, out, "exact_sum_f32")
+    return _exact_sum(bits, vec, n_values, out, "exact_sum_f32", key_range)
+
+
+def csr_entries(exc_ptr, rows) -> tuple:
+    """(row i, entry) of every exception of vectors ``rows`` in a plan's
+    per-vector CSR: vector v's exceptions are entries exc_ptr[v] ..
+    exc_ptr[v + 1]."""
+    first = exc_ptr[rows]
+    count = exc_ptr[rows + 1] - first
+    total = int(count.sum())
+    starts = torch.cumsum(count, 0) - count
+    entry = (torch.repeat_interleave(first - starts, count)
+             + torch.arange(total, device=rows.device))
+    row = torch.repeat_interleave(
+        torch.arange(rows.shape[0], device=rows.device), count)
+    return row, entry
 
 
 def patch_exceptions(bits, rows, exc_ptr, exc_index, exc_bits) -> None:
@@ -142,26 +184,29 @@ def patch_exceptions(bits, rows, exc_ptr, exc_index, exc_bits) -> None:
     ``bits`` [n, 1024] (row i = vector rows[i]), from the plan's per-vector
     CSR: vector v's exceptions are entries exc_ptr[v] .. exc_ptr[v + 1] of
     ``exc_index`` (flat positions v * 1024 + k) and ``exc_bits``."""
-    first = exc_ptr[rows]
-    count = exc_ptr[rows + 1] - first
-    total = int(count.sum())
-    if not total:
-        return
-    starts = torch.cumsum(count, 0) - count
-    entry = (torch.repeat_interleave(first - starts, count)
-             + torch.arange(total, device=bits.device))
-    row = torch.repeat_interleave(
-        torch.arange(rows.shape[0], device=bits.device), count)
-    bits[row, exc_index[entry] & (VECTOR_SIZE - 1)] = exc_bits[entry]
+    row, entry = csr_entries(exc_ptr, rows)
+    if entry.numel():
+        bits[row, exc_index[entry] & (VECTOR_SIZE - 1)] = exc_bits[entry]
+
+
+def falp_bits_plain(packed, bw, base, fact, frac, rows, exc_ptr,
+                    exc_index, exc_bits) -> torch.Tensor:
+    """An ALP bucket's bit patterns [n, 1024] with its exceptions in:
+    K1/K2's plain decode, then the true bits from the CSR."""
+    bits = falp_plain(packed, bw, base, fact, frac).view(base.dtype)
+    patch_exceptions(bits, rows, exc_ptr, exc_index, exc_bits)
+    return bits
 
 
 def falp_exact_sum_plain(packed, bw, base, fact, frac, rows, exc_ptr,
-                         exc_index, exc_bits, n_values) -> torch.Tensor:
+                         exc_index, exc_bits, n_values,
+                         key_range=None) -> torch.Tensor:
     """Plain version of K7/K8: K1/K2's plain decode, the exceptions
     written in, then K5/K6's plain sum."""
-    bits = falp_plain(packed, bw, base, fact, frac).view(base.dtype)
-    patch_exceptions(bits, rows, exc_ptr, exc_index, exc_bits)
-    return exact_sum_plain(bits, rows, n_values)
+    return exact_sum_plain(falp_bits_plain(packed, bw, base, fact, frac,
+                                           rows, exc_ptr, exc_index,
+                                           exc_bits),
+                           rows, n_values, key_range)
 
 
 _FALP = {  # value dtype -> (word dtype, word bits, C entry, count key)
@@ -173,7 +218,7 @@ _FALP = {  # value dtype -> (word dtype, word bits, C entry, count key)
 
 
 def _falp_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
-                    exc_bits, n_values, out, ftype):
+                    exc_bits, n_values, out, key_range, ftype):
     wtype, S, entry, count = _FALP[ftype]
     n = packed.shape[0]
     device = packed.device
@@ -190,39 +235,47 @@ def _falp_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
     if not 0 <= bw <= S:
         raise ValueError(f"bit width {bw} out of range 0..{S}")
     _check_size(n, n_values)
+    keys = _key_range_args(key_range, S)
     out = _out(out, wtype, device)
     if _device_kind(packed) == "cpu":
         out += falp_exact_sum_plain(packed, bw, base, fact, frac, rows,
-                                    exc_ptr, exc_index, exc_bits, n_values)
+                                    exc_ptr, exc_index, exc_bits, n_values,
+                                    key_range)
         return out
-    _launch(entry, device, _ptr(packed), bw, _ptr(base), _ptr(fact),
-            _ptr(frac), _ptr(rows), _ptr(exc_ptr), _ptr(exc_index),
-            _ptr(exc_bits), n, n_values, _ptr(out), device.index)
+    _launch(_entry(entry, key_range), device, _ptr(packed), bw, _ptr(base),
+            _ptr(fact), _ptr(frac), _ptr(rows), _ptr(exc_ptr),
+            _ptr(exc_index), _ptr(exc_bits), n, n_values, *keys, _ptr(out),
+            device.index)
     LAUNCHES[count] += 1
     return out
 
 
 def falp_decode_f64_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr,
-                              exc_index, exc_bits, n_values, out=None):
+                              exc_index, exc_bits, n_values, out=None,
+                              key_range=None):
     """K7.  K1's arguments (packed int64 [n, bw * 16], base, fact int64
     [n], frac float64 [n]) plus rows (int64 [n] vector ids), the plan's
     exception CSR (exc_ptr int64 [n_vectors + 1]; exc_index int64 flat
     positions and exc_bits int64 patterns, [n_exc]) and n_values; adds
-    into ``out`` (int64 [69])."""
+    into ``out`` (int64 [69]); with ``key_range=(klo, khi)`` only the
+    values whose key lies in it."""
     return _falp_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr,
-                           exc_index, exc_bits, n_values, out, torch.float64)
+                           exc_index, exc_bits, n_values, out, key_range,
+                           torch.float64)
 
 
 def falp_decode_f32_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr,
-                              exc_index, exc_bits, n_values, out=None):
+                              exc_index, exc_bits, n_values, out=None,
+                              key_range=None):
     """K8: the f32 twin of K7 (int32 words and patterns, float32 frac;
     ``out`` int64 [12])."""
     return _falp_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr,
-                           exc_index, exc_bits, n_values, out, torch.float32)
+                           exc_index, exc_bits, n_values, out, key_range,
+                           torch.float32)
 
 
 # kernel name (a key of LAUNCHES) -> (wrapper, plain version), each taking
-# the same positional arguments
+# the same positional arguments and ``key_range``
 KERNELS = {
     "exact_sum_f64": (exact_sum_f64, exact_sum_plain),
     "exact_sum_f32": (exact_sum_f32, exact_sum_plain),

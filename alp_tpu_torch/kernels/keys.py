@@ -1,0 +1,289 @@
+"""The port's key kernels: wrappers, plain PyTorch versions, counts.
+
+Both kernels decode one bucket of a plan (K1-K4's arguments), write each
+vector's true exception bits in from the plan's per-vector CSR and skip
+the pad of a partial last vector (position ``vec * 1024 + k >=
+n_values``, with ``vec = rows[i]`` the vector id of row i); then they read
+the IEEE-754 total-order key of every value (``ops.keys``):
+
+    K15 key_counts    <- alp_tpu/kernels/falp.py falp_decode_f64_variant_
+                         count, falp_decode_f64_count, falp_decode_f32_
+                         count, rd_decode_dict_f64_count, rd_decode_dict_
+                         f32_count and the four *_prefix_counts kernels
+    K16 key_extremes  <- falp_decode_f64_variant_keymax, rd_decode_dict_
+                         f64_keymax, falp_decode_f32_keymax,
+                         rd_decode_dict_f32_keymax
+
+K15 adds into ``out``, int64 [E + 1] bins, one count a value at bin
+``p = #{thresholds < key}``; ``thresholds`` are E ascending unsigned keys
+(held in int64 for f64, int32 for f32), so ``#{key <= thresholds[e]}`` is
+the sum of bins 0..e.  One launch takes at most ``MAX_THRESHOLDS``; the
+wrapper launches longer lists in chunks, each chunk's counts standing
+alone, and joins them into the same bins.  K16 writes the least and the
+largest key of each vector into row ``rows[i]`` of ``out``, [N, 2] in the
+bit patterns' dtype (unsigned keys in a signed dtype).
+
+Each scheme has one wrapper a kernel (``*_alp``: K1/K2's ``packed, bw,
+base, fact, frac`` and the ALP exceptions' true bits; ``*_rd``: K3/K4's
+``right, rbw, left, lbw, dictionary, dict_size`` and the ALP_RD
+exceptions' raw left parts); the words' dtype picks f64 or f32.  A CUDA
+tensor goes through the hand-written kernel in ``csrc/keys.cu`` on the
+current stream of the tensors' card, its grid sized by that card's SM
+count, without a synchronise; a CPU tensor goes through the plain version
+beside it.  Counts and keys are integers: the kernels equal their plain
+versions exactly.  ``LAUNCHES`` counts kernel launches per kernel; plain
+runs do not count.  The bound of each, and what its design does about it,
+are in the head of ``csrc/keys.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.keys import bias, biased_keys
+from .decode import patch_rd_exceptions
+from .exact_sum import falp_bits_plain
+from .falp import VECTOR_SIZE, _check, _device_kind, _launch, _ptr, rd_plain
+
+MAX_THRESHOLDS = 2048           # csrc/keys.cu kMaxThr: < 48 KB of shared
+LAUNCHES = {"key_counts": 0, "key_extremes": 0}
+_WORDS = {torch.int64: ("f64", 64), torch.int32: ("f32", 32)}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def rd_bits_plain(right, rbw, left, lbw, dictionary, dict_size, rows,
+                  exc_ptr, exc_index, exc_left) -> torch.Tensor:
+    """An ALP_RD bucket's bit patterns [n, 1024] with its exceptions in:
+    K3/K4's plain glue, then each exception's left part above its right
+    bits."""
+    bits = rd_plain(right, rbw, left, lbw, dictionary, dict_size)
+    patch_rd_exceptions(bits, rows, exc_ptr, exc_index, exc_left, rbw)
+    return bits
+
+
+def _valid(rows, n_values):
+    pos = rows[:, None] * VECTOR_SIZE + torch.arange(VECTOR_SIZE,
+                                                     device=rows.device)
+    return pos < n_values
+
+
+def counts_of_bits(bits, rows, n_values, thresholds) -> torch.Tensor:
+    """Plain K15 over decoded bits: int64 [E + 1] bins."""
+    keys = biased_keys(bits)[_valid(rows, n_values)]
+    p = torch.searchsorted(bias(thresholds), keys)       # #{thr < key}
+    return torch.bincount(p, minlength=thresholds.shape[0] + 1)
+
+
+def extremes_of_bits(bits, rows, n_values) -> torch.Tensor:
+    """Plain K16 over decoded bits: [n, 2] (least, largest) unsigned keys of
+    each row's values that are not pad."""
+    keys = biased_keys(bits)
+    valid = _valid(rows, n_values)
+    info = torch.iinfo(bits.dtype)
+    lo = torch.where(valid, keys, info.max).amin(dim=1)
+    hi = torch.where(valid, keys, info.min).amax(dim=1)
+    return bias(torch.stack([lo, hi], dim=1))
+
+
+def key_counts_alp_plain(packed, bw, base, fact, frac, rows, exc_ptr,
+                         exc_index, exc_bits, n_values, thresholds):
+    return counts_of_bits(falp_bits_plain(packed, bw, base, fact, frac,
+                                          rows, exc_ptr, exc_index,
+                                          exc_bits),
+                          rows, n_values, thresholds)
+
+
+def key_counts_rd_plain(right, rbw, left, lbw, dictionary, dict_size, rows,
+                        exc_ptr, exc_index, exc_left, n_values, thresholds):
+    return counts_of_bits(rd_bits_plain(right, rbw, left, lbw, dictionary,
+                                        dict_size, rows, exc_ptr, exc_index,
+                                        exc_left),
+                          rows, n_values, thresholds)
+
+
+def key_extremes_alp_plain(packed, bw, base, fact, frac, rows, exc_ptr,
+                           exc_index, exc_bits, n_values):
+    return extremes_of_bits(falp_bits_plain(packed, bw, base, fact, frac,
+                                            rows, exc_ptr, exc_index,
+                                            exc_bits), rows, n_values)
+
+
+def key_extremes_rd_plain(right, rbw, left, lbw, dictionary, dict_size,
+                          rows, exc_ptr, exc_index, exc_left, n_values):
+    return extremes_of_bits(rd_bits_plain(right, rbw, left, lbw, dictionary,
+                                          dict_size, rows, exc_ptr,
+                                          exc_index, exc_left),
+                            rows, n_values)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check_csr(exc_ptr, exc_index, exc_data, data_dtype, device):
+    if exc_ptr.dim() != 1 or exc_ptr.shape[0] < 1:
+        raise ValueError("exc_ptr must be [n_vectors + 1]")
+    _check("exc_ptr", exc_ptr, torch.int64, exc_ptr.shape, device)
+    n_exc = exc_index.shape[0]
+    _check("exc_index", exc_index, torch.int64, (n_exc,), device)
+    _check("exc_data", exc_data, data_dtype, (n_exc,), device)
+
+
+def _check_alp(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
+               exc_bits, n_values):
+    """Validated (word dtype, n, device) of an ALP bucket's arguments."""
+    wtype = packed.dtype
+    if wtype not in _WORDS:
+        raise TypeError(f"packed: int64 or int32 words, got {wtype}")
+    S = _WORDS[wtype][1]
+    ftype = torch.float64 if S == 64 else torch.float32
+    n, device = packed.shape[0], packed.device
+    if not 0 <= bw <= S:
+        raise ValueError(f"bit width {bw} out of range 0..{S}")
+    _check("packed", packed, wtype, (n, bw * (VECTOR_SIZE // S)), device)
+    for nm, t, dt in (("base", base, wtype), ("fact", fact, wtype),
+                      ("frac", frac, ftype), ("rows", rows, torch.int64)):
+        _check(nm, t, dt, (n,), device)
+    _check_csr(exc_ptr, exc_index, exc_bits, wtype, device)
+    if n_values < 0:
+        raise ValueError(f"n_values {n_values} is negative")
+    return wtype, n, device
+
+
+def _check_rd(right, rbw, left, lbw, dictionary, dict_size, rows, exc_ptr,
+              exc_index, exc_left, n_values):
+    """Validated (word dtype, n, device) of an ALP_RD bucket's arguments."""
+    wtype = right.dtype
+    if wtype not in _WORDS:
+        raise TypeError(f"right: int64 or int32 words, got {wtype}")
+    S = _WORDS[wtype][1]
+    n, device = right.shape[0], right.device
+    if not (0 <= rbw <= S and 0 <= lbw <= 16):
+        raise ValueError(f"RD bit widths {rbw}/{lbw} out of range")
+    _check("right", right, wtype, (n, rbw * (VECTOR_SIZE // S)), device)
+    _check("left", left, torch.int16, (n, lbw * (VECTOR_SIZE // 16)), device)
+    _check("dictionary", dictionary, torch.int16, (n, 8), device)
+    _check("dict_size", dict_size, torch.int32, (n,), device)
+    _check("rows", rows, torch.int64, (n,), device)
+    _check_csr(exc_ptr, exc_index, exc_left, torch.int64, device)
+    if n_values < 0:
+        raise ValueError(f"n_values {n_values} is negative")
+    return wtype, n, device
+
+
+def _counts(scheme, args, n_values, thresholds, out):
+    """K15 over one bucket (``args``: its arguments through ``exc_*``)."""
+    check, plain = ((_check_alp, key_counts_alp_plain) if scheme == "alp"
+                    else (_check_rd, key_counts_rd_plain))
+    wtype, n, device = check(*args, n_values)
+    E = thresholds.shape[0]
+    if E < 1:
+        raise ValueError("key_counts needs at least one threshold")
+    _check("thresholds", thresholds, wtype, (E,), device)
+    if out is None:
+        out = torch.zeros(E + 1, dtype=torch.int64, device=device)
+    _check("out", out, torch.int64, (E + 1,), device)
+    if _device_kind(thresholds) == "cpu":
+        out += plain(*args, n_values, thresholds)
+        return out
+    entry = f"key_counts_{scheme}_{_WORDS[wtype][0]}"
+    ptrs = [a if isinstance(a, int) else _ptr(a) for a in args]
+    if E <= MAX_THRESHOLDS:
+        _launch(entry, device, *ptrs, n, n_values, _ptr(thresholds), E,
+                _ptr(out), device.index)
+        LAUNCHES["key_counts"] += 1
+        return out
+    # each chunk's bins give its own prefix counts #{key <= thr}; their
+    # concatenation, differenced, is the bins of the whole list
+    prefix = []
+    for lo in range(0, E, MAX_THRESHOLDS):
+        part = thresholds[lo:lo + MAX_THRESHOLDS]
+        bins = torch.zeros(part.shape[0] + 1, dtype=torch.int64,
+                           device=device)
+        _launch(entry, device, *ptrs, n, n_values, _ptr(part),
+                part.shape[0], _ptr(bins), device.index)
+        LAUNCHES["key_counts"] += 1
+        prefix.append(torch.cumsum(bins, 0))
+    total = prefix[0][-1:]
+    le = torch.cat([p[:-1] for p in prefix])
+    out += torch.diff(le, prepend=le.new_zeros(1), append=total)
+    return out
+
+
+def _extremes(scheme, args, n_values, out):
+    """K16 over one bucket into rows ``rows`` of ``out`` [N, 2]."""
+    check, plain = ((_check_alp, key_extremes_alp_plain) if scheme == "alp"
+                    else (_check_rd, key_extremes_rd_plain))
+    wtype, n, device = check(*args, n_values)
+    if out.dim() != 2 or out.shape[1] != 2:
+        raise ValueError("out must be [N, 2]")
+    _check("out", out, wtype, out.shape, device)
+    rows = args[5] if scheme == "alp" else args[6]
+    if _device_kind(rows) == "cpu":
+        out[rows] = plain(*args, n_values)
+        return out
+    entry = f"key_extremes_{scheme}_{_WORDS[wtype][0]}"
+    ptrs = [a if isinstance(a, int) else _ptr(a) for a in args]
+    _launch(entry, device, *ptrs, n, n_values, _ptr(out), device.index)
+    LAUNCHES["key_extremes"] += 1
+    return out
+
+
+def key_counts_alp(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
+                   exc_bits, n_values, thresholds, out=None):
+    """K15 on an ALP bucket.  K1/K2's arguments (packed int64 [n, bw * 16]
+    or int32 [n, bw * 32]; base, fact [n] of the same dtype; frac float
+    [n]), rows (int64 [n] vector ids), the plan's ALP exception CSR
+    (exc_ptr int64 [n_vectors + 1]; exc_index int64 flat positions and
+    exc_bits patterns in the words' dtype), n_values, and E ascending
+    unsigned keys in the words' dtype; adds into ``out`` (int64
+    [E + 1])."""
+    return _counts("alp", (packed, bw, base, fact, frac, rows, exc_ptr,
+                           exc_index, exc_bits), n_values, thresholds, out)
+
+
+def key_counts_rd(right, rbw, left, lbw, dictionary, dict_size, rows,
+                  exc_ptr, exc_index, exc_left, n_values, thresholds,
+                  out=None):
+    """K15 on an ALP_RD bucket: K3/K4's arguments, rows, the plan's RD
+    exception CSR (exc_left: int64 raw left parts), n_values and the
+    thresholds, as :func:`key_counts_alp`."""
+    return _counts("rd", (right, rbw, left, lbw, dictionary, dict_size, rows,
+                          exc_ptr, exc_index, exc_left), n_values,
+                   thresholds, out)
+
+
+def key_extremes_alp(packed, bw, base, fact, frac, rows, exc_ptr,
+                     exc_index, exc_bits, n_values, out):
+    """K16 on an ALP bucket (K15's arguments without thresholds): writes
+    (least key, largest key) of vector rows[i] into out[rows[i]], ``out``
+    [N, 2] in the words' dtype."""
+    return _extremes("alp", (packed, bw, base, fact, frac, rows, exc_ptr,
+                             exc_index, exc_bits), n_values, out)
+
+
+def key_extremes_rd(right, rbw, left, lbw, dictionary, dict_size, rows,
+                    exc_ptr, exc_index, exc_left, n_values, out):
+    """K16 on an ALP_RD bucket, as :func:`key_extremes_alp`."""
+    return _extremes("rd", (right, rbw, left, lbw, dictionary, dict_size,
+                            rows, exc_ptr, exc_index, exc_left), n_values,
+                     out)
+
+
+# scheme -> kernel -> (wrapper, plain version); the plain versions take the
+# wrappers' positional arguments without ``out`` and return the bins (K15)
+# or the [n, 2] keys of the bucket's rows (K16)
+KERNELS = {
+    "alp": {"key_counts": (key_counts_alp, key_counts_alp_plain),
+            "key_extremes": (key_extremes_alp, key_extremes_alp_plain)},
+    "rd": {"key_counts": (key_counts_rd, key_counts_rd_plain),
+           "key_extremes": (key_extremes_rd, key_extremes_rd_plain)},
+}

@@ -27,7 +27,20 @@ Phases, each printing its wall time:
             input bit for bit.  ``query_mean`` on a column of the first
             97 vectors of each input must equal the exact rational mean
             rounded once.
-6. dcompress  ``alp_tpu_torch.compress_device`` on the card (the device
+6. query    the predicate and order queries on the card for every column
+            (their launch counts set to 0 just before and read just
+            after), each twice: the first call of the first query builds
+            the plan again, the second call reuses it.  COUNT WHERE on two
+            ranges, MIN, MAX, TOP-K with k = 1 and 128 in both orders (and
+            k > n_vectors, the full decode, on the small columns),
+            histograms of 16 and 4097 edges, and SUM WHERE on one range.
+            Every answer must equal a numpy reference computed from the
+            whole input by bits: counts and extremes of a sort of the
+            input's total-order keys, ``np.searchsorted`` on it, and
+            ``math.fsum`` of the selected values.  Prints each query's
+            walls (host clock, ending in the answer on the host) and the
+            K15/K16 and filtered K5-K8 launches.
+7. dcompress  ``alp_tpu_torch.compress_device`` on the card (the device
             compress path, its launch counts set to 0 just before and read
             just after) of every column: the f64 ones (the bench profiles
             and f64 ALP_RD at their full 256 MiB) with K9-K11, then f32 ALP
@@ -37,11 +50,14 @@ Phases, each printing its wall time:
             the card, ``compress_device(values=decompress(col),
             n_values=...)``.  Prints each column's device and host
             compress walls, launches and the bytes copied to the host.
-7. kernels  each kernel against its plain PyTorch version on the card, on
+8. kernels  each kernel against its plain PyTorch version on the card, on
             the same plans, bit for bit (tolerance 0: the codec is
             lossless and the SUM totals are integers); K9-K14 on every
-            call of a second ``compress_device`` of every column.
-8. timing   CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
+            call of a second ``compress_device`` of every column; K15 (17
+            thresholds, and 2049 on one column: two launches a bucket) and
+            K16 on every bucket of every column, and K5-K8 with a key
+            range on every SUM call.
+9. timing   CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
             their launches as the wrappers made them, without the
             wrappers' synchronising range checks), beside
             its bound (the bytes it must move at 3.35 TB/s, or the
@@ -50,8 +66,12 @@ Phases, each printing its wall time:
             the same function, a device-to-device ``copy_`` of the decoded
             bytes (decode kernels) and ``torch.sum`` of the decoded values
             (SUM kernels, rounded, not exact), a ``copy_`` of the bytes
-            K9-K14 read.  No PyTorch call decodes, encodes, packs or
-            scores ALP or sums exactly, so ``library_ms`` is null.
+            K9-K14 read; K15 (E = 2, COUNT, and E = 17) and K16 on the
+            256 MiB columns, with ``torch.bucketize`` + ``torch.bincount``
+            and ``amin``/``amax`` over the decoded keys as yardsticks, and
+            the filtered K5-K8 beside the plain SUM.  No PyTorch call
+            decodes, encodes, packs or scores ALP, sums exactly or counts
+            keys of the compressed form, so ``library_ms`` is null.
 
 Then the nvidia-smi line, one JSON line with every kernel's numbers and,
 last, ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
@@ -171,6 +191,31 @@ DC_OPS = {  # per value or trial: (FP64, FP32, integer), stats/pair extra
     "ffor_pack_f64": (0, 0, 10, 0),
     "alp_encode_f32": (0, 10, 5, 4), "score_pairs_f32": (3, 10, 7, 5),
     "ffor_pack_f32": (0, 0, 7, 0)}
+# key kernels: launch-count key -> (TPU site, the other sites it replaces)
+KEY_KERNELS = {
+    "key_counts": ("alp_tpu/kernels/falp.py:890", [
+        "alp_tpu/kernels/falp.py:1190", "alp_tpu/kernels/falp.py:1299",
+        "alp_tpu/kernels/falp.py:1578", "alp_tpu/kernels/falp.py:2353",
+        "alp_tpu/kernels/falp.py:1112", "alp_tpu/kernels/falp.py:1677",
+        "alp_tpu/kernels/falp.py:1788", "alp_tpu/kernels/falp.py:1881"]),
+    "key_extremes": ("alp_tpu/kernels/falp.py:1052", [
+        "alp_tpu/kernels/falp.py:1624", "alp_tpu/kernels/falp.py:1746",
+        "alp_tpu/kernels/falp.py:1830"]),
+}
+# Operations K15/K16 need a value, counted from the algorithm (32-bit
+# integer operations, a 64-bit one counting two; float operations issued
+# once).  The decode: ALP as SUM_OPS counts it for K7/K8 (the FOR add and
+# FACT product, 5 f64 / 2 f32; the unpack at bw > 0, 4 / 2; two float
+# operations), ALP_RD the unpack of the right part at rbw > 0 (4 / 2) and
+# of the dictionary index at lbw > 0 (2), the clamp and dictionary read
+# (2) and the glue, a shift and an or (4 / 2).  Then the key: the -0.0
+# test, the sign test and the complement or the or (6 / 3).  K15: a
+# compare a search step (2 / 1), ceil(log2(E + 1)) steps, and the count
+# (1); K16: the two compares with the least and the largest key (4 / 2).
+KEY_OPS = {  # f64 -> (ALP every, unpack, RD every, RD right unpack, key,
+             #         compare)
+    True: (5, 4, 6, 4, 6, 2), False: (2, 2, 4, 2, 3, 1)}
+QUERY_SMALL_K = 7                # TOP-K at n_vectors + 7 on small columns
 DC_WRAPPERS = {  # launch-count key -> (module holding it, plain version)
     "alp_encode_f64": ("dc", "encode_plain"),
     "alp_encode_f32": ("dc", "encode_plain_f32"),
@@ -324,6 +369,166 @@ def max_abs_err(a, b) -> float:
         return 0.0
     diff = (a.double() - b.double()).abs()
     return float(diff.nan_to_num(nan=float("inf")).max())
+
+
+# ---------------------------------------------------------------------------
+# query (K15, K16, filtered K5-K8) helpers and the numpy references
+# ---------------------------------------------------------------------------
+
+def np_keys(x: np.ndarray) -> np.ndarray:
+    """The IEEE-754 total-order keys of values (-0.0 as +0.0): unsigned
+    order on keys is -NaN < -Inf < finite < +Inf < +NaN."""
+    b = x.view(f"u{x.dtype.itemsize}")
+    sbit = b.dtype.type(1) << b.dtype.type(8 * b.itemsize - 1)
+    b = np.where(b == sbit, b.dtype.type(0), b)
+    return np.where((b & sbit) != 0, ~b, b | sbit)
+
+
+def key_of(v: float, dtype) -> int:
+    """The key of a bound, rounded to the column dtype first."""
+    return int(np_keys(np.array([v], dtype))[0])
+
+
+def values_of_keys(keys: np.ndarray, dtype) -> np.ndarray:
+    """Values of unsigned keys; an f32 value through a double (so a
+    signaling NaN comes out quiet, as TOP-K returns it)."""
+    sbit = keys.dtype.type(1) << keys.dtype.type(8 * keys.itemsize - 1)
+    bits = np.where((keys & sbit) != 0, keys ^ sbit, ~keys)
+    vals = bits.view(dtype)
+    return (vals.astype(np.float64).astype(np.float32)
+            if np.dtype(dtype) == np.float32 else vals)
+
+
+def query_references(x: np.ndarray, n_vectors: int, small: bool) -> list:
+    """The queries of the query phase and their numpy answers from the
+    whole input: [(label, call(package, column), answer, kind)]."""
+    keys = np.sort(np_keys(x))
+    n = len(keys)
+    kt = keys.dtype.type
+
+    def val(i):
+        return float(values_of_keys(keys[i:i + 1], x.dtype)[0])
+
+    def count(lo, hi):
+        klo, khi = kt(key_of(lo, x.dtype)), kt(key_of(hi, x.dtype))
+        if klo > khi:
+            return 0
+        return int(np.searchsorted(keys, khi, "right")
+                   - np.searchsorted(keys, klo, "left"))
+
+    refs = []
+    for lo, hi in ((val(n // 5), val(3 * n // 5)), (-0.0, val(9 * n // 10))):
+        refs.append((f"filter_count[{lo!r}, {hi!r}]",
+                     lambda q, c, lo=lo, hi=hi: q.query_filter_count(c, lo,
+                                                                     hi),
+                     count(lo, hi), "int"))
+    refs.append(("min", lambda q, c: q.query_min(c),
+                 float(values_of_keys(keys[:1], x.dtype)[0]), "float"))
+    refs.append(("max", lambda q, c: q.query_max(c),
+                 float(values_of_keys(keys[-1:], x.dtype)[0]), "float"))
+    for k in [1, 128] + ([n_vectors + QUERY_SMALL_K] if small else []):
+        for largest in (True, False):
+            pick = keys[::-1][:k] if largest else keys[:k]
+            refs.append((f"topk[k={k}, largest={largest}]",
+                         lambda q, c, k=k, lg=largest: q.query_topk(c, k,
+                                                                    lg),
+                         values_of_keys(np.ascontiguousarray(pick),
+                                        x.dtype), "array"))
+    fin = x[np.isfinite(x)]
+    for n_edges in (16, 4097):
+        edges = np.linspace(float(fin.min()) - 1, float(fin.max()) + 1,
+                            n_edges)
+        ek = np.array([key_of(e, x.dtype) for e in edges], keys.dtype)
+        left = np.searchsorted(keys, ek, "left")
+        want = np.diff(left)
+        want[-1] += np.searchsorted(keys, ek[-1], "right") - left[-1]
+        refs.append((f"histogram[{n_edges} edges]",
+                     lambda q, c, e=edges: q.query_histogram(c, e), want,
+                     "array"))
+    lo, hi = val(n // 2), val(6 * n // 10)
+    k = np_keys(x)
+    sel = x[(k >= kt(key_of(lo, x.dtype))) & (k <= kt(key_of(hi, x.dtype)))]
+    refs.append((f"filter_sum[{lo!r}, {hi!r}]",
+                 lambda q, c: q.query_filter_sum(c, lo, hi),
+                 x.dtype.type(fsum_reference(sel)), "float"))
+    return refs
+
+
+def same_answer(got, want, kind) -> bool:
+    if kind == "int":
+        return int(got) == want
+    if kind == "float":
+        return same_float(float(got), float(want)) and (
+            not isinstance(want, np.generic) or type(got) is type(want))
+    return (isinstance(got, np.ndarray) and got.dtype == want.dtype
+            and got.shape == want.shape and np.array_equal(
+                got.view(f"u{got.itemsize}") if got.dtype.kind == "f"
+                else got, want.view(f"u{want.itemsize}")
+                if want.dtype.kind == "f" else want))
+
+
+def column_thresholds(x: np.ndarray, n: int) -> np.ndarray:
+    """n ascending distinct unsigned keys: evenly spaced keys of a sample of
+    the column's values, the rest spread over the key space."""
+    sample = np.unique(np_keys(x[::max(1, len(x) // 4096)]))
+    picked = sample[np.linspace(0, len(sample) - 1,
+                                min(n, len(sample))).astype(np.int64)]
+    step = np.uint64(np.iinfo(sample.dtype).max // (2 * n + 1))
+    spread = (np.arange(1, 2 * n + 1, dtype=np.uint64) * step).astype(
+        sample.dtype)
+    keys = np.unique(picked)
+    for k in spread:
+        if len(keys) >= n:
+            break
+        keys = np.union1d(keys, [k])
+    return keys[:n]
+
+
+def thresholds_tensor(keys: np.ndarray, plan):
+    """Unsigned keys as the signed words K15 takes, on the plan's card."""
+    import torch
+    return torch.from_numpy(keys.view(f"i{keys.itemsize}").copy()).to(
+        plan.device)
+
+
+def valid_values(plan, rows) -> int:
+    """Values of vectors ``rows`` that are not the pad."""
+    last = plan.n_vectors - 1
+    pad = plan.n_vectors * VECTOR - plan.n_values
+    return rows.numel() * VECTOR - (pad if bool((rows == last).any())
+                                    else 0)
+
+
+def key_work(plan, call, E) -> tuple:
+    """(bytes, integer operations, float operations) one K15 (E
+    thresholds) or K16 (E None) call needs on this run's data: its inputs
+    read once (packed words, metadata, row ids, the CSR entries of its
+    vectors and their exceptions, the thresholds), its output written
+    once, and KEY_OPS a value."""
+    every, unpack, rd_every, rd_unpack, key, cmp = KEY_OPS[plan.f64]
+    w = 8 if plan.f64 else 4
+    tensors = [a for a in call.args if hasattr(a, "numel")]
+    ptr, exc_data = tensors[-3], tensors[-1]
+    rows = call.rows
+    n_exc = int((ptr[rows + 1] - ptr[rows]).sum())
+    # the bucket's words, metadata and row ids; its CSR rows and entries
+    moved = sum(nbytes(t) for t in tensors[:-3]) + (rows.numel() + 1) * 8
+    moved += n_exc * (8 + exc_data.element_size())
+    if E is None:
+        moved += rows.numel() * 2 * w
+        last = 2 * cmp
+    else:
+        moved += E * w + (E + 1) * 8
+        last = math.ceil(math.log2(E + 1)) * cmp + 1
+    n = valid_values(plan, rows)
+    if call.scheme == "alp":
+        dec = every + (unpack if call.bw else 0)
+        flops = 2 * n
+    else:
+        lbw = call.args[3]
+        dec = rd_every + (rd_unpack if call.bw else 0) + (2 if lbw else 0)
+        flops = 0
+    return moved, n * (dec + key + last), flops
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +694,9 @@ def main() -> int:
         from alp_tpu_torch.kernels import encode as kenc
         from alp_tpu_torch.kernels import exact_sum as kes
         from alp_tpu_torch.kernels import ffor as kffor
+        from alp_tpu_torch.kernels import keys as kkeys
         from alp_tpu_torch.kernels import score as kscore
+        from alp_tpu_torch.ops.keys import bias, biased_keys
     except ImportError as e:
         print(f"chip_smoke: alp_tpu_torch is not importable: {e}",
               file=sys.stderr)
@@ -646,7 +853,52 @@ def main() -> int:
     phase("sum", t0, f"math.fsum references {ref_s:.3f}s, SUM path "
           f"{sum_s:.3f}s launches={sum_launches}")
 
-    # 6. dcompress: the device compress path, through the public entry
+    # 6. query: the predicate and order queries, through the public entries
+    t0 = time.perf_counter()
+    refs = {name: query_references(exp, col.n_vectors, name not in tile_to)
+            for name, (col, exp) in columns.items()}
+    ref_s = time.perf_counter() - t0
+    for col, _ in columns.values():
+        col._plans.clear()            # the first query builds the plan again
+    torch.cuda.synchronize()
+    kkeys.reset_launches()
+    kes.reset_launches()
+    tq = time.perf_counter()
+    for name, (col, _) in columns.items():
+        before = {**kkeys.LAUNCHES, **kes.LAUNCHES}
+        walls = []
+        for label, call, want, how in refs[name]:
+            tw = time.perf_counter()
+            got = call(alp_tpu_torch, col)
+            first_s = time.perf_counter() - tw
+            tw = time.perf_counter()
+            again = call(alp_tpu_torch, col)
+            again_s = time.perf_counter() - tw
+            for answer in (got, again):
+                if not same_answer(answer, want, how):
+                    raise RuntimeError(f"{name}: {label} gave {answer!r}, "
+                                       f"numpy {want!r}")
+            walls.append(f"{label} {first_s * 1e3:.3f}/{again_s * 1e3:.3f}")
+        moved = {k: v - before[k] for k, v in {**kkeys.LAUNCHES,
+                                                **kes.LAUNCHES}.items()
+                 if v != before[k]}
+        print(f"  {name}: {len(refs[name])} queries == numpy on "
+              f"{col.n_values} values, launches (two calls each)={moved}; "
+              f"walls ms, first call/kept plan: {'; '.join(walls)}",
+              flush=True)
+    query_launches = dict(kkeys.LAUNCHES)
+    filtered_launches = dict(kes.LAUNCHES)
+    query_s = time.perf_counter() - tq
+    for k, v in {**query_launches, **filtered_launches}.items():
+        if v == 0:
+            raise RuntimeError(f"kernel {k} was not launched on the query "
+                               f"path")
+    del refs
+    phase("query", t0, f"numpy references {ref_s:.3f}s, query path "
+          f"{query_s:.3f}s launches={query_launches} filtered SUM "
+          f"launches={filtered_launches}")
+
+    # 7. dcompress: the device compress path, through the public entry
     t0 = time.perf_counter()
     host_blobs = {}
     torch.cuda.synchronize()
@@ -696,9 +948,10 @@ def main() -> int:
     phase("dcompress", t0, f"device compress path {dc_s:.3f}s "
           f"launches={dc_launches} (two compress_device calls a column)")
 
-    # 7. kernels vs plain versions, on the card, same plans
+    # 8. kernels vs plain versions, on the card, same plans
     t0 = time.perf_counter()
-    errors = {k: 0.0 for k in (*KERNELS, *SUM_KERNELS, *DC_KERNELS)}
+    errors = {k: 0.0 for k in (*KERNELS, *SUM_KERNELS, *DC_KERNELS,
+                               *KEY_KERNELS)}
     plans = {}
     for name, (col, _) in columns.items():
         plan = decode.build_plan(col, dev)
@@ -728,6 +981,46 @@ def main() -> int:
                 raise RuntimeError(f"{name}: {call.kernel} totals "
                                    f"{got.tolist()} != plain "
                                    f"{want.tolist()}")
+    key_thr = {}
+    for name, (col, exp) in columns.items():
+        plan = col.plan(dev)
+        thr17 = column_thresholds(exp, 17)
+        key_thr[name] = thr17
+        thrs = [thr17] + ([column_thresholds(exp, 2049)]
+                          if name == "f64_mixed_alp_rd" else [])
+        for thr in thrs:
+            thr_t = thresholds_tensor(thr, plan)
+            for call in engine.key_calls(plan):
+                got = call.counts(thr_t, torch.zeros(
+                    len(thr) + 1, dtype=torch.int64, device=dev))
+                want = call.counts_plain(thr_t)
+                err = int_err(got, want)
+                errors["key_counts"] = max(errors["key_counts"], err)
+                if err != 0.0:
+                    raise RuntimeError(f"{name}: key_counts ({len(thr)} "
+                                       f"thresholds) bw={call.bw} differs "
+                                       f"from its plain version")
+        out = torch.zeros((plan.n_vectors, 2), dtype=plan.bits_dtype,
+                          device=dev)
+        for call in engine.key_calls(plan):
+            call.extremes(out)
+            err = int_err(out[call.rows], call.extremes_plain())
+            errors["key_extremes"] = max(errors["key_extremes"], err)
+            if err != 0.0:
+                raise RuntimeError(f"{name}: key_extremes bw={call.bw} "
+                                   f"differs from its plain version")
+        key_range = (int(thr17[4]), int(thr17[12]))
+        for call in engine.sum_calls(plan, key_range):
+            got = call.launch(kes.totals(plan.bits_dtype, dev))
+            want = call.plain()
+            err = int_err(got, want)
+            errors[call.kernel] = max(errors[call.kernel], err)
+            if err != 0.0:
+                raise RuntimeError(f"{name}: {call.kernel} with the key "
+                                   f"range {key_range} differs from its "
+                                   f"plain version")
+        print(f"  {name}: K15 (17{' and 2049' if len(thrs) > 1 else ''} "
+              f"thresholds), K16 and the filtered SUM == plain", flush=True)
     dc_calls = {}
     for name in columns:
         got, calls = record_dc_calls(
@@ -743,10 +1036,11 @@ def main() -> int:
             dc_calls[name] = calls
         print(f"  {name}: {len(calls)} K9-K14 calls == plain", flush=True)
     phase("kernels", t0, "every bucket of every column: kernel bits == "
-          "plain bits, SUM totals == plain totals, every K9-K14 call of "
+          "plain bits, SUM totals == plain totals (also with a key range), "
+          "K15 bins and K16 keys == plain, every K9-K14 call of "
           "compress_device == plain (tolerance 0)")
 
-    # 8. timing at the 256 MiB shapes
+    # 9. timing at the 256 MiB shapes
     t0 = time.perf_counter()
     timed = {"falp_decode_f64": list(BENCH_PROFILES),
              "falp_decode_f32": ["f32_alp"],
@@ -805,7 +1099,7 @@ def main() -> int:
              "exact_sum_f64": ["f64_alp_rd"],
              "exact_sum_f32": ["f32_alp_rd"]}
     for k, names in timed.items():
-        ms, plain_ms, bound_ms, sum_ms = [], [], [], []
+        ms, plain_ms, bound_ms, sum_ms, filtered_ms = [], [], [], [], []
         by_bytes, by_ops = [], []
         for name in names:
             col = columns[name][0]
@@ -813,6 +1107,11 @@ def main() -> int:
             mine = [c for c in engine.sum_calls(plan) if c.kernel == k]
             out = kes.totals(plan.bits_dtype, dev)
             t_k = cuda_ms(lambda: [c.launch(out) for c in mine], 20)
+            key_range = (int(key_thr[name][4]), int(key_thr[name][12]))
+            where = [c for c in engine.sum_calls(plan, key_range)
+                     if c.kernel == k]
+            t_f = cuda_ms(lambda: [c.launch(out) for c in where], 20)
+            filtered_ms.append(t_f)
             t_p = cuda_ms(lambda: [c.plain() for c in mine], 3)
             values = plan.run()
             t_s = cuda_ms(values.sum, 20)
@@ -837,7 +1136,8 @@ def main() -> int:
                   f"bound {max(b_bytes, b_ops):.4f} ms (bytes "
                   f"{b_bytes:.4f} ms, operations {b_ops:.4f} ms), "
                   f"torch.sum {t_s:.4f} ms, {n_vals / t_k / 1e6:.1f} "
-                  f"Gvalues/s", flush=True)
+                  f"Gvalues/s; with the key range {key_range} (filtered "
+                  f"instantiation) {t_f:.4f} ms", flush=True)
             del values, out
         by = "bytes" if sum(by_bytes) >= sum(by_ops) else "operations"
         rows.append({
@@ -853,6 +1153,7 @@ def main() -> int:
                          "function: rounded, not exact; no PyTorch call "
                          "sums exactly)",
             "timed_on": names,
+            "filtered_ms": float(np.mean(filtered_ms)),
         })
     for k, (src, site, others, timed_on) in DC_KERNELS.items():
         ms, plain_ms, bound_ms, copy_ms, b_by_bytes, b_by_ops = ([] for _ in
@@ -909,6 +1210,82 @@ def main() -> int:
                          if any(c[0] == k for c in dc_calls[n])],
         })
     del dc_calls
+    key_timed = [*BENCH_PROFILES, "f64_alp_rd", "f32_alp", "f32_alp_rd"]
+    for k, (site, others) in KEY_KERNELS.items():
+        cells = {}
+        for E in ((2, 17) if k == "key_counts" else (None,)):
+            ms, plain_ms, bound_ms, yard_ms, b_bytes_l, b_ops_l = (
+                [] for _ in range(6))
+            for name in key_timed:
+                col, exp = columns[name]
+                plan = col.plan(dev)
+                calls = engine.key_calls(plan)
+                bits = plan.run().view(plan.bits_dtype)
+                if E is None:
+                    out = torch.empty((plan.n_vectors, 2),
+                                      dtype=plan.bits_dtype, device=dev)
+                    t_k = cuda_ms(lambda: [c.extremes(out) for c in calls],
+                                  20)
+                    t_p = cuda_ms(lambda: [c.extremes_plain()
+                                           for c in calls], 3)
+                    bk = biased_keys(bits)
+                    t_y = cuda_ms(lambda: (bk.amin(dim=1), bk.amax(dim=1)),
+                                  20)
+                else:
+                    thr = column_thresholds(exp, E)
+                    thr_t = thresholds_tensor(thr, plan)
+                    out = torch.zeros(E + 1, dtype=torch.int64, device=dev)
+                    t_k = cuda_ms(lambda: [c.counts(thr_t, out)
+                                           for c in calls], 20)
+                    t_p = cuda_ms(lambda: [c.counts_plain(thr_t)
+                                           for c in calls], 3)
+                    bk = biased_keys(bits.reshape(-1)[:plan.n_values])
+                    bthr = bias(thr_t)
+                    t_y = cuda_ms(lambda: torch.bincount(
+                        torch.bucketize(bk, bthr), minlength=E + 1), 20)
+                work = [key_work(plan, c, E) for c in calls]
+                moved, int_ops, fl_ops = (sum(w[i] for w in work)
+                                          for i in range(3))
+                b_bytes = moved / HBM_BYTES_PER_S * 1e3
+                b_ops = max(int_ops / int32_per_s, fl_ops / (
+                    fp64_per_s if plan.f64 else fp32_per_s)) * 1e3
+                ms.append(t_k)
+                plain_ms.append(t_p)
+                bound_ms.append(max(b_bytes, b_ops))
+                yard_ms.append(t_y)
+                b_bytes_l.append(b_bytes)
+                b_ops_l.append(b_ops)
+                print(f"  {k}{'' if E is None else f' E={E}'} on {name}: "
+                      f"{len(calls)} launches/pass, {moved} bytes, "
+                      f"{int_ops} int ops, {fl_ops} float ops, kernel "
+                      f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+                      f"{max(b_bytes, b_ops):.4f} ms (bytes {b_bytes:.4f} "
+                      f"ms, operations {b_ops:.4f} ms), share "
+                      f"{max(b_bytes, b_ops) / t_k:.1%}, yardstick "
+                      f"{t_y:.4f} ms", flush=True)
+                del bits, bk, out
+            cells[E] = {
+                "ms": float(np.mean(ms)), "plain_ms": float(np.mean(plain_ms)),
+                "bound_ms": float(np.mean(bound_ms)),
+                "bound_by": ("bytes" if sum(b_bytes_l) >= sum(b_ops_l)
+                             else "operations"),
+                "yardstick_ms": float(np.mean(yard_ms))}
+        main_cell = cells[2] if k == "key_counts" else cells[None]
+        row = {
+            "name": k, "route": "cuda", "source": "alp_tpu_torch/csrc/keys.cu",
+            "replaces": site, "also_replaces": others,
+            "launches": query_launches[k], "max_abs_err": errors[k],
+            **main_cell, "library_ms": None,
+            "yardstick": ("torch.bucketize + torch.bincount of the decoded "
+                          "keys" if k == "key_counts" else
+                          "amin/amax over dim=1 of the decoded keys")
+            + " (not the same function: no PyTorch call reads the "
+              "compressed form)",
+            "timed_on": key_timed}
+        if k == "key_counts":
+            row["E"] = 2
+            row.update({f"{f}_E17": v for f, v in cells[17].items()})
+        rows.append(row)
     phase("timing", t0)
     phase("total", t_all)
 

@@ -4,7 +4,10 @@ Each kernel is held against its plain PyTorch version on the same plan
 buckets, bit for bit (the SUM kernels' integer totals exactly), the whole
 decode against the input, ``query_sum`` against ``math.fsum``, and the
 device compress kernels K9-K14 against their plain versions and
-``compress_device``'s blob against host compress's, in both precisions.  This file
+``compress_device``'s blob against host compress's, in both precisions,
+the key kernels K15/K16 and the filtered SUM against their plain versions,
+and every predicate and order query on the card against its answer on the
+CPU.  This file
 imports neither JAX nor ``alp_tpu``, so it runs on a machine with a card
 and no JAX:
 
@@ -30,6 +33,7 @@ from alp_tpu_torch.kernels import decode, falp
 from alp_tpu_torch.kernels import encode as kenc
 from alp_tpu_torch.kernels import exact_sum as kes
 from alp_tpu_torch.kernels import ffor as kffor
+from alp_tpu_torch.kernels import keys as kkeys
 from alp_tpu_torch.kernels import score as kscore
 
 pytestmark = pytest.mark.cuda
@@ -95,9 +99,18 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     monkeypatch.setattr(kffor, "ffor_plain", refuse)
     monkeypatch.setattr(kscore, "score_plain", refuse)
     monkeypatch.setattr(kscore, "score_plain_f32", refuse)
+    for name in ("key_counts_alp_plain", "key_counts_rd_plain",
+                 "key_extremes_alp_plain", "key_extremes_rd_plain",
+                 "counts_of_bits", "extremes_of_bits"):
+        monkeypatch.setattr(kkeys, name, refuse)
     x = COLUMNS["f64_mixed_alp_rd"]
     col = alp_tpu_torch.compress(x)
     alp_tpu_torch.decompress(col)
+    kkeys.reset_launches()
+    assert alp_tpu_torch.query_filter_count(col, 10.0, 50.0) == int(
+        ((x >= 10.0) & (x <= 50.0)).sum())
+    assert alp_tpu_torch.query_max(col) == x.max()
+    assert all(kkeys.LAUNCHES.values()), kkeys.LAUNCHES
     for reset in (kenc.reset_launches, kffor.reset_launches,
                   kscore.reset_launches):
         reset()
@@ -437,4 +450,98 @@ def test_work_runs_on_the_tensors_card():
         x32 = COLUMNS["f32_alp_rd"]
         assert alp_tpu_torch.compress_device(x32, device=other).to_bytes() \
             == alp_tpu_torch.compress(x32).to_bytes()
+        assert alp_tpu_torch.query_filter_count(col, 10.0, 50.0, other) \
+            == int(((x >= 10.0) & (x <= 50.0)).sum())
+        assert alp_tpu_torch.query_min(col, other) == x.min()
+        np.testing.assert_array_equal(
+            alp_tpu_torch.query_topk(col, 5, device=other),
+            np.sort(x)[::-1][:5])
         assert torch.cuda.current_device() == 0
+
+
+# ---------------------------------------------------------------------------
+# predicate and order queries: K15, K16, the filtered K5-K8
+# ---------------------------------------------------------------------------
+
+def _thresholds(plan, n: int, seed: int) -> torch.Tensor:
+    """n ascending distinct unsigned keys (held in the bit patterns' signed
+    dtype): keys of the column's own values, then random keys."""
+    rng = np.random.default_rng(seed)
+    ut = np.uint64 if plan.f64 else np.uint32
+    own = engine.vector_extremes(plan).cpu().numpy().view(ut).ravel()
+    rand = rng.integers(0, np.iinfo(ut).max, 4 * n, dtype=ut,
+                        endpoint=True)
+    keys = np.unique(np.concatenate([own[:n // 2], rand]))
+    keys = np.sort(rng.choice(keys, n, replace=False))
+    return torch.from_numpy(keys.view(f"i{keys.itemsize}").copy()).to(
+        plan.device)
+
+
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_key_kernels_equal_plain_versions(name, cuda):
+    col = alp_tpu_torch.compress(COLUMNS[name])
+    plan = col.plan(cuda)
+    for E in (1, 2, 2048, 2049):
+        thr = _thresholds(plan, E, E)
+        for call in engine.key_calls(plan):
+            before = kkeys.LAUNCHES["key_counts"]
+            got = call.counts(thr, torch.zeros(E + 1, dtype=torch.int64,
+                                               device=cuda))
+            assert kkeys.LAUNCHES["key_counts"] == before + -(-E // 2048)
+            assert torch.equal(got, call.counts_plain(thr)), (name, E)
+    out = torch.zeros((plan.n_vectors, 2), dtype=plan.bits_dtype,
+                      device=cuda)
+    for call in engine.key_calls(plan):
+        before = kkeys.LAUNCHES["key_extremes"]
+        call.extremes(out)
+        assert kkeys.LAUNCHES["key_extremes"] == before + 1
+        assert torch.equal(out[call.rows], call.extremes_plain()), name
+
+
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_filtered_sum_kernels_equal_plain_versions(name, cuda):
+    x = COLUMNS[name]
+    col = alp_tpu_torch.compress(x)
+    plan = col.plan(cuda)
+    width = 64 if plan.f64 else 32
+    lo, hi = np.quantile(x[np.isfinite(x)], [0.25, 0.75])
+    ranges = [(engine._float_key(lo, x.dtype), engine._float_key(hi, x.dtype)),
+              (0, (1 << width) - 1)]
+    for key_range in ranges:
+        for call in engine.sum_calls(plan, key_range):
+            got = call.launch(kes.totals(plan.bits_dtype, cuda))
+            assert torch.equal(got, call.plain()), (name, call.kernel)
+    # the whole key range sums what the unfiltered kernels sum
+    assert torch.equal(engine.exact_sum_totals(plan, key_range=ranges[1]),
+                       engine.exact_sum_totals(plan))
+
+
+def _same_array(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.view(f"u{a.itemsize}"), b.view(f"u{b.itemsize}"))
+
+
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_queries_on_card_equal_cpu(name, cuda):
+    x = COLUMNS[name]
+    col = alp_tpu_torch.compress(x)
+    fin = x[np.isfinite(x)]
+    lo, hi = np.quantile(fin, [0.2, 0.6])
+    for a, b in ((lo, hi), (-np.inf, np.inf), (-0.0, hi)):
+        assert alp_tpu_torch.query_filter_count(col, a, b) == \
+            alp_tpu_torch.query_filter_count(col, a, b, device="cpu")
+        assert _same(float(alp_tpu_torch.query_filter_sum(col, a, b)),
+                     float(alp_tpu_torch.query_filter_sum(col, a, b,
+                                                          device="cpu")))
+    for q in (alp_tpu_torch.query_min, alp_tpu_torch.query_max):
+        assert _same(q(col), q(col, device="cpu"))
+    for k in (1, 5, 128, col.n_vectors + 3):
+        for largest in (True, False):
+            assert _same_array(
+                alp_tpu_torch.query_topk(col, k, largest),
+                alp_tpu_torch.query_topk(col, k, largest, device="cpu"))
+    for edges in (np.linspace(fin.min() - 1, fin.max() + 1, 7),
+                  np.linspace(fin.min() - 1, fin.max() + 1, 2500)):
+        assert np.array_equal(
+            alp_tpu_torch.query_histogram(col, edges),
+            alp_tpu_torch.query_histogram(col, edges, device="cpu"))
