@@ -1,5 +1,6 @@
 // Hand-written Hopper (sm_90a) key kernels of alp_tpu_torch: the
-// predicate and order queries (COUNT WHERE, MIN/MAX, TOP-K, histogram).
+// predicate and order queries (COUNT WHERE, MIN/MAX, TOP-K, histogram) and
+// the rank passes of QUANTILE / MEDIAN.
 //
 //   K15 key_counts    prefix counts of total-order keys, fused with the
 //                     decode.  Replaces, in alp_tpu/kernels/falp.py, the
@@ -19,9 +20,17 @@
 //                     falp_decode_f32_keymax (:1746) and
 //                     rd_decode_dict_f32_keymax (:1830); their `invert`
 //                     (smallest-first TOP-K) is the least key here.
+//   K17 rank_pass     one pass of the quantile bisection, fused with the
+//                     decode: K15's bins at T thresholds plus, for each of
+//                     R brackets [lo_r, hi_r], the least and the largest
+//                     key that lies in it.  Replaces the rank-pass kernels
+//                     falp_decode_f64_variant_rankpass (:2100),
+//                     rd_decode_dict_f64_rankpass (:2160),
+//                     falp_decode_f32_rankpass (:2238) and
+//                     rd_decode_dict_f32_rankpass (:2295).
 //
 // Each is one template over the four routes of vector.cuh (ALP f64, ALP
-// f32, ALP_RD f64, ALP_RD f32), so eight C entries.
+// f32, ALP_RD f64, ALP_RD f32), so twelve C entries.
 //
 // K15.  E ascending thresholds thr_0 < ... < thr_{E-1} (unsigned keys; E
 // at most kMaxThr, which keeps a block's static shared memory under
@@ -41,17 +50,28 @@
 // column of 128 lanes in biased i32 words; Hopper compares 64-bit
 // integers, so the key is one unsigned word.
 //
-// Bound.  Both read only the packed words, the metadata, the row ids and
-// the exceptions of their vectors (a few bits a value) and write a few
-// bins or two keys a vector, so they are bound by operations: the decode's
-// (K1-K4's unpack, FOR add, FACT product, conversion and product, or the
-// RD glue), about 3 for the key, then ceil(log2(E + 1)) search steps (K15)
-// or 2 compares (K16) a value, at the INT32 issue rate.  chip_smoke.py
-// counts them (KEY_OPS).  The design is the simple one: one block of 256
-// threads walks the vectors of its share, the vector is decoded into
-// shared memory before it is read, and no thread block keeps values in
-// registers across the exception pass.  Cutting the shared-memory round
-// trip and the shared atomics is work for a later change.
+// K17.  K15's binning (the same device functions), then 2R compares a
+// value against the brackets held in shared memory; each thread keeps a
+// running (least, largest) pair a rank in registers across its vectors
+// (R <= kMaxRanks, unrolled), and at the end a warp and a block reduction
+// merge them and thread r adds rank r's pair into mm [R, 2] with one
+// atomicMin and one atomicMax.  The caller starts mm at (all ones, 0), so
+// a bracket that holds no value of the bucket leaves it untouched.  The
+// TPU kernels split each key into two biased i32 words and compare them
+// lexicographically per lane; here a key is one unsigned word.
+//
+// Bound.  All three read only the packed words, the metadata, the row ids
+// and the exceptions of their vectors (a few bits a value) and write a few
+// bins or keys, so they are bound by operations: the decode's (K1-K4's
+// unpack, FOR add, FACT product, conversion and product, or the RD glue),
+// about 3 for the key, then ceil(log2(E + 1)) search steps (K15, K17) and
+// 2 compares (K16) or 4R compares, mins and maxes (K17) a value, at the
+// INT32 issue rate.  chip_smoke.py counts them (KEY_OPS, RANK_OPS).  The
+// design is the simple one: one block of 256 threads walks the vectors of
+// its share, the vector is decoded into shared memory before it is read,
+// and no thread block keeps values in registers across the exception
+// pass.  Cutting the shared-memory round trip and the shared atomics is
+// work for a later change.
 
 #include <climits>
 #include <cstdint>
@@ -67,7 +87,46 @@ using alp::order_key;
 using alp::RdVector;
 constexpr int kThreads = 256;
 constexpr int kMaxThr = 2048;
+constexpr int kMaxRanks = 8;
 constexpr unsigned kFull = 0xffffffffu;
+
+// K15's binning, shared with K17.  Thresholds into shared th[E], the
+// block's histogram hist[E + 1] zeroed; the caller syncs before use.
+template <typename U>
+__device__ __forceinline__ void load_bins(U* th, unsigned* hist,
+                                          const U* __restrict__ thr, int E) {
+  for (int j = threadIdx.x; j < E; j += blockDim.x) th[j] = thr[j];
+  for (int j = threadIdx.x; j <= E; j += blockDim.x) hist[j] = 0;
+}
+
+// Count one key (none when `real` is false: the pad) at its bin
+// #{th < key}.  Every lane of the warp calls it together.
+template <typename U>
+__device__ __forceinline__ void bin_key(bool real, U key, const U* th, int E,
+                                        unsigned* hist) {
+  int p = -1;                                // -1: pad, counted nowhere
+  if (real) {
+    int lo = 0, hi = E;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (th[mid] < key)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    p = lo;
+  }
+  const unsigned peers = __match_any_sync(kFull, p);
+  if (p >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)
+    atomicAdd(&hist[p], static_cast<unsigned>(__popc(peers)));
+}
+
+// The block's nonzero bins into the global int64 bins; after a barrier.
+__device__ __forceinline__ void flush_bins(const unsigned* hist, int E,
+                                           unsigned long long* bins) {
+  for (int j = threadIdx.x; j <= E; j += blockDim.x)
+    if (hist[j]) atomicAdd(&bins[j], static_cast<unsigned long long>(hist[j]));
+}
 
 // K15: prefix-count bins of the keys of rows 0..n-1 (vector rows[i]).
 template <class V>
@@ -80,36 +139,17 @@ key_counts_kernel(V src, const long long* __restrict__ rows, long long n,
   __shared__ U vals[kVector];
   __shared__ U th[kMaxThr];
   __shared__ unsigned hist[kMaxThr + 1];
-  for (int j = threadIdx.x; j < E; j += kThreads) th[j] = thr[j];
-  for (int j = threadIdx.x; j <= E; j += kThreads) hist[j] = 0;
-  const int lane = threadIdx.x & 31;
+  load_bins(th, hist, thr, E);
   for (long long i = blockIdx.x; i < n; i += gridDim.x) {
     const long long vec = rows[i];
     src.decode(sh, vals, i, vec);            // ends in a barrier
     const long long valid = n_values - vec * kVector;
-    for (int k = threadIdx.x; k < kVector; k += kThreads) {
-      int p = -1;                            // -1: pad, counted nowhere
-      if (k < valid) {
-        const U key = order_key(vals[k]);
-        int lo = 0, hi = E;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (th[mid] < key)
-            lo = mid + 1;
-          else
-            hi = mid;
-        }
-        p = lo;
-      }
-      const unsigned peers = __match_any_sync(kFull, p);
-      if (p >= 0 && lane == __ffs(peers) - 1)
-        atomicAdd(&hist[p], static_cast<unsigned>(__popc(peers)));
-    }
+    for (int k = threadIdx.x; k < kVector; k += kThreads)
+      bin_key(k < valid, order_key(vals[k]), th, E, hist);
     __syncthreads();                         // vals is read
   }
   __syncthreads();
-  for (int j = threadIdx.x; j <= E; j += kThreads)
-    if (hist[j]) atomicAdd(&bins[j], static_cast<unsigned long long>(hist[j]));
+  flush_bins(hist, E, bins);
 }
 
 // unsigned min / max of any width (uint64_t is unsigned long here)
@@ -172,6 +212,93 @@ key_extremes_kernel(V src, const long long* __restrict__ rows, long long n,
   }
 }
 
+// atomicMin / atomicMax of an unsigned key of either width
+__device__ __forceinline__ void merge_key(uint64_t* mm, uint64_t lo,
+                                          uint64_t hi) {
+  auto* p = reinterpret_cast<unsigned long long*>(mm);
+  atomicMin(p, static_cast<unsigned long long>(lo));
+  atomicMax(p + 1, static_cast<unsigned long long>(hi));
+}
+__device__ __forceinline__ void merge_key(uint32_t* mm, uint32_t lo,
+                                          uint32_t hi) {
+  auto* p = reinterpret_cast<unsigned*>(mm);
+  atomicMin(p, static_cast<unsigned>(lo));
+  atomicMax(p + 1, static_cast<unsigned>(hi));
+}
+
+// K17: K15's bins of rows 0..n-1 at E thresholds, and for each of the R
+// brackets br[2r] <= key <= br[2r + 1] the least and largest key in it,
+// merged into mm[2r], mm[2r + 1].
+template <class V>
+__global__ void __launch_bounds__(kThreads)
+rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
+                 long long n_values, const typename V::U* __restrict__ thr,
+                 int E, const typename V::U* __restrict__ br, int R,
+                 unsigned long long* __restrict__ bins,
+                 typename V::U* __restrict__ mm) {
+  using U = typename V::U;
+  constexpr int kWarps = kThreads / 32;
+  __shared__ typename V::Shared sh;
+  __shared__ U vals[kVector];
+  __shared__ U th[kMaxThr];
+  __shared__ unsigned hist[kMaxThr + 1];
+  __shared__ U blo[kMaxRanks], bhi[kMaxRanks];
+  __shared__ U wlo[kWarps][kMaxRanks], whi[kWarps][kMaxRanks];
+  load_bins(th, hist, thr, E);
+  if (static_cast<int>(threadIdx.x) < R) {
+    blo[threadIdx.x] = br[2 * threadIdx.x];
+    bhi[threadIdx.x] = br[2 * threadIdx.x + 1];
+  }
+  U lo[kMaxRanks], hi[kMaxRanks];
+#pragma unroll
+  for (int r = 0; r < kMaxRanks; ++r) {
+    lo[r] = static_cast<U>(~U(0));
+    hi[r] = 0;
+  }
+  for (long long i = blockIdx.x; i < n; i += gridDim.x) {
+    const long long vec = rows[i];
+    src.decode(sh, vals, i, vec);            // ends in a barrier
+    const long long valid = n_values - vec * kVector;
+    for (int k = threadIdx.x; k < kVector; k += kThreads) {
+      const bool real = k < valid;
+      const U key = order_key(vals[k]);
+      bin_key(real, key, th, E, hist);
+      if (real) {
+#pragma unroll
+        for (int r = 0; r < kMaxRanks; ++r) {
+          if (r < R && blo[r] <= key && key <= bhi[r]) {
+            lo[r] = umin(lo[r], key);
+            hi[r] = umax(hi[r], key);
+          }
+        }
+      }
+    }
+    __syncthreads();                         // vals is read
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < kMaxRanks; ++r) {
+    if (r < R) {
+      const U l = warp_min(lo[r]), h = warp_max(hi[r]);
+      if (lane == 0) {
+        wlo[warp][r] = l;
+        whi[warp][r] = h;
+      }
+    }
+  }
+  __syncthreads();
+  flush_bins(hist, E, bins);
+  if (static_cast<int>(threadIdx.x) < R) {
+    const int r = threadIdx.x;
+    U l = wlo[0][r], h = whi[0][r];
+    for (int w = 1; w < kWarps; ++w) {
+      l = umin(l, wlo[w][r]);
+      h = umax(h, whi[w][r]);
+    }
+    if (l <= h) merge_key(mm + 2 * r, l, h);  // else: none in the bracket
+  }
+}
+
 // Blocks for n vectors on card `dev`: as many as can be resident at once
 // (at most one per vector); each walks its share of the vectors.
 template <typename K>
@@ -216,6 +343,28 @@ int launch(const V& src, const void* rows, long long n, long long n_values,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K17 over a bucket: 1 <= E <= kMaxThr thresholds, 1 <= R <= kMaxRanks
+// brackets.
+template <class V>
+int launch_rank(const V& src, const void* rows, long long n,
+                long long n_values, const void* thr, int E, const void* br,
+                int R, void* bins, void* mm, int dev, void* stream) {
+  using U = typename V::U;
+  if (n < 0 || n_values < 0 || E < 1 || E > kMaxThr || R < 1 ||
+      R > kMaxRanks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  unsigned blocks = 0;
+  const cudaError_t err = grid_for(rank_pass_kernel<V>, n, dev, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks)
+    rank_pass_kernel<V><<<blocks, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        src, static_cast<const long long*>(rows), n, n_values,
+        static_cast<const U*>(thr), E, static_cast<const U*>(br), R,
+        static_cast<unsigned long long*>(bins), static_cast<U*>(mm));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename F>
 AlpVector<F> alp_route(const void* packed, int bw, const void* base,
                        const void* fact, const void* frac,
@@ -256,8 +405,10 @@ bool bad_rd(int rbw, int lbw, int S) {
 // bits); RD entries K3/K4's and the RD exception CSR (exc_left: raw left
 // parts).  K15 adds into bins (int64 [E + 1]); thr holds E ascending
 // unsigned keys (uint64 for f64, uint32 for f32), 1 <= E <= 2048.  K16
-// writes out (keys, [n_vectors, 2]) at rows rows[i].  Every entry returns
-// cudaGetLastError() (or the error of its device query).
+// writes out (keys, [n_vectors, 2]) at rows rows[i].  K17 adds into bins
+// as K15 and merges into mm (keys, [R, 2]) the least and largest key in
+// each bracket of br (keys, [R, 2]: lo, hi), 1 <= R <= 8.  Every entry
+// returns cudaGetLastError() (or the error of its device query).
 
 #define ALP_ARGS                                                          \
   const void *packed, int bw, const void *base, const void *fact,         \
@@ -331,4 +482,36 @@ extern "C" int alp_key_extremes_rd_f32(RD_ARGS, void* out, int dev,
   if (bad_rd(rbw, lbw, 32)) return static_cast<int>(cudaErrorInvalidValue);
   return launch(RD_ROUTE(uint32_t, 32), rows, n, n_values, nullptr, -1,
                 nullptr, out, dev, stream);
+}
+
+extern "C" int alp_rank_pass_alp_f64(ALP_ARGS, const void* thr, int E,
+                                     const void* br, int R, void* bins,
+                                     void* mm, int dev, void* stream) {
+  if (bad_alp(bw, 64)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rank(ALP_ROUTE(double), rows, n, n_values, thr, E, br, R,
+                     bins, mm, dev, stream);
+}
+
+extern "C" int alp_rank_pass_alp_f32(ALP_ARGS, const void* thr, int E,
+                                     const void* br, int R, void* bins,
+                                     void* mm, int dev, void* stream) {
+  if (bad_alp(bw, 32)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rank(ALP_ROUTE(float), rows, n, n_values, thr, E, br, R,
+                     bins, mm, dev, stream);
+}
+
+extern "C" int alp_rank_pass_rd_f64(RD_ARGS, const void* thr, int E,
+                                    const void* br, int R, void* bins,
+                                    void* mm, int dev, void* stream) {
+  if (bad_rd(rbw, lbw, 64)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rank(RD_ROUTE(uint64_t, 64), rows, n, n_values, thr, E, br,
+                     R, bins, mm, dev, stream);
+}
+
+extern "C" int alp_rank_pass_rd_f32(RD_ARGS, const void* thr, int E,
+                                    const void* br, int R, void* bins,
+                                    void* mm, int dev, void* stream) {
+  if (bad_rd(rbw, lbw, 32)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rank(RD_ROUTE(uint32_t, 32), rows, n, n_values, thr, E, br,
+                     R, bins, mm, dev, stream);
 }

@@ -10,6 +10,10 @@ queries.  Every answer equals the JAX package's bit for bit.
   values, through K15 ``key_counts`` (prefix counts of keys at given
   thresholds) and K16 ``key_extremes`` (each vector's least and largest
   key), both fused with the decode;
+* ``query_quantile`` / ``query_median``, exact rank selection: a
+  bisection over the total-order keys whose passes are K17 ``rank_pass``
+  (K15's prefix counts at many probe keys plus, for each rank, the least
+  and the largest key inside its bracket), then numpy's interpolation;
 * ``query_scan`` (the full decode), ``query_count_exceptions`` and
   ``query_compression``, thin wrappers.
 
@@ -48,6 +52,7 @@ the JAX package keeps its own.
 from __future__ import annotations
 
 import dataclasses
+import math
 from fractions import Fraction
 
 import numpy as np
@@ -340,6 +345,20 @@ class KeyCall:
         """The plain version's [n, 2] keys of the bucket's vectors."""
         return kkeys.KERNELS[self.scheme]["key_extremes"][1](*self.args)
 
+    def rank_pass(self, thresholds: torch.Tensor, brackets: torch.Tensor,
+                  bins: torch.Tensor, mm: torch.Tensor) -> tuple:
+        """K17 (on a CPU tensor its plain version): bins added into
+        ``bins``, each bracket's least and largest key merged into
+        ``mm``."""
+        return kkeys.KERNELS[self.scheme]["rank_pass"][0](
+            *self.args, thresholds, brackets, bins=bins, mm=mm)
+
+    def rank_pass_plain(self, thresholds: torch.Tensor,
+                        brackets: torch.Tensor) -> tuple:
+        """The plain version's (bins, [R, 2] keys) of the bucket."""
+        return kkeys.KERNELS[self.scheme]["rank_pass"][1](
+            *self.args, thresholds, brackets)
+
 
 def key_calls(plan) -> list:
     """One :class:`KeyCall` per bucket of a plan: ALP buckets with the
@@ -359,14 +378,20 @@ def key_calls(plan) -> list:
     return calls
 
 
+def _key_tensor(plan, keys) -> torch.Tensor:
+    """Unsigned keys (numpy) as the signed words the kernels take, on the
+    plan's device."""
+    kt = _key_type(plan.dtype)
+    return torch.from_numpy(np.ascontiguousarray(keys, kt).view(
+        f"i{kt().itemsize}")).to(plan.device)
+
+
 def key_count_bins(plan, thresholds: np.ndarray) -> torch.Tensor:
     """The device part of the counting queries: K15 over every bucket into
     one int64 [E + 1] bins tensor on the plan's device, for E ascending
     unsigned keys ``thresholds``; ``#{key <= thresholds[e]}`` is the sum
     of bins 0..e.  No synchronise."""
-    kt = _key_type(plan.dtype)
-    thr = torch.from_numpy(np.ascontiguousarray(thresholds, kt).view(
-        f"i{kt().itemsize}")).to(plan.device)
+    thr = _key_tensor(plan, thresholds)
     out = torch.zeros(len(thresholds) + 1, dtype=torch.int64,
                       device=plan.device)
     for call in key_calls(plan):
@@ -419,19 +444,35 @@ def query_filter_count(col, lo: float, hi: float, device=None) -> int:
                        _float_key(hi, col.dtype))
 
 
+def key_extent(plan) -> tuple:
+    """(least key, largest key) of the column's values as unsigned ints:
+    one K16 pass a bucket and one fetch."""
+    ext = bias(vector_extremes(plan))
+    ends = bias(torch.stack([ext[:, 0].min(), ext[:, 1].max()]))
+    mask = (1 << (64 if plan.f64 else 32)) - 1
+    lo, hi = ends.tolist()
+    return lo & mask, hi & mask
+
+
+def _plan_key_extent(plan) -> tuple:
+    """``key_extent(plan)``, computed at the plan's first MIN, MAX or
+    QUANTILE and kept on it, as the JAX plan keeps its ``_key_extent``."""
+    if plan.key_extent is None:
+        plan.key_extent = key_extent(plan)
+    return plan.key_extent
+
+
 def _extreme_key(col, device, largest: bool) -> int:
     dev = resolve_device(device)
     if col.n_values == 0:
         raise ValueError("MIN/MAX of an empty column")
-    ext = bias(vector_extremes(col.plan(dev)))
-    best = ext[:, 1].max() if largest else ext[:, 0].min()
-    width = 64 if col.dtype == np.float64 else 32
-    return int(bias(best)) & ((1 << width) - 1)
+    return _plan_key_extent(col.plan(dev))[1 if largest else 0]
 
 
 def query_min(col, device=None) -> float:
     """MIN(column) in the total order (-NaN < -Inf < ... < +Inf < +NaN; an
-    all-zero column gives +0.0), from K16's per-vector least keys."""
+    all-zero column gives +0.0), from K16's per-vector least keys (the
+    plan's kept key extent)."""
     return _key_float(_extreme_key(col, device, False), col.dtype)
 
 
@@ -526,6 +567,240 @@ def query_filter_sum(col, lo: float, hi: float, device=None):
     totals = exact_sum_totals(col.plan(dev), key_range=(klo, khi))
     return np.dtype(col.dtype).type(
         _finish_sum(*join_totals(totals.tolist(), col.dtype)))
+
+
+# ---------------------------------------------------------------------------
+# QUANTILE / MEDIAN: exact rank keys by a bisection over K17 passes
+# ---------------------------------------------------------------------------
+
+# the K17 passes of the last rank selection (every chunk of its ranks),
+# beside ``keys.LAUNCHES["rank_pass"]``
+LAST_RANK_PASSES = 0
+
+
+def rank_pass_bins(plan, thresholds: np.ndarray,
+                   brackets: np.ndarray) -> tuple:
+    """The device part of one bisection pass: K17 over every bucket, for T
+    ascending unsigned keys ``thresholds`` and R brackets ``brackets``
+    ([R, 2] unsigned keys lo, hi), into (int64 [T + 1] bins as
+    ``key_count_bins`` gives them, [R, 2] the least and the largest key of
+    the column inside each bracket) on the plan's device.  No
+    synchronise."""
+    thr = _key_tensor(plan, thresholds)
+    br = _key_tensor(plan, np.asarray(brackets, _key_type(plan.dtype))
+                     .reshape(-1, 2))
+    bins, mm = kkeys.rank_outputs(thr.shape[0], br.shape[0],
+                                  plan.bits_dtype, plan.device)
+    for call in key_calls(plan):
+        call.rank_pass(thr, br, bins, mm)
+    return bins, mm
+
+
+def _probe_budget(n_active: int) -> tuple:
+    """(probes a rank, of which uniform in key space) when ``n_active``
+    brackets share a pass: 2046 thresholds, two kept for the NaN counts;
+    at least half of each rank's are key-space uniform."""
+    per = (kkeys.MAX_THRESHOLDS - 2) // n_active
+    return per, -(-per // 2)
+
+
+def rank_pass_bound(width: int, n_ranks: int) -> int:
+    """The most passes the bisection of ``n_ranks`` ranks over
+    ``width``-bit keys takes.  A rank's ``P_k`` key-space probes cut its
+    bracket of width W = hi - lo into pieces of width at most W // P_k
+    (``_rank_probes``), so every pass takes at least floor(log2(P_k)) bits
+    off (P_k only grows as brackets close); one pass more counts the NaNs
+    of a column whose brackets start closed, and one is spare."""
+    pk = _probe_budget(n_ranks)[1]
+    return -(-width // (pk.bit_length() - 1)) + 2
+
+
+def _rank_probes(lo: int, hi: int, c_lo: int, c_hi: int, rank: int,
+                 j: int, n_active: int, dtype) -> np.ndarray:
+    """Probe keys in [lo, hi - 1] for the bracket of ``rank``, the j-th of
+    ``n_active`` open brackets (``c_lo``, ``c_hi``: counts known at or
+    below lo - 1 and at hi).  Half of them uniform in key space, t_k = lo +
+    W * (k * A + j + 1) // (P_k * A + 1) for k < P_k (A = n_active): the
+    ranks' grids interleave, so brackets that coincide (as all do at the
+    start) share A * P_k distinct probes, and a rank's own grid alone cuts
+    its bracket into pieces of width <= W // P_k (``rank_pass_bound``).  A
+    quarter uniform in value space (floats are log-spaced in key space),
+    interleaved the same way, and a quarter around the value interpolated
+    from the counts, when both ends are finite.  Where they go sets only
+    the number of passes, never the answer."""
+    kt = _key_type(dtype)
+    per, pk = _probe_budget(n_active)
+    D = pk * n_active + 1
+    q, rem = divmod(hi - lo, D)
+    m = np.arange(pk, dtype=np.uint64) * np.uint64(n_active) + np.uint64(
+        j + 1)
+    probes = [kt(lo) + (np.uint64(q) * m
+                        + (np.uint64(rem) * m) // np.uint64(D)).astype(kt)]
+    vlo, vhi = _key_float(lo, dtype), _key_float(hi, dtype)
+    rest = per - pk
+    if rest and math.isfinite(vlo) and math.isfinite(vhi):
+        pu = rest // 2
+        t = (np.arange(pu) * n_active + j + 1) / (pu * n_active + 1)
+        frac = min(max((rank - c_lo) / max(c_hi - c_lo, 1), 0.0), 1.0)
+        guess = vlo * (1 - frac) + vhi * frac
+        step = (vhi - vlo) / (pu + 1)
+        values = np.concatenate([vlo * (1 - t) + vhi * t, np.linspace(
+            guess - step, guess + step, rest - pu)])
+        values = values[np.isfinite(values)]
+        keys = _float_keys(values, dtype)
+        probes.append(np.clip(keys, kt(lo), kt(hi - 1)).astype(kt))
+    return np.concatenate(probes)
+
+
+def _rank_bisect(plan, ranks: list) -> tuple:
+    """The exact total-order keys at 1-based ``ranks`` (at most
+    ``MAX_RANKS``) by a bisection over K17 passes: (keys, n_negnan,
+    count of keys <= key(+inf), passes).
+
+    For each rank r the bracket [lo, hi] keeps ``#{key <= lo - 1} < r <=
+    #{key <= hi}``, from the column's key extent (K16, kept on the plan).
+    A pass uploads the probes of every open bracket (deduplicated and
+    sorted) and the brackets, runs K17 on every bucket and fetches the
+    bins and the bracketed extremes once; every probe narrows every
+    rank, then each bracket snaps to the least and largest key inside it.
+    The first pass also counts at key(-inf) - 1 and key(+inf), which give
+    the NaNs of both signs, and runs even when every bracket starts
+    closed.  Past ``rank_pass_bound`` passes it raises."""
+    kt = _key_type(plan.dtype)
+    R = len(ranks)
+    least, largest = _plan_key_extent(plan)
+    lo, hi = [least] * R, [largest] * R
+    c_lo, c_hi = [0] * R, [plan.n_values] * R
+    specials = [_float_key(-math.inf, plan.dtype) - 1,
+                _float_key(math.inf, plan.dtype)]
+    limit = rank_pass_bound(8 * kt().itemsize, R)
+    passes, negnan, le_pinf = 0, 0, 0
+    while passes == 0 or any(a < b for a, b in zip(lo, hi)):
+        if passes >= limit:
+            raise RuntimeError(f"QUANTILE: {R} rank brackets still open "
+                               f"after {limit} passes")
+        active = [r for r in range(R) if lo[r] < hi[r]] or list(range(R))
+        probes = [_rank_probes(lo[r], hi[r], c_lo[r], c_hi[r], ranks[r],
+                               j, len(active), plan.dtype)
+                  for j, r in enumerate(active) if lo[r] < hi[r]]
+        if passes == 0:
+            probes.append(np.array(specials, kt))
+        thr = np.unique(np.concatenate(probes))
+        bins, mm = rank_pass_bins(plan, thr, [(lo[r], hi[r])
+                                              for r in active])
+        fetched = torch.cat([bins, mm.reshape(-1).to(torch.int64)]).cpu()
+        fetched = fetched.numpy()
+        counts = np.cumsum(fetched[:thr.shape[0]])
+        mm = fetched[thr.shape[0] + 1:].astype(kt).reshape(-1, 2)
+        for r in range(R):
+            e = int(np.searchsorted(counts, ranks[r], "left"))
+            if e < thr.shape[0]:           # the first count >= rank
+                hi[r] = min(hi[r], int(thr[e]))
+                c_hi[r] = min(c_hi[r], int(counts[e]))
+            if e > 0:
+                lo[r] = max(lo[r], int(thr[e - 1]) + 1)
+                c_lo[r] = max(c_lo[r], int(counts[e - 1]))
+        for r, (least, largest) in zip(active, mm.tolist()):
+            if least > largest:
+                raise RuntimeError(f"QUANTILE: rank {ranks[r]}'s bracket "
+                                   f"holds no value")
+            lo[r], hi[r] = max(lo[r], least), min(hi[r], largest)
+        if passes == 0:
+            at = np.searchsorted(thr, np.array(specials, kt))
+            negnan, le_pinf = int(counts[at[0]]), int(counts[at[1]])
+        passes += 1
+    return lo, negnan, le_pinf, passes
+
+
+def _select_rank_keys(col, plan, ranks) -> tuple:
+    """The exact keys at the ascending 1-based ``ranks``, chunked by
+    ``MAX_RANKS``: ({rank: key}, n_negnan, n_posnan).  Sets
+    ``LAST_RANK_PASSES``."""
+    global LAST_RANK_PASSES
+    keys, passes = {}, 0
+    negnan = le_pinf = 0
+    for s in range(0, len(ranks), kkeys.MAX_RANKS):
+        chunk = list(ranks[s:s + kkeys.MAX_RANKS])
+        got, negnan, le_pinf, p = _rank_bisect(plan, chunk)
+        keys.update(zip(chunk, got))
+        passes += p
+    LAST_RANK_PASSES = passes
+    return keys, negnan, col.n_values - le_pinf
+
+
+def query_quantile(col, q, interpolation: str = "linear", device=None):
+    """QUANTILE(column, q), numpy-compatible (``alp_tpu/engine.py:3710``):
+    ``q`` a scalar or sequence in [0, 1], the methods ``linear``,
+    ``lower``, ``higher``, ``midpoint`` and ``nearest``; a scalar ``q``
+    gives the column dtype's scalar, a sequence an array.  Any NaN in the
+    column gives NaN; an empty column NaN.  The neighbouring values at the
+    straddling ranks are exact (``_select_rank_keys``); only the final
+    interpolation is floating-point, numpy's ``_lerp`` operation for
+    operation in the column dtype.  ``device=None`` means ``"cuda"``."""
+    qs = np.atleast_1d(np.asarray(q, np.float64))
+    if qs.size and (np.isnan(qs).any() or qs.min() < 0 or qs.max() > 1):
+        raise ValueError("quantiles must be in [0, 1]")
+    dev = resolve_device(device)
+    n = col.n_values
+    scalar = np.isscalar(q) or getattr(q, "ndim", 1) == 0
+    if n == 0:
+        out = np.full(qs.shape, np.nan, col.dtype)
+        return col.dtype.type(out[0]) if scalar else out
+    plan = col.plan(dev)
+    hs = qs * (n - 1)
+    ranks = set()
+    for h in hs:
+        i = int(np.floor(h))
+        ranks.add(i + 1)
+        # the upper neighbor is the CEIL-rank value: at integer h it is
+        # the same element (numpy semantics), so only straddling
+        # positions need a second rank
+        if h != i and interpolation in (
+                "linear", "higher", "midpoint", "nearest") and i + 1 < n:
+            ranks.add(i + 2)
+    keys, n_negnan, n_posnan = _select_rank_keys(col, plan, sorted(ranks))
+    if n_negnan or n_posnan:
+        out = np.full(qs.shape, np.nan, col.dtype)
+        return col.dtype.type(out[0]) if scalar else out
+    vals = {r: _key_float(k, col.dtype) for r, k in keys.items()}
+    dt = col.dtype.type
+    out = np.empty(qs.shape, col.dtype)
+    for ix, h in np.ndenumerate(hs):
+        i = int(np.floor(h))
+        t = h - i
+        a = vals[i + 1]
+        b = vals[i + 2] if (t > 0 and (i + 2) in vals) else a
+        if interpolation == "lower":
+            r = a
+        elif interpolation == "higher":
+            r = b if t > 0 else a
+        elif interpolation == "midpoint":
+            r = (dt(a) + dt(b)) / dt(2) if t > 0 else dt(a)
+        elif interpolation == "nearest":
+            # numpy: round half toward the EVEN-index neighbor
+            if t < 0.5 or (t == 0.5 and i % 2 == 0):
+                r = a
+            else:
+                r = b
+        elif interpolation == "linear":
+            if t == 0:
+                r = a          # exact rank hit: no arithmetic (a == b)
+            else:
+                # numpy's _lerp, reproduced operation-for-operation
+                diff = dt(b) - dt(a)
+                r = dt(a) + diff * dt(t)
+                if t >= 0.5:
+                    r = dt(b) - diff * dt(1 - t)
+        else:
+            raise ValueError(f"unknown interpolation {interpolation!r}")
+        out[ix] = r
+    return dt(out[0]) if scalar else out
+
+
+def query_median(col, device=None):
+    """MEDIAN(column): ``query_quantile(col, 0.5)``, ``np.median``'s
+    answer."""
+    return query_quantile(col, 0.5, device=device)
 
 
 def query_count_exceptions(col) -> int:

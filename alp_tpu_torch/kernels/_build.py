@@ -86,6 +86,15 @@ ENTRIES = {
                                 _LL, _P, _I, _P],
     "alp_key_extremes_rd_f32": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
                                 _LL, _P, _I, _P],
+    # the K15 arguments up to E, then br, R, bins, mm, device, stream
+    "alp_rank_pass_alp_f64": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                              _P, _I, _P, _I, _P, _P, _I, _P],
+    "alp_rank_pass_alp_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                              _P, _I, _P, _I, _P, _P, _I, _P],
+    "alp_rank_pass_rd_f64": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
+                             _LL, _P, _I, _P, _I, _P, _P, _I, _P],
+    "alp_rank_pass_rd_f32": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
+                             _LL, _P, _I, _P, _I, _P, _P, _I, _P],
     # values, e, f, exp_tab, frac_tab, fact_tab, magic, upper, n, out_n,
     # out_exc, exc_count, first, vmin, vmax, stream
     "alp_encode_f64": [_P, _P, _P, _P, _P, _P, _D, _D, _LL, _P, _P, _P, _P,

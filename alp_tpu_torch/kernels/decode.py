@@ -80,6 +80,9 @@ class DecodePlan:
     rd_exc_index: torch.Tensor     # int64 flat positions, RD exceptions
     rd_exc_left: torch.Tensor      # int64 raw left parts
     rd_exc_rbw: torch.Tensor       # int64 right bit width of each
+    # (least key, largest key) of the column's values, unsigned ints: set at
+    # the first MIN, MAX or QUANTILE (engine._plan_key_extent) and kept
+    key_extent: tuple | None = None
 
     @property
     def f64(self) -> bool:

@@ -1,6 +1,6 @@
 """The port's key kernels: wrappers, plain PyTorch versions, counts.
 
-Both kernels decode one bucket of a plan (K1-K4's arguments), write each
+The three kernels decode one bucket of a plan (K1-K4's arguments), write each
 vector's true exception bits in from the plan's per-vector CSR and skip
 the pad of a partial last vector (position ``vec * 1024 + k >=
 n_values``, with ``vec = rows[i]`` the vector id of row i); then they read
@@ -13,6 +13,9 @@ the IEEE-754 total-order key of every value (``ops.keys``):
     K16 key_extremes  <- falp_decode_f64_variant_keymax, rd_decode_dict_
                          f64_keymax, falp_decode_f32_keymax,
                          rd_decode_dict_f32_keymax
+    K17 rank_pass     <- falp_decode_f64_variant_rankpass, rd_decode_dict_
+                         f64_rankpass, falp_decode_f32_rankpass,
+                         rd_decode_dict_f32_rankpass
 
 K15 adds into ``out``, int64 [E + 1] bins, one count a value at bin
 ``p = #{thresholds < key}``; ``thresholds`` are E ascending unsigned keys
@@ -21,7 +24,13 @@ the sum of bins 0..e.  One launch takes at most ``MAX_THRESHOLDS``; the
 wrapper launches longer lists in chunks, each chunk's counts standing
 alone, and joins them into the same bins.  K16 writes the least and the
 largest key of each vector into row ``rows[i]`` of ``out``, [N, 2] in the
-bit patterns' dtype (unsigned keys in a signed dtype).
+bit patterns' dtype (unsigned keys in a signed dtype).  K17, one pass of
+the quantile bisection, adds K15's bins at 1 to ``MAX_THRESHOLDS``
+thresholds into ``bins`` and merges into ``mm`` [R, 2] (keys), for each of
+1 to ``MAX_RANKS`` brackets ``brackets[r] = (lo, hi)`` (keys), the least
+and the largest key in ``[lo, hi]``; ``rank_outputs`` makes the two
+tensors, ``mm`` at (all ones, 0), which a bracket that holds no value of
+the bucket leaves as it is.
 
 Each scheme has one wrapper a kernel (``*_alp``: K1/K2's ``packed, bw,
 base, fact, frac`` and the ALP exceptions' true bits; ``*_rd``: K3/K4's
@@ -46,7 +55,8 @@ from .exact_sum import falp_bits_plain
 from .falp import VECTOR_SIZE, _check, _device_kind, _launch, _ptr, rd_plain
 
 MAX_THRESHOLDS = 2048           # csrc/keys.cu kMaxThr: < 48 KB of shared
-LAUNCHES = {"key_counts": 0, "key_extremes": 0}
+MAX_RANKS = 8                   # csrc/keys.cu kMaxRanks: a register pair each
+LAUNCHES = {"key_counts": 0, "key_extremes": 0, "rank_pass": 0}
 _WORDS = {torch.int64: ("f64", 64), torch.int32: ("f32", 32)}
 
 
@@ -75,11 +85,15 @@ def _valid(rows, n_values):
     return pos < n_values
 
 
-def counts_of_bits(bits, rows, n_values, thresholds) -> torch.Tensor:
-    """Plain K15 over decoded bits: int64 [E + 1] bins."""
-    keys = biased_keys(bits)[_valid(rows, n_values)]
+def _bins(keys, thresholds) -> torch.Tensor:
+    """int64 [E + 1] bins of biased ``keys`` at unsigned ``thresholds``."""
     p = torch.searchsorted(bias(thresholds), keys)       # #{thr < key}
     return torch.bincount(p, minlength=thresholds.shape[0] + 1)
+
+
+def counts_of_bits(bits, rows, n_values, thresholds) -> torch.Tensor:
+    """Plain K15 over decoded bits: int64 [E + 1] bins."""
+    return _bins(biased_keys(bits)[_valid(rows, n_values)], thresholds)
 
 
 def extremes_of_bits(bits, rows, n_values) -> torch.Tensor:
@@ -91,6 +105,39 @@ def extremes_of_bits(bits, rows, n_values) -> torch.Tensor:
     lo = torch.where(valid, keys, info.max).amin(dim=1)
     hi = torch.where(valid, keys, info.min).amax(dim=1)
     return bias(torch.stack([lo, hi], dim=1))
+
+
+def rank_pass_of_bits(bits, rows, n_values, thresholds, brackets) -> tuple:
+    """Plain K17 over decoded bits: (K15's int64 [T + 1] bins, [R, 2] the
+    least and the largest unsigned key in each bracket, (all ones, 0) where
+    none lies in it)."""
+    keys = biased_keys(bits)[_valid(rows, n_values)]
+    info = torch.iinfo(keys.dtype)
+    br = bias(brackets)
+    pairs = []
+    for r in range(br.shape[0]):
+        inside = (keys >= br[r, 0]) & (keys <= br[r, 1])
+        pairs.append(torch.stack([torch.where(inside, keys, info.max).amin(),
+                                  torch.where(inside, keys, info.min).amax()]))
+    return _bins(keys, thresholds), bias(torch.stack(pairs))
+
+
+def rank_outputs(n_thresholds: int, n_ranks: int, dtype,
+                 device) -> tuple:
+    """K17's zeroed bins (int64 [T + 1]) and mm ([R, 2] keys in ``dtype``,
+    each pair at (all ones, 0))."""
+    mm = torch.zeros((n_ranks, 2), dtype=dtype, device=device)
+    mm[:, 0] = -1
+    return torch.zeros(n_thresholds + 1, dtype=torch.int64,
+                       device=device), mm
+
+
+def _merge_extremes(mm, pairs) -> None:
+    """``mm`` [R, 2] (keys) <- (the least, the largest) of ``mm`` and
+    ``pairs``, in unsigned order."""
+    a, b = bias(mm), bias(pairs)
+    mm.copy_(bias(torch.stack([torch.minimum(a[:, 0], b[:, 0]),
+                               torch.maximum(a[:, 1], b[:, 1])], dim=1)))
 
 
 def key_counts_alp_plain(packed, bw, base, fact, frac, rows, exc_ptr,
@@ -122,6 +169,23 @@ def key_extremes_rd_plain(right, rbw, left, lbw, dictionary, dict_size,
                                           dict_size, rows, exc_ptr,
                                           exc_index, exc_left),
                             rows, n_values)
+
+
+def rank_pass_alp_plain(packed, bw, base, fact, frac, rows, exc_ptr,
+                        exc_index, exc_bits, n_values, thresholds, brackets):
+    return rank_pass_of_bits(falp_bits_plain(packed, bw, base, fact, frac,
+                                             rows, exc_ptr, exc_index,
+                                             exc_bits),
+                             rows, n_values, thresholds, brackets)
+
+
+def rank_pass_rd_plain(right, rbw, left, lbw, dictionary, dict_size, rows,
+                       exc_ptr, exc_index, exc_left, n_values, thresholds,
+                       brackets):
+    return rank_pass_of_bits(rd_bits_plain(right, rbw, left, lbw, dictionary,
+                                           dict_size, rows, exc_ptr,
+                                           exc_index, exc_left),
+                             rows, n_values, thresholds, brackets)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +301,34 @@ def _extremes(scheme, args, n_values, out):
     return out
 
 
+def _rank_pass(scheme, args, n_values, thresholds, brackets, bins, mm):
+    """K17 over one bucket, added into ``bins`` and merged into ``mm``."""
+    check, plain = ((_check_alp, rank_pass_alp_plain) if scheme == "alp"
+                    else (_check_rd, rank_pass_rd_plain))
+    wtype, n, device = check(*args, n_values)
+    T, R = thresholds.shape[0], brackets.shape[0]
+    if not 1 <= T <= MAX_THRESHOLDS:
+        raise ValueError(f"rank_pass takes 1..{MAX_THRESHOLDS} thresholds, "
+                         f"got {T}")
+    if not 1 <= R <= MAX_RANKS:
+        raise ValueError(f"rank_pass takes 1..{MAX_RANKS} brackets, got {R}")
+    _check("thresholds", thresholds, wtype, (T,), device)
+    _check("brackets", brackets, wtype, (R, 2), device)
+    _check("bins", bins, torch.int64, (T + 1,), device)
+    _check("mm", mm, wtype, (R, 2), device)
+    if _device_kind(thresholds) == "cpu":
+        got_bins, got_mm = plain(*args, n_values, thresholds, brackets)
+        bins += got_bins
+        _merge_extremes(mm, got_mm)
+        return bins, mm
+    entry = f"rank_pass_{scheme}_{_WORDS[wtype][0]}"
+    ptrs = [a if isinstance(a, int) else _ptr(a) for a in args]
+    _launch(entry, device, *ptrs, n, n_values, _ptr(thresholds), T,
+            _ptr(brackets), R, _ptr(bins), _ptr(mm), device.index)
+    LAUNCHES["rank_pass"] += 1
+    return bins, mm
+
+
 def key_counts_alp(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
                    exc_bits, n_values, thresholds, out=None):
     """K15 on an ALP bucket.  K1/K2's arguments (packed int64 [n, bw * 16]
@@ -278,12 +370,35 @@ def key_extremes_rd(right, rbw, left, lbw, dictionary, dict_size, rows,
                      out)
 
 
+def rank_pass_alp(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
+                  exc_bits, n_values, thresholds, brackets, bins, mm):
+    """K17 on an ALP bucket: K15's arguments, then R brackets (int64 or
+    int32 [R, 2] unsigned keys, lo and hi); adds the bins into ``bins``
+    (int64 [T + 1]) and merges each bracket's least and largest key into
+    ``mm`` ([R, 2] keys, from ``rank_outputs``)."""
+    return _rank_pass("alp", (packed, bw, base, fact, frac, rows, exc_ptr,
+                              exc_index, exc_bits), n_values, thresholds,
+                      brackets, bins, mm)
+
+
+def rank_pass_rd(right, rbw, left, lbw, dictionary, dict_size, rows,
+                 exc_ptr, exc_index, exc_left, n_values, thresholds,
+                 brackets, bins, mm):
+    """K17 on an ALP_RD bucket, as :func:`rank_pass_alp`."""
+    return _rank_pass("rd", (right, rbw, left, lbw, dictionary, dict_size,
+                             rows, exc_ptr, exc_index, exc_left), n_values,
+                      thresholds, brackets, bins, mm)
+
+
 # scheme -> kernel -> (wrapper, plain version); the plain versions take the
-# wrappers' positional arguments without ``out`` and return the bins (K15)
-# or the [n, 2] keys of the bucket's rows (K16)
+# wrappers' positional arguments without ``out`` (``bins``, ``mm``) and
+# return the bins (K15), the [n, 2] keys of the bucket's rows (K16) or the
+# bins and the [R, 2] keys of the bucket (K17)
 KERNELS = {
     "alp": {"key_counts": (key_counts_alp, key_counts_alp_plain),
-            "key_extremes": (key_extremes_alp, key_extremes_alp_plain)},
+            "key_extremes": (key_extremes_alp, key_extremes_alp_plain),
+            "rank_pass": (rank_pass_alp, rank_pass_alp_plain)},
     "rd": {"key_counts": (key_counts_rd, key_counts_rd_plain),
-           "key_extremes": (key_extremes_rd, key_extremes_rd_plain)},
+           "key_extremes": (key_extremes_rd, key_extremes_rd_plain),
+           "rank_pass": (rank_pass_rd, rank_pass_rd_plain)},
 }

@@ -40,7 +40,17 @@ Phases, each printing its wall time:
             ``math.fsum`` of the selected values.  Prints each query's
             walls (host clock, ending in the answer on the host) and the
             K15/K16 and filtered K5-K8 launches.
-7. dcompress  ``alp_tpu_torch.compress_device`` on the card (the device
+7. quantile ``alp_tpu_torch.query_quantile`` at ten quantiles (0, 1e-6,
+            0.001, 0.1, 0.25, 0.5, 0.75, 0.9, 0.999, 1) in each of the five
+            methods, and ``query_median``, on the card for every column (the
+            launch counts set to 0 just before and read just after), each
+            twice: the first call builds the plan and keeps the key extent
+            (K16), the second reuses both.  Every answer must equal
+            ``np.quantile`` of the input (of its key-sorted copy from the
+            query phase, which makes numpy's partition cheap) by bits, a zero
+            by ``==`` (numpy returns either sign) and a NaN by ``isnan``.
+            Prints the walls, the bisection passes and the K17 launches.
+8. dcompress  ``alp_tpu_torch.compress_device`` on the card (the device
             compress path, its launch counts set to 0 just before and read
             just after) of every column: the f64 ones (the bench profiles
             and f64 ALP_RD at their full 256 MiB) with K9-K11, then f32 ALP
@@ -50,14 +60,16 @@ Phases, each printing its wall time:
             the card, ``compress_device(values=decompress(col),
             n_values=...)``.  Prints each column's device and host
             compress walls, launches and the bytes copied to the host.
-8. kernels  each kernel against its plain PyTorch version on the card, on
+9. kernels  each kernel against its plain PyTorch version on the card, on
             the same plans, bit for bit (tolerance 0: the codec is
             lossless and the SUM totals are integers); K9-K14 on every
             call of a second ``compress_device`` of every column; K15 (17
             thresholds, and 2049 on one column: two launches a bucket) and
-            K16 on every bucket of every column, and K5-K8 with a key
-            range on every SUM call.
-9. timing   CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
+            K16 on every bucket of every column, K17 on every bucket of
+            every column at the thresholds and brackets of a real first
+            pass of the quantile bisection, and K5-K8 with a key range on
+            every SUM call.
+10. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
             their launches as the wrappers made them, without the
             wrappers' synchronising range checks), beside
             its bound (the bytes it must move at 3.35 TB/s, or the
@@ -68,10 +80,13 @@ Phases, each printing its wall time:
             (SUM kernels, rounded, not exact), a ``copy_`` of the bytes
             K9-K14 read; K15 (E = 2, COUNT, and E = 17) and K16 on the
             256 MiB columns, with ``torch.bucketize`` + ``torch.bincount``
-            and ``amin``/``amax`` over the decoded keys as yardsticks, and
-            the filtered K5-K8 beside the plain SUM.  No PyTorch call
-            decodes, encodes, packs or scores ALP, sums exactly or counts
-            keys of the compressed form, so ``library_ms`` is null.
+            and ``amin``/``amax`` over the decoded keys as yardsticks, K17
+            at R = 8 brackets and T = 2048 thresholds with
+            ``torch.bucketize`` + ``torch.bincount`` and a masked
+            ``amin``/``amax`` a bracket as its yardstick, and the filtered
+            K5-K8 beside the plain SUM.  No PyTorch call decodes, encodes,
+            packs or scores ALP, sums exactly or counts keys of the
+            compressed form, so ``library_ms`` is null.
 
 Then the nvidia-smi line, one JSON line with every kernel's numbers and,
 last, ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
@@ -215,6 +230,22 @@ KEY_KERNELS = {
 KEY_OPS = {  # f64 -> (ALP every, unpack, RD every, RD right unpack, key,
              #         compare)
     True: (5, 4, 6, 4, 6, 2), False: (2, 2, 4, 2, 3, 1)}
+# K17: launch-count key -> (TPU site, the other sites it replaces)
+RANK_KERNELS = {
+    "rank_pass": ("alp_tpu/kernels/falp.py:2100", [
+        "alp_tpu/kernels/falp.py:2160", "alp_tpu/kernels/falp.py:2238",
+        "alp_tpu/kernels/falp.py:2295"]),
+}
+# Operations K17 needs beyond K15's KEY_OPS (decode, key, ceil(log2(T +
+# 1)) search steps, the count), counted from the algorithm on this run's
+# data: two compares of every value with the ends of each of the R
+# brackets, and a min and a max for each (value, bracket) pair where the
+# value lies inside (each counted as KEY_OPS counts a compare: 2 for a
+# 64-bit key, 1 for 32).
+RANK_OPS = (2, 2)                # (a value and bracket, a value inside one)
+RANK_TIMED = (8, 2048)           # (R, T) of K17's timing row
+QUANTILE_QS = (0.0, 1e-6, 0.001, 0.1, 0.25, 0.5, 0.75, 0.9, 0.999, 1.0)
+METHODS = ("linear", "lower", "higher", "midpoint", "nearest")
 QUERY_SMALL_K = 7                # TOP-K at n_vectors + 7 on small columns
 DC_WRAPPERS = {  # launch-count key -> (module holding it, plain version)
     "alp_encode_f64": ("dc", "encode_plain"),
@@ -399,10 +430,11 @@ def values_of_keys(keys: np.ndarray, dtype) -> np.ndarray:
             if np.dtype(dtype) == np.float32 else vals)
 
 
-def query_references(x: np.ndarray, n_vectors: int, small: bool) -> list:
+def query_references(x: np.ndarray, keys: np.ndarray, n_vectors: int,
+                     small: bool) -> list:
     """The queries of the query phase and their numpy answers from the
-    whole input: [(label, call(package, column), answer, kind)]."""
-    keys = np.sort(np_keys(x))
+    whole input (``keys``: its sorted total-order keys): [(label,
+    call(package, column), answer, kind)]."""
     n = len(keys)
     kt = keys.dtype.type
 
@@ -467,6 +499,21 @@ def same_answer(got, want, kind) -> bool:
                 if want.dtype.kind == "f" else want))
 
 
+def same_quantile(got, want, dtype) -> bool:
+    """A QUANTILE answer against numpy's in the column dtype: by bits, a
+    zero by ``==`` (numpy returns whichever zero its partition meets), a
+    NaN by ``isnan``; the dtype and shape must agree."""
+    got, want = np.asarray(got), np.asarray(want).astype(dtype)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    nan, zero = np.isnan(want), want == 0
+    rest = ~nan & ~zero
+    return (np.array_equal(np.isnan(got), nan)
+            and bool(np.all(got[zero] == 0))
+            and np.array_equal(got[rest].view(f"u{got.itemsize}"),
+                               want[rest].view(f"u{want.itemsize}")))
+
+
 def column_thresholds(x: np.ndarray, n: int) -> np.ndarray:
     """n ascending distinct unsigned keys: evenly spaced keys of a sample of
     the column's values, the rest spread over the key space."""
@@ -491,6 +538,46 @@ def thresholds_tensor(keys: np.ndarray, plan):
         plan.device)
 
 
+def rank_passes(engine, package, col) -> list:
+    """The (thresholds, [R, 2] brackets) of every K17 pass that
+    ``query_quantile(col, QUANTILE_QS)`` makes, unsigned numpy keys."""
+    seen = []
+    real = engine.rank_pass_bins
+
+    def capture(plan, thresholds, brackets):
+        kt = np.uint64 if plan.f64 else np.uint32
+        seen.append((np.array(thresholds, kt),
+                     np.array(brackets, kt).reshape(-1, 2)))
+        return real(plan, thresholds, brackets)
+
+    engine.rank_pass_bins = capture
+    try:
+        package.query_quantile(col, QUANTILE_QS)
+    finally:
+        engine.rank_pass_bins = real
+    return seen
+
+
+def disjoint_brackets(x: np.ndarray, R: int) -> np.ndarray:
+    """[R, 2] disjoint brackets of unsigned keys: R pairs of evenly spaced
+    keys of a sample of the column's values."""
+    sample = np.unique(np_keys(x[::max(1, len(x) // 4096)]))
+    return sample[np.linspace(0, len(sample) - 1, 2 * R).astype(
+        np.int64)].reshape(R, 2)
+
+
+def bracket_hits(plan, bk, brackets):
+    """Int64 [n_vectors]: the (value, bracket) pairs of each vector whose
+    value lies inside the bracket, from ``bk`` the column's biased keys and
+    ``brackets`` biased [R, 2] (K17's min and max work)."""
+    import torch
+    hits = torch.zeros(plan.n_vectors * VECTOR, dtype=torch.int64,
+                       device=bk.device)
+    for lo, hi in brackets:
+        hits[:bk.numel()] += ((bk >= lo) & (bk <= hi)).to(torch.int64)
+    return hits.view(plan.n_vectors, VECTOR).sum(1)
+
+
 def valid_values(plan, rows) -> int:
     """Values of vectors ``rows`` that are not the pad."""
     last = plan.n_vectors - 1
@@ -499,12 +586,14 @@ def valid_values(plan, rows) -> int:
                                     else 0)
 
 
-def key_work(plan, call, E) -> tuple:
+def key_work(plan, call, E, R=0, hits=None) -> tuple:
     """(bytes, integer operations, float operations) one K15 (E
-    thresholds) or K16 (E None) call needs on this run's data: its inputs
-    read once (packed words, metadata, row ids, the CSR entries of its
-    vectors and their exceptions, the thresholds), its output written
-    once, and KEY_OPS a value."""
+    thresholds), K16 (E None) or K17 (E thresholds, R brackets, ``hits``
+    the [n_vectors] counts of ``bracket_hits``) call needs on this run's
+    data: its inputs read once (packed words, metadata, row ids, the CSR
+    entries of its vectors and their exceptions, the thresholds and
+    brackets), its outputs written once, KEY_OPS a value and, for K17,
+    RANK_OPS."""
     every, unpack, rd_every, rd_unpack, key, cmp = KEY_OPS[plan.f64]
     w = 8 if plan.f64 else 4
     tensors = [a for a in call.args if hasattr(a, "numel")]
@@ -518,9 +607,11 @@ def key_work(plan, call, E) -> tuple:
         moved += rows.numel() * 2 * w
         last = 2 * cmp
     else:
-        moved += E * w + (E + 1) * 8
-        last = math.ceil(math.log2(E + 1)) * cmp + 1
+        moved += E * w + (E + 1) * 8 + R * 4 * w
+        last = (math.ceil(math.log2(E + 1)) * cmp + 1
+                + R * RANK_OPS[0] * cmp)
     n = valid_values(plan, rows)
+    inside = 0 if hits is None else int(hits[rows].sum()) * RANK_OPS[1] * cmp
     if call.scheme == "alp":
         dec = every + (unpack if call.bw else 0)
         flops = 2 * n
@@ -528,7 +619,7 @@ def key_work(plan, call, E) -> tuple:
         lbw = call.args[3]
         dec = rd_every + (rd_unpack if call.bw else 0) + (2 if lbw else 0)
         flops = 0
-    return moved, n * (dec + key + last), flops
+    return moved, n * (dec + key + last) + inside, flops
 
 
 # ---------------------------------------------------------------------------
@@ -855,7 +946,10 @@ def main() -> int:
 
     # 6. query: the predicate and order queries, through the public entries
     t0 = time.perf_counter()
-    refs = {name: query_references(exp, col.n_vectors, name not in tile_to)
+    sorted_keys = {name: np.sort(np_keys(exp))
+                   for name, (_, exp) in columns.items()}
+    refs = {name: query_references(exp, sorted_keys[name], col.n_vectors,
+                                   name not in tile_to)
             for name, (col, exp) in columns.items()}
     ref_s = time.perf_counter() - t0
     for col, _ in columns.values():
@@ -886,7 +980,7 @@ def main() -> int:
               f"{col.n_values} values, launches (two calls each)={moved}; "
               f"walls ms, first call/kept plan: {'; '.join(walls)}",
               flush=True)
-    query_launches = dict(kkeys.LAUNCHES)
+    query_launches = {k: kkeys.LAUNCHES[k] for k in KEY_KERNELS}
     filtered_launches = dict(kes.LAUNCHES)
     query_s = time.perf_counter() - tq
     for k, v in {**query_launches, **filtered_launches}.items():
@@ -898,7 +992,72 @@ def main() -> int:
           f"{query_s:.3f}s launches={query_launches} filtered SUM "
           f"launches={filtered_launches}")
 
-    # 7. dcompress: the device compress path, through the public entry
+    # 7. quantile: QUANTILE / MEDIAN, through the public entry points
+    t0 = time.perf_counter()
+    qrefs = {}
+    for name, (_, exp) in columns.items():
+        xs = values_of_keys(sorted_keys.pop(name), exp.dtype)
+        qrefs[name] = {m: np.quantile(xs, QUANTILE_QS, method=m)
+                       for m in METHODS}
+        qrefs[name]["median"] = np.quantile(xs, 0.5)
+        del xs
+    ref_s = time.perf_counter() - t0
+    for col, _ in columns.values():
+        col._plans.clear()            # the first call builds the plan again
+    torch.cuda.synchronize()
+    kkeys.reset_launches()
+    tq = time.perf_counter()
+    linear_passes = {}
+    for name, (col, exp) in columns.items():
+        before = dict(kkeys.LAUNCHES)
+        walls, passes = [], []
+        for m in (*METHODS, "median"):
+            for attempt in range(2):
+                tw = time.perf_counter()
+                got = (alp_tpu_torch.query_median(col) if m == "median" else
+                       alp_tpu_torch.query_quantile(col, QUANTILE_QS, m))
+                wall = time.perf_counter() - tw
+                if not same_quantile(got, qrefs[name][m], exp.dtype):
+                    raise RuntimeError(f"{name}: quantile {m} gave {got!r}, "
+                                       f"numpy {qrefs[name][m]!r}")
+                walls.append(wall)
+                passes.append(engine.LAST_RANK_PASSES)
+        moved = {k: v - before[k] for k, v in kkeys.LAUNCHES.items()
+                 if v != before[k]}
+        print(f"  {name}: 5 methods x {len(QUANTILE_QS)} quantiles and the "
+              f"median == np.quantile on {col.n_values} values, launches "
+              f"(two calls each)={moved}; walls ms, first call/kept plan: "
+              + "; ".join(f"{m} {walls[2 * i] * 1e3:.3f}/"
+                          f"{walls[2 * i + 1] * 1e3:.3f}"
+                          for i, m in enumerate((*METHODS, "median")))
+              + f"; passes a call {passes[::2]}", flush=True)
+        linear_passes[name] = passes[0]
+    quantile_launches = dict(kkeys.LAUNCHES)
+    quantile_s = time.perf_counter() - tq
+    for k in ("rank_pass", "key_extremes"):
+        if quantile_launches[k] == 0:
+            raise RuntimeError(f"kernel {k} was not launched on the quantile "
+                               f"path")
+    # the same linear QUANTILE with every probe uniform in key space (no
+    # value-space or interpolated probes): what those probes save
+    real_budget = engine._probe_budget
+    engine._probe_budget = lambda n: ((kkeys.MAX_THRESHOLDS - 2) // n,) * 2
+    try:
+        for name, (col, exp) in columns.items():
+            got = alp_tpu_torch.query_quantile(col, QUANTILE_QS, "linear")
+            if not same_quantile(got, qrefs[name]["linear"], exp.dtype):
+                raise RuntimeError(f"{name}: quantile with key-space probes "
+                                   f"alone gave {got!r}")
+            print(f"  {name}: linear passes {linear_passes[name]}, with "
+                  f"key-space probes alone {engine.LAST_RANK_PASSES}",
+                  flush=True)
+    finally:
+        engine._probe_budget = real_budget
+    del qrefs, sorted_keys
+    phase("quantile", t0, f"numpy references {ref_s:.3f}s, quantile path "
+          f"{quantile_s:.3f}s launches={quantile_launches}")
+
+    # 8. dcompress: the device compress path, through the public entry
     t0 = time.perf_counter()
     host_blobs = {}
     torch.cuda.synchronize()
@@ -948,10 +1107,10 @@ def main() -> int:
     phase("dcompress", t0, f"device compress path {dc_s:.3f}s "
           f"launches={dc_launches} (two compress_device calls a column)")
 
-    # 8. kernels vs plain versions, on the card, same plans
+    # 9. kernels vs plain versions, on the card, same plans
     t0 = time.perf_counter()
     errors = {k: 0.0 for k in (*KERNELS, *SUM_KERNELS, *DC_KERNELS,
-                               *KEY_KERNELS)}
+                               *KEY_KERNELS, *RANK_KERNELS)}
     plans = {}
     for name, (col, _) in columns.items():
         plan = decode.build_plan(col, dev)
@@ -1019,8 +1178,34 @@ def main() -> int:
                 raise RuntimeError(f"{name}: {call.kernel} with the key "
                                    f"range {key_range} differs from its "
                                    f"plain version")
+        # K17 at a real first pass (every bracket the key extent), at the
+        # first later pass whose brackets differ (narrowed by the snap),
+        # and at R disjoint brackets inside the column's extent
+        seen = rank_passes(engine, alp_tpu_torch, col)
+        later = [p for p in seen[1:] if len(np.unique(p[1], axis=0)) > 1]
+        R, T = RANK_TIMED
+        checks = [("first pass", *seen[0])] + [
+            ("later pass", *p) for p in later[:1]] + [
+            ("disjoint", column_thresholds(exp, T), disjoint_brackets(exp, R))]
+        for label, thr, br in checks:
+            thr_t, br_t = (thresholds_tensor(thr, plan),
+                           thresholds_tensor(br, plan))
+            for call in engine.key_calls(plan):
+                got = call.rank_pass(thr_t, br_t, *kkeys.rank_outputs(
+                    len(thr), len(br), plan.bits_dtype, dev))
+                want = call.rank_pass_plain(thr_t, br_t)
+                err = max(int_err(a, b) for a, b in zip(got, want))
+                errors["rank_pass"] = max(errors["rank_pass"], err)
+                if err != 0.0:
+                    raise RuntimeError(f"{name}: rank_pass at the {label} "
+                                       f"({len(thr)} thresholds, {len(br)} "
+                                       f"brackets) bw={call.bw} differs "
+                                       f"from its plain version")
         print(f"  {name}: K15 (17{' and 2049' if len(thrs) > 1 else ''} "
-              f"thresholds), K16 and the filtered SUM == plain", flush=True)
+              f"thresholds), K16, K17 ("
+              + ", ".join(f"{label}: {len(thr)} thresholds, {len(br)} "
+                          f"brackets" for label, thr, br in checks)
+              + ") and the filtered SUM == plain", flush=True)
     dc_calls = {}
     for name in columns:
         got, calls = record_dc_calls(
@@ -1037,10 +1222,11 @@ def main() -> int:
         print(f"  {name}: {len(calls)} K9-K14 calls == plain", flush=True)
     phase("kernels", t0, "every bucket of every column: kernel bits == "
           "plain bits, SUM totals == plain totals (also with a key range), "
-          "K15 bins and K16 keys == plain, every K9-K14 call of "
+          "K15 bins, K16 keys and K17 bins and keys == plain, every K9-K14 "
+          "call of "
           "compress_device == plain (tolerance 0)")
 
-    # 9. timing at the 256 MiB shapes
+    # 10. timing at the 256 MiB shapes
     t0 = time.perf_counter()
     timed = {"falp_decode_f64": list(BENCH_PROFILES),
              "falp_decode_f32": ["f32_alp"],
@@ -1286,6 +1472,71 @@ def main() -> int:
             row["E"] = 2
             row.update({f"{f}_E17": v for f, v in cells[17].items()})
         rows.append(row)
+    R, T = RANK_TIMED
+    for k, (site, others) in RANK_KERNELS.items():
+        ms, plain_ms, bound_ms, yard_ms, b_bytes_l, b_ops_l = (
+            [] for _ in range(6))
+        for name in key_timed:
+            col, exp = columns[name]
+            plan = col.plan(dev)
+            calls = engine.key_calls(plan)
+            thr = column_thresholds(exp, T)
+            thr_t, br_t = (thresholds_tensor(thr, plan),
+                           thresholds_tensor(disjoint_brackets(exp, R), plan))
+            outs = kkeys.rank_outputs(T, R, plan.bits_dtype, dev)
+            t_k = cuda_ms(lambda: [c.rank_pass(thr_t, br_t, *outs)
+                                   for c in calls], 20)
+            t_p = cuda_ms(lambda: [c.rank_pass_plain(thr_t, br_t)
+                                   for c in calls], 3)
+            bits = plan.run().view(plan.bits_dtype)
+            bk = biased_keys(bits.reshape(-1)[:plan.n_values])
+            del bits
+            bthr, bbr = bias(thr_t), bias(br_t)
+            top, bottom = torch.iinfo(bk.dtype).max, torch.iinfo(bk.dtype).min
+
+            def yardstick():
+                torch.bincount(torch.bucketize(bk, bthr), minlength=T + 1)
+                for r in range(R):
+                    inside = (bk >= bbr[r, 0]) & (bk <= bbr[r, 1])
+                    torch.where(inside, bk, top).amin()
+                    torch.where(inside, bk, bottom).amax()
+            t_y = cuda_ms(yardstick, 5)
+            hits = bracket_hits(plan, bk, bbr.tolist())
+            work = [key_work(plan, c, T, R, hits) for c in calls]
+            moved, int_ops, fl_ops = (sum(w[i] for w in work)
+                                      for i in range(3))
+            b_bytes = moved / HBM_BYTES_PER_S * 1e3
+            b_ops = max(int_ops / int32_per_s, fl_ops / (
+                fp64_per_s if plan.f64 else fp32_per_s)) * 1e3
+            ms.append(t_k)
+            plain_ms.append(t_p)
+            bound_ms.append(max(b_bytes, b_ops))
+            yard_ms.append(t_y)
+            b_bytes_l.append(b_bytes)
+            b_ops_l.append(b_ops)
+            print(f"  {k} R={R} T={T} on {name}: {len(calls)} launches/pass, "
+                  f"{moved} bytes, {int(hits.sum())} values inside a "
+                  f"bracket, {int_ops} int ops, {fl_ops} float ops, "
+                  f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+                  f"{max(b_bytes, b_ops):.4f} ms (bytes {b_bytes:.4f} ms, "
+                  f"operations {b_ops:.4f} ms), share "
+                  f"{max(b_bytes, b_ops) / t_k:.1%}, yardstick {t_y:.4f} ms",
+                  flush=True)
+            del bk, outs
+        rows.append({
+            "name": k, "route": "cuda", "source": "alp_tpu_torch/csrc/keys.cu",
+            "replaces": site, "also_replaces": others,
+            "launches": quantile_launches[k], "max_abs_err": errors[k],
+            "ms": float(np.mean(ms)), "plain_ms": float(np.mean(plain_ms)),
+            "bound_ms": float(np.mean(bound_ms)),
+            "bound_by": ("bytes" if sum(b_bytes_l) >= sum(b_ops_l)
+                         else "operations"),
+            "library_ms": None, "yardstick_ms": float(np.mean(yard_ms)),
+            "yardstick": "torch.bucketize + torch.bincount and a masked "
+                         "amin/amax a bracket over the decoded keys (not the "
+                         "same function: no PyTorch call reads the "
+                         "compressed form)",
+            "timed_on": key_timed, "R": R, "T": T})
     phase("timing", t0)
     phase("total", t_all)
 

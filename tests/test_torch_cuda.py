@@ -5,9 +5,9 @@ buckets, bit for bit (the SUM kernels' integer totals exactly), the whole
 decode against the input, ``query_sum`` against ``math.fsum``, and the
 device compress kernels K9-K14 against their plain versions and
 ``compress_device``'s blob against host compress's, in both precisions,
-the key kernels K15/K16 and the filtered SUM against their plain versions,
-and every predicate and order query on the card against its answer on the
-CPU.  This file
+the key kernels K15/K16/K17 and the filtered SUM against their plain
+versions, every predicate and order query on the card against its answer
+on the CPU, and QUANTILE / MEDIAN on the card against ``np.quantile``.  This file
 imports neither JAX nor ``alp_tpu``, so it runs on a machine with a card
 and no JAX:
 
@@ -101,7 +101,8 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     monkeypatch.setattr(kscore, "score_plain_f32", refuse)
     for name in ("key_counts_alp_plain", "key_counts_rd_plain",
                  "key_extremes_alp_plain", "key_extremes_rd_plain",
-                 "counts_of_bits", "extremes_of_bits"):
+                 "counts_of_bits", "extremes_of_bits", "rank_pass_alp_plain",
+                 "rank_pass_rd_plain", "rank_pass_of_bits"):
         monkeypatch.setattr(kkeys, name, refuse)
     x = COLUMNS["f64_mixed_alp_rd"]
     col = alp_tpu_torch.compress(x)
@@ -110,6 +111,7 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     assert alp_tpu_torch.query_filter_count(col, 10.0, 50.0) == int(
         ((x >= 10.0) & (x <= 50.0)).sum())
     assert alp_tpu_torch.query_max(col) == x.max()
+    assert alp_tpu_torch.query_median(col) == np.median(x)
     assert all(kkeys.LAUNCHES.values()), kkeys.LAUNCHES
     for reset in (kenc.reset_launches, kffor.reset_launches,
                   kscore.reset_launches):
@@ -429,8 +431,8 @@ def test_sum_in_runs_on_the_card(cuda):
 
 
 def test_work_runs_on_the_tensors_card():
-    """Decode, SUM and device compress on card 1 while card 0 is
-    current."""
+    """Decode, SUM, device compress and the queries on card 1 while card 0
+    is current."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two NVIDIA GPUs")
     x = COLUMNS["f64_mixed_alp_rd"]
@@ -456,6 +458,9 @@ def test_work_runs_on_the_tensors_card():
         np.testing.assert_array_equal(
             alp_tpu_torch.query_topk(col, 5, device=other),
             np.sort(x)[::-1][:5])
+        np.testing.assert_array_equal(
+            alp_tpu_torch.query_quantile(col, [0.1, 0.5, 0.9], device=other),
+            np.quantile(x, [0.1, 0.5, 0.9]))
         assert torch.cuda.current_device() == 0
 
 
@@ -545,3 +550,73 @@ def test_queries_on_card_equal_cpu(name, cuda):
         assert np.array_equal(
             alp_tpu_torch.query_histogram(col, edges),
             alp_tpu_torch.query_histogram(col, edges, device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# QUANTILE / MEDIAN: K17
+# ---------------------------------------------------------------------------
+
+def _brackets(plan, R: int, seed: int) -> torch.Tensor:
+    """R brackets of unsigned keys (held in the signed dtype): between the
+    column's own keys, one of a single key, one that holds no key of the
+    column, the whole key space."""
+    rng = np.random.default_rng(seed)
+    ut = np.uint64 if plan.f64 else np.uint32
+    own = np.unique(engine.vector_extremes(plan).cpu().numpy().view(ut))
+    pairs = [(0, np.iinfo(ut).max), (own[0], own[0])]
+    if own[0] > 0:
+        pairs.append((own[0] - 1, own[0] - 1))
+    while len(pairs) < R:
+        a, b = np.sort(rng.choice(own, 2))
+        pairs.append((a, b))
+    br = np.array(pairs[:R], ut)
+    return torch.from_numpy(br.view(f"i{br.itemsize}").copy()).to(
+        plan.device)
+
+
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_k17_equals_its_plain_version(name, cuda):
+    col = alp_tpu_torch.compress(COLUMNS[name])
+    plan = col.plan(cuda)
+    for T in (2, 2048):
+        thr = _thresholds(plan, T, T)
+        for R in (1, 4, 8):
+            br = _brackets(plan, R, R)
+            for call in engine.key_calls(plan):
+                before = kkeys.LAUNCHES["rank_pass"]
+                bins, mm = call.rank_pass(thr, br, *kkeys.rank_outputs(
+                    T, R, plan.bits_dtype, cuda))
+                assert kkeys.LAUNCHES["rank_pass"] == before + 1
+                want_bins, want_mm = call.rank_pass_plain(thr, br)
+                assert torch.equal(bins, want_bins), (name, T, R)
+                assert torch.equal(mm, want_mm), (name, T, R)
+
+
+def _quantile_equal(got, want, dtype) -> bool:
+    """Bits, a NaN by isnan, a zero by == (numpy returns either sign)."""
+    got, want = np.asarray(got), np.asarray(want).astype(dtype)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    nan = np.isnan(want)
+    zero = want == 0
+    rest = ~nan & ~zero
+    return (np.array_equal(np.isnan(got), nan)
+            and bool(np.all(got[zero] == 0))
+            and np.array_equal(got[rest].view(f"u{got.itemsize}"),
+                               want[rest].view(f"u{want.itemsize}")))
+
+
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_quantile_on_card_equals_numpy(name, cuda):
+    x = COLUMNS[name]
+    col = alp_tpu_torch.compress(x)
+    qs = np.array((0, 1e-6, 0.001, 0.1, 0.25, 0.5, 0.75, 0.9, 0.999, 1))
+    for method in ("linear", "lower", "higher", "midpoint", "nearest"):
+        kkeys.reset_launches()
+        got = alp_tpu_torch.query_quantile(col, qs, method)
+        assert kkeys.LAUNCHES["rank_pass"] >= engine.LAST_RANK_PASSES >= 1
+        assert _quantile_equal(got, np.quantile(x, qs, method=method),
+                               x.dtype), method
+    median = alp_tpu_torch.query_median(col)
+    assert type(median) is x.dtype.type
+    assert _quantile_equal(median, np.median(x), x.dtype)
