@@ -1,0 +1,209 @@
+// The exact-SUM digits of one value and the per-block superaccumulator,
+// shared by the SUM kernels K5-K8 (exact_sum.cu) and the grouped kernels
+// K18/K19 (group.cu).
+//
+// Window layout.  A finite value is m' * 2^(e_eff - B), B = 1075 for f64
+// and 150 for f32, with m' the mantissa (implicit bit restored for
+// normals) and e_eff = max(biased exponent, 1).  The integer
+// c = m' << (e_eff & 31) is cut into unsigned 32-bit digits d_p (3 for
+// f64, c < 2^84; 2 for f32, c < 2^55); digit p lands in window
+// j + p, j = e_eff >> 5, negated for a negative value.  A total is a row of
+// int64 [W + 3]: W windows over the whole exponent range (f64: j in 0..63
+// plus 2 spill windows, W = 66; f32: j in 0..7 plus 1, W = 9), then the
+// counts of NaN, +Inf and -Inf.  The host forms sum_w row[w] << 32 w and
+// rounds once.  |digit| < 2^32, so a window stays exact in int64 for fewer
+// than 2^31 values.
+//
+// Acc, the per-thread superaccumulator of a block of kAccThreads threads
+// that each hold kAccPer values of a 1024-value vector: each warp keeps a
+// base window Jw, the same for its 32 lanes, and each thread kAccR + P - 1
+// int64 register windows Jw .. (kAccR = 2 value windows: 64 binary orders
+// of magnitude).  A value with j in [Jw, Jw + kAccR) adds its digits there
+// by selects, without divergence.  When a warp's values leave that range
+// its registers are flushed (a warp reduction per window, lane 0 adds to
+// the block's shared-memory row) and Jw moves to the warp's lowest window;
+// a value still outside (a warp spanning more than kAccR windows: 1e300
+// beside 1.0, subnormals beside normals) adds its digits to the shared row
+// with atomics.  settle() leaves the block's totals in the shared row.
+
+#pragma once
+
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "vector.cuh"
+
+namespace alp {
+
+constexpr int kAccThreads = 256;
+constexpr int kAccPer = kVector / kAccThreads;   // values of a vector a thread
+constexpr int kAccR = 2;                         // value windows in registers
+
+// One value's fixed-point digits: window j (-1: adds nothing), its P
+// digits, its sign, and its class (0 finite, 1 NaN, 2 +Inf, 3 -Inf).
+// window() is j alone, for the warp's range check before the sum.
+template <typename U> struct Fixed;
+template <> struct Fixed<uint64_t> {
+  static constexpr int W = 66, P = 3;
+  int j, cls;
+  bool neg;
+  uint32_t d[P];
+  static __device__ __forceinline__ int window(uint64_t b) {
+    const uint32_t e = static_cast<uint32_t>(b >> 52) & 0x7FFu;
+    return e == 0x7FFu || (b << 1) == 0 ? -1
+                                        : static_cast<int>(max(e, 1u) >> 5);
+  }
+  __device__ __forceinline__ explicit Fixed(uint64_t b) {
+    const uint32_t e = static_cast<uint32_t>(b >> 52) & 0x7FFu;
+    const uint64_t m = b & ((1ull << 52) - 1);
+    neg = (b >> 63) != 0;
+    cls = e == 0x7FFu ? (m ? 1 : (neg ? 3 : 2)) : 0;
+    const uint64_t mp = cls ? 0 : (e ? m | (1ull << 52) : m);
+    const uint32_t ee = max(e, 1u);
+    const int sh = ee & 31;
+    const uint64_t lo = mp << sh;
+    d[0] = static_cast<uint32_t>(lo);
+    d[1] = static_cast<uint32_t>(lo >> 32);
+    d[2] = sh ? static_cast<uint32_t>(mp >> (64 - sh)) : 0u;
+    j = mp ? static_cast<int>(ee >> 5) : -1;
+  }
+};
+template <> struct Fixed<uint32_t> {
+  static constexpr int W = 9, P = 2;
+  int j, cls;
+  bool neg;
+  uint32_t d[P];
+  static __device__ __forceinline__ int window(uint32_t b) {
+    const uint32_t e = (b >> 23) & 0xFFu;
+    return e == 0xFFu || (b << 1) == 0 ? -1
+                                       : static_cast<int>(max(e, 1u) >> 5);
+  }
+  __device__ __forceinline__ explicit Fixed(uint32_t b) {
+    const uint32_t e = (b >> 23) & 0xFFu;
+    const uint32_t m = b & ((1u << 23) - 1);
+    neg = (b >> 31) != 0;
+    cls = e == 0xFFu ? (m ? 1 : (neg ? 3 : 2)) : 0;
+    const uint32_t mp = cls ? 0u : (e ? m | (1u << 23) : m);
+    const uint32_t ee = max(e, 1u);
+    const uint64_t c = static_cast<uint64_t>(mp) << (ee & 31);
+    d[0] = static_cast<uint32_t>(c);
+    d[1] = static_cast<uint32_t>(c >> 32);
+    j = mp ? static_cast<int>(ee >> 5) : -1;
+  }
+};
+
+// atomicAdd of a signed 64-bit value (two's complement), shared or global.
+__device__ __forceinline__ void atomic_add(long long* at, long long v) {
+  atomicAdd(reinterpret_cast<unsigned long long*>(at),
+            static_cast<unsigned long long>(v));
+}
+
+__device__ __forceinline__ long long warp_sum(long long v) {
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+// The per-thread superaccumulator of a block.  Every thread of the block
+// calls add() and settle() (or finish()) the same number of times (warp
+// collectives).
+template <typename U>
+struct Acc {
+  using Fx = Fixed<U>;
+  static constexpr int kRegs = kAccR + Fx::P - 1;
+  long long reg[kRegs];
+  int base;                // Jw, warp-uniform; -1 before the first value
+  unsigned cnt[3];         // NaN, +Inf, -Inf
+  long long* row;          // the block's shared [W + 3] totals
+
+  __device__ __forceinline__ explicit Acc(long long* shared_row)
+      : base(-1), row(shared_row) {
+#pragma unroll
+    for (int w = 0; w < kRegs; ++w) reg[w] = 0;
+    cnt[0] = cnt[1] = cnt[2] = 0;
+  }
+
+  // Register window w holds window base + w; a nonzero one is always a
+  // real window (<= W - 1), since only j + p of a summed value reaches it.
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int w = 0; w < kRegs; ++w) {
+      const long long v = warp_sum(reg[w]);
+      if ((threadIdx.x & 31) == 0 && v) atomic_add(&row[base + w], v);
+      reg[w] = 0;
+    }
+  }
+
+  // One thread's kAccPer values of a vector; ok[r] is false for values
+  // that are not summed (the pad).
+  __device__ __forceinline__ void add(const U (&b)[kAccPer],
+                                      const bool (&ok)[kAccPer]) {
+    int lo = INT_MAX, hi = -1;
+#pragma unroll
+    for (int r = 0; r < kAccPer; ++r) {
+      const int j = ok[r] ? Fx::window(b[r]) : -1;
+      if (j >= 0) {
+        lo = min(lo, j);
+        hi = max(hi, j);
+      }
+    }
+    lo = __reduce_min_sync(kFullMask, lo);
+    hi = __reduce_max_sync(kFullMask, hi);
+    if (hi >= 0 && (base < 0 || lo < base || hi >= base + kAccR)) {
+      if (base >= 0) flush();
+      base = lo;
+    }
+#pragma unroll
+    for (int r = 0; r < kAccPer; ++r) {
+      if (!ok[r]) continue;
+      const Fx x(b[r]);
+      if (x.cls) ++cnt[x.cls - 1];
+      if (x.j < 0) continue;
+      long long sd[Fx::P];
+#pragma unroll
+      for (int p = 0; p < Fx::P; ++p)
+        sd[p] = x.neg ? -static_cast<long long>(x.d[p])
+                      : static_cast<long long>(x.d[p]);
+      const int rel = x.j - base;            // >= 0: base <= the warp's lo
+      if (rel >= kAccR) {                    // beyond the register range
+#pragma unroll
+        for (int p = 0; p < Fx::P; ++p)
+          if (sd[p]) atomic_add(&row[x.j + p], sd[p]);
+        continue;
+      }
+#pragma unroll
+      for (int w = 0; w < kRegs; ++w)
+#pragma unroll
+        for (int p = 0; p < Fx::P; ++p)
+          if (w - p >= 0 && w - p < kAccR)
+            reg[w] += rel == w - p ? sd[p] : 0;
+    }
+  }
+
+  // Flush the registers and add the counts into the shared row; the row
+  // holds the block's totals after the caller's next barrier.
+  __device__ __forceinline__ void settle() {
+    if (base >= 0) flush();
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const unsigned v = __reduce_add_sync(kFullMask, cnt[c]);
+      if ((threadIdx.x & 31) == 0 && v) atomic_add(&row[Fx::W + c], v);
+    }
+  }
+
+  // settle(), then add the block's row into the global total.
+  __device__ __forceinline__ void finish(long long* out) {
+    settle();
+    __syncthreads();
+    for (int i = threadIdx.x; i < Fx::W + 3; i += blockDim.x)
+      if (row[i]) atomic_add(&out[i], row[i]);
+  }
+};
+
+template <typename U>
+__device__ __forceinline__ void zero_row(long long* row) {
+  for (int i = threadIdx.x; i < Fixed<U>::W + 3; i += blockDim.x) row[i] = 0;
+  __syncthreads();
+}
+
+}  // namespace alp

@@ -10,16 +10,10 @@
 //   K8 alp_falp_exact_sum_f32  replaces falp_decode_f32_exact_sum (:689):
 //                              K2's decode fused with K6's sum.
 //
-// What they compute.  A finite value is m' * 2^(e_eff - B), B = 1075 for
-// f64 and 150 for f32, with m' the mantissa (implicit bit restored for
-// normals) and e_eff = max(biased exponent, 1).  The integer
-// c = m' << (e_eff & 31) is cut into unsigned 32-bit digits d_p (3 for
-// f64, c < 2^84; 2 for f32, c < 2^55); digit p lands in window
-// j + p, j = e_eff >> 5, negated for a negative value.  Each kernel adds
-// its values' signed digits into a column total out[W + 3] of int64: W
-// windows over the whole exponent range (f64: j in 0..63 plus 2 spill
-// windows, W = 66; f32: j in 0..7 plus 1, W = 9), then the counts of NaN,
-// +Inf and -Inf.  The host forms sum_w out[w] << 32 w and rounds once
+// What they compute.  Each kernel adds its values' signed 32-bit digits
+// into a column total out[W + 3] of int64 in the window layout of
+// digits.cuh (W windows over the whole exponent range, then the counts of
+// NaN, +Inf and -Inf); the host forms sum_w out[w] << 32 w and rounds once
 // (alp_tpu_torch/engine.py).  Zeros add nothing; subnormals, 1e300 and
 // every exception go through the same code: there is no out-of-envelope
 // row and no fallback, unlike the TPU kernels, which sum 16-bit digit
@@ -55,19 +49,12 @@
 //
 // Design.  As many blocks of 256 threads as the card holds at once (at
 // most one per vector) walk the vectors with a grid stride; a thread holds
-// 4 values of a vector (k = tid + 256 r).  Each warp keeps a base window
-// Jw, the same for its 32 lanes, and each thread R + P - 1 int64 register
-// windows Jw .. (R = 2 value windows: 64 binary orders of magnitude).  A
-// value with j in [Jw, Jw + R) adds its digits there by selects, without
-// divergence.  When a warp's values leave that range its registers are
-// flushed (a warp reduction per window, lane 0 adds to the block's
-// shared-memory window row) and Jw moves to the warp's lowest window; a
-// value still outside (a warp spanning more than R windows: 1e300 beside
-// 1.0, subnormals beside normals) adds its digits to the shared row with
-// atomics.  At the end each block adds the nonzero entries of its row to
-// the global total, one atomicAdd each: a few global atomics per block.
-// The values of a typical vector (decimals within 19 orders of magnitude,
-// or the doubles of an ALP_RD rowgroup) span at most two windows, so Jw
+// 4 values of a vector (k = tid + 256 r) and adds them into digits.cuh's
+// Acc, warp register windows over a shared-memory row.  At the end each
+// block adds the nonzero entries of its row to the global total, one
+// atomicAdd each: a few global atomics per block.  The values of a typical
+// vector (decimals within 19 orders of magnitude, or the doubles of an
+// ALP_RD rowgroup) span at most two windows, so a warp's base window
 // settles at the first vectors and the shared fallback stays rare.
 //
 // Bound.  K5/K6 read each decoded value once (8 or 4 bytes) and write a
@@ -83,180 +70,25 @@
 // operations.  The register windows, the warps' range checks and their
 // reductions above are the design's overhead and are not in the bound.
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "digits.cuh"
 #include "vector.cuh"
 
 namespace {
 
+using alp::Acc;
+using alp::Fixed;
+using alp::grid_for;
 using alp::kVector;
 using alp::Num;
 using alp::order_key;
 using alp::stage;
 using alp::unpack;
-constexpr int kThreads = 256;
-constexpr int kPer = kVector / kThreads;    // values of a vector a thread
-constexpr int kR = 2;                       // value windows in registers
-constexpr unsigned kFull = 0xffffffffu;
-
-// One value's fixed-point digits: window j (-1: adds nothing), its P
-// digits, its sign, and its class (0 finite, 1 NaN, 2 +Inf, 3 -Inf).
-// window() is j alone, for the warp's range check before the sum.
-template <typename U> struct Fixed;
-template <> struct Fixed<uint64_t> {
-  static constexpr int W = 66, P = 3;
-  int j, cls;
-  bool neg;
-  uint32_t d[P];
-  static __device__ __forceinline__ int window(uint64_t b) {
-    const uint32_t e = static_cast<uint32_t>(b >> 52) & 0x7FFu;
-    return e == 0x7FFu || (b << 1) == 0 ? -1
-                                        : static_cast<int>(max(e, 1u) >> 5);
-  }
-  __device__ __forceinline__ explicit Fixed(uint64_t b) {
-    const uint32_t e = static_cast<uint32_t>(b >> 52) & 0x7FFu;
-    const uint64_t m = b & ((1ull << 52) - 1);
-    neg = (b >> 63) != 0;
-    cls = e == 0x7FFu ? (m ? 1 : (neg ? 3 : 2)) : 0;
-    const uint64_t mp = cls ? 0 : (e ? m | (1ull << 52) : m);
-    const uint32_t ee = max(e, 1u);
-    const int sh = ee & 31;
-    const uint64_t lo = mp << sh;
-    d[0] = static_cast<uint32_t>(lo);
-    d[1] = static_cast<uint32_t>(lo >> 32);
-    d[2] = sh ? static_cast<uint32_t>(mp >> (64 - sh)) : 0u;
-    j = mp ? static_cast<int>(ee >> 5) : -1;
-  }
-};
-template <> struct Fixed<uint32_t> {
-  static constexpr int W = 9, P = 2;
-  int j, cls;
-  bool neg;
-  uint32_t d[P];
-  static __device__ __forceinline__ int window(uint32_t b) {
-    const uint32_t e = (b >> 23) & 0xFFu;
-    return e == 0xFFu || (b << 1) == 0 ? -1
-                                       : static_cast<int>(max(e, 1u) >> 5);
-  }
-  __device__ __forceinline__ explicit Fixed(uint32_t b) {
-    const uint32_t e = (b >> 23) & 0xFFu;
-    const uint32_t m = b & ((1u << 23) - 1);
-    neg = (b >> 31) != 0;
-    cls = e == 0xFFu ? (m ? 1 : (neg ? 3 : 2)) : 0;
-    const uint32_t mp = cls ? 0u : (e ? m | (1u << 23) : m);
-    const uint32_t ee = max(e, 1u);
-    const uint64_t c = static_cast<uint64_t>(mp) << (ee & 31);
-    d[0] = static_cast<uint32_t>(c);
-    d[1] = static_cast<uint32_t>(c >> 32);
-    j = mp ? static_cast<int>(ee >> 5) : -1;
-  }
-};
-
-// atomicAdd of a signed 64-bit value (two's complement), shared or global.
-__device__ __forceinline__ void atomic_add(long long* at, long long v) {
-  atomicAdd(reinterpret_cast<unsigned long long*>(at),
-            static_cast<unsigned long long>(v));
-}
-
-__device__ __forceinline__ long long warp_sum(long long v) {
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// The per-thread superaccumulator of a block.  Every thread of the block
-// calls add() and finish() the same number of times (warp collectives).
-template <typename U>
-struct Acc {
-  using Fx = Fixed<U>;
-  static constexpr int kRegs = kR + Fx::P - 1;
-  long long reg[kRegs];
-  int base;                // Jw, warp-uniform; -1 before the first value
-  unsigned cnt[3];         // NaN, +Inf, -Inf
-  long long* row;          // the block's shared [W + 3] totals
-
-  __device__ __forceinline__ explicit Acc(long long* shared_row)
-      : base(-1), row(shared_row) {
-#pragma unroll
-    for (int w = 0; w < kRegs; ++w) reg[w] = 0;
-    cnt[0] = cnt[1] = cnt[2] = 0;
-  }
-
-  // Register window w holds window base + w; a nonzero one is always a
-  // real window (<= W - 1), since only j + p of a summed value reaches it.
-  __device__ __forceinline__ void flush() {
-#pragma unroll
-    for (int w = 0; w < kRegs; ++w) {
-      const long long v = warp_sum(reg[w]);
-      if ((threadIdx.x & 31) == 0 && v) atomic_add(&row[base + w], v);
-      reg[w] = 0;
-    }
-  }
-
-  // One thread's kPer values of a vector; ok[r] is false for pad values.
-  __device__ __forceinline__ void add(const U (&b)[kPer],
-                                      const bool (&ok)[kPer]) {
-    int lo = INT_MAX, hi = -1;
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int j = ok[r] ? Fx::window(b[r]) : -1;
-      if (j >= 0) {
-        lo = min(lo, j);
-        hi = max(hi, j);
-      }
-    }
-    lo = __reduce_min_sync(kFull, lo);
-    hi = __reduce_max_sync(kFull, hi);
-    if (hi >= 0 && (base < 0 || lo < base || hi >= base + kR)) {
-      if (base >= 0) flush();
-      base = lo;
-    }
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      if (!ok[r]) continue;
-      const Fx x(b[r]);
-      if (x.cls) ++cnt[x.cls - 1];
-      if (x.j < 0) continue;
-      long long sd[Fx::P];
-#pragma unroll
-      for (int p = 0; p < Fx::P; ++p)
-        sd[p] = x.neg ? -static_cast<long long>(x.d[p])
-                      : static_cast<long long>(x.d[p]);
-      const int rel = x.j - base;            // >= 0: base <= the warp's lo
-      if (rel >= kR) {                       // beyond the register range
-#pragma unroll
-        for (int p = 0; p < Fx::P; ++p)
-          if (sd[p]) atomic_add(&row[x.j + p], sd[p]);
-        continue;
-      }
-#pragma unroll
-      for (int w = 0; w < kRegs; ++w)
-#pragma unroll
-        for (int p = 0; p < Fx::P; ++p)
-          if (w - p >= 0 && w - p < kR) reg[w] += rel == w - p ? sd[p] : 0;
-    }
-  }
-
-  // Flush, add the counts, and add the block's row into the global total.
-  __device__ __forceinline__ void finish(long long* out) {
-    if (base >= 0) flush();
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const unsigned v = __reduce_add_sync(kFull, cnt[c]);
-      if ((threadIdx.x & 31) == 0 && v) atomic_add(&row[Fx::W + c], v);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < Fx::W + 3; i += blockDim.x)
-      if (row[i]) atomic_add(&out[i], row[i]);
-  }
-};
-
-template <typename U>
-__device__ __forceinline__ void zero_row(long long* row) {
-  for (int i = threadIdx.x; i < Fixed<U>::W + 3; i += blockDim.x) row[i] = 0;
-  __syncthreads();
-}
+using alp::zero_row;
+constexpr int kThreads = alp::kAccThreads;
+constexpr int kPer = alp::kAccPer;           // values of a vector a thread
 
 // Whether value bits b are summed: always, or (Filter) if klo <= key <= khi.
 template <bool Filter, typename U>
@@ -352,22 +184,6 @@ falp_exact_sum_kernel(const typename Num<F>::U* __restrict__ packed, int bw,
   acc.finish(out);
 }
 
-// Blocks for n vectors on card `dev` (the card of the tensors): as many
-// as can be resident at once (at most one per vector); each walks its
-// share of the vectors.
-template <typename K>
-cudaError_t grid_for(K kernel, long long n, int dev, unsigned* blocks) {
-  int sms = 0, per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
-  const long long cap = max(static_cast<long long>(sms) * per_sm, 1ll);
-  *blocks = static_cast<unsigned>(n < cap ? n : cap);
-  return err;
-}
-
 // A call sums fewer than 2^31 values (n rows of 1024); n_values only
 // bounds the positions that are summed.
 bool bad_size(long long n, long long n_values) {
@@ -381,7 +197,7 @@ int launch_exact_sum(const void* bits, const void* vec, long long n,
   if (bad_size(n, n_values)) return static_cast<int>(cudaErrorInvalidValue);
   unsigned blocks = 0;
   const cudaError_t err =
-      grid_for(exact_sum_kernel<U, Filter>, n, dev, &blocks);
+      grid_for(exact_sum_kernel<U, Filter>, n, dev, kThreads, 0, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks)
     exact_sum_kernel<U, Filter><<<blocks, kThreads, 0,
@@ -404,7 +220,8 @@ int launch_falp_exact_sum(const void* packed, int bw, const void* base,
     return static_cast<int>(cudaErrorInvalidValue);
   unsigned blocks = 0;
   const cudaError_t err =
-      grid_for(falp_exact_sum_kernel<F, Filter>, n, dev, &blocks);
+      grid_for(falp_exact_sum_kernel<F, Filter>, n, dev, kThreads, 0,
+               &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks)
     falp_exact_sum_kernel<F, Filter><<<blocks, kThreads, 0,

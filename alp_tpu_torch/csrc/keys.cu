@@ -82,13 +82,21 @@
 namespace {
 
 using alp::AlpVector;
+using alp::bad_alp;
+using alp::bad_rd;
+using alp::grid_for;
 using alp::kVector;
+using alp::merge_key;
 using alp::order_key;
 using alp::RdVector;
+using alp::umax;
+using alp::umin;
+using alp::warp_max;
+using alp::warp_min;
 constexpr int kThreads = 256;
 constexpr int kMaxThr = 2048;
 constexpr int kMaxRanks = 8;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kFull = alp::kFullMask;
 
 // K15's binning, shared with K17.  Thresholds into shared th[E], the
 // block's histogram hist[E + 1] zeroed; the caller syncs before use.
@@ -152,24 +160,6 @@ key_counts_kernel(V src, const long long* __restrict__ rows, long long n,
   flush_bins(hist, E, bins);
 }
 
-// unsigned min / max of any width (uint64_t is unsigned long here)
-template <typename U>
-__device__ __forceinline__ U umin(U a, U b) { return b < a ? b : a; }
-template <typename U>
-__device__ __forceinline__ U umax(U a, U b) { return a < b ? b : a; }
-
-template <typename U>
-__device__ __forceinline__ U warp_min(U v) {
-  for (int o = 16; o; o >>= 1) v = umin(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-template <typename U>
-__device__ __forceinline__ U warp_max(U v) {
-  for (int o = 16; o; o >>= 1) v = umax(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
 // K16: (least key, largest key) of each vector into out[rows[i]].
 template <class V>
 __global__ void __launch_bounds__(kThreads)
@@ -210,20 +200,6 @@ key_extremes_kernel(V src, const long long* __restrict__ rows, long long n,
     }
     __syncthreads();                         // vals and the rows are read
   }
-}
-
-// atomicMin / atomicMax of an unsigned key of either width
-__device__ __forceinline__ void merge_key(uint64_t* mm, uint64_t lo,
-                                          uint64_t hi) {
-  auto* p = reinterpret_cast<unsigned long long*>(mm);
-  atomicMin(p, static_cast<unsigned long long>(lo));
-  atomicMax(p + 1, static_cast<unsigned long long>(hi));
-}
-__device__ __forceinline__ void merge_key(uint32_t* mm, uint32_t lo,
-                                          uint32_t hi) {
-  auto* p = reinterpret_cast<unsigned*>(mm);
-  atomicMin(p, static_cast<unsigned>(lo));
-  atomicMax(p + 1, static_cast<unsigned>(hi));
 }
 
 // K17: K15's bins of rows 0..n-1 at E thresholds, and for each of the R
@@ -299,21 +275,6 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
   }
 }
 
-// Blocks for n vectors on card `dev`: as many as can be resident at once
-// (at most one per vector); each walks its share of the vectors.
-template <typename K>
-cudaError_t grid_for(K kernel, long long n, int dev, unsigned* blocks) {
-  int sms = 0, per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
-  const long long cap = max(static_cast<long long>(sms) * per_sm, 1ll);
-  *blocks = static_cast<unsigned>(n < cap ? n : cap);
-  return err;
-}
-
 // Thresholds, bins and out are optional per kernel: E < 0 launches K16.
 template <class V>
 int launch(const V& src, const void* rows, long long n, long long n_values,
@@ -326,7 +287,8 @@ int launch(const V& src, const void* rows, long long n, long long n_values,
   const auto* r = static_cast<const long long*>(rows);
   const auto s = static_cast<cudaStream_t>(stream);
   if (E > 0) {
-    const cudaError_t err = grid_for(key_counts_kernel<V>, n, dev, &blocks);
+    const cudaError_t err =
+        grid_for(key_counts_kernel<V>, n, dev, kThreads, 0, &blocks);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (blocks)
       key_counts_kernel<V><<<blocks, kThreads, 0, s>>>(
@@ -334,7 +296,7 @@ int launch(const V& src, const void* rows, long long n, long long n_values,
           static_cast<unsigned long long*>(bins));
   } else {
     const cudaError_t err =
-        grid_for(key_extremes_kernel<V>, n, dev, &blocks);
+        grid_for(key_extremes_kernel<V>, n, dev, kThreads, 0, &blocks);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (blocks)
       key_extremes_kernel<V><<<blocks, kThreads, 0, s>>>(
@@ -354,7 +316,8 @@ int launch_rank(const V& src, const void* rows, long long n,
       R > kMaxRanks)
     return static_cast<int>(cudaErrorInvalidValue);
   unsigned blocks = 0;
-  const cudaError_t err = grid_for(rank_pass_kernel<V>, n, dev, &blocks);
+  const cudaError_t err =
+      grid_for(rank_pass_kernel<V>, n, dev, kThreads, 0, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks)
     rank_pass_kernel<V><<<blocks, kThreads, 0,
@@ -363,38 +326,6 @@ int launch_rank(const V& src, const void* rows, long long n,
         static_cast<const U*>(thr), E, static_cast<const U*>(br), R,
         static_cast<unsigned long long*>(bins), static_cast<U*>(mm));
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename F>
-AlpVector<F> alp_route(const void* packed, int bw, const void* base,
-                       const void* fact, const void* frac,
-                       const void* exc_ptr, const void* exc_index,
-                       const void* exc_bits) {
-  using U = typename alp::Num<F>::U;
-  return {static_cast<const U*>(packed), bw, static_cast<const U*>(base),
-          static_cast<const U*>(fact), static_cast<const F*>(frac),
-          static_cast<const long long*>(exc_ptr),
-          static_cast<const long long*>(exc_index),
-          static_cast<const U*>(exc_bits)};
-}
-
-template <typename U, int S>
-RdVector<U, S> rd_route(const void* right, int rbw, const void* left,
-                        int lbw, const void* dict, const void* dict_size,
-                        const void* exc_ptr, const void* exc_index,
-                        const void* exc_left) {
-  return {static_cast<const U*>(right), rbw,
-          static_cast<const uint16_t*>(left), lbw,
-          static_cast<const uint16_t*>(dict),
-          static_cast<const int*>(dict_size),
-          static_cast<const long long*>(exc_ptr),
-          static_cast<const long long*>(exc_index),
-          static_cast<const long long*>(exc_left)};
-}
-
-bool bad_alp(int bw, int S) { return bw < 0 || bw > S; }
-bool bad_rd(int rbw, int lbw, int S) {
-  return rbw < 0 || rbw > S || lbw < 0 || lbw > 16;
 }
 
 }  // namespace
@@ -409,22 +340,6 @@ bool bad_rd(int rbw, int lbw, int S) {
 // as K15 and merges into mm (keys, [R, 2]) the least and largest key in
 // each bracket of br (keys, [R, 2]: lo, hi), 1 <= R <= 8.  Every entry
 // returns cudaGetLastError() (or the error of its device query).
-
-#define ALP_ARGS                                                          \
-  const void *packed, int bw, const void *base, const void *fact,         \
-      const void *frac, const void *rows, const void *exc_ptr,            \
-      const void *exc_index, const void *exc_bits, long long n,           \
-      long long n_values
-#define RD_ARGS                                                           \
-  const void *right, int rbw, const void *left, int lbw, const void *dict, \
-      const void *dict_size, const void *rows, const void *exc_ptr,       \
-      const void *exc_index, const void *exc_left, long long n,           \
-      long long n_values
-#define ALP_ROUTE(F)                                                      \
-  alp_route<F>(packed, bw, base, fact, frac, exc_ptr, exc_index, exc_bits)
-#define RD_ROUTE(U, S)                                                    \
-  rd_route<U, S>(right, rbw, left, lbw, dict, dict_size, exc_ptr,         \
-                 exc_index, exc_left)
 
 extern "C" int alp_key_counts_alp_f64(ALP_ARGS, const void* thr, int E,
                                       void* bins, int dev, void* stream) {

@@ -1,7 +1,7 @@
 """The query engine over a compressed column on a device.
 
-Counterpart of ``alp_tpu/engine.py``'s SUM path and its predicate and order
-queries.  Every answer equals the JAX package's bit for bit.
+Counterpart of ``alp_tpu/engine.py``'s queries.  Every answer equals the
+JAX package's bit for bit.
 
 * ``query_sum`` / ``query_mean`` (exact, K5-K8) and ``query_filter_sum``
   (the same kernels with a key range);
@@ -14,6 +14,13 @@ queries.  Every answer equals the JAX package's bit for bit.
   bisection over the total-order keys whose passes are K17 ``rank_pass``
   (K15's prefix counts at many probe keys plus, for each rank, the least
   and the largest key inside its bracket), then numpy's interpolation;
+* ``query_groupby`` / ``query_window`` (exact per-group SUM, MEAN,
+  COUNT, MIN, MAX): keys in order through K18 ``vector_sum_extremes``
+  (each vector's exact-SUM totals and key extremes, kept on the plan), an
+  int64 prefix sum over the vectors and K19 ``group_reduce`` on the
+  vectors a group boundary crosses; any other keys through K19 over the
+  whole column; ``query_distinct`` (the decode, keys and ``torch.sort``)
+  and ``groupby_keys``;
 * ``query_scan`` (the full decode), ``query_count_exceptions`` and
   ``query_compression``, thin wrappers.
 
@@ -60,6 +67,7 @@ import torch
 
 from . import constants as C
 from .kernels import exact_sum as kes
+from .kernels import group as kgroup
 from .kernels import keys as kkeys
 from .kernels.decode import VECTOR_SIZE, resolve_device
 from .ops.keys import bias, biased_keys
@@ -359,12 +367,39 @@ class KeyCall:
         return kkeys.KERNELS[self.scheme]["rank_pass"][1](
             *self.args, thresholds, brackets)
 
+    def vector_sums(self, sums: torch.Tensor, keys: torch.Tensor) -> tuple:
+        """K18 (on a CPU tensor its plain version) into rows ``rows`` of
+        ``sums`` [n_vectors, W + 3] and ``keys`` [n_vectors, 2]."""
+        return kgroup.KERNELS[self.scheme]["vector_sum_extremes"][0](
+            *self.args, sums, keys)
 
-def key_calls(plan) -> list:
-    """One :class:`KeyCall` per bucket of a plan: ALP buckets with the
-    plan's ALP exception CSR, ALP_RD buckets with its RD one."""
+    def vector_sums_plain(self) -> tuple:
+        """The plain version's ([n, W + 3] totals, [n, 2] keys) of the
+        bucket's vectors."""
+        return kgroup.KERNELS[self.scheme]["vector_sum_extremes"][1](
+            *self.args)
+
+    def group_reduce(self, group_keys: torch.Tensor, num_groups: int,
+                     out: torch.Tensor, ext: torch.Tensor) -> tuple:
+        """K19 (on a CPU tensor its plain version): ``group_keys`` int32
+        [n, 1024] aligned with ``rows``; adds into ``out`` [G, W + 4] and
+        merges into ``ext`` [G, 2]."""
+        return kgroup.KERNELS[self.scheme]["group_reduce"][0](
+            *self.args, group_keys, num_groups, out, ext)
+
+    def group_reduce_plain(self, group_keys: torch.Tensor,
+                           num_groups: int) -> tuple:
+        """The plain version's ([G, W + 4] totals, [G, 2] keys)."""
+        return kgroup.KERNELS[self.scheme]["group_reduce"][1](
+            *self.args, group_keys, num_groups)
+
+
+def key_calls(plan, buckets=None) -> list:
+    """One :class:`KeyCall` per bucket of a plan (or of ``buckets``): ALP
+    buckets with the plan's ALP exception CSR, ALP_RD buckets with its RD
+    one."""
     calls = []
-    for b in plan.buckets:
+    for b in plan.buckets if buckets is None else buckets:
         if b.scheme == C.SCHEME_ALP:
             calls.append(KeyCall("alp", (
                 b.args[0], b.bw, *b.args[1:], b.rows, plan.exc_ptr,
@@ -801,6 +836,390 @@ def query_median(col, device=None):
     """MEDIAN(column): ``query_quantile(col, 0.5)``, ``np.median``'s
     answer."""
     return query_quantile(col, 0.5, device=device)
+
+
+# ---------------------------------------------------------------------------
+# GROUP-BY, windows, DISTINCT: K18 per-vector totals, K19 per-group totals
+# ---------------------------------------------------------------------------
+
+def group_calls(plan, vectors=None) -> list:
+    """The K18/K19 calls of a plan: ``key_calls(plan)``, or with
+    ``vectors`` (int64 vector ids on the plan's device) the same calls cut
+    to those vectors, each bucket's per-row arguments sliced."""
+    if vectors is None:
+        return key_calls(plan)
+    mark = torch.zeros(plan.n_vectors, dtype=torch.bool, device=plan.device)
+    mark[vectors] = True
+    parts = []
+    for b in plan.buckets:
+        sel = torch.nonzero(mark[b.rows]).flatten()
+        if sel.numel():
+            parts.append(dataclasses.replace(
+                b, rows=b.rows[sel], args=tuple(a[sel] for a in b.args)))
+    return key_calls(plan, parts)
+
+
+def vector_sums(plan) -> tuple:
+    """K18 over every bucket: (int64 [n_vectors, W + 3] exact-SUM totals
+    of each vector, [n_vectors, 2] its least and largest key, unsigned in
+    the bit patterns' dtype) on the plan's device.  No synchronise."""
+    sums = torch.empty((plan.n_vectors, kes.WINDOWS[plan.bits_dtype] + 3),
+                       dtype=torch.int64, device=plan.device)
+    keys = torch.empty((plan.n_vectors, 2), dtype=plan.bits_dtype,
+                       device=plan.device)
+    for call in key_calls(plan):
+        call.vector_sums(sums, keys)
+    return sums, keys
+
+
+def _plan_vector_sums(plan) -> tuple:
+    """``vector_sums(plan)``, computed at the plan's first ordered GROUP-BY
+    or window query and kept on it (18 MB for a 256 MiB f64 column)."""
+    if plan.vector_sums is None:
+        plan.vector_sums = vector_sums(plan)
+    return plan.vector_sums
+
+
+def group_reduce(plan, keys: torch.Tensor, num_groups: int, rows=None,
+                 run_values: int = kes.MAX_VALUES) -> tuple:
+    """K19 over every bucket (``keys`` int32 [n_vectors, 1024], the group
+    id of every value in column order) or over the vectors ``rows`` (int64
+    [m]; ``keys`` [m, 1024] aligned with them): ([int64 [G, W + 4] totals
+    and counts, one for each run of fewer than ``run_values`` values],
+    [G, 2] least and largest keys) on the plan's device.  The runs' totals
+    add up as integers.  No synchronise beyond the cut of the buckets to
+    ``rows``."""
+    dev = plan.device
+    if rows is None:
+        rows = torch.arange(plan.n_vectors, device=dev)
+    slot = torch.full((plan.n_vectors,), -1, dtype=torch.int64, device=dev)
+    slot[rows] = torch.arange(rows.shape[0], device=dev)
+    max_rows = max(1, (run_values - 1) // VECTOR_SIZE)
+    outs = []
+    out, ext = kgroup.group_outputs(num_groups, plan.bits_dtype, dev)
+    for lo in range(0, rows.shape[0], max_rows):
+        part = rows[lo:lo + max_rows]
+        if outs:
+            out = torch.zeros_like(out)
+        calls = (key_calls(plan) if part.shape[0] == plan.n_vectors
+                 else group_calls(plan, part))
+        for call in calls:
+            call.group_reduce(keys[slot[call.rows]], num_groups, out, ext)
+        outs.append(out)
+    return outs, ext
+
+
+@dataclasses.dataclass
+class Groups:
+    """Host totals of G groups (or window cells): ``totals`` {g: the exact
+    sum times 2^B, a Python int} for the groups whose sum is nonzero;
+    ``sp`` int64 [G, 3] NaN, +Inf and -Inf counts; ``ct`` int64 [G] row
+    counts; ``kmn`` / ``kmx`` [G] least and largest unsigned keys (all ones
+    and 0 for an empty group)."""
+    totals: dict
+    sp: np.ndarray
+    ct: np.ndarray
+    kmn: np.ndarray
+    kmx: np.ndarray
+
+
+def _join_windows(parts: list, at: list, W: int) -> dict:
+    """{g: sum over the parts of part[i, w] << 32 w} over the nonzero
+    windows; part i is group ``at[i]`` (``at`` None: group i)."""
+    totals = {}
+    for part, where in zip(parts, at):
+        gz, wz = np.nonzero(part[:, :W])
+        groups = gz if where is None else where[gz]
+        for g, w, t in zip(groups.tolist(), wz.tolist(),
+                           part[gz, wz].tolist()):
+            totals[g] = totals.get(g, 0) + (t << (32 * w))
+    return totals
+
+
+def _unordered_groups(plan, keys: np.ndarray, num_groups: int) -> Groups:
+    """K19 over the whole column with the keys in column order."""
+    W = kes.WINDOWS[plan.bits_dtype]
+    kv = np.full(plan.n_vectors * VECTOR_SIZE, -1, np.int32)
+    kv[:plan.n_values] = keys
+    outs, ext = group_reduce(
+        plan, torch.from_numpy(kv.reshape(-1, VECTOR_SIZE)).to(plan.device),
+        num_groups)
+    parts = [o.cpu().numpy() for o in outs]
+    kt = _key_type(plan.dtype)
+    ext = ext.cpu().numpy().view(kt)
+    return Groups(_join_windows(parts, [None] * len(parts), W),
+                  sum(p[:, W:W + 3] for p in parts),
+                  sum(p[:, W + 3] for p in parts), ext[:, 0].copy(),
+                  ext[:, 1].copy())
+
+
+def _ordered_groups(plan, bounds: np.ndarray, group_of) -> Groups:
+    """Contiguous groups, group g the rows bounds[g] .. bounds[g + 1] - 1.
+    The vectors that lie whole in a group add their K18 totals (kept on
+    the plan) through an int64 prefix sum over the vectors and two gathers
+    a group, in runs of fewer than 2^31 values, and their keys through a
+    segmented least and largest; the vectors that a group boundary crosses
+    go through K19 with their keys ``group_of(vector ids)`` (numpy int64
+    [m, 1024]), relabelled to the groups they touch.  K18 skips the pad,
+    so a partial last vector needs nothing of its own."""
+    n, nv, dev = plan.n_values, plan.n_vectors, plan.device
+    G = len(bounds) - 1
+    V = VECTOR_SIZE
+    W = kes.WINDOWS[plan.bits_dtype]
+    lo_v = -(-bounds[:-1] // V)
+    hi_v = np.maximum(np.where(bounds[1:] >= n, nv, bounds[1:] // V), lo_v)
+    inner = bounds[1:-1]
+    cross = np.unique(inner[(inner % V != 0) & (inner < n)] // V)
+    whole = np.ones(nv, bool)
+    whole[cross] = False
+    lens = hi_v - lo_v
+    if int(lens.sum()) != int(whole.sum()):
+        raise RuntimeError("GROUP-BY: whole vectors and group ranges "
+                           "disagree")
+    owner = np.full(nv, G, np.int64)
+    owner[whole] = np.repeat(np.arange(G), lens)
+    vs, vk = _plan_vector_sums(plan)
+    lo_t, hi_t = (torch.from_numpy(a).to(dev) for a in (lo_v, hi_v))
+    run = max(1, (kes.MAX_VALUES - 1) // V)
+    parts = []
+    for r0 in range(0, nv, run):
+        r1 = min(nv, r0 + run)
+        cs = torch.cat([vs.new_zeros((1, vs.shape[1])), vs[r0:r1].cumsum(0)])
+        parts.append(cs[hi_t.clamp(r0, r1) - r0] - cs[lo_t.clamp(r0, r1) - r0])
+    bk = bias(vk)
+    info = torch.iinfo(bk.dtype)
+    owner_t = torch.from_numpy(owner).to(dev)
+    kmn = torch.full((G + 1,), info.max, dtype=bk.dtype, device=dev)
+    kmx = torch.full((G + 1,), info.min, dtype=bk.dtype, device=dev)
+    kmn.scatter_reduce_(0, owner_t, bk[:, 0], "amin")
+    kmx.scatter_reduce_(0, owner_t, bk[:, 1], "amax")
+    ext = bias(torch.stack([kmn[:G], kmx[:G]], dim=1))
+    at = [None] * len(parts)
+    if cross.size:
+        gk = group_of(cross)
+        valid = (cross[:, None] * V + np.arange(V)) < n
+        touched, local = np.unique(gk[valid], return_inverse=True)
+        lk = np.full(gk.shape, -1, np.int32)
+        lk[valid] = local
+        outs, cext = group_reduce(plan, torch.from_numpy(lk).to(dev),
+                                  len(touched),
+                                  torch.from_numpy(cross).to(dev))
+        parts += outs
+        at += [touched] * len(outs)
+        t_at = torch.from_numpy(touched).to(dev)
+        merged = bias(ext[t_at])
+        cext = bias(cext)
+        ext[t_at] = bias(torch.stack([torch.minimum(merged[:, 0], cext[:, 0]),
+                                      torch.maximum(merged[:, 1], cext[:, 1])],
+                                     dim=1))
+    parts = [p.cpu().numpy() for p in parts]
+    sp = np.zeros((G, 3), np.int64)
+    for p, where in zip(parts, at):
+        if where is None:
+            sp += p[:, W:W + 3]
+        else:
+            sp[where] += p[:, W:W + 3]
+    ext = ext.cpu().numpy().view(_key_type(plan.dtype))
+    return Groups(_join_windows(parts, at, W), sp, np.diff(bounds),
+                  ext[:, 0].copy(), ext[:, 1].copy())
+
+
+def _finish_groups(gr: Groups, aggs, dtype) -> dict:
+    """The aggregates ``aggs`` of every group as the JAX package gives them
+    (``alp_tpu/engine.py:2814-2864``): counts int64; SUM the exact sum
+    rounded once, an f32 column's to a double and then to float32; MEAN the
+    exact rational mean, rounded the same way, NaN for an empty group; NaN,
+    or +Inf with -Inf, gives NaN and an infinity wins otherwise
+    (``_finish_sum``); MIN / MAX the values of the least and largest keys
+    (+0.0 for a group of zeros), NaN for an empty group.  Python's
+    ``int / int`` rounds the exact quotient once, as ``float(Fraction(...))``
+    does after reducing it, at a tenth of its cost a group."""
+    dtype = np.dtype(dtype)
+    G = gr.ct.shape[0]
+    scale = _SCALE[dtype]
+    special = np.flatnonzero(gr.sp.any(1)).tolist()
+    sp = gr.sp.tolist()
+    res = {"count": gr.ct.astype(np.int64)}
+    if "sum" in aggs:
+        sums = np.zeros(G, np.float64)
+        for g, t in gr.totals.items():
+            sums[g] = t / (1 << scale)
+        for g in special:
+            sums[g] = _finish_sum(0, *sp[g], scale)
+        res["sum"] = sums.astype(dtype)
+    if "mean" in aggs:
+        means = np.full(G, np.nan, dtype)
+        means[gr.ct > 0] = 0.0
+        for g, t in gr.totals.items():
+            means[g] = dtype.type(t / (int(gr.ct[g]) << scale))
+        for g in special:
+            means[g] = _finish_sum(0, *sp[g], scale)
+        res["mean"] = means
+    nan = np.array(np.nan, dtype)
+    with np.errstate(invalid="ignore"):     # an f32 NaN through a double
+        for a, k in (("max", gr.kmx), ("min", gr.kmn)):
+            if a in aggs:
+                res[a] = np.where(gr.ct > 0, _keys_to_values(k, dtype), nan)
+    return {a: res[a] for a in aggs if a in res}
+
+
+def _empty_groups(num_groups: int, aggs, dtype) -> dict:
+    """The answer over an empty column (``alp_tpu/engine.py:2797-2805``)."""
+    out = {}
+    for a in aggs:
+        if a == "count":
+            out[a] = np.zeros(num_groups, np.int64)
+        elif a == "sum":
+            out[a] = np.zeros(num_groups, dtype)
+        else:
+            out[a] = np.full(num_groups, np.nan, dtype)
+    return out
+
+
+def _check_num_groups(num_groups: int) -> None:
+    if num_groups <= 0 or num_groups > kgroup.MAX_GROUPS:
+        raise ValueError("num_groups must be in [1, 2^24]")
+
+
+def group_totals(col, keys, num_groups: int, device=None):
+    """The exact per-group totals of :func:`query_groupby` before the
+    host's rounding (a :class:`Groups`; None for an empty column), with its
+    argument checks.  Keys in non-decreasing order make every group a
+    range of rows: the vectors inside a group add their K18 totals, kept on
+    the plan, and only the vectors that a boundary crosses go through K19.
+    Any other keys go through K19 over the whole column, in one pass."""
+    keys = np.ascontiguousarray(np.asarray(keys, np.int64))
+    if keys.shape != (col.n_values,):
+        raise ValueError(f"keys must have shape ({col.n_values},)")
+    _check_num_groups(num_groups)
+    if keys.size and (keys.min() < 0 or keys.max() >= num_groups):
+        raise ValueError("keys out of range [0, num_groups)")
+    dev = resolve_device(device)
+    if col.n_values == 0:
+        return None
+    plan = col.plan(dev)
+    if keys.size < 2 or bool(np.all(keys[1:] >= keys[:-1])):
+        bounds = np.searchsorted(keys, np.arange(num_groups + 1))
+        return _ordered_groups(plan, bounds, lambda vecs: keys[np.minimum(
+            vecs[:, None] * VECTOR_SIZE + np.arange(VECTOR_SIZE),
+            col.n_values - 1)])
+    return _unordered_groups(plan, keys, num_groups)
+
+
+def query_groupby(col, keys, num_groups: int,
+                  aggs=("sum", "count", "min", "max", "mean"),
+                  device=None) -> dict:
+    """GROUP-BY aggregate, ``SELECT key, AGG(v) ... GROUP BY key``
+    (``alp_tpu/engine.py:2750``): ``keys`` an int array of length
+    ``col.n_values`` with values in [0, num_groups); a dict of
+    [num_groups] numpy arrays for the requested aggregates.  SUM and MEAN
+    exact (each group's ``math.fsum`` and exact mean, rounded once; NaN, or
+    +Inf with -Inf, gives NaN; empty groups sum 0.0, mean NaN), COUNT the
+    rows, MIN / MAX in the total order (NaN above +Inf; empty groups NaN).
+    The device part is :func:`group_totals`.  ``device=None`` means
+    ``"cuda"``."""
+    gr = group_totals(col, keys, num_groups, device)
+    if gr is None:
+        return _empty_groups(num_groups, aggs, col.dtype)
+    return _finish_groups(gr, aggs, col.dtype)
+
+
+def window_totals(col, window: int, hop: int | None = None, device=None):
+    """The exact per-window totals of :func:`query_window` before the
+    host's rounding (a :class:`Groups`; None for an empty column), with its
+    argument checks.  Cells of ``hop`` rows are contiguous, so they take
+    the ordered route of :func:`group_totals` with keys computed for the
+    few vectors a cell boundary crosses (no n-sized keys array); a sliding
+    window adds its cells' integer totals, counts and special counts and
+    takes the least and largest of their keys, on the host."""
+    if window <= 0:
+        raise ValueError("window must be positive")
+    n = col.n_values
+    if hop is None:
+        hop = window
+    if hop <= 0 or window % hop:
+        raise ValueError("hop must be positive and divide window")
+    ncells = max(-(-n // hop), 1)
+    if hop == window:
+        _check_num_groups(ncells)
+    dev = resolve_device(device)
+    if n == 0:
+        return None
+    bounds = np.minimum(np.arange(ncells + 1, dtype=np.int64) * hop, n)
+    cells = _ordered_groups(col.plan(dev), bounds, lambda vecs: (
+        vecs[:, None] * VECTOR_SIZE + np.arange(VECTOR_SIZE)) // hop)
+    if hop == window:
+        return cells
+    k = window // hop
+    nw = max(-(-max(n - window, 0) // hop) + 1, 1)
+    end = np.minimum(np.arange(nw) + k, ncells)
+
+    def windowed(a):             # sums of cells i .. i + k - 1, clipped
+        c = np.concatenate([np.zeros((1,) + a.shape[1:], a.dtype),
+                            np.cumsum(a, axis=0)])
+        return c[end] - c[:nw]
+
+    prefix = [0]
+    for i in range(ncells):
+        prefix.append(prefix[-1] + cells.totals.get(i, 0))
+    totals = {i: prefix[e] - prefix[i]
+              for i, e in enumerate(end.tolist()) if prefix[e] != prefix[i]}
+    kmn = np.full(nw, ~_key_type(col.dtype)(0))
+    kmx = np.zeros(nw, _key_type(col.dtype))
+    for j in range(k):
+        at = np.minimum(np.arange(nw) + j, ncells - 1)
+        kmn = np.minimum(kmn, cells.kmn[at])
+        kmx = np.maximum(kmx, cells.kmx[at])
+    return Groups(totals, windowed(cells.sp), windowed(cells.ct), kmn, kmx)
+
+
+def query_window(col, window: int,
+                 aggs=("sum", "count", "min", "max", "mean"),
+                 hop: int | None = None, device=None) -> dict:
+    """Windowed aggregates over row order, exact as :func:`query_groupby`
+    (``alp_tpu/engine.py:2867``).  Tumbling (``hop`` None or ``window``):
+    window w covers rows [w * window, (w + 1) * window), ceil(n / window)
+    of them.  Sliding (``hop`` < ``window`` and dividing it): window i
+    covers [i * hop, i * hop + window); one pass computes hop-sized cells
+    and each window adds its cells' integer totals, then rounds once.  The
+    device part is :func:`window_totals`."""
+    gr = window_totals(col, window, hop, device)
+    if gr is None:
+        return _empty_groups(1, aggs, col.dtype)
+    return _finish_groups(gr, aggs, col.dtype)
+
+
+def query_distinct(col, device=None) -> int:
+    """COUNT(DISTINCT v) (``alp_tpu/engine.py:2217``): -0.0 equals 0.0 and
+    every NaN counts as one value.  The plan's decode (K1-K4, the
+    exceptions written in), the total-order keys with every NaN folded onto
+    one, ``torch.sort`` and a count of adjacent unequal keys, on the
+    device; the JAX package does the same in XLA, outside any kernel."""
+    dev = resolve_device(device)
+    if col.n_values == 0:
+        return 0
+    plan = col.plan(dev)
+    bits = plan.run().view(plan.bits_dtype).reshape(-1)[:col.n_values]
+    keys = biased_keys(bits)
+    del bits
+    inf = np.array([math.inf, -math.inf], col.dtype)
+    pinf, ninf = biased_keys(torch.from_numpy(
+        inf.view(f"i{inf.itemsize}")).to(dev))
+    keys = torch.where((keys > pinf) | (keys < ninf), pinf + 1, keys)
+    keys = torch.sort(keys).values
+    return int((keys[1:] != keys[:-1]).sum()) + 1
+
+
+def groupby_keys(kcol, device=None) -> tuple:
+    """Dense GROUP-BY keys of a compressed column (``alp_tpu/engine.py
+    :2984``): ``(keys, uniques)`` with ``uniques[keys[i]]`` the i-th value
+    (NaNs one group): the column decoded on the device, then
+    ``np.unique(..., return_inverse=True)`` on the host, as the JAX package
+    does."""
+    from .container import decompress
+    vals = decompress(kcol, device).cpu().numpy()
+    uniques, keys = np.unique(vals, return_inverse=True)
+    return keys.astype(np.int64), uniques
 
 
 def query_count_exceptions(col) -> int:

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels: ``nvcc``, ``ctypes``.
 
 Every ``alp_tpu_torch/csrc/*.cu`` source (they share the headers
-``csrc/fastlanes.cuh``, ``csrc/vector.cuh`` and ``csrc/encode.cuh``) is
+``csrc/fastlanes.cuh``, ``csrc/vector.cuh``, ``csrc/digits.cuh`` and
+``csrc/encode.cuh``) is
 compiled for Hopper
 (sm_90a) by its own ``nvcc -c``, all started together, and the objects
 are linked by one more ``nvcc`` call into a shared library with a plain C
@@ -95,6 +96,26 @@ ENTRIES = {
                              _LL, _P, _I, _P, _I, _P, _P, _I, _P],
     "alp_rank_pass_rd_f32": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
                              _LL, _P, _I, _P, _I, _P, _P, _I, _P],
+    # K18: the K15 arguments up to n_values, then sums, keys, device,
+    # stream
+    "alp_vector_sums_alp_f64": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                _LL, _P, _P, _I, _P],
+    "alp_vector_sums_alp_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                _LL, _P, _P, _I, _P],
+    "alp_vector_sums_rd_f64": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
+                               _LL, _P, _P, _I, _P],
+    "alp_vector_sums_rd_f32": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
+                               _LL, _P, _P, _I, _P],
+    # K19: the K15 arguments up to n_values, then group keys, G, out, ext,
+    # device, stream
+    "alp_group_reduce_alp_f64": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                 _LL, _P, _I, _P, _P, _I, _P],
+    "alp_group_reduce_alp_f32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                 _LL, _P, _I, _P, _P, _I, _P],
+    "alp_group_reduce_rd_f64": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
+                                _LL, _P, _I, _P, _P, _I, _P],
+    "alp_group_reduce_rd_f32": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
+                                _LL, _P, _I, _P, _P, _I, _P],
     # values, e, f, exp_tab, frac_tab, fact_tab, magic, upper, n, out_n,
     # out_exc, exc_count, first, vmin, vmax, stream
     "alp_encode_f64": [_P, _P, _P, _P, _P, _P, _D, _D, _LL, _P, _P, _P, _P,

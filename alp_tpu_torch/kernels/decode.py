@@ -83,6 +83,10 @@ class DecodePlan:
     # (least key, largest key) of the column's values, unsigned ints: set at
     # the first MIN, MAX or QUANTILE (engine._plan_key_extent) and kept
     key_extent: tuple | None = None
+    # (int64 [n_vectors, W + 3] exact-SUM totals, [n_vectors, 2] least and
+    # largest keys) of every vector: set at the first ordered GROUP-BY or
+    # window query (engine._plan_vector_sums, K18) and kept
+    vector_sums: tuple | None = None
 
     @property
     def f64(self) -> bool:

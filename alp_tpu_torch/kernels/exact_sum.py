@@ -77,19 +77,16 @@ def _out(out, dtype, device):
     return out
 
 
-def exact_sum_plain(bits: torch.Tensor, vec: torch.Tensor,
-                    n_values: int, key_range=None) -> torch.Tensor:
-    """Plain version of K5/K6: the int64 [W + 3] totals of ``bits``
-    [n, 1024] (int64 f64 or int32 f32 patterns), row i being vector
-    ``vec[i]``; with ``key_range``, of the values whose key lies in it."""
+def digit_rows(bits: torch.Tensor, row: torch.Tensor,
+               n_rows: int) -> torch.Tensor:
+    """int64 [n_rows, W + 3]: each value of the 1-D bit patterns ``bits``
+    (int64 f64 or int32 f32) added into row ``row`` of its own (int64, the
+    same shape) -- its signed digits into the windows, a NaN, +Inf or -Inf
+    into its count.  K5-K8 sum into one row; K18 (``kernels.group``) into
+    a row a vector and K19 into a row a group."""
     S, EB, MB = _FIELDS[bits.dtype]
     W = WINDOWS[bits.dtype]
-    pos = vec[:, None] * VECTOR_SIZE + torch.arange(VECTOR_SIZE,
-                                                    device=bits.device)
-    keep = pos < n_values
-    if key_range is not None:
-        keep &= in_key_range(bits, *key_range)
-    b = widen(bits, S)[keep]
+    b = widen(bits, S)
     e = (b >> MB) & ((1 << EB) - 1)
     m = b & ((1 << MB) - 1)
     neg = ((b >> (S - 1)) & 1) != 0
@@ -103,13 +100,29 @@ def exact_sum_plain(bits: torch.Tensor, vec: torch.Tensor,
     digits = [lo & _M32, (lo >> 32) & _M32]
     if S == 64:
         digits.append((mp >> 1) >> (63 - sh))        # c >> 64, < 2^20
-    out = torch.zeros(W + 3, dtype=torch.int64, device=bits.device)
+    at = row * (W + 3)
+    out = torch.zeros(n_rows * (W + 3), dtype=torch.int64,
+                      device=bits.device)
     for p, d in enumerate(digits):
-        out.index_add_(0, j + p, torch.where(neg, -d, d))
-    out[W] = (special & (m != 0)).sum()
-    out[W + 1] = (special & (m == 0) & ~neg).sum()
-    out[W + 2] = (special & (m == 0) & neg).sum()
-    return out
+        out.index_add_(0, at + j + p, torch.where(neg, -d, d))
+    for c, cls in enumerate((special & (m != 0), special & (m == 0) & ~neg,
+                             special & (m == 0) & neg)):
+        out.index_add_(0, at[cls] + W + c, torch.ones_like(at[cls]))
+    return out.view(n_rows, W + 3)
+
+
+def exact_sum_plain(bits: torch.Tensor, vec: torch.Tensor,
+                    n_values: int, key_range=None) -> torch.Tensor:
+    """Plain version of K5/K6: the int64 [W + 3] totals of ``bits``
+    [n, 1024] (int64 f64 or int32 f32 patterns), row i being vector
+    ``vec[i]``; with ``key_range``, of the values whose key lies in it."""
+    pos = vec[:, None] * VECTOR_SIZE + torch.arange(VECTOR_SIZE,
+                                                    device=bits.device)
+    keep = pos < n_values
+    if key_range is not None:
+        keep &= in_key_range(bits, *key_range)
+    b = bits[keep]
+    return digit_rows(b, torch.zeros_like(b, dtype=torch.int64), 1)[0]
 
 
 def _key_range_args(key_range, S: int) -> tuple:

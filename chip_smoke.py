@@ -50,7 +50,27 @@ Phases, each printing its wall time:
             query phase, which makes numpy's partition cheap) by bits, a zero
             by ``==`` (numpy returns either sign) and a NaN by ``isnan``.
             Prints the walls, the bisection passes and the K17 launches.
-8. dcompress  ``alp_tpu_torch.compress_device`` on the card (the device
+8. group    GROUP-BY, windows and DISTINCT on the card for every column
+            (the launch counts set to 0 just before and read just after),
+            each query twice (the first call builds the plan again, and
+            K18's per-vector totals with it; the second reuses both):
+            ``query_groupby`` with seeded random keys at G = 1, 16 and
+            65,536 and with keys in 1,000 ordered runs of random length
+            (K18's route), ``query_window`` tumbling at 102,400 rows (one
+            rowgroup: no vector crossed) and 100,000 (every cell crosses
+            one) and sliding at 409,600 by 102,400, ``query_distinct``, and
+            ``groupby_keys`` of a small column grouping another.  Every
+            answer must equal a numpy reference from the whole input by
+            bits (NaN by ``isnan``): every group's count, least and largest
+            value; every group's exact SUM and MEAN (``exact_totals``, apart
+            from the port) and ``math.fsum`` on the small columns and at
+            G <= 16, on up to 256 seeded groups or windows of at most 2 M
+            values elsewhere; DISTINCT from the sorted keys of the query
+            phase.  The groups' integer totals, as each call rounds them,
+            must join to the column's exact total (``exact_sum_totals``).
+            Prints the walls, each kept call's host finish and the K18/K19
+            launches.
+9. dcompress  ``alp_tpu_torch.compress_device`` on the card (the device
             compress path, its launch counts set to 0 just before and read
             just after) of every column: the f64 ones (the bench profiles
             and f64 ALP_RD at their full 256 MiB) with K9-K11, then f32 ALP
@@ -60,16 +80,17 @@ Phases, each printing its wall time:
             the card, ``compress_device(values=decompress(col),
             n_values=...)``.  Prints each column's device and host
             compress walls, launches and the bytes copied to the host.
-9. kernels  each kernel against its plain PyTorch version on the card, on
+10. kernels each kernel against its plain PyTorch version on the card, on
             the same plans, bit for bit (tolerance 0: the codec is
             lossless and the SUM totals are integers); K9-K14 on every
             call of a second ``compress_device`` of every column; K15 (17
             thresholds, and 2049 on one column: two launches a bucket) and
             K16 on every bucket of every column, K17 on every bucket of
             every column at the thresholds and brackets of a real first
-            pass of the quantile bisection, and K5-K8 with a key range on
-            every SUM call.
-10. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
+            pass of the quantile bisection, K5-K8 with a key range on
+            every SUM call, K18 and K19 (G = 16, 65,536 and 1,000 ordered
+            runs) on every bucket of every column.
+11. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
             their launches as the wrappers made them, without the
             wrappers' synchronising range checks), beside
             its bound (the bytes it must move at 3.35 TB/s, or the
@@ -83,10 +104,14 @@ Phases, each printing its wall time:
             and ``amin``/``amax`` over the decoded keys as yardsticks, K17
             at R = 8 brackets and T = 2048 thresholds with
             ``torch.bucketize`` + ``torch.bincount`` and a masked
-            ``amin``/``amax`` a bracket as its yardstick, and the filtered
-            K5-K8 beside the plain SUM.  No PyTorch call decodes, encodes,
-            packs or scores ALP, sums exactly or counts keys of the
-            compressed form, so ``library_ms`` is null.
+            ``amin``/``amax`` a bracket as its yardstick, the filtered
+            K5-K8 beside the plain SUM, K18 with a row sum and
+            ``amin``/``amax`` of the decoded values as its yardstick, and
+            K19 at G = 16 and 65,536 with ``index_add_`` and
+            ``scatter_reduce`` of the decoded values and keys by group as
+            its yardstick.  No PyTorch call decodes, encodes, packs or
+            scores ALP, sums exactly or counts keys of the compressed form,
+            so ``library_ms`` is null.
 
 Then the nvidia-smi line, one JSON line with every kernel's numbers and,
 last, ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
@@ -97,13 +122,19 @@ file, it exits nonzero at once.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import functools
 import json
 import math
+import multiprocessing
+import os
 import struct
 import subprocess
 import sys
 import time
+import types
 from fractions import Fraction
+from multiprocessing import shared_memory
 
 import numpy as np
 
@@ -245,6 +276,15 @@ RANK_KERNELS = {
 RANK_OPS = (2, 2)                # (a value and bracket, a value inside one)
 RANK_TIMED = (8, 2048)           # (R, T) of K17's timing row
 QUANTILE_QS = (0.0, 1e-6, 0.001, 0.1, 0.25, 0.5, 0.75, 0.9, 0.999, 1.0)
+# K18/K19: launch-count key -> the TPU site it replaces (None: no site)
+GROUP_KERNELS = {"vector_sum_extremes": "alp_tpu/kernels/falp.py:2046",
+                 "group_reduce": None}
+GROUP_SIZES = (1, 16, 65536)     # GROUP-BY with random keys
+ORDERED_RUNS = 1000              # GROUP-BY with keys in runs: K18's route
+TUMBLING = (102400, 100000)      # one rowgroup (no vector crossed), and not
+SLIDING = (409600, 102400)       # (window, hop)
+GROUP_SAMPLES = 256              # groups checked where not every one is,
+SAMPLE_VALUES = 2 << 20          # at most this many values of them
 METHODS = ("linear", "lower", "higher", "midpoint", "nearest")
 QUERY_SMALL_K = 7                # TOP-K at n_vectors + 7 on small columns
 DC_WRAPPERS = {  # launch-count key -> (module holding it, plain version)
@@ -623,6 +663,274 @@ def key_work(plan, call, E, R=0, hits=None) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# group (K18, K19) helpers and the references
+# ---------------------------------------------------------------------------
+
+def exact_totals(x: np.ndarray, g: np.ndarray, G: int) -> tuple:
+    """The exact sums of G groups of the values ``x`` (group ids ``g``),
+    computed apart from the port: ([the sum of each group's finite values
+    times 2^B, a Python int], int64 [G, 3] NaN, +Inf and -Inf counts).  A
+    finite value is +-m' 2^(e_eff - B); m' is cut into three 18-bit chunks,
+    whose signed sums per (group, e_eff) stay below 2^53 and so are exact in
+    ``np.bincount``'s float64, then joined as Python ints."""
+    S, EB, MB = (64, 11, 52) if x.dtype == np.float64 else (32, 8, 23)
+    b = x.view(f"u{x.itemsize}").astype(np.uint64)
+    e = ((b >> np.uint64(MB)) & np.uint64((1 << EB) - 1)).astype(np.int64)
+    m = b & np.uint64((1 << MB) - 1)
+    neg = (b >> np.uint64(S - 1)) != 0
+    special = e == (1 << EB) - 1
+    sp = np.stack([np.bincount(g[special & c], minlength=G) for c in (
+        m != 0, (m == 0) & ~neg, (m == 0) & neg)], axis=1)
+    fin = ~special & ((m != 0) | (e != 0))         # nonzero and finite
+    mp = np.where(e > 0, m | np.uint64(1 << MB), m)[fin].astype(np.int64)
+    ee = np.maximum(e, 1)[fin]
+    sign = np.where(neg[fin], -1.0, 1.0)
+    present = np.flatnonzero(np.bincount(ee, minlength=1 << EB))
+    slot = np.zeros(1 << EB, np.int64)
+    slot[present] = np.arange(len(present))
+    idx = g[fin] * len(present) + slot[ee]
+    chunks = np.stack([np.bincount(idx, weights=sign * ((mp >> (18 * c))
+                                                        & 0x3FFFF),
+                                   minlength=G * len(present))
+                       for c in range(3)], axis=1).reshape(G, -1, 3)
+    totals = [0] * G
+    for gi, ej in zip(*np.nonzero(chunks.any(axis=2))):
+        c0, c1, c2 = (int(v) for v in chunks[gi, ej])
+        totals[gi] += (c0 + (c1 << 18) + (c2 << 36)) << int(present[ej])
+    return totals, sp
+
+
+def rounded(total: int, sp, count: int, dtype, mean: bool) -> float:
+    """A group's exact SUM (or MEAN) rounded once to a double, then to the
+    column dtype: NaN for a NaN or +Inf with -Inf (and a MEAN of no value),
+    the infinity, 0.0, or the exact rational over 2^B (times ``count``)."""
+    nan, pinf, ninf = (int(v) for v in sp)
+    if (mean and count == 0) or nan or (pinf and ninf):
+        r = math.nan
+    elif pinf or ninf:
+        r = math.inf if pinf else -math.inf
+    elif total == 0:
+        r = 0.0
+    else:
+        scale = 1075 if np.dtype(dtype) == np.float64 else 150
+        r = float(Fraction(total, (count if mean else 1) << scale))
+    return float(np.dtype(dtype).type(r))
+
+
+def group_reference(x, krow, G: int, every: bool, rng, g=None,
+                    bounds=None) -> dict:
+    """Reference answers of a grouping of the whole input ``x`` (``krow``
+    its total-order keys in row order) by group ids ``g``, or into the
+    contiguous groups of ``bounds``: counts and the least and largest
+    values of every group (numpy over the rows ordered by group), and for
+    every group (``every``) or up to GROUP_SAMPLES seeded ones of at most
+    SAMPLE_VALUES values in all the exact SUM and MEAN (``exact_totals``,
+    also returned as "exact") and ``math.fsum`` of the group's values."""
+    if bounds is None:
+        counts = np.bincount(g, minlength=G)
+        small = np.uint8 if G <= 256 else np.uint16 if G <= 65536 else None
+        order = np.argsort(g.astype(small) if small else g, kind="stable")
+        bounds = np.concatenate([[0], np.cumsum(counts)])
+        ks, xs = krow[order], x[order]
+        del order
+    else:
+        counts = np.diff(bounds)
+        ks, xs = krow, x
+    live = np.flatnonzero(counts)
+    ends = {}
+    for name, ufunc in (("min", np.minimum), ("max", np.maximum)):
+        vals = np.full(G, np.nan, x.dtype)
+        vals[live] = values_of_keys(ufunc.reduceat(ks, bounds[live]),
+                                    x.dtype)
+        ends[name] = vals
+    picked = np.arange(G)
+    if not every:
+        picked = rng.permutation(G)[:GROUP_SAMPLES]
+        keep = np.cumsum(counts[picked]) <= SAMPLE_VALUES
+        picked = np.sort(picked[keep | (np.arange(len(picked)) == 0)])
+    parts = [xs[bounds[i]:bounds[i + 1]] for i in picked.tolist()]
+    if every and g is not None:
+        exact = exact_totals(x, g, G)
+        totals, sp = exact
+    else:
+        sub = np.concatenate(parts) if parts else x[:0]
+        exact = exact_totals(sub, np.repeat(np.arange(len(picked)),
+                                            counts[picked]), len(picked))
+        totals, sp = [None] * G, np.zeros((G, 3), np.int64)
+        for j, i in enumerate(picked.tolist()):
+            totals[i], sp[i] = exact[0][j], exact[1][j]
+    checked = {}
+    for j, i in enumerate(picked.tolist()):
+        c = int(counts[i])
+        checked[i] = (rounded(totals[i], sp[i], c, x.dtype, False),
+                      rounded(totals[i], sp[i], c, x.dtype, True),
+                      float(x.dtype.type(fsum_reference(parts[j])))
+                      if c else 0.0)
+    return {"count": counts, **ends, "checked": checked, "exact": exact}
+
+
+def sliding_reference(x, krow, window: int, hop: int, rng) -> dict:
+    """Reference answers of the sliding windows [i hop, i hop + window):
+    counts and least and largest values from the hop-sized cells'
+    (``np.minimum.reduceat``), and for seeded sampled windows of at most
+    SAMPLE_VALUES values in all the exact SUM and MEAN (``exact_totals``)
+    and ``math.fsum``."""
+    n, k = len(x), window // hop
+    ncells = -(-n // hop)
+    nw = max(-(-max(n - window, 0) // hop) + 1, 1)
+    cb = np.minimum(np.arange(ncells + 1) * hop, n)
+    end = np.minimum(np.arange(nw) + k, ncells)
+    cmin = np.minimum.reduceat(krow, cb[:-1])
+    cmax = np.maximum.reduceat(krow, cb[:-1])
+    kmin, kmax = cmin[:nw].copy(), cmax[:nw].copy()
+    for j in range(1, k):
+        at = np.minimum(np.arange(nw) + j, ncells - 1)
+        kmin, kmax = np.minimum(kmin, cmin[at]), np.maximum(kmax, cmax[at])
+    counts = cb[end] - cb[:nw]
+    picked = np.sort(rng.permutation(nw)[:max(1, min(
+        GROUP_SAMPLES, SAMPLE_VALUES // window))])
+    parts = [x[i * hop:i * hop + window] for i in picked.tolist()]
+    totals, sp = exact_totals(np.concatenate(parts), np.repeat(
+        np.arange(len(picked)), [len(q) for q in parts]), len(picked))
+    checked = {}
+    for j, i in enumerate(picked.tolist()):
+        c = len(parts[j])
+        checked[i] = (rounded(totals[j], sp[j], c, x.dtype, False),
+                      rounded(totals[j], sp[j], c, x.dtype, True),
+                      float(x.dtype.type(fsum_reference(parts[j]))))
+    return {"count": counts, "min": values_of_keys(kmin, x.dtype),
+            "max": values_of_keys(kmax, x.dtype), "checked": checked}
+
+
+def group_inputs(n: int, seed: list) -> dict:
+    """The seeded group ids of the group phase for a column of n values: G
+    -> random ids in [0, G) for each of GROUP_SIZES, and "ordered" ->
+    ORDERED_RUNS runs in order of random lengths."""
+    out = {G: np.random.default_rng(seed + [G]).integers(0, G, n)
+           for G in GROUP_SIZES}
+    rng = np.random.default_rng(seed + [0])
+    cuts = np.sort(rng.choice(n - 1, ORDERED_RUNS - 1, replace=False) + 1)
+    out["ordered"] = np.repeat(np.arange(ORDERED_RUNS),
+                               np.diff(np.concatenate([[0], cuts, [n]])))
+    return out
+
+
+def group_reference_task(spec: tuple, every: bool, seed: list,
+                         case) -> tuple:
+    """One reference of the group phase, in a worker process: (``case``,
+    its reference).  ``spec`` = (shared-memory name, length, dtype) holds
+    the column's input, the groups are ``group_inputs``'; ``case`` is G for
+    GROUP-BY over G random groups (at G = 16 every group is checked and its
+    exact totals are returned too), "ordered", ("window", w) or
+    "sliding"."""
+    shm = shared_memory.SharedMemory(name=spec[0])
+    try:
+        x = np.ndarray((spec[1],), spec[2], buffer=shm.buf)
+        n = len(x)
+        rng = np.random.default_rng(seed + [2, sum(map(ord, repr(case)))])
+        krow = np_keys(x)
+        if case == "sliding":
+            ref = sliding_reference(x, krow, *SLIDING, rng)
+        elif case == "ordered":
+            g = group_inputs(n, seed)["ordered"]
+            bounds = np.concatenate([[0], np.flatnonzero(np.diff(g)) + 1,
+                                     [n]])
+            ref = group_reference(x, krow, ORDERED_RUNS, every, rng,
+                                  bounds=bounds)
+        elif isinstance(case, tuple):
+            nw = -(-n // case[1])
+            ref = group_reference(
+                x, krow, nw, every, rng,
+                bounds=np.minimum(np.arange(nw + 1) * case[1], n))
+        else:
+            ref = group_reference(x, krow, case, every or case <= 16, rng,
+                                  g=group_inputs(n, seed)[case])
+        if case != 16:
+            ref.pop("exact", None)
+        del x, krow
+        return case, ref
+    finally:
+        shm.close()
+
+
+def check_group_answer(label: str, got: dict, ref: dict, dtype) -> None:
+    """A GROUP-BY or window answer against its reference, by bits (NaN by
+    isnan): every count, least and largest value, and the checked groups'
+    SUM (the exact one and ``math.fsum``) and MEAN."""
+    G = len(ref["count"])
+    if list(got) != ["sum", "count", "min", "max", "mean"]:
+        raise RuntimeError(f"{label}: aggregates {list(got)}")
+    for a in ("sum", "min", "max", "mean"):
+        if got[a].dtype != np.dtype(dtype) or got[a].shape != (G,):
+            raise RuntimeError(f"{label}: {a} {got[a].dtype} "
+                               f"{got[a].shape}")
+    if not np.array_equal(got["count"], ref["count"]) or \
+            got["count"].dtype != np.int64:
+        raise RuntimeError(f"{label}: counts differ from numpy")
+    for a in ("min", "max"):
+        if not same_quantile(got[a], ref[a], dtype) or np.any(
+                (got[a] == 0) & (np.signbit(got[a]) != np.signbit(ref[a]))):
+            raise RuntimeError(f"{label}: {a} differs from numpy")
+    for g, (total, mean, fsum) in ref["checked"].items():
+        s, mu = float(got["sum"][g]), float(got["mean"][g])
+        if not (same_float(s, total) and same_float(mu, mean)
+                and (fsum is None or same_float(s, fsum))):
+            raise RuntimeError(f"{label}: group {g} sum {s!r} mean {mu!r}, "
+                               f"exact {total!r} fsum {fsum!r} mean "
+                               f"{mean!r}")
+
+
+def distinct_reference(keys: np.ndarray, dtype) -> int:
+    """COUNT(DISTINCT) from the sorted total-order keys: the distinct keys
+    between key(-inf) and key(+inf), and one more for any NaN."""
+    lo = int(np.searchsorted(keys, keys.dtype.type(key_of(-math.inf, dtype))))
+    hi = int(np.searchsorted(keys, keys.dtype.type(key_of(math.inf, dtype)),
+                             "right"))
+    mid = keys[lo:hi]
+    inner = 1 + int(np.count_nonzero(mid[1:] != mid[:-1])) if mid.size else 0
+    return inner + int(lo > 0 or hi < len(keys))
+
+
+def column_group_keys(plan, G: int, ordered: bool, seed: int):
+    """int32 [n_vectors, 1024] group ids in column order, made on the plan's
+    card from ``seed``: random ids in [0, G), or G runs in order of random
+    lengths (the pad takes ids as well; the kernels skip it)."""
+    import torch
+    gen = torch.Generator(plan.device).manual_seed(seed)
+    n = plan.n_vectors * VECTOR
+    if not ordered:
+        return torch.randint(0, G, (plan.n_vectors, VECTOR), generator=gen,
+                             dtype=torch.int32, device=plan.device)
+    cuts = torch.sort(torch.randint(1, plan.n_values, (G - 1,), generator=gen,
+                                    device=plan.device)).values
+    pos = torch.arange(n, device=plan.device).clamp(max=plan.n_values - 1)
+    return torch.searchsorted(cuts, pos, right=True).to(torch.int32).view(
+        plan.n_vectors, VECTOR)
+
+
+def group_work(plan, call, bits, kind: str) -> tuple:
+    """(bytes, integer operations, float operations) one K18 (``kind``
+    "sums") or K19 ("groups") call needs on this run's data: its inputs
+    read once (as ``key_work`` counts them, and K19's 4 bytes of group id a
+    value), K18's rows and keys written once (K19's [G, W + 4] totals and
+    [G, 2] keys are counted once by the caller), KEY_OPS's decode, key and
+    two compares (a least and a largest key) a value, and the exact sum's
+    SUM_OPS counted on the decoded ``bits``."""
+    moved, int_ops, flops = key_work(plan, call, None)
+    w = 8 if plan.f64 else 4
+    rows = call.rows
+    moved -= rows.numel() * 2 * w              # key_work's K16 output
+    if kind == "sums":
+        moved += rows.numel() * (((66 if plan.f64 else 9) + 3) * 8 + 2 * w)
+    else:
+        moved += valid_values(plan, rows) * 4
+    digits = types.SimpleNamespace(
+        kernel="exact_sum_f64" if plan.f64 else "exact_sum_f32", rows=rows,
+        bw=0)
+    return moved, int_ops + sum_ops(plan, digits, bits)[1], flops
+
+
+# ---------------------------------------------------------------------------
 # device compress (K9-K14) helpers
 # ---------------------------------------------------------------------------
 
@@ -785,6 +1093,7 @@ def main() -> int:
         from alp_tpu_torch.kernels import encode as kenc
         from alp_tpu_torch.kernels import exact_sum as kes
         from alp_tpu_torch.kernels import ffor as kffor
+        from alp_tpu_torch.kernels import group as kgroup
         from alp_tpu_torch.kernels import keys as kkeys
         from alp_tpu_torch.kernels import score as kscore
         from alp_tpu_torch.ops.keys import bias, biased_keys
@@ -996,7 +1305,7 @@ def main() -> int:
     t0 = time.perf_counter()
     qrefs = {}
     for name, (_, exp) in columns.items():
-        xs = values_of_keys(sorted_keys.pop(name), exp.dtype)
+        xs = values_of_keys(sorted_keys[name], exp.dtype)
         qrefs[name] = {m: np.quantile(xs, QUANTILE_QS, method=m)
                        for m in METHODS}
         qrefs[name]["median"] = np.quantile(xs, 0.5)
@@ -1053,9 +1362,164 @@ def main() -> int:
                   flush=True)
     finally:
         engine._probe_budget = real_budget
-    del qrefs, sorted_keys
+    del qrefs
     phase("quantile", t0, f"numpy references {ref_s:.3f}s, quantile path "
           f"{quantile_s:.3f}s launches={quantile_launches}")
+
+    # 8. group: GROUP-BY, windows, DISTINCT, through the public entries
+    t0 = time.perf_counter()
+    seeds = {name: [args.seed, i] for i, name in enumerate(columns)}
+    # the references are independent: one process a (column, query), all
+    # at once on the host's cores, the columns in shared memory
+    shms = {name: shared_memory.SharedMemory(create=True, size=exp.nbytes)
+            for name, (_, exp) in columns.items()}
+    try:
+        specs = {}
+        for name, (_, exp) in columns.items():
+            np.ndarray(exp.shape, exp.dtype, buffer=shms[name].buf)[:] = exp
+            specs[name] = (shms[name].name, len(exp), exp.dtype.str)
+        cases = [16, *(G for G in GROUP_SIZES if G not in (1, 16)),
+                 "ordered", *(("window", w) for w in TUMBLING), "sliding"]
+        with concurrent.futures.ProcessPoolExecutor(
+                max_workers=os.cpu_count() or 1,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            jobs = [(name, pool.submit(group_reference_task, specs[name],
+                                       name not in tile_to, seeds[name],
+                                       case))
+                    for case in cases for name in sorted(
+                        columns, key=lambda c: -columns[c][1].nbytes)]
+            grefs = {name: {} for name in columns}
+            for name, job in jobs:
+                case, ref = job.result()
+                grefs[name][case] = ref
+    finally:
+        for shm in shms.values():
+            shm.close()
+            shm.unlink()
+    for name, (_, exp) in columns.items():
+        totals, sp = grefs[name][16].pop("exact")
+        total, sp = sum(totals), sp.sum(0)
+        keys = sorted_keys[name]
+        grefs[name][1] = {
+            "count": np.array([len(exp)]),
+            "min": values_of_keys(keys[:1], exp.dtype),
+            "max": values_of_keys(keys[-1:], exp.dtype),
+            "checked": {0: (
+                rounded(total, sp, len(exp), exp.dtype, False),
+                rounded(total, sp, len(exp), exp.dtype, True),
+                float(exp.dtype.type(sums[name])))}}
+    gcases = {}
+    for name, (col, exp) in columns.items():
+        inputs = group_inputs(len(exp), seeds[name])
+        cases = [(f"groupby[G={G}]", inputs[G], G, grefs[name][G])
+                 for G in GROUP_SIZES]
+        cases.append((f"groupby[{ORDERED_RUNS} runs in order]",
+                      inputs["ordered"], ORDERED_RUNS, grefs[name]["ordered"]))
+        cases += [(f"window[{window}]", window, None,
+                   grefs[name][("window", window)]) for window in TUMBLING]
+        window, hop = SLIDING
+        cases.append((f"window[{window}, hop {hop}]", window, hop,
+                      grefs[name]["sliding"]))
+        kvals = np.random.default_rng(seeds[name] + [1]).choice(
+            [1.5, -3.0, 0.0, -0.0, 10.25, np.nan],
+            min(len(exp), 4 * ROWGROUP_VECTORS * VECTOR))
+        cases.append(("groupby_keys", kvals, None, None))
+        cases.append(("distinct", None, None, distinct_reference(
+            sorted_keys[name], exp.dtype)))
+        gcases[name] = cases
+    del grefs
+    del sorted_keys
+    ref_s = time.perf_counter() - t0
+    for col, _ in columns.values():
+        col._plans.clear()            # the first query builds the plan again
+    torch.cuda.synchronize()
+    kgroup.reset_launches()
+    # the exact integer totals that each call rounds, as it hands them on,
+    # and the seconds of that host finish
+    raw_totals = []
+    real_finish = engine._finish_groups
+
+    def keep_totals(gr, aggs, dtype):
+        tf = time.perf_counter()
+        out = real_finish(gr, aggs, dtype)
+        raw_totals.append((gr, time.perf_counter() - tf))
+        return out
+
+    engine._finish_groups = keep_totals
+    tq = time.perf_counter()
+    for name, (col, exp) in columns.items():
+        before = dict(kgroup.LAUNCHES)
+        col_total = None
+        walls = []
+        for label, a, b, ref in gcases[name]:
+            if label == "groupby_keys":
+                m = len(a)
+                kcol = alp_tpu_torch.compress(a)
+                vcol = alp_tpu_torch.compress(exp[:m])
+                keys, uniques = alp_tpu_torch.groupby_keys(kcol)
+                nan = np.isnan(a)
+                if not (np.array_equal(uniques[keys][~nan], a[~nan])
+                        and np.isnan(uniques[keys][nan]).all()):
+                    raise RuntimeError(f"{name}: groupby_keys")
+                got = alp_tpu_torch.query_groupby(vcol, keys, len(uniques))
+                check_group_answer(f"{name}: groupby by groupby_keys", got,
+                                   group_reference(exp[:m], np_keys(exp[:m]),
+                                                   len(uniques), True, None,
+                                                   g=keys), exp.dtype)
+                continue
+            if label == "distinct":
+                call = alp_tpu_torch.query_distinct
+            elif label.startswith("window"):
+                call = functools.partial(alp_tpu_torch.query_window,
+                                         window=a, hop=b)
+            else:
+                call = functools.partial(alp_tpu_torch.query_groupby,
+                                         keys=a, num_groups=b)
+            tw = time.perf_counter()
+            got = call(col)
+            first_s = time.perf_counter() - tw
+            tw = time.perf_counter()
+            again = call(col)
+            again_s = time.perf_counter() - tw
+            finish = (f" (finish {raw_totals[-1][1] * 1e3:.3f})"
+                      if label != "distinct" else "")
+            walls.append(f"{label} {first_s * 1e3:.3f}/{again_s * 1e3:.3f}"
+                         f"{finish}")
+            for answer in (got, again):
+                if label == "distinct":
+                    if answer != ref:
+                        raise RuntimeError(f"{name}: distinct {answer} != "
+                                           f"numpy {ref}")
+                else:
+                    check_group_answer(f"{name}: {label}", answer, ref,
+                                       exp.dtype)
+            if label == "distinct" or b == SLIDING[1]:
+                continue
+            if col_total is None:       # after the first call built the plan
+                col_total = engine.join_totals(engine.exact_sum_totals(
+                    col.plan(dev)).tolist(), exp.dtype)
+            raw = raw_totals[-1][0]
+            if (sum(raw.totals.values()), *raw.sp.sum(0).tolist()) != \
+                    col_total[:4] or int(raw.ct.sum()) != len(exp):
+                raise RuntimeError(f"{name}: {label}'s integer totals do not "
+                                   f"join to the column's exact total")
+        moved = {k: v - before[k] for k, v in kgroup.LAUNCHES.items()
+                 if v != before[k]}
+        print(f"  {name}: {len(gcases[name])} grouped queries == numpy on "
+              f"{col.n_values} values, integer totals joined == the "
+              f"column's, launches={moved}; walls ms, first call/kept "
+              f"plan (the kept call's host finish): {'; '.join(walls)}",
+              flush=True)
+    group_launches = dict(kgroup.LAUNCHES)
+    group_s = time.perf_counter() - tq
+    engine._finish_groups = real_finish
+    for k, v in group_launches.items():
+        if v == 0:
+            raise RuntimeError(f"kernel {k} was not launched on the group "
+                               f"path")
+    del gcases
+    phase("group", t0, f"numpy references {ref_s:.3f}s, group path "
+          f"{group_s:.3f}s launches={group_launches}")
 
     # 8. dcompress: the device compress path, through the public entry
     t0 = time.perf_counter()
@@ -1110,7 +1574,7 @@ def main() -> int:
     # 9. kernels vs plain versions, on the card, same plans
     t0 = time.perf_counter()
     errors = {k: 0.0 for k in (*KERNELS, *SUM_KERNELS, *DC_KERNELS,
-                               *KEY_KERNELS, *RANK_KERNELS)}
+                               *KEY_KERNELS, *RANK_KERNELS, *GROUP_KERNELS)}
     plans = {}
     for name, (col, _) in columns.items():
         plan = decode.build_plan(col, dev)
@@ -1206,6 +1670,41 @@ def main() -> int:
               + ", ".join(f"{label}: {len(thr)} thresholds, {len(br)} "
                           f"brackets" for label, thr, br in checks)
               + ") and the filtered SUM == plain", flush=True)
+    for name, (col, exp) in columns.items():
+        plan = col.plan(dev)
+        W = kes.WINDOWS[plan.bits_dtype]
+        sums_t = torch.zeros((plan.n_vectors, W + 3), dtype=torch.int64,
+                             device=dev)
+        keys_t = torch.zeros((plan.n_vectors, 2), dtype=plan.bits_dtype,
+                             device=dev)
+        for call in engine.group_calls(plan):
+            call.vector_sums(sums_t, keys_t)
+            want_s, want_k = call.vector_sums_plain()
+            err = max(int_err(sums_t[call.rows], want_s),
+                      int_err(keys_t[call.rows], want_k))
+            errors["vector_sum_extremes"] = max(
+                errors["vector_sum_extremes"], err)
+            if err != 0.0:
+                raise RuntimeError(f"{name}: vector_sum_extremes bw="
+                                   f"{call.bw} differs from its plain "
+                                   f"version")
+        for G, ordered in ((16, False), (65536, False), (ORDERED_RUNS, True)):
+            kv = column_group_keys(plan, G, ordered, args.seed + G)
+            for call in engine.group_calls(plan):
+                gk = kv[call.rows].contiguous()
+                got = call.group_reduce(gk, G, *kgroup.group_outputs(
+                    G, plan.bits_dtype, dev))
+                want = call.group_reduce_plain(gk, G)
+                err = max(int_err(a, b) for a, b in zip(got, want))
+                errors["group_reduce"] = max(errors["group_reduce"], err)
+                if err != 0.0:
+                    raise RuntimeError(f"{name}: group_reduce at G={G} "
+                                       f"({'ordered' if ordered else 'random'}"
+                                       f" keys) bw={call.bw} differs from "
+                                       f"its plain version")
+            del kv
+        print(f"  {name}: K18 and K19 (G = 16, 65536 and {ORDERED_RUNS} "
+              f"ordered runs) == plain on every bucket", flush=True)
     dc_calls = {}
     for name in columns:
         got, calls = record_dc_calls(
@@ -1222,9 +1721,9 @@ def main() -> int:
         print(f"  {name}: {len(calls)} K9-K14 calls == plain", flush=True)
     phase("kernels", t0, "every bucket of every column: kernel bits == "
           "plain bits, SUM totals == plain totals (also with a key range), "
-          "K15 bins, K16 keys and K17 bins and keys == plain, every K9-K14 "
-          "call of "
-          "compress_device == plain (tolerance 0)")
+          "K15 bins, K16 keys, K17 bins and keys and K18/K19 totals and "
+          "keys == plain, every K9-K14 call of compress_device == plain "
+          "(tolerance 0)")
 
     # 10. timing at the 256 MiB shapes
     t0 = time.perf_counter()
@@ -1537,6 +2036,107 @@ def main() -> int:
                          "same function: no PyTorch call reads the "
                          "compressed form)",
             "timed_on": key_timed, "R": R, "T": T})
+    for k, site in GROUP_KERNELS.items():
+        cells = {}
+        for G in ((None,) if k == "vector_sum_extremes" else (16, 65536)):
+            ms, plain_ms, bound_ms, yard_ms, b_bytes_l, b_ops_l = (
+                [] for _ in range(6))
+            for name in key_timed:
+                col, exp = columns[name]
+                plan = col.plan(dev)
+                calls = engine.group_calls(plan)
+                bits = plan.run().view(plan.bits_dtype)
+                W = kes.WINDOWS[plan.bits_dtype]
+                if G is None:
+                    sums_t = torch.empty((plan.n_vectors, W + 3),
+                                         dtype=torch.int64, device=dev)
+                    keys_t = torch.empty((plan.n_vectors, 2),
+                                         dtype=plan.bits_dtype, device=dev)
+                    t_k = cuda_ms(lambda: [c.vector_sums(sums_t, keys_t)
+                                           for c in calls], 20)
+                    t_p = cuda_ms(lambda: [c.vector_sums_plain()
+                                           for c in calls], 3)
+                    work = [group_work(plan, c, bits, "sums") for c in calls]
+                    extra = 0
+                    bk = biased_keys(bits)
+                    vals = plan.run()
+                    t_y = cuda_ms(lambda: (vals.sum(dim=1), bk.amin(dim=1),
+                                           bk.amax(dim=1)), 20)
+                    del vals
+                else:
+                    kv = column_group_keys(plan, G, False, args.seed + G)
+                    gks = [kv[c.rows].contiguous() for c in calls]
+                    outs = kgroup.group_outputs(G, plan.bits_dtype, dev)
+                    t_k = cuda_ms(lambda: [c.group_reduce(gk, G, *outs)
+                                           for c, gk in zip(calls, gks)], 20)
+                    t_p = cuda_ms(lambda: [c.group_reduce_plain(gk, G)
+                                           for c, gk in zip(calls, gks)], 3)
+                    work = [group_work(plan, c, bits, "groups")
+                            for c in calls]
+                    extra = G * ((W + 4) * 8 + 2 * bits.element_size())
+                    vals = plan.run().reshape(-1)[:plan.n_values]
+                    bk = biased_keys(bits.reshape(-1)[:plan.n_values])
+                    gid = kv.reshape(-1)[:plan.n_values].long()
+
+                    def yardstick():
+                        torch.zeros(G, dtype=vals.dtype, device=dev
+                                    ).index_add_(0, gid, vals)
+                        for how in ("amin", "amax"):
+                            torch.zeros(G, dtype=bk.dtype, device=dev
+                                        ).scatter_reduce_(0, gid, bk, how,
+                                                          include_self=False)
+                    t_y = cuda_ms(yardstick, 5)
+                    del kv, gks, vals, gid
+                moved, int_ops, fl_ops = (sum(w[i] for w in work)
+                                          for i in range(3))
+                moved += extra
+                b_bytes = moved / HBM_BYTES_PER_S * 1e3
+                b_ops = max(int_ops / int32_per_s, fl_ops / (
+                    fp64_per_s if plan.f64 else fp32_per_s)) * 1e3
+                ms.append(t_k)
+                plain_ms.append(t_p)
+                bound_ms.append(max(b_bytes, b_ops))
+                yard_ms.append(t_y)
+                b_bytes_l.append(b_bytes)
+                b_ops_l.append(b_ops)
+                print(f"  {k}{'' if G is None else f' G={G}'} on {name}: "
+                      f"{len(calls)} launches/pass, {moved} bytes, {int_ops} "
+                      f"int ops, {fl_ops} float ops, kernel {t_k:.4f} ms, "
+                      f"plain {t_p:.4f} ms, bound {max(b_bytes, b_ops):.4f} "
+                      f"ms (bytes {b_bytes:.4f} ms, operations {b_ops:.4f} "
+                      f"ms), share {max(b_bytes, b_ops) / t_k:.1%}, "
+                      f"yardstick {t_y:.4f} ms", flush=True)
+                del bits, bk
+            cells[G] = {
+                "ms": float(np.mean(ms)), "plain_ms": float(np.mean(plain_ms)),
+                "bound_ms": float(np.mean(bound_ms)),
+                "bound_by": ("bytes" if sum(b_bytes_l) >= sum(b_ops_l)
+                             else "operations"),
+                "yardstick_ms": float(np.mean(yard_ms))}
+        row = {
+            "name": k, "route": "cuda",
+            "source": "alp_tpu_torch/csrc/group.cu",
+            "replaces": site or "alp_tpu/engine.py:1920",
+            "also_replaces": [],
+            "launches": group_launches[k], "max_abs_err": errors[k],
+            **cells[None if k == "vector_sum_extremes" else 16],
+            "library_ms": None,
+            "yardstick": ("a row sum and amin/amax over dim=1 of the "
+                          "decoded values and keys"
+                          if k == "vector_sum_extremes" else
+                          "index_add_ of the decoded values and "
+                          "scatter_reduce amin/amax of their keys by group")
+            + " (not the same function: rounded, not exact; no PyTorch call "
+              "reads the compressed form)",
+            "timed_on": key_timed}
+        if k == "group_reduce":
+            row["replaces_note"] = ("no pl.pallas_call: the XLA grouped "
+                                    "passes _mxu_scan (alp_tpu/engine.py:1920)"
+                                    " and _groupby_chunk_f64/_f32 (:1735, "
+                                    ":1784)")
+            row["G"] = 16
+            row.update({f"{f}_G65536": v for f, v in cells[65536].items()})
+        rows.append(row)
     phase("timing", t0)
     phase("total", t_all)
 

@@ -7,7 +7,9 @@ device compress kernels K9-K14 against their plain versions and
 ``compress_device``'s blob against host compress's, in both precisions,
 the key kernels K15/K16/K17 and the filtered SUM against their plain
 versions, every predicate and order query on the card against its answer
-on the CPU, and QUANTILE / MEDIAN on the card against ``np.quantile``.  This file
+on the CPU, QUANTILE / MEDIAN on the card against ``np.quantile``, and the
+grouped kernels K18/K19 against their plain versions and GROUP-BY, windows
+and DISTINCT on the card against their answers on the CPU.  This file
 imports neither JAX nor ``alp_tpu``, so it runs on a machine with a card
 and no JAX:
 
@@ -461,6 +463,18 @@ def test_work_runs_on_the_tensors_card():
         np.testing.assert_array_equal(
             alp_tpu_torch.query_quantile(col, [0.1, 0.5, 0.9], device=other),
             np.quantile(x, [0.1, 0.5, 0.9]))
+        keys = np.arange(len(x)) % 5
+        for got, want in (
+                (alp_tpu_torch.query_groupby(col, keys, 5, device=other),
+                 alp_tpu_torch.query_groupby(col, keys, 5, device="cpu")),
+                (alp_tpu_torch.query_window(col, 5000, hop=1000,
+                                            device=other),
+                 alp_tpu_torch.query_window(col, 5000, hop=1000,
+                                            device="cpu"))):
+            assert list(got) == list(want)
+            for a in got:
+                assert _same_array(got[a], want[a]), a
+        assert alp_tpu_torch.query_distinct(col, other) == len(np.unique(x))
         assert torch.cuda.current_device() == 0
 
 
@@ -620,3 +634,109 @@ def test_quantile_on_card_equals_numpy(name, cuda):
     median = alp_tpu_torch.query_median(col)
     assert type(median) is x.dtype.type
     assert _quantile_equal(median, np.median(x), x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GROUP-BY, windows, DISTINCT: K18, K19
+# ---------------------------------------------------------------------------
+
+def _column_keys(plan, G: int, ordered: bool, seed: int) -> torch.Tensor:
+    """int32 [n_vectors, 1024] group ids in column order (the pad -1)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, G, plan.n_values)
+    if ordered:
+        keys = np.sort(keys)
+    kv = np.full(plan.n_vectors * 1024, -1, np.int32)
+    kv[:plan.n_values] = keys
+    return torch.from_numpy(kv.reshape(-1, 1024)).to(plan.device)
+
+
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_group_kernels_equal_plain_versions(name, cuda):
+    """K18 on every bucket, K19 on every bucket at G in {1, 16, 300, 65536}
+    (shared-memory and device-memory accumulators) with random and sorted
+    keys."""
+    from alp_tpu_torch.kernels import group as kgroup
+    col = alp_tpu_torch.compress(COLUMNS[name])
+    plan = col.plan(cuda)
+    W = kes.WINDOWS[plan.bits_dtype]
+    sums = torch.zeros((plan.n_vectors, W + 3), dtype=torch.int64,
+                       device=cuda)
+    keys = torch.zeros((plan.n_vectors, 2), dtype=plan.bits_dtype,
+                       device=cuda)
+    for call in engine.group_calls(plan):
+        before = kgroup.LAUNCHES["vector_sum_extremes"]
+        call.vector_sums(sums, keys)
+        assert kgroup.LAUNCHES["vector_sum_extremes"] == before + 1
+        want_sums, want_keys = call.vector_sums_plain()
+        assert torch.equal(sums[call.rows], want_sums), name
+        assert torch.equal(keys[call.rows], want_keys), name
+    for G in (1, 16, 300, 65536):
+        for ordered in (False, True):
+            kv = _column_keys(plan, G, ordered, G)
+            for call in engine.group_calls(plan):
+                gk = kv[call.rows].contiguous()
+                before = kgroup.LAUNCHES["group_reduce"]
+                out, ext = call.group_reduce(gk, G, *kgroup.group_outputs(
+                    G, plan.bits_dtype, cuda))
+                assert kgroup.LAUNCHES["group_reduce"] == before + 1
+                want_out, want_ext = call.group_reduce_plain(gk, G)
+                assert torch.equal(out, want_out), (name, G, ordered)
+                assert torch.equal(ext, want_ext), (name, G, ordered)
+
+
+def test_group_in_runs_on_the_card(cuda):
+    """A group whose values span several runs of K19 is summed exactly:
+    the runs add up to the one-run totals."""
+    x = COLUMNS["f64_mixed_alp_rd"]
+    plan = alp_tpu_torch.compress(x).plan(cuda)
+    kv = _column_keys(plan, 3, False, 3)
+    outs, ext = engine.group_reduce(plan, kv, 3)
+    runs, ext2 = engine.group_reduce(plan, kv, 3, run_values=7 * 1024 + 1)
+    assert len(outs) == 1 and len(runs) > 1
+    assert torch.equal(sum(runs), outs[0]) and torch.equal(ext2, ext)
+
+
+def _same_groups(a: dict, b: dict) -> bool:
+    return list(a) == list(b) and all(
+        _same_array(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_group_queries_on_card_equal_cpu(name, cuda):
+    x = COLUMNS[name]
+    col = alp_tpu_torch.compress(x)
+    rng = np.random.default_rng(16)
+    for G, keys in ((16, rng.integers(0, 16, len(x))),
+                    (1000, np.sort(rng.integers(0, 1000, len(x))))):
+        assert _same_groups(
+            alp_tpu_torch.query_groupby(col, keys, G),
+            alp_tpu_torch.query_groupby(col, keys, G, device="cpu"))
+    for window, hop in ((100000, None), (102400, None), (4096, 1024)):
+        assert _same_groups(
+            alp_tpu_torch.query_window(col, window, hop=hop),
+            alp_tpu_torch.query_window(col, window, hop=hop, device="cpu"))
+    assert alp_tpu_torch.query_distinct(col) == \
+        alp_tpu_torch.query_distinct(col, device="cpu")
+
+
+def test_group_queries_never_take_the_plain_versions(cuda, monkeypatch):
+    from alp_tpu_torch.kernels import group as kgroup
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for a CUDA tensor")
+    for name in ("sums_of_bits", "groups_of_bits", "vector_sums_alp_plain",
+                 "vector_sums_rd_plain", "group_reduce_alp_plain",
+                 "group_reduce_rd_plain"):
+        monkeypatch.setattr(kgroup, name, refuse)
+    monkeypatch.setattr(kgroup, "_PLAIN", {
+        k: (v[0], refuse, refuse) for k, v in kgroup._PLAIN.items()})
+    x = COLUMNS["f64_mixed_alp_rd"]
+    col = alp_tpu_torch.compress(x)
+    kgroup.reset_launches()
+    keys = np.arange(len(x)) % 7
+    got = alp_tpu_torch.query_groupby(col, keys, 7)
+    assert got["count"].tolist() == np.bincount(keys).tolist()
+    got = alp_tpu_torch.query_window(col, 100000)
+    assert _same(float(got["sum"][0]), _fsum(x[:100000]))
+    assert all(kgroup.LAUNCHES.values()), kgroup.LAUNCHES
