@@ -9,6 +9,10 @@ order queries COUNT WHERE, MIN / MAX, TOP-K, histogram (K15
 with a key range), exact QUANTILE / MEDIAN (a bisection over K17
 ``rank_pass`` passes), and exact GROUP-BY and windowed aggregates (K18
 ``vector_sum_extremes`` and K19 ``group_reduce``) and COUNT DISTINCT.
+Its bench times the card: ``benchlib.loop_bench`` over the loop steps
+``make_*_step``, the headline ``python -m alp_tpu_torch.bench`` and the
+per-kernel rows ``python -m alp_tpu_torch.bench_speed`` (with K20-K23, the
+kernels of the TPU sites only the bench reaches).
 The JAX package ``alp_tpu`` beside it is the reference: the port's blobs
 equal its blobs byte for byte, its decoded values equal its values bit for
 bit, and its query answers equal its answers bit for bit.  This package
@@ -17,16 +21,31 @@ imports neither JAX nor ``alp_tpu``.
 
 from .container import CompressedColumn, compress, decompress
 from .device_compress import compress_device
-from .engine import (groupby_keys, query_compression,
+from .engine import (groupby_keys, make_exact_sum_step, make_filter_step,
+                     make_groupby_step, make_histogram_step, make_sum_step,
+                     make_topk_step, query_compression,
                      query_count_exceptions, query_distinct,
                      query_filter_count, query_filter_sum, query_groupby,
                      query_histogram, query_max, query_mean, query_median,
                      query_min, query_quantile, query_scan, query_sum,
                      query_topk, query_window)
+from . import benchlib
 
-__all__ = ["CompressedColumn", "compress", "compress_device", "decompress",
-           "groupby_keys", "query_compression", "query_count_exceptions",
-           "query_distinct", "query_filter_count", "query_filter_sum",
-           "query_groupby", "query_histogram", "query_max", "query_mean",
-           "query_median", "query_min", "query_quantile", "query_scan",
-           "query_sum", "query_topk", "query_window"]
+__all__ = ["CompressedColumn", "bench", "benchlib", "compress",
+           "compress_device", "decompress", "groupby_keys",
+           "make_exact_sum_step", "make_filter_step", "make_groupby_step",
+           "make_histogram_step", "make_sum_step", "make_topk_step",
+           "query_compression", "query_count_exceptions", "query_distinct",
+           "query_filter_count", "query_filter_sum", "query_groupby",
+           "query_histogram", "query_max", "query_mean", "query_median",
+           "query_min", "query_quantile", "query_scan", "query_sum",
+           "query_topk", "query_window"]
+
+
+def __getattr__(name):
+    # ``bench`` is imported at first use, so that ``python -m
+    # alp_tpu_torch.bench`` does not find it imported already
+    if name == "bench":
+        import importlib
+        return importlib.import_module(".bench", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

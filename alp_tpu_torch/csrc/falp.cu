@@ -22,6 +22,30 @@
 //   K4 alp_rd_f32    replaces rd_decode_dict_f32 (falp.py:1530), the same
 //                    over 32-bit words; K3 and K4 are one template.
 //
+// Two more serve the port's bench (alp_tpu_torch/bench_speed.py and the
+// sum step of engine.make_sum_step):
+//
+//   K20 alp_variant_sum_f64  replaces falp_decode_f64_variant_sum
+//                    (falp.py:933): K1's decode of one f64 ALP bucket at
+//                    any bit width, each value cut to float by the
+//                    reference's truncating convert _f64_bits_to_f32
+//                    (falp.py:456-464: exponent clamped to [0, 254], the
+//                    mantissa's low 29 bits dropped, not rounded), summed
+//                    in float per FastLanes lane: out[v, l] = sum over
+//                    slots s = 0..63, in that order, of value 16 s + l of
+//                    vector v.  A checksum for throughput steps, not a SUM:
+//                    exceptions are not written in and the pad of a partial
+//                    vector is summed as decoded, as the TPU kernel does.
+//   K21 alp_rd_glue_f64 / _f32  replace rd_decode_f64 (falp.py:1388) and
+//                    rd_decode_f32 (:2392): ALP_RD without the dictionary.
+//                    The right parts are unFFORed at rbw (base 0) and the
+//                    left parts, already resolved and patched (uint32
+//                    [n, 1024], one a value), are glued above them:
+//                    bits = (left << rbw) | right, or right alone at
+//                    rbw == S (a shift by the word width gives 0 in XLA).
+//                    f64 takes rbw 48..64 (the reference cuts at most 16
+//                    left bits); f32 0..32, rbw 0 giving the left word.
+//
 // Layout.  Packed words are read as the ALPT format stores them (reference
 // FastLanes layout: for S-bit words L = 1024 / S lanes, value k in lane
 // k % L at slot k / L, word w of lane i at w * L + i).  Each launch covers
@@ -41,6 +65,18 @@
 // pass: one block per vector, the vector's packed words staged once into
 // shared memory with coalesced loads, then each thread extracts values
 // k, k + 256, ... so that the stores of a warp are contiguous.
+//
+// K20 is bound by operations, not bytes: per value it reads bw / 8 bytes
+// and writes 4 / 64 bytes, but does the unpack, the FOR add, the 64-bit
+// FACT product, two FP64 operations, ~8 integer operations of the cut and
+// one float add.  Sixteen threads take a vector, one a lane: a thread
+// walks its lane's bitstream slot by slot (the words of the 16 lanes are
+// adjacent, so a half warp reads 128 contiguous bytes), keeps its sum in a
+// register in slot order and writes one float; no shared memory, no
+// reduction across threads.  K21 moves bytes, as K3 does: one block a
+// vector, the right words staged in shared memory, each thread writing
+// values k, k + 256, ... so a warp's loads of the left parts and stores of
+// the bits are contiguous.
 //
 // Arithmetic.  The unpack and the decode formula are fastlanes.cuh's,
 // shared with K7/K8 (exact_sum.cu); the build passes no fast-math or
@@ -108,6 +144,66 @@ rd_kernel(const U* __restrict__ right, int rbw,
     const int idx = lbw ? unpack<uint16_t, 16>(lwords, lbw, k) : 0;
     const U l = entries[min(idx, last)];
     dst[k] = rbw < S ? static_cast<U>(static_cast<U>(l << rbw) | r) : r;
+  }
+}
+
+// The reference's truncating f64-bits -> float convert (falp.py:456-464),
+// operation for operation: not IEEE rounding, and +-Inf / NaN come out as
+// large finite floats.
+__device__ __forceinline__ float trunc_f32(uint64_t b) {
+  const uint32_t hi = static_cast<uint32_t>(b >> 32);
+  const uint32_t lo = static_cast<uint32_t>(b);
+  const uint32_t sign = hi & 0x80000000u;
+  const int e = static_cast<int>((hi >> 20) & 0x7FFu);
+  const uint32_t e32 = static_cast<uint32_t>(min(max(e - 896, 0), 254));
+  const uint32_t m = ((hi & 0xFFFFFu) << 3) | (lo >> 29);
+  return __uint_as_float(sign | (e32 << 23) | m);
+}
+
+constexpr int kLanes64 = kVector / 64;       // FastLanes lanes of f64: 16
+constexpr int kSlots64 = kVector / kLanes64;  // values a lane: 64
+
+// K20: one thread a (vector, lane); 16 vectors a block.
+__global__ void __launch_bounds__(kThreads)
+variant_sum_kernel(const uint64_t* __restrict__ packed, int bw,
+                   const uint64_t* __restrict__ base,
+                   const uint64_t* __restrict__ fact,
+                   const double* __restrict__ frac, long long n,
+                   float* __restrict__ out) {
+  const long long vec = static_cast<long long>(blockIdx.x) *
+                            (kThreads / kLanes64) + threadIdx.x / kLanes64;
+  const int lane = threadIdx.x % kLanes64;
+  if (vec >= n) return;
+  const uint64_t* words = packed + vec * bw * kLanes64;
+  const uint64_t b = base[vec], f = fact[vec];
+  const double fr = frac[vec];
+  float acc = 0.0f;
+  for (int s = 0; s < kSlots64; ++s) {
+    const uint64_t u =
+        bw ? unpack<uint64_t, 64>(words, bw, s * kLanes64 + lane) : 0;
+    const double x = Num<double>::decode(static_cast<uint64_t>((b + u) * f),
+                                         fr);
+    acc = __fadd_rn(acc, trunc_f32(Num<double>::bits(x)));
+  }
+  out[vec * kLanes64 + lane] = acc;
+}
+
+// K21: one block a vector.
+template <typename U, int S>
+__global__ void __launch_bounds__(kThreads)
+rd_glue_kernel(const U* __restrict__ right, int rbw,
+               const uint32_t* __restrict__ left, U* __restrict__ out) {
+  __shared__ U rwords[kVector];
+  const long long vec = blockIdx.x;
+  stage<U, S>(rwords, right + vec * rbw * (kVector / S), rbw);
+  __syncthreads();
+  const uint32_t* lsrc = left + vec * kVector;
+  U* dst = out + vec * kVector;
+  for (int k = threadIdx.x; k < kVector; k += kThreads) {
+    const U r = rbw ? unpack<U, S>(rwords, rbw, k) : U(0);
+    dst[k] = rbw < S ? static_cast<U>(static_cast<U>(
+                           static_cast<U>(lsrc[k]) << rbw) | r)
+                     : r;
   }
 }
 
@@ -182,4 +278,50 @@ extern "C" int alp_rd_f32(const void* right, int rbw, const void* left,
                           void* stream) {
   return launch_rd<uint32_t, 32>(right, rbw, left, lbw, dict, dict_size,
                                  rows, out, n, stream);
+}
+
+// K20.  packed: uint64 [n, bw * 16]; base, fact: [n]; frac: double [n];
+// out: float [n, 16].
+extern "C" int alp_variant_sum_f64(const void* packed, int bw,
+                                   const void* base, const void* fact,
+                                   const void* frac, long long n, void* out,
+                                   void* stream) {
+  constexpr long long kPerBlock = kThreads / kLanes64;
+  if (n < 0 || n > INT_MAX || bw < 0 || bw > 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0)
+    variant_sum_kernel<<<static_cast<unsigned>((n + kPerBlock - 1) /
+                                               kPerBlock),
+                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint64_t*>(packed), bw,
+        static_cast<const uint64_t*>(base),
+        static_cast<const uint64_t*>(fact), static_cast<const double*>(frac),
+        n, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename U, int S>
+static int launch_rd_glue(const void* right, int rbw, const void* left,
+                          long long n, void* out, void* stream,
+                          int min_rbw) {
+  if (n < 0 || n > INT_MAX || rbw < min_rbw || rbw > S)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0)
+    rd_glue_kernel<U, S><<<static_cast<unsigned>(n), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const U*>(right), rbw,
+        static_cast<const uint32_t*>(left), static_cast<U*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K21.  right: [n, rbw * 1024 / S] words; left: uint32 [n, 1024]; out:
+// [n, 1024] bit patterns.
+extern "C" int alp_rd_glue_f64(const void* right, int rbw, const void* left,
+                               long long n, void* out, void* stream) {
+  return launch_rd_glue<uint64_t, 64>(right, rbw, left, n, out, stream, 48);
+}
+
+extern "C" int alp_rd_glue_f32(const void* right, int rbw, const void* left,
+                               long long n, void* out, void* stream) {
+  return launch_rd_glue<uint32_t, 32>(right, rbw, left, n, out, stream, 0);
 }

@@ -11,6 +11,17 @@
 //                          ALP_RD right parts (at 64 bits ffor_tile is
 //                          K10's function).
 //
+//   K22 alp_unffor_f64 / _f32  replace unffor_tile (:2455, body
+//                          _unffor_kernel :2413) at element_bits 64 and
+//                          32: unFFOR alone, the inverse of K10 / K13.
+//                          Vector v's bw * L packed words plus base[v]
+//                          (wrapping) give its 1024 integers, in value
+//                          order; at bw 0 every value is the base.  At 32
+//                          bits the output is the low word of unpacked +
+//                          base, which is all the TPU kernel writes.  Every
+//                          decode kernel fuses this unpack; the standalone
+//                          kernel serves the bench's unFFOR rows.
+//
 // What they compute.  For each row r of a bucket that shares the bit
 // width bw (1..S, at run time; S = 64 for K10, 32 for K13): the source
 // vector v = rows[r] of `in` [N, 1024] (int64 / int32; v = r when rows is
@@ -30,7 +41,10 @@
 // row's 1024 patched, rebased, masked values go to shared memory with
 // contiguous loads, then thread j writes words j, j + 256, ... of the row,
 // so the stores of a warp are contiguous and each word reads the one or
-// few slots that meet it from shared memory.
+// few slots that meet it from shared memory.  K22 is bound by bytes too
+// (bw / 8 read, 8 or 4 written a value) and is K1's design without the
+// float: one block a vector, its words staged in shared memory, thread j
+// writing values j, j + 256, ... with fastlanes.cuh's unpack.
 
 #include <climits>
 #include <cstdint>
@@ -66,6 +80,34 @@ ffor_kernel(const W* __restrict__ in, const long long* __restrict__ rows,
   W* dst = out + (offsets ? offsets[r] : r * kLanes * bw);
   for (int j = threadIdx.x; j < kLanes * bw; j += kThreads)
     dst[j] = alp::pack_word<W, S>(delta, bw, j / kLanes, j % kLanes);
+}
+
+template <typename W, int S>
+__global__ void __launch_bounds__(kThreads)
+unffor_kernel(const W* __restrict__ packed, int bw,
+              const W* __restrict__ base, W* __restrict__ out) {
+  __shared__ W words[kVector];
+  const long long v = blockIdx.x;
+  alp::stage<W, S>(words, packed + v * bw * (kVector / S), bw);
+  __syncthreads();
+  const W b = base[v];
+  W* dst = out + v * kVector;
+  for (int k = threadIdx.x; k < kVector; k += kThreads)
+    dst[k] = static_cast<W>(b + (bw ? alp::unpack<W, S>(words, bw, k)
+                                    : W(0)));
+}
+
+template <typename W, int S>
+int launch_unffor(const void* packed, int bw, const void* base, long long n,
+                  void* out, void* stream) {
+  if (n < 0 || n > INT_MAX || bw < 0 || bw > S)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n)
+    unffor_kernel<W, S><<<static_cast<unsigned>(n), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const W*>(packed), bw, static_cast<const W*>(base),
+        static_cast<W*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename W, int S>
@@ -108,4 +150,16 @@ extern "C" int alp_ffor_pack_f32(const void* in, const void* rows,
                                  void* stream) {
   return launch<uint32_t, 32>(in, rows, exc, fill, base, bw, offsets, m, out,
                               stream);
+}
+
+// K22.  packed: [n, bw * 1024 / S] words (int64 for 64-bit elements,
+// int32 for 32); base: [n] of the same type; bw in 0..S; out: [n, 1024].
+extern "C" int alp_unffor_f64(const void* packed, int bw, const void* base,
+                              long long n, void* out, void* stream) {
+  return launch_unffor<uint64_t, 64>(packed, bw, base, n, out, stream);
+}
+
+extern "C" int alp_unffor_f32(const void* packed, int bw, const void* base,
+                              long long n, void* out, void* stream) {
+  return launch_unffor<uint32_t, 32>(packed, bw, base, n, out, stream);
 }

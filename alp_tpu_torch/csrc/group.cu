@@ -52,7 +52,17 @@
 // values (the wrappers check), and the engine sums longer columns in runs;
 // K18's rows hold one vector each and take any number of vectors.
 //
-// Bound.  Both read only the packed words, the metadata, the row ids and
+// K23 key_extremes_bits_f64 replaces key_extremes_planes_f64
+// (alp_tpu/kernels/falp.py:1998), the key half of site 33 over decoded
+// bits: each vector's least and largest total-order key (order_key, -0.0
+// folded onto +0.0, as _key_words_f64 does), every one of its 1024 values
+// read (the TPU kernel has no pad either), as uint64 [n, 2].  Site 32's
+// biased i32 words per lane column of 8 vectors are a layout of the TPU;
+// what the grouped aggregates read is the vector's pair.  It is bound by
+// bytes (8 read a value, 16 written a vector): one block of 256 threads a
+// vector, 4 coalesced loads a thread, a warp and a block reduction.
+//
+// Bound.  K18 and K19 read only the packed words, the metadata, the row ids and
 // the exceptions of their vectors (a few bits a value), K19 also 4 bytes
 // of group id a value, and write a few hundred bytes a vector (K18) or
 // group (K19).  The work is the exact sum's (chip_smoke.py's SUM_OPS) plus
@@ -310,6 +320,38 @@ int launch_group(const V& src, const void* rows, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K23: one block a vector, a grid stride over the vectors.
+__global__ void __launch_bounds__(kThreads)
+key_extremes_bits_kernel(const uint64_t* __restrict__ bits, long long n,
+                         uint64_t* __restrict__ keys) {
+  __shared__ uint64_t wlo[kWarps], whi[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (long long v = blockIdx.x; v < n; v += gridDim.x) {
+    uint64_t lo = ~uint64_t(0), hi = 0;
+    for (int k = threadIdx.x; k < kVector; k += kThreads) {
+      const uint64_t key = order_key(bits[v * kVector + k]);
+      lo = umin(lo, key);
+      hi = umax(hi, key);
+    }
+    lo = warp_min(lo);
+    hi = warp_max(hi);
+    if (lane == 0) {
+      wlo[warp] = lo;
+      whi[warp] = hi;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < kWarps; ++w) {
+        lo = umin(lo, wlo[w]);
+        hi = umax(hi, whi[w]);
+      }
+      keys[v * 2] = lo;
+      keys[v * 2 + 1] = hi;
+    }
+    __syncthreads();                         // wlo/whi are read
+  }
+}
+
 }  // namespace
 
 // C interface (loaded with ctypes).  Pointers are device pointers on card
@@ -380,4 +422,20 @@ extern "C" int alp_group_reduce_rd_f32(RD_ARGS, const void* gkeys, int G,
   if (bad_rd(rbw, lbw, 32)) return static_cast<int>(cudaErrorInvalidValue);
   return launch_group(RD_ROUTE(uint32_t, 32), rows, n, n_values, gkeys, G,
                       out, ext, dev, stream);
+}
+
+// K23.  bits: uint64 [n, 1024] decoded f64 bit patterns; keys: uint64
+// [n, 2] (least, largest) unsigned keys.
+extern "C" int alp_key_extremes_bits_f64(const void* bits, long long n,
+                                         void* keys, int dev, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  unsigned blocks = 0;
+  cudaError_t err = grid_for(key_extremes_bits_kernel, n, dev, kThreads, 0,
+                             &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0)
+    key_extremes_bits_kernel<<<blocks, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint64_t*>(bits), n, static_cast<uint64_t*>(keys));
+  return static_cast<int>(cudaGetLastError());
 }

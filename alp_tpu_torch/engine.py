@@ -58,7 +58,9 @@ the JAX package keeps its own.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import functools
 import math
 from fractions import Fraction
 
@@ -498,9 +500,14 @@ def _plan_key_extent(plan) -> tuple:
 
 
 def _extreme_key(col, device, largest: bool) -> int:
+    """The largest (or least) key of the column.  An empty column gives
+    the reference's fill key, key 0 for MAX and all ones for MIN
+    (``alp_tpu/engine.py:657``, ``:672``): -NaN and +NaN with every
+    payload bit set; no plan is built."""
     dev = resolve_device(device)
     if col.n_values == 0:
-        raise ValueError("MIN/MAX of an empty column")
+        return 0 if largest else (1 << (64 if col.dtype == np.float64
+                                        else 32)) - 1
     return _plan_key_extent(col.plan(dev))[1 if largest else 0]
 
 
@@ -527,6 +534,8 @@ def query_topk(col, k: int, largest: bool = True,
     exactly (``decode_vectors``), and the rest of the answer is ``t``
     repeated; K15 at [t - 1, t] counts the ties, which must suffice.  For
     larger k the full decode and ``torch.topk`` of the keys."""
+    if int(k) < 0:
+        raise ValueError("k argument to top_k must be nonnegative")
     dev = resolve_device(device)
     k = min(int(k), col.n_values)
     if k == 0:
@@ -581,7 +590,12 @@ def query_histogram(col, edges, device=None) -> np.ndarray:
     keys = _float_keys(edges, col.dtype)
     # "< e_i" is "<= key(e_i) - 1"; the last bin closes with "<= key(e_last)"
     khis = np.concatenate([keys - kt(1), keys[-1:]])
-    p = prefix_counts(col.plan(dev), khis)
+    return _histogram_counts(prefix_counts(col.plan(dev), khis), E)
+
+
+def _histogram_counts(p: np.ndarray, E: int) -> np.ndarray:
+    """The E - 1 bin counts from the prefix counts ``p`` at the thresholds
+    ``key(e_i) - 1`` of every edge and ``key(e_last)``."""
     out = np.diff(p[:E])
     out[-1] += p[E] - p[E - 1]
     return out
@@ -936,36 +950,51 @@ def _join_windows(parts: list, at: list, W: int) -> dict:
     return totals
 
 
-def _unordered_groups(plan, keys: np.ndarray, num_groups: int) -> Groups:
-    """K19 over the whole column with the keys in column order."""
-    W = kes.WINDOWS[plan.bits_dtype]
+def _unordered_keys(plan, keys: np.ndarray) -> torch.Tensor:
+    """int32 [n_vectors, 1024] group ids in column order on the plan's
+    device, -1 in the pad."""
     kv = np.full(plan.n_vectors * VECTOR_SIZE, -1, np.int32)
     kv[:plan.n_values] = keys
-    outs, ext = group_reduce(
-        plan, torch.from_numpy(kv.reshape(-1, VECTOR_SIZE)).to(plan.device),
-        num_groups)
+    return torch.from_numpy(kv.reshape(-1, VECTOR_SIZE)).to(plan.device)
+
+
+def _unordered_host(plan, outs: list, ext: torch.Tensor) -> Groups:
+    """The host join of K19's runs over the whole column."""
+    W = kes.WINDOWS[plan.bits_dtype]
     parts = [o.cpu().numpy() for o in outs]
-    kt = _key_type(plan.dtype)
-    ext = ext.cpu().numpy().view(kt)
+    ext = ext.cpu().numpy().view(_key_type(plan.dtype))
     return Groups(_join_windows(parts, [None] * len(parts), W),
                   sum(p[:, W:W + 3] for p in parts),
                   sum(p[:, W + 3] for p in parts), ext[:, 0].copy(),
                   ext[:, 1].copy())
 
 
-def _ordered_groups(plan, bounds: np.ndarray, group_of) -> Groups:
-    """Contiguous groups, group g the rows bounds[g] .. bounds[g + 1] - 1.
-    The vectors that lie whole in a group add their K18 totals (kept on
-    the plan) through an int64 prefix sum over the vectors and two gathers
-    a group, in runs of fewer than 2^31 values, and their keys through a
-    segmented least and largest; the vectors that a group boundary crosses
-    go through K19 with their keys ``group_of(vector ids)`` (numpy int64
-    [m, 1024]), relabelled to the groups they touch.  K18 skips the pad,
-    so a partial last vector needs nothing of its own."""
+def _unordered_groups(plan, keys: np.ndarray, num_groups: int) -> Groups:
+    """K19 over the whole column with the keys in column order."""
+    return _unordered_host(plan, *group_reduce(
+        plan, _unordered_keys(plan, keys), num_groups))
+
+
+@dataclasses.dataclass
+class _OrderedLayout:
+    """What the ordered route of a set of contiguous groups needs on the
+    device, made once on the host (``_ordered_layout``)."""
+    bounds: np.ndarray             # int64 [G + 1] row bounds of the groups
+    lo_v: torch.Tensor             # [G] first whole vector of each group
+    hi_v: torch.Tensor             # [G] one past its last whole vector
+    owner: torch.Tensor            # [n_vectors] group of a whole vector, G
+    cross: torch.Tensor            # [m] vectors a group boundary crosses
+    cross_keys: torch.Tensor       # int32 [m, 1024] their local group ids
+    touched: np.ndarray            # [T] the groups those ids stand for
+
+
+def _ordered_layout(plan, bounds: np.ndarray, group_of) -> _OrderedLayout:
+    """The whole vectors of each group and the crossed vectors with their
+    keys ``group_of(vector ids)`` (numpy int64 [m, 1024]), relabelled to
+    the groups they touch."""
     n, nv, dev = plan.n_values, plan.n_vectors, plan.device
     G = len(bounds) - 1
     V = VECTOR_SIZE
-    W = kes.WINDOWS[plan.bits_dtype]
     lo_v = -(-bounds[:-1] // V)
     hi_v = np.maximum(np.where(bounds[1:] >= n, nv, bounds[1:] // V), lo_v)
     inner = bounds[1:-1]
@@ -978,40 +1007,62 @@ def _ordered_groups(plan, bounds: np.ndarray, group_of) -> Groups:
                            "disagree")
     owner = np.full(nv, G, np.int64)
     owner[whole] = np.repeat(np.arange(G), lens)
-    vs, vk = _plan_vector_sums(plan)
-    lo_t, hi_t = (torch.from_numpy(a).to(dev) for a in (lo_v, hi_v))
-    run = max(1, (kes.MAX_VALUES - 1) // V)
-    parts = []
-    for r0 in range(0, nv, run):
-        r1 = min(nv, r0 + run)
-        cs = torch.cat([vs.new_zeros((1, vs.shape[1])), vs[r0:r1].cumsum(0)])
-        parts.append(cs[hi_t.clamp(r0, r1) - r0] - cs[lo_t.clamp(r0, r1) - r0])
-    bk = bias(vk)
-    info = torch.iinfo(bk.dtype)
-    owner_t = torch.from_numpy(owner).to(dev)
-    kmn = torch.full((G + 1,), info.max, dtype=bk.dtype, device=dev)
-    kmx = torch.full((G + 1,), info.min, dtype=bk.dtype, device=dev)
-    kmn.scatter_reduce_(0, owner_t, bk[:, 0], "amin")
-    kmx.scatter_reduce_(0, owner_t, bk[:, 1], "amax")
-    ext = bias(torch.stack([kmn[:G], kmx[:G]], dim=1))
-    at = [None] * len(parts)
+    touched = np.zeros(0, np.int64)
+    lk = np.zeros((0, V), np.int32)
     if cross.size:
         gk = group_of(cross)
         valid = (cross[:, None] * V + np.arange(V)) < n
         touched, local = np.unique(gk[valid], return_inverse=True)
         lk = np.full(gk.shape, -1, np.int32)
         lk[valid] = local
-        outs, cext = group_reduce(plan, torch.from_numpy(lk).to(dev),
-                                  len(touched),
-                                  torch.from_numpy(cross).to(dev))
+    up = functools.partial(torch.as_tensor, device=dev)
+    return _OrderedLayout(bounds, up(lo_v), up(hi_v), up(owner),
+                          up(cross.astype(np.int64)), up(lk), touched)
+
+
+def _ordered_device(plan, lay: _OrderedLayout, vs: torch.Tensor,
+                    vk: torch.Tensor) -> tuple:
+    """The device part of the ordered route, from K18's per-vector totals
+    ``vs`` and keys ``vk``: ([int64 totals a run of the whole vectors'
+    prefix sums, then K19's runs over the crossed vectors], [None for each
+    whole-vector run, ``touched`` for each K19 run], [G, 2] least and
+    largest keys)."""
+    nv, dev = plan.n_vectors, plan.device
+    G = len(lay.bounds) - 1
+    run = max(1, (kes.MAX_VALUES - 1) // VECTOR_SIZE)
+    parts = []
+    for r0 in range(0, nv, run):
+        r1 = min(nv, r0 + run)
+        cs = torch.cat([vs.new_zeros((1, vs.shape[1])), vs[r0:r1].cumsum(0)])
+        parts.append(cs[lay.hi_v.clamp(r0, r1) - r0]
+                     - cs[lay.lo_v.clamp(r0, r1) - r0])
+    bk = bias(vk)
+    info = torch.iinfo(bk.dtype)
+    kmn = torch.full((G + 1,), info.max, dtype=bk.dtype, device=dev)
+    kmx = torch.full((G + 1,), info.min, dtype=bk.dtype, device=dev)
+    kmn.scatter_reduce_(0, lay.owner, bk[:, 0], "amin")
+    kmx.scatter_reduce_(0, lay.owner, bk[:, 1], "amax")
+    ext = bias(torch.stack([kmn[:G], kmx[:G]], dim=1))
+    at = [None] * len(parts)
+    if lay.touched.size:
+        outs, cext = group_reduce(plan, lay.cross_keys, len(lay.touched),
+                                  lay.cross)
         parts += outs
-        at += [touched] * len(outs)
-        t_at = torch.from_numpy(touched).to(dev)
+        at += [lay.touched] * len(outs)
+        t_at = torch.from_numpy(lay.touched).to(dev)
         merged = bias(ext[t_at])
         cext = bias(cext)
         ext[t_at] = bias(torch.stack([torch.minimum(merged[:, 0], cext[:, 0]),
                                       torch.maximum(merged[:, 1], cext[:, 1])],
                                      dim=1))
+    return parts, at, ext
+
+
+def _ordered_host(plan, lay: _OrderedLayout, parts: list, at: list,
+                  ext: torch.Tensor) -> Groups:
+    """The host join of the ordered route's device part."""
+    G = len(lay.bounds) - 1
+    W = kes.WINDOWS[plan.bits_dtype]
     parts = [p.cpu().numpy() for p in parts]
     sp = np.zeros((G, 3), np.int64)
     for p, where in zip(parts, at):
@@ -1020,8 +1071,22 @@ def _ordered_groups(plan, bounds: np.ndarray, group_of) -> Groups:
         else:
             sp[where] += p[:, W:W + 3]
     ext = ext.cpu().numpy().view(_key_type(plan.dtype))
-    return Groups(_join_windows(parts, at, W), sp, np.diff(bounds),
+    return Groups(_join_windows(parts, at, W), sp, np.diff(lay.bounds),
                   ext[:, 0].copy(), ext[:, 1].copy())
+
+
+def _ordered_groups(plan, bounds: np.ndarray, group_of) -> Groups:
+    """Contiguous groups, group g the rows bounds[g] .. bounds[g + 1] - 1.
+    The vectors that lie whole in a group add their K18 totals (kept on
+    the plan) through an int64 prefix sum over the vectors and two gathers
+    a group, in runs of fewer than 2^31 values, and their keys through a
+    segmented least and largest; the vectors that a group boundary crosses
+    go through K19 with their keys ``group_of(vector ids)`` (numpy int64
+    [m, 1024]), relabelled to the groups they touch.  K18 skips the pad,
+    so a partial last vector needs nothing of its own."""
+    lay = _ordered_layout(plan, bounds, group_of)
+    return _ordered_host(plan, lay, *_ordered_device(
+        plan, lay, *_plan_vector_sums(plan)))
 
 
 def _finish_groups(gr: Groups, aggs, dtype) -> dict:
@@ -1088,22 +1153,41 @@ def group_totals(col, keys, num_groups: int, device=None):
     range of rows: the vectors inside a group add their K18 totals, kept on
     the plan, and only the vectors that a boundary crosses go through K19.
     Any other keys go through K19 over the whole column, in one pass."""
+    keys = _checked_keys(col, keys, num_groups)
+    dev = resolve_device(device)
+    if col.n_values == 0:
+        return None
+    plan = col.plan(dev)
+    bounds = _key_bounds(keys, num_groups)
+    if bounds is not None:
+        return _ordered_groups(plan, bounds, _keys_of(keys, col.n_values))
+    return _unordered_groups(plan, keys, num_groups)
+
+
+def _checked_keys(col, keys, num_groups: int) -> np.ndarray:
+    """The reference's checks of GROUP-BY keys; the keys as int64."""
     keys = np.ascontiguousarray(np.asarray(keys, np.int64))
     if keys.shape != (col.n_values,):
         raise ValueError(f"keys must have shape ({col.n_values},)")
     _check_num_groups(num_groups)
     if keys.size and (keys.min() < 0 or keys.max() >= num_groups):
         raise ValueError("keys out of range [0, num_groups)")
-    dev = resolve_device(device)
-    if col.n_values == 0:
-        return None
-    plan = col.plan(dev)
+    return keys
+
+
+def _key_bounds(keys: np.ndarray, num_groups: int):
+    """The row bounds of every group when the keys are in non-decreasing
+    order (the ordered route), else None."""
     if keys.size < 2 or bool(np.all(keys[1:] >= keys[:-1])):
-        bounds = np.searchsorted(keys, np.arange(num_groups + 1))
-        return _ordered_groups(plan, bounds, lambda vecs: keys[np.minimum(
-            vecs[:, None] * VECTOR_SIZE + np.arange(VECTOR_SIZE),
-            col.n_values - 1)])
-    return _unordered_groups(plan, keys, num_groups)
+        return np.searchsorted(keys, np.arange(num_groups + 1))
+    return None
+
+
+def _keys_of(keys: np.ndarray, n: int):
+    """vector ids -> the int64 [m, 1024] keys of their values (a partial
+    last vector's pad takes the last key)."""
+    return lambda vecs: keys[np.minimum(
+        vecs[:, None] * VECTOR_SIZE + np.arange(VECTOR_SIZE), n - 1)]
 
 
 def query_groupby(col, keys, num_groups: int,
@@ -1246,3 +1330,229 @@ def query_compression(data: np.ndarray, *, device=False) -> tuple:
     dt = time.perf_counter() - t0
     return cc, {"seconds": dt, "throughput_gbps": data.nbytes / dt / 1e9,
                 "bits_per_value": cc.bits_per_value()}
+
+
+# ---------------------------------------------------------------------------
+# Loop steps of the bench (alp_tpu/engine.py make_*_step)
+# ---------------------------------------------------------------------------
+
+class LoopStep:
+    """A throughput step for ``benchlib.loop_bench``: ``step(carry, *args)``
+    runs ``result(carry, *args)``, the device work with the carry folded
+    into one input of every bucket, and returns ``fold(result, carry)``, a
+    0-d int64 tensor on the plan's card that depends on the work's output
+    and becomes the next carry.  At carry 0 nothing is perturbed, and
+    ``answer(result)`` (where the step has one) turns the result into the
+    answer of the query the step models."""
+
+    def __init__(self, result, fold, answer=None):
+        self.result = result
+        self.fold = fold
+        self.answer = answer
+
+    def __call__(self, carry, *args):
+        return self.fold(self.result(carry, *args), carry)
+
+
+def carried(plan, carry: torch.Tensor):
+    """A shallow copy of ``plan`` whose buckets take the loop's carry in
+    one metadata input: an ALP bucket's FOR bases XORed with it (added at
+    bit width 0, where an XOR chain would cancel: ``bench.py:86-95``), an
+    ALP_RD bucket's dictionaries XORed with it.  The copy shares every
+    other tensor, and the exception CSRs and ALP_RD scratch layout, which
+    are built on ``plan`` first.  At carry 0 it decodes as ``plan``."""
+    plan.exc_ptr, plan.rd_exc_ptr, plan._rd_layout    # built once, shared
+    view = copy.copy(plan)
+    buckets = []
+    for b in plan.buckets:
+        i = 1 if b.scheme == C.SCHEME_ALP else 2
+        t = b.args[i]
+        c = carry.to(t.dtype)
+        t = t + c if b.scheme == C.SCHEME_ALP and b.bw == 0 else t ^ c
+        buckets.append(dataclasses.replace(
+            b, args=b.args[:i] + (t,) + b.args[i + 1:]))
+    view.buckets = buckets
+    return view
+
+
+def _checksum(*parts) -> torch.Tensor:
+    """int64 0-d: the sum of the parts' sums, floats by their bits."""
+    total = None
+    for p in parts:
+        if p.is_floating_point():
+            p = p.sum().to(torch.float32).view(torch.int32)
+        t = p.sum().to(torch.int64)
+        total = t if total is None else total + t
+    return total
+
+
+def make_sum_step(plan):
+    """THROUGHPUT-TIMING step for a SUM-shaped query pipeline — NOT a SUM
+    (``alp_tpu/engine.py:453``).  Returns ``(step, args)``; ``step(carry,
+    *args)`` runs, for every f64 ALP bucket of bit width > 0, K20 (the
+    decode fused with a per-lane float sum of the values cut to float by
+    the reference's truncating convert), and for every other bucket (ALP_RD,
+    f32, bit width 0) its decode (K1-K4, no exception patch) and
+    ``torch.sum`` of the values rounded to float32, as the JAX step does.
+    The carry perturbs the inputs, so the value is a checksum whose only
+    purpose is the data dependence; :func:`query_sum` is the correct SUM.
+    ``step.result`` gives the partials: [n, 16] floats a K20 bucket, a
+    0-d float32 sum any other."""
+    from .kernels import falp as kfalp
+    rows = [torch.arange(b.n_vectors, device=plan.device)
+            for b in plan.buckets]
+    vdt = torch.float64 if plan.f64 else torch.float32
+
+    def result(carry, plan):
+        view = carried(plan, carry)
+        parts = []
+        for b, r in zip(view.buckets, rows):
+            if plan.f64 and b.scheme == C.SCHEME_ALP and b.bw > 0:
+                parts.append(kfalp.variant_sum_f64(b.args[0], b.bw,
+                                                   *b.args[1:]))
+                continue
+            out = torch.empty((b.n_vectors, VECTOR_SIZE), dtype=vdt,
+                              device=plan.device)
+            view.launch(b, out, rows=r)
+            parts.append(out.to(torch.float32).sum())
+        return parts
+
+    return LoopStep(result, lambda parts, carry: carry ^ _checksum(*parts)), (
+        plan,)
+
+
+def make_exact_sum_step(plan):
+    """Throughput step for the EXACT-SUM pipeline (``alp_tpu/engine.py
+    :509``): every SUM kernel call of :func:`exact_sum_totals` (K7/K8 on
+    the ALP buckets; K3/K4, the exception scatter and K5/K6 on the ALP_RD
+    ones), with the carry in their inputs.  ``step.result`` gives the int64
+    [runs, W + 3] totals, ``exact_sum_totals(plan)`` at carry 0; the host
+    join and rounding of :func:`query_sum` are left out."""
+
+    def result(carry, plan):
+        return exact_sum_totals(carried(plan, carry))
+
+    return LoopStep(result, lambda t, carry: carry ^ _checksum(t),
+                    lambda t: join_totals(t.tolist(), plan.dtype)), (plan,)
+
+
+def _bins(plan, thresholds: torch.Tensor) -> torch.Tensor:
+    """K15 over every bucket of ``plan`` into fresh int64 [E + 1] bins."""
+    out = torch.zeros(thresholds.shape[0] + 1, dtype=torch.int64,
+                      device=plan.device)
+    for call in key_calls(plan):
+        call.counts(thresholds, out)
+    return out
+
+
+def make_filter_step(plan, lo: float, hi: float):
+    """Throughput step for the COUNT WHERE lo <= v <= hi pipeline
+    (``alp_tpu/engine.py:545``; the column's dtype is the plan's): K15
+    over every bucket at the thresholds of :func:`query_filter_count`, and
+    the count from its bins on the card.  ``step.result`` gives the count,
+    a 0-d int64 tensor, equal to :func:`query_filter_count` at carry 0."""
+    klo, khi = _float_key(lo, plan.dtype), _float_key(hi, plan.dtype)
+    want = np.array([klo - 1, khi] if klo else [khi], _key_type(plan.dtype))
+    thr = np.unique(want)
+    at = np.searchsorted(thr, want) if klo else None
+    thr_t = _key_tensor(plan, thr)
+
+    def result(carry, plan, thr_t):
+        below = _bins(carried(plan, carry), thr_t).cumsum(0)
+        if at is None:
+            return below[0]
+        return (below[at[1]] - below[at[0]]).clamp(min=0)
+
+    return LoopStep(result, lambda c, carry: carry ^ c,
+                    lambda c: int(c)), (plan, thr_t)
+
+
+def make_topk_step(plan, k: int, largest: bool = True):
+    """Throughput step for the TOP-K pipeline's scans (``alp_tpu/engine.py
+    :1064``): K16 over every bucket (each vector's least and largest key),
+    the k-th best vector key ``t`` (``torch.topk``), and K15 at the
+    thresholds [t - 1, t] that count the ties; :func:`query_topk` adds the
+    exact decode of the < k vectors beyond ``t``.  1 <= k <= n_vectors.
+    ``step.result`` gives (``t`` as an unsigned key, 0-d in the bit
+    patterns' dtype; the int64 [3] bins at [t - 1, t])."""
+    k = int(k)
+    if not 1 <= k <= plan.n_vectors or k > plan.n_values:
+        raise ValueError(f"k must be in 1..{min(plan.n_vectors, plan.n_values)}")
+    info = torch.iinfo(plan.bits_dtype)
+
+    def work(biased):               # larger is better, for both orders
+        return biased if largest else ~biased
+
+    def result(carry, plan):
+        view = carried(plan, carry)
+        ext = bias(vector_extremes(view))
+        vbest = work(ext[:, 1] if largest else ext[:, 0])
+        t = bias(work(torch.topk(vbest, k).values[-1]))
+        below = bias(bias(t).clamp(min=info.min + 1) - 1)
+        return t, _bins(view, torch.stack([below, t]))
+
+    return LoopStep(result, lambda r, carry: carry ^ _checksum(*r)), (plan,)
+
+
+def make_histogram_step(plan, edges):
+    """Throughput step for the HISTOGRAM pipeline (``alp_tpu/engine.py
+    :1262``): K15 over every bucket at the thresholds of
+    :func:`query_histogram`.  ``step.result`` gives the int64 bins;
+    ``step.answer`` turns them into :func:`query_histogram`'s counts."""
+    edges = [float(e) for e in edges]
+    if len(edges) < 2 or any(a >= b for a, b in zip(edges, edges[1:])):
+        raise ValueError("edges must be >= 2 strictly increasing values")
+    kt = _key_type(plan.dtype)
+    keys = _float_keys(edges, plan.dtype)
+    khis = np.concatenate([keys - kt(1), keys[-1:]])
+    uniq = np.unique(khis)
+    at = np.searchsorted(uniq, khis)
+    thr_t = _key_tensor(plan, uniq)
+
+    def result(carry, plan, thr_t):
+        return _bins(carried(plan, carry), thr_t)
+
+    def answer(bins):
+        return _histogram_counts(np.cumsum(bins.cpu().numpy())[:-1][at],
+                                 len(edges))
+
+    return LoopStep(result, lambda b, carry: carry ^ _checksum(b),
+                    answer), (plan, thr_t)
+
+
+def make_groupby_step(col, keys, num_groups: int, plan=None):
+    """Throughput step for the GROUP-BY pipeline (``alp_tpu/engine.py
+    :2995``): the device part of :func:`group_totals` with its kernels run
+    anew each iteration.  Keys in non-decreasing order: K18 over every
+    bucket, the prefix sums over the whole vectors and K19 over the
+    vectors a boundary crosses; any other keys: K19 over the whole column.
+    The keys are checked, laid out and uploaded once; the host join is left
+    out.  ``plan`` defaults to ``col.plan()`` (the card).  ``step.answer``
+    turns ``step.result`` into :func:`group_totals`'s :class:`Groups`."""
+    keys = _checked_keys(col, keys, num_groups)
+    if col.n_values == 0:
+        raise ValueError("GROUP-BY step of an empty column")
+    plan = col.plan() if plan is None else plan
+    bounds = _key_bounds(keys, num_groups)
+    if bounds is not None:
+        lay = _ordered_layout(plan, bounds, _keys_of(keys, col.n_values))
+
+        def result(carry, plan):
+            view = carried(plan, carry)
+            return _ordered_device(view, lay, *vector_sums(view))
+
+        def answer(res):
+            return _ordered_host(plan, lay, *res)
+
+        def fold(res, carry):
+            return carry ^ _checksum(*res[0], res[2])
+        return LoopStep(result, fold, answer), (plan,)
+    kv = _unordered_keys(plan, keys)
+
+    def result(carry, plan):
+        return group_reduce(carried(plan, carry), kv, num_groups)
+
+    def fold(res, carry):
+        return carry ^ _checksum(*res[0], res[1])
+    return LoopStep(result, fold, lambda res: _unordered_host(plan, *res)), (
+        plan,)

@@ -116,6 +116,16 @@ ENTRIES = {
                                 _LL, _P, _I, _P, _P, _I, _P],
     "alp_group_reduce_rd_f32": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
                                 _LL, _P, _I, _P, _P, _I, _P],
+    # K20: packed, bw, base, fact, frac, n, out, stream
+    "alp_variant_sum_f64": [_P, _I, _P, _P, _P, _LL, _P, _P],
+    # K21: right, rbw, left, n, out, stream
+    "alp_rd_glue_f64": [_P, _I, _P, _LL, _P, _P],
+    "alp_rd_glue_f32": [_P, _I, _P, _LL, _P, _P],
+    # K22: packed, bw, base, n, out, stream
+    "alp_unffor_f64": [_P, _I, _P, _LL, _P, _P],
+    "alp_unffor_f32": [_P, _I, _P, _LL, _P, _P],
+    # K23: bits, n, keys, device, stream
+    "alp_key_extremes_bits_f64": [_P, _LL, _P, _I, _P],
     # values, e, f, exp_tab, frac_tab, fact_tab, magic, upper, n, out_n,
     # out_exc, exc_count, first, vmin, vmax, stream
     "alp_encode_f64": [_P, _P, _P, _P, _P, _P, _D, _D, _LL, _P, _P, _P, _P,

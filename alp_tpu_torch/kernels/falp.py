@@ -18,6 +18,15 @@ per wrapper; plain runs do not count.
     K3 rd_decode_dict_f64  <- rd_decode_dict_f64
     K4 rd_decode_dict_f32  <- rd_decode_dict_f32
 
+and two that serve the bench's steps and rows, not ``DecodePlan``:
+
+    K20 variant_sum_f64    <- falp_decode_f64_variant_sum: K1's decode,
+                              each value cut to float by the reference's
+                              truncating convert, summed per FastLanes lane
+                              into [n, 16] floats (a checksum, not a SUM)
+    K21 rd_glue_f64 / _f32 <- rd_decode_f64, rd_decode_f32: ALP_RD with the
+                              left parts already resolved, [n, 1024] bits
+
 The bound of each, and what the kernel's design does about it, are in the
 head of ``csrc/falp.cu``.
 """
@@ -31,7 +40,9 @@ from . import _build
 
 VECTOR_SIZE = 1024
 LAUNCHES = {"falp_decode_f64": 0, "falp_decode_f32": 0,
-            "rd_decode_dict_f64": 0, "rd_decode_dict_f32": 0}
+            "rd_decode_dict_f64": 0, "rd_decode_dict_f32": 0,
+            "variant_sum_f64": 0, "rd_glue_f64": 0, "rd_glue_f32": 0}
+LANES_F64 = VECTOR_SIZE // 64           # FastLanes lanes of an f64 vector
 
 
 def reset_launches() -> None:
@@ -207,3 +218,110 @@ def rd_decode_dict_f32(right, rbw, left, lbw, dictionary, dict_size,
     if right.dtype != torch.int32:
         raise TypeError("rd_decode_dict_f32 takes int32 right-part words")
     return _rd(right, rbw, left, lbw, dictionary, dict_size, out, rows)
+
+
+# ---------------------------------------------------------------------------
+# K20: fused decode + per-lane truncating float sum
+# ---------------------------------------------------------------------------
+
+def trunc_f32_plain(bits: torch.Tensor) -> torch.Tensor:
+    """The reference's truncating f64-bits -> float convert
+    (``alp_tpu/kernels/falp.py`` ``_f64_bits_to_f32``), operation for
+    operation on int64 bit patterns: the exponent rebased and clamped to
+    [0, 254], the top 23 mantissa bits kept, the rest dropped (not IEEE
+    rounding: +-Inf and NaN come out as large finite floats)."""
+    hi = (bits >> 32) & 0xFFFFFFFF
+    lo = bits & 0xFFFFFFFF
+    sign = hi & 0x80000000
+    e32 = (((hi >> 20) & 0x7FF) - 896).clamp(0, 254)
+    m = ((hi & 0xFFFFF) << 3) | (lo >> 29)
+    return narrow(sign | (e32 << 23) | m, 32).view(torch.float32)
+
+
+def variant_sum_plain(packed, bw, base, fact, frac) -> torch.Tensor:
+    """Plain version of K20: [n, 16] floats, lane l of vector v the float
+    sum over slots s = 0..63, in that order, of the cut value 16 s + l of
+    K1's decode (no exception written in, the pad summed as decoded)."""
+    vals = falp_plain(packed, bw, base, fact, frac)
+    terms = trunc_f32_plain(vals.view(torch.int64)).reshape(
+        -1, VECTOR_SIZE // LANES_F64, LANES_F64)
+    acc = torch.zeros((terms.shape[0], LANES_F64), dtype=torch.float32,
+                      device=terms.device)
+    for s in range(terms.shape[1]):
+        acc = acc + terms[:, s]
+    return acc
+
+
+def variant_sum_f64(packed, bw, base, fact, frac) -> torch.Tensor:
+    """K20 over one f64 ALP bucket (K1's arguments): float32 [n, 16]."""
+    n = packed.shape[0]
+    device = packed.device
+    if not 0 <= bw <= 64:
+        raise ValueError(f"bit width {bw} out of range 0..64")
+    _check("packed", packed, torch.int64, (n, bw * LANES_F64), device)
+    for nm, t, dt in (("base", base, torch.int64),
+                      ("fact", fact, torch.int64),
+                      ("frac", frac, torch.float64)):
+        _check(nm, t, dt, (n,), device)
+    if _device_kind(packed) == "cpu":
+        return variant_sum_plain(packed, bw, base, fact, frac)
+    out = torch.empty((n, LANES_F64), dtype=torch.float32, device=device)
+    _launch("variant_sum_f64", device, _ptr(packed), bw, _ptr(base),
+            _ptr(fact), _ptr(frac), n, _ptr(out))
+    LAUNCHES["variant_sum_f64"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K21: ALP_RD glue of resolved left parts
+# ---------------------------------------------------------------------------
+
+_GLUE = {torch.int64: (64, 48, "rd_glue_f64"),   # word: (S, least rbw, key)
+         torch.int32: (32, 0, "rd_glue_f32")}
+
+
+def rd_glue_plain(right, rbw, left) -> torch.Tensor:
+    """Plain version of K21: [n, 1024] bit patterns in ``right``'s dtype,
+    ``(left << rbw) | right`` over the unFFORed right parts, the right
+    parts alone at ``rbw == S``."""
+    S = 64 if right.dtype == torch.int64 else 32
+    zeros = torch.zeros(right.shape[0], dtype=right.dtype,
+                        device=right.device)
+    r = widen(unffor_unpack(right, zeros, rbw), S)
+    glued = (widen(left, 32) << rbw) | r if rbw < S else r
+    return narrow(glued, S)
+
+
+def _rd_glue(right, rbw, left):
+    S, least, key = _GLUE[right.dtype]
+    n = right.shape[0]
+    device = right.device
+    if not least <= rbw <= S:
+        raise ValueError(f"right bit width {rbw} out of range {least}..{S}")
+    _check("right", right, right.dtype, (n, rbw * (VECTOR_SIZE // S)),
+           device)
+    _check("left", left, torch.int32, (n, VECTOR_SIZE), device)
+    if _device_kind(right) == "cpu":
+        return rd_glue_plain(right, rbw, left)
+    out = torch.empty((n, VECTOR_SIZE), dtype=right.dtype, device=device)
+    _launch(key, device, _ptr(right), rbw, _ptr(left), n, _ptr(out))
+    LAUNCHES[key] += 1
+    return out
+
+
+def rd_glue_f64(right, rbw, left) -> torch.Tensor:
+    """K21 over f64 vectors.  right: int64 [n, rbw * 16] words of the
+    right parts (FFOR base 0); left: int32 [n, 1024], each value's left
+    part, resolved and patched; rbw in 48..64 (the reference cuts at most
+    16 left bits).  Returns int64 [n, 1024] f64 bit patterns."""
+    if right.dtype != torch.int64:
+        raise TypeError("rd_glue_f64 takes int64 right-part words")
+    return _rd_glue(right, rbw, left)
+
+
+def rd_glue_f32(right, rbw, left) -> torch.Tensor:
+    """K21 over f32 vectors: int32 [n, rbw * 32] words, rbw in 0..32 (0:
+    the left words are the bits).  Returns int32 [n, 1024] bit patterns."""
+    if right.dtype != torch.int32:
+        raise TypeError("rd_glue_f32 takes int32 right-part words")
+    return _rd_glue(right, rbw, left)

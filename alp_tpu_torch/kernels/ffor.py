@@ -4,6 +4,8 @@
                           ffor_planes_patch_f64 (exception slots patched)
                           and ffor_planes_f64 (no patch)
     K13 ffor_pack_f32  <- ffor_tile at element_bits=32
+    K22 unffor         <- unffor_tile (element_bits 64 and 32): the
+                          inverse, unFFOR alone, for the bench's rows
 
 ``ffor_pack_f64`` FOR-subtracts and bit-packs a bucket of int64 vectors
 that share one bit width into the FastLanes words the ALPT blob stores, in
@@ -19,10 +21,10 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.fastlanes import ffor_pack
+from ..ops.fastlanes import ffor_pack, unffor_unpack, word_bits
 from .falp import VECTOR_SIZE, _check, _device_kind, _launch, _ptr
 
-LAUNCHES = {"ffor_pack_f64": 0, "ffor_pack_f32": 0}
+LAUNCHES = {"ffor_pack_f64": 0, "ffor_pack_f32": 0, "unffor": 0}
 # word dtype -> (word bits, C entry)
 _WORDS = {torch.int64: (64, "ffor_pack_f64"), torch.int32: (32, "ffor_pack_f32")}
 
@@ -112,4 +114,30 @@ def _pack(values, base, bw, exc, fill, rows, out, offsets, word):
     _launch(name, device, _ptr(values), _ptr(rows), _ptr(exc), _ptr(fill),
             _ptr(base), bw, _ptr(offsets), m, _ptr(out))
     LAUNCHES[name] += 1
+    return out
+
+
+def unffor(packed, bw, base) -> torch.Tensor:
+    """K22: unFFOR of a bucket of vectors that share the bit width ``bw``.
+    packed: int64 [n, 16 * bw] (64-bit elements) or int32 [n, 32 * bw]
+    (32-bit elements) FastLanes words; base: [n] of the same dtype.
+    Returns [n, 1024] integers of that dtype, the base added with wrap
+    (at bw 0 the base broadcast).  The plain version is
+    ``ops.fastlanes.unffor_unpack``."""
+    S = word_bits(packed.dtype)
+    if S not in (32, 64):
+        raise TypeError("unffor takes int64 or int32 words")
+    n = packed.shape[0]
+    device = packed.device
+    if not 0 <= bw <= S:
+        raise ValueError(f"bit width {bw} out of range 0..{S}")
+    _check("packed", packed, packed.dtype, (n, bw * (VECTOR_SIZE // S)),
+           device)
+    _check("base", base, packed.dtype, (n,), device)
+    if _device_kind(packed) == "cpu":
+        return unffor_unpack(packed, base, bw)
+    out = torch.empty((n, VECTOR_SIZE), dtype=packed.dtype, device=device)
+    _launch(f"unffor_f{S}", device, _ptr(packed), bw, _ptr(base), n,
+            _ptr(out))
+    LAUNCHES["unffor"] += 1
     return out

@@ -13,6 +13,12 @@ NaN, +Inf and -Inf counts) and take its IEEE-754 total-order key
                              alp_tpu/engine.py (_mxu_scan, the segment_sum
                              chunks _groupby_chunk_f64/_f32)
 
+and, over decoded f64 bits rather than the compressed form, for the
+bench's rows:
+
+    K23 key_extremes_bits    <- key_extremes_planes_f64: each vector's
+                                least and largest key, every value read
+
 K18 writes row ``rows[i]`` of ``sums`` (int64 [N, W + 3], the totals of
 vector rows[i]) and of ``keys`` ([N, 2] in the bit patterns' dtype, its
 least and largest unsigned key).  K19 reads ``group_keys`` (int32 [n,
@@ -49,7 +55,8 @@ from .keys import _WORDS, _check_alp, _check_rd, _valid, extremes_of_bits
 from .keys import rd_bits_plain
 
 MAX_GROUPS = 1 << 24            # csrc/group.cu kMaxGroups: 24-bit group ids
-LAUNCHES = {"vector_sum_extremes": 0, "group_reduce": 0}
+LAUNCHES = {"vector_sum_extremes": 0, "group_reduce": 0,
+            "key_extremes_bits": 0}
 
 
 def reset_launches() -> None:
@@ -234,3 +241,26 @@ KERNELS = {
     "rd": {"vector_sum_extremes": (vector_sums_rd, vector_sums_rd_plain),
            "group_reduce": (group_reduce_rd, group_reduce_rd_plain)},
 }
+
+
+def key_extremes_bits_plain(bits) -> torch.Tensor:
+    """Plain version of K23: int64 [n, 2], the least and the largest
+    unsigned total-order key (``ops.keys``, -0.0 as +0.0) of each row of
+    ``bits`` (int64 [n, 1024] f64 bit patterns), every value counted."""
+    keys = biased_keys(bits)
+    return bias(torch.stack([keys.amin(dim=1), keys.amax(dim=1)], dim=1))
+
+
+def key_extremes_bits_f64(bits) -> torch.Tensor:
+    """K23: bits int64 [n, 1024] decoded f64 bit patterns -> int64 [n, 2]
+    (least, largest) unsigned keys of each vector."""
+    n = bits.shape[0]
+    device = bits.device
+    _check("bits", bits, torch.int64, (n, VECTOR_SIZE), device)
+    if _device_kind(bits) == "cpu":
+        return key_extremes_bits_plain(bits)
+    out = torch.empty((n, 2), dtype=torch.int64, device=device)
+    _launch("key_extremes_bits_f64", device, _ptr(bits), n, _ptr(out),
+            device.index)
+    LAUNCHES["key_extremes_bits"] += 1
+    return out

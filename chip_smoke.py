@@ -20,14 +20,26 @@ Phases, each printing its wall time:
 4. decode   ``alp_tpu_torch.decompress(col)`` on the card for every column
             (the main path: launch counts are set to 0 just before and
             read just after); the output's bits must equal the input's.
-5. sum      ``alp_tpu_torch.query_sum(col)`` on the card for every column
+5. bench    the port's bench, the path of K20-K23 (their launch counts
+            and K1's set to 0 just before and read just after):
+            ``alp_tpu_torch.bench``'s headline on the five 256 MiB
+            profiles (each profile's decode with the exception patch and
+            its kernels alone, timed by ``benchlib.loop_bench``), printed
+            as its JSON line ``{"metric": "falp_decode_f64_suite_avg",
+            ...}``, then every row of ``alp_tpu_torch.bench_speed`` (K1,
+            K2, K7, K9, K12, K16 and K20-K23 on their reference shapes, and
+            the six loop steps on a 64 MiB column).  After each row that
+            runs K20-K23 (``BENCH_ROWS``), its output on the row's own
+            inputs is held against the plain version by bits (tolerance
+            0; those launches are not counted).
+6. sum      ``alp_tpu_torch.query_sum(col)`` on the card for every column
             (the SUM path, its launch counts set to 0 just before and read
             just after), twice: the first call builds and keeps the plan,
             the second reuses it.  Both must equal ``math.fsum`` of the
             input bit for bit.  ``query_mean`` on a column of the first
             97 vectors of each input must equal the exact rational mean
             rounded once.
-6. query    the predicate and order queries on the card for every column
+7. query    the predicate and order queries on the card for every column
             (their launch counts set to 0 just before and read just
             after), each twice: the first call of the first query builds
             the plan again, the second call reuses it.  COUNT WHERE on two
@@ -40,7 +52,7 @@ Phases, each printing its wall time:
             ``math.fsum`` of the selected values.  Prints each query's
             walls (host clock, ending in the answer on the host) and the
             K15/K16 and filtered K5-K8 launches.
-7. quantile ``alp_tpu_torch.query_quantile`` at ten quantiles (0, 1e-6,
+8. quantile ``alp_tpu_torch.query_quantile`` at ten quantiles (0, 1e-6,
             0.001, 0.1, 0.25, 0.5, 0.75, 0.9, 0.999, 1) in each of the five
             methods, and ``query_median``, on the card for every column (the
             launch counts set to 0 just before and read just after), each
@@ -50,7 +62,7 @@ Phases, each printing its wall time:
             query phase, which makes numpy's partition cheap) by bits, a zero
             by ``==`` (numpy returns either sign) and a NaN by ``isnan``.
             Prints the walls, the bisection passes and the K17 launches.
-8. group    GROUP-BY, windows and DISTINCT on the card for every column
+9. group    GROUP-BY, windows and DISTINCT on the card for every column
             (the launch counts set to 0 just before and read just after),
             each query twice (the first call builds the plan again, and
             K18's per-vector totals with it; the second reuses both):
@@ -70,7 +82,7 @@ Phases, each printing its wall time:
             must join to the column's exact total (``exact_sum_totals``).
             Prints the walls, each kept call's host finish and the K18/K19
             launches.
-9. dcompress  ``alp_tpu_torch.compress_device`` on the card (the device
+10. dcompress  ``alp_tpu_torch.compress_device`` on the card (the device
             compress path, its launch counts set to 0 just before and read
             just after) of every column: the f64 ones (the bench profiles
             and f64 ALP_RD at their full 256 MiB) with K9-K11, then f32 ALP
@@ -80,7 +92,7 @@ Phases, each printing its wall time:
             the card, ``compress_device(values=decompress(col),
             n_values=...)``.  Prints each column's device and host
             compress walls, launches and the bytes copied to the host.
-10. kernels each kernel against its plain PyTorch version on the card, on
+11. kernels each kernel against its plain PyTorch version on the card, on
             the same plans, bit for bit (tolerance 0: the codec is
             lossless and the SUM totals are integers); K9-K14 on every
             call of a second ``compress_device`` of every column; K15 (17
@@ -89,8 +101,12 @@ Phases, each printing its wall time:
             every column at the thresholds and brackets of a real first
             pass of the quantile bisection, K5-K8 with a key range on
             every SUM call, K18 and K19 (G = 16, 65,536 and 1,000 ordered
-            runs) on every bucket of every column.
-11. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
+            runs) on every bucket of every column; K20 and K22 on every
+            ALP bucket of every column (K20 on the f64 ones), K21 on every
+            ALP_RD bucket (the right parts and the left parts of the
+            decode with its exceptions in: it must give the decode back),
+            K23 on the decoded bits of every f64 column.
+12. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
             their launches as the wrappers made them, without the
             wrappers' synchronising range checks), beside
             its bound (the bytes it must move at 3.35 TB/s, or the
@@ -109,7 +125,10 @@ Phases, each printing its wall time:
             ``amin``/``amax`` of the decoded values as its yardstick, and
             K19 at G = 16 and 65,536 with ``index_add_`` and
             ``scatter_reduce`` of the decoded values and keys by group as
-            its yardstick.  No PyTorch call decodes, encodes, packs or
+            its yardstick; K20 on the five profiles (bound by VSUM_OPS),
+            K21 on f64 and f32 ALP_RD, K22 on the profiles and f32 ALP, K23
+            on the six 256 MiB f64 columns, each beside a ``copy_`` of as
+            many bytes as it moves.  No PyTorch call decodes, encodes, packs or
             scores ALP, sums exactly or counts keys of the compressed form,
             so ``library_ms`` is null.
 
@@ -279,6 +298,35 @@ QUANTILE_QS = (0.0, 1e-6, 0.001, 0.1, 0.25, 0.5, 0.75, 0.9, 0.999, 1.0)
 # K18/K19: launch-count key -> the TPU site it replaces (None: no site)
 GROUP_KERNELS = {"vector_sum_extremes": "alp_tpu/kernels/falp.py:2046",
                  "group_reduce": None}
+# the bench's kernels K20-K23: launch-count key -> (source, TPU site)
+BENCH_KERNELS = {
+    "variant_sum_f64": ("alp_tpu_torch/csrc/falp.cu",
+                        "alp_tpu/kernels/falp.py:933"),
+    "rd_glue_f64": ("alp_tpu_torch/csrc/falp.cu",
+                    "alp_tpu/kernels/falp.py:1388"),
+    "rd_glue_f32": ("alp_tpu_torch/csrc/falp.cu",
+                    "alp_tpu/kernels/falp.py:2392"),
+    "unffor": ("alp_tpu_torch/csrc/ffor.cu", "alp_tpu/kernels/falp.py:2455"),
+    "key_extremes_bits": ("alp_tpu_torch/csrc/group.cu",
+                          "alp_tpu/kernels/falp.py:1998"),
+}
+# bench_speed rows whose K20-K23 output the bench phase holds against the
+# plain version on the row's own inputs: row name -> launch-count key
+BENCH_ROWS = {"unffor_f64_bw16": "unffor", "unffor_f64_bw52": "unffor",
+              "unffor_f32_bw30": "unffor",
+              "rd_decode_f64_rbw52": "rd_glue_f64",
+              "rd_decode_f32_rbw24": "rd_glue_f32",
+              "falp_sum_fused_f64_bw16": "variant_sum_f64",
+              "e2e_sum_query_64MiB": "variant_sum_f64",
+              "key_extremes_bits_f64": "key_extremes_bits"}
+# Operations K20 needs a value, counted from the algorithm as SUM_OPS
+# counts K7's decode: integer the FOR add and the wrapping FACT product
+# (2 + 3), the unpack of its field at bit width > 0 (4) and the truncating
+# convert (8: the sign, the exponent's shift, mask, rebase and two clamps,
+# the mantissa's two shifts and or, counted as 8 with the final ors);
+# FP64 the integer-to-double conversion and the product (2); FP32 the add
+# into the lane's sum (1).
+VSUM_OPS = {"every": 13, "unpack": 4, "fp64": 2, "fp32": 1}
 GROUP_SIZES = (1, 16, 65536)     # GROUP-BY with random keys
 ORDERED_RUNS = 1000              # GROUP-BY with keys in runs: K18's route
 TUMBLING = (102400, 100000)      # one rowgroup (no vector crossed), and not
@@ -944,7 +992,8 @@ def dc_modules():
 
 def dc_counts() -> dict:
     _, kenc, kffor, kscore = dc_modules()
-    return {**kscore.LAUNCHES, **kenc.LAUNCHES, **kffor.LAUNCHES}
+    return {k: v for k, v in {**kscore.LAUNCHES, **kenc.LAUNCHES,
+                              **kffor.LAUNCHES}.items() if k in DC_KERNELS}
 
 
 def dc_reset() -> None:
@@ -962,6 +1011,18 @@ def int_err(a, b) -> float:
     if a.shape != b.shape:
         return float("inf")
     return float((a.double() - b.double()).abs().max())
+
+
+def glue_left(bits, rbw: int):
+    """K21's left input: the int32 left part above the low ``rbw`` bits of
+    each decoded ALP_RD pattern (dictionary resolved, exceptions in)."""
+    import torch
+    S = 8 * bits.element_size()
+    u = bits.to(torch.int64) if S == 64 else bits.to(torch.int64) & (
+        (1 << 32) - 1)
+    left = (u >> rbw) & ((1 << (S - rbw)) - 1) if rbw else u
+    return (left if S == 64 else torch.where(
+        left >= 1 << 31, left - (1 << 32), left)).to(torch.int32)
 
 
 def dc_plain(name, args, kwargs):
@@ -1073,6 +1134,121 @@ def dc_work(name, args, kwargs) -> tuple:
 
 # ---------------------------------------------------------------------------
 
+def bench_rows(plans, columns, dev, errors, launches, int32_per_s,
+               fp64_per_s, fp32_per_s) -> list:
+    """The timing rows of K20-K23 on the 256 MiB columns: CUDA-event ms of
+    the kernel over every eligible bucket of a column, its plain
+    version's, its bound (bytes each input read once and each output
+    written once at 3.35 TB/s; K20 also VSUM_OPS at the issue rates), and a
+    ``copy_`` of the same number of bytes as the yardstick."""
+    import torch
+    from alp_tpu_torch.columns import BENCH_PROFILES
+    from alp_tpu_torch.kernels import falp
+    from alp_tpu_torch.kernels import ffor as kffor
+    from alp_tpu_torch.kernels import group as kgroup
+    from alp_tpu_torch.ops.fastlanes import unffor_unpack
+
+    def alp(plan):
+        return [b for b in plan.buckets if b.scheme == 2]
+
+    def meta(b):
+        return sum(nbytes(t) for t in b.args[1:])
+
+    def k20(plan):
+        bs = alp(plan)
+        n_vals = sum(b.n_vectors for b in bs) * VECTOR
+        unpacked = sum(b.n_vectors for b in bs if b.bw) * VECTOR
+        ops = (n_vals * VSUM_OPS["every"] + unpacked * VSUM_OPS["unpack"],
+               n_vals * VSUM_OPS["fp64"], n_vals * VSUM_OPS["fp32"])
+        moved = sum(nbytes(b.args[0]) + meta(b) + b.n_vectors * 64
+                    for b in bs)
+        return (lambda: [falp.variant_sum_f64(b.args[0], b.bw, *b.args[1:])
+                         for b in bs],
+                lambda: [falp.variant_sum_plain(b.args[0], b.bw, *b.args[1:])
+                         for b in bs], moved, ops)
+
+    def k21(plan):
+        scratch, _ = plan.decode_rd()
+        rd = [b for b in plan.buckets if b.scheme != 2]
+        k = "rd_glue_f64" if plan.f64 else "rd_glue_f32"
+        calls = [(b, glue_left(scratch[r], b.bw))
+                 for b, r in zip(rd, plan._rd_layout[0])]
+        moved = sum(nbytes(b.args[0]) + nbytes(left) + nbytes(scratch[r])
+                    for (b, left), r in zip(calls, plan._rd_layout[0]))
+        return (lambda: [getattr(falp, k)(b.args[0], b.bw, left)
+                         for b, left in calls],
+                lambda: [falp.rd_glue_plain(b.args[0], b.bw, left)
+                         for b, left in calls], moved, (0, 0, 0))
+
+    def k22(plan):
+        bs = alp(plan)
+        moved = sum(nbytes(b.args[0]) + nbytes(b.args[1])
+                    + b.n_vectors * VECTOR * b.args[0].element_size()
+                    for b in bs)
+        return (lambda: [kffor.unffor(b.args[0], b.bw, b.args[1])
+                         for b in bs],
+                lambda: [unffor_unpack(b.args[0], b.args[1], b.bw)
+                         for b in bs], moved, (0, 0, 0))
+
+    def k23(plan):
+        bits = plan.run().view(torch.int64)
+        moved = nbytes(bits) + plan.n_vectors * 16
+        return (lambda: kgroup.key_extremes_bits_f64(bits),
+                lambda: kgroup.key_extremes_bits_plain(bits), moved, (0, 0, 0))
+
+    f64_cols = [*BENCH_PROFILES, "f64_alp_rd"]
+    timed = {"variant_sum_f64": (k20, list(BENCH_PROFILES)),
+             "rd_glue_f64": (k21, ["f64_alp_rd"]),
+             "rd_glue_f32": (k21, ["f32_alp_rd"]),
+             "unffor": (k22, [*BENCH_PROFILES, "f32_alp"]),
+             "key_extremes_bits": (k23, f64_cols)}
+    out = []
+    for k, (work, names) in timed.items():
+        ms, plain_ms, bound_ms, copy_ms, b_bytes_l, b_ops_l = (
+            [] for _ in range(6))
+        for name in names:
+            plan = plans[name]
+            run, plain, moved, (int_ops, fp64_ops, fp32_ops) = work(plan)
+            t_k = cuda_ms(run, 20)
+            t_p = cuda_ms(plain, 3)
+            src = torch.empty(moved, dtype=torch.uint8, device=dev)
+            dst = torch.empty_like(src)
+            t_c = cuda_ms(lambda: dst.copy_(src), 20)
+            del src, dst
+            b_bytes = moved / HBM_BYTES_PER_S * 1e3
+            b_ops = max(int_ops / int32_per_s, fp64_ops / fp64_per_s,
+                        fp32_ops / fp32_per_s) * 1e3
+            ms.append(t_k)
+            plain_ms.append(t_p)
+            bound_ms.append(max(b_bytes, b_ops))
+            copy_ms.append(t_c)
+            b_bytes_l.append(b_bytes)
+            b_ops_l.append(b_ops)
+            print(f"  {k} on {name}: {moved} bytes, {int_ops} int ops, "
+                  f"{fp64_ops} FP64 ops, {fp32_ops} FP32 ops, kernel "
+                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+                  f"{max(b_bytes, b_ops):.4f} ms (bytes {b_bytes:.4f} ms, "
+                  f"operations {b_ops:.4f} ms), share "
+                  f"{max(b_bytes, b_ops) / t_k:.1%}, copy_ {t_c:.4f} ms",
+                  flush=True)
+        src, site = BENCH_KERNELS[k]
+        out.append({
+            "name": k, "route": "cuda", "source": src, "replaces": site,
+            "also_replaces": [], "launches": launches[k],
+            "max_abs_err": errors[k], "ms": float(np.mean(ms)),
+            "plain_ms": float(np.mean(plain_ms)),
+            "bound_ms": float(np.mean(bound_ms)),
+            "bound_by": ("bytes" if sum(b_bytes_l) >= sum(b_ops_l)
+                         else "operations"),
+            "library_ms": None, "yardstick_ms": float(np.mean(copy_ms)),
+            "yardstick": "Tensor.copy_ of as many bytes as the kernel "
+                         "moves (not the same function: no PyTorch call "
+                         "reads the FastLanes words or cuts doubles as the "
+                         "reference does)",
+            "timed_on": names})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1088,6 +1264,8 @@ def main() -> int:
         from alp_tpu_torch import engine, native
         from alp_tpu_torch.columns import (BENCH_PROFILES, route_columns,
                                            tile_column)
+        from alp_tpu_torch import bench as pbench
+        from alp_tpu_torch import bench_speed
         from alp_tpu_torch import device_compress as dc
         from alp_tpu_torch.kernels import _build, decode, falp
         from alp_tpu_torch.kernels import encode as kenc
@@ -1096,6 +1274,7 @@ def main() -> int:
         from alp_tpu_torch.kernels import group as kgroup
         from alp_tpu_torch.kernels import keys as kkeys
         from alp_tpu_torch.kernels import score as kscore
+        from alp_tpu_torch.ops.fastlanes import unffor_unpack
         from alp_tpu_torch.ops.keys import bias, biased_keys
     except ImportError as e:
         print(f"chip_smoke: alp_tpu_torch is not importable: {e}",
@@ -1198,7 +1377,7 @@ def main() -> int:
         print(f"  {name}: {col.n_values} values bit-exact, "
               f"launches={moved}, decompress wall {wall:.4f} s "
               f"(host plan + copies + kernels)", flush=True)
-    main_launches = dict(falp.LAUNCHES)
+    main_launches = {k: falp.LAUNCHES[k] for k in KERNELS}
     decode_s = time.perf_counter() - td
     for k, v in main_launches.items():
         if v == 0:
@@ -1206,7 +1385,65 @@ def main() -> int:
     del expected_dev
     phase("decode", t0, f"main path {decode_s:.3f}s launches={main_launches}")
 
-    # 5. sum: the SUM path, through the public entry points
+    # 5. bench: the port's headline on the five 256 MiB profiles and its
+    # kernel rows, the path of K20-K23
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    for module in (falp, kffor, kgroup):
+        module.reset_launches()
+    tb = time.perf_counter()
+    results = {name: pbench.bench_column(columns[name][0], dev)
+               for name in BENCH_PROFILES}
+    pbench.report(results, out=sys.stdout)
+    print(json.dumps(pbench.headline(results)), flush=True)
+    bench_errors, checked, check_s = {}, set(), [0.0]
+
+    def bench_check(name, step, step_args, plain):
+        """A K20-K23 row's output on the row's own inputs against the
+        plain version, by bits; its launches are not counted."""
+        if name not in BENCH_ROWS:
+            return
+        tc = time.perf_counter()
+        saved = [dict(m.LAUNCHES) for m in (falp, kffor, kgroup, kes, kkeys)]
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        got = step.result(zero, *step_args)
+        if plain is not None:
+            pairs = [(got, plain.result(zero, *step_args))]
+        else:                   # the sum step: K20 on its ALP buckets
+            plan, = step_args
+            pairs = [(part, falp.variant_sum_plain(b.args[0], b.bw,
+                                                   *b.args[1:]))
+                     for b, part in zip(plan.buckets, got) if part.dim() == 2]
+        for m, counts in zip((falp, kffor, kgroup, kes, kkeys), saved):
+            m.LAUNCHES.update(counts)
+        if not pairs:
+            raise RuntimeError(f"bench row {name}: no K20 output to check")
+        err = max(int_err(bits_view(a), bits_view(b)) for a, b in pairs)
+        k = BENCH_ROWS[name]
+        bench_errors[k] = max(bench_errors.get(k, 0.0), err)
+        if err != 0.0:
+            raise RuntimeError(f"bench row {name}: {k} differs from its "
+                               f"plain version (max err {err})")
+        print(f"  {name}: {k} == plain on the row's inputs "
+              f"({sum(a.numel() for a, _ in pairs)} outputs)", flush=True)
+        checked.add(name)
+        check_s[0] += time.perf_counter() - tc
+
+    bench_speed.rows(dev, args.seed, check=bench_check)
+    bench_s = time.perf_counter() - tb - check_s[0]
+    if checked != set(BENCH_ROWS):
+        raise RuntimeError(f"bench rows left unchecked: "
+                           f"{sorted(set(BENCH_ROWS) - checked)}")
+    bench_launches = {k: {**falp.LAUNCHES, **kffor.LAUNCHES,
+                          **kgroup.LAUNCHES}[k] for k in BENCH_KERNELS}
+    for k, v in bench_launches.items():
+        if v == 0:
+            raise RuntimeError(f"kernel {k} was not launched on the bench "
+                               f"path")
+    phase("bench", t0, f"bench path {bench_s:.3f}s (checks "
+          f"{check_s[0]:.3f}s apart) launches={bench_launches}")
+
+    # 6. sum: the SUM path, through the public entry points
     t0 = time.perf_counter()
     sums = {name: fsum_reference(exp) for name, (_, exp) in columns.items()}
     ref_s = time.perf_counter() - t0
@@ -1510,7 +1747,7 @@ def main() -> int:
               f"column's, launches={moved}; walls ms, first call/kept "
               f"plan (the kept call's host finish): {'; '.join(walls)}",
               flush=True)
-    group_launches = dict(kgroup.LAUNCHES)
+    group_launches = {k: kgroup.LAUNCHES[k] for k in GROUP_KERNELS}
     group_s = time.perf_counter() - tq
     engine._finish_groups = real_finish
     for k, v in group_launches.items():
@@ -1574,7 +1811,9 @@ def main() -> int:
     # 9. kernels vs plain versions, on the card, same plans
     t0 = time.perf_counter()
     errors = {k: 0.0 for k in (*KERNELS, *SUM_KERNELS, *DC_KERNELS,
-                               *KEY_KERNELS, *RANK_KERNELS, *GROUP_KERNELS)}
+                               *KEY_KERNELS, *RANK_KERNELS, *GROUP_KERNELS,
+                               *BENCH_KERNELS)}
+    errors.update(bench_errors)             # the bench rows' own inputs
     plans = {}
     for name, (col, _) in columns.items():
         plan = decode.build_plan(col, dev)
@@ -1705,6 +1944,54 @@ def main() -> int:
             del kv
         print(f"  {name}: K18 and K19 (G = 16, 65536 and {ORDERED_RUNS} "
               f"ordered runs) == plain on every bucket", flush=True)
+    for name, (col, _) in columns.items():
+        plan = col.plan(dev)
+        checked = []
+        for b in plan.buckets:
+            if b.scheme != 2:
+                continue
+            got = kffor.unffor(b.args[0], b.bw, b.args[1])
+            err = int_err(got, unffor_unpack(b.args[0], b.args[1], b.bw))
+            errors["unffor"] = max(errors["unffor"], err)
+            if plan.f64:
+                got = falp.variant_sum_f64(b.args[0], b.bw, *b.args[1:])
+                want = falp.variant_sum_plain(b.args[0], b.bw, *b.args[1:])
+                e20 = int_err(got.view(torch.int32), want.view(torch.int32))
+                errors["variant_sum_f64"] = max(errors["variant_sum_f64"],
+                                                e20)
+                err = max(err, e20)
+            if err != 0.0:
+                raise RuntimeError(f"{name}: unffor or variant_sum_f64 bw="
+                                   f"{b.bw} differs from its plain version")
+            checked.append(f"ALP bw {b.bw}")
+        scratch, _ = plan.decode_rd()
+        rd = [b for b in plan.buckets if b.scheme != 2]
+        for b, rows_b in zip(rd, plan._rd_layout[0]):
+            want = scratch[rows_b]
+            left = glue_left(want, b.bw)
+            k = "rd_glue_f64" if plan.f64 else "rd_glue_f32"
+            got = getattr(falp, k)(b.args[0], b.bw, left)
+            err = max(int_err(got, want),
+                      int_err(got, falp.rd_glue_plain(b.args[0], b.bw, left)))
+            errors[k] = max(errors[k], err)
+            if err != 0.0:
+                raise RuntimeError(f"{name}: {k} rbw={b.bw} differs from "
+                                   f"the decode or its plain version")
+            checked.append(f"ALP_RD rbw {b.bw}")
+        del scratch
+        if plan.f64:
+            bits = plan.run().view(torch.int64)
+            err = int_err(kgroup.key_extremes_bits_f64(bits),
+                          kgroup.key_extremes_bits_plain(bits))
+            errors["key_extremes_bits"] = max(errors["key_extremes_bits"],
+                                              err)
+            if err != 0.0:
+                raise RuntimeError(f"{name}: key_extremes_bits differs from "
+                                   f"its plain version")
+            checked.append("decoded bits")
+            del bits
+        print(f"  {name}: K20-K23 == plain on {', '.join(checked)}",
+              flush=True)
     dc_calls = {}
     for name in columns:
         got, calls = record_dc_calls(
@@ -1722,8 +2009,8 @@ def main() -> int:
     phase("kernels", t0, "every bucket of every column: kernel bits == "
           "plain bits, SUM totals == plain totals (also with a key range), "
           "K15 bins, K16 keys, K17 bins and keys and K18/K19 totals and "
-          "keys == plain, every K9-K14 call of compress_device == plain "
-          "(tolerance 0)")
+          "keys == plain, K20-K23 == plain (K21 == the decode), every "
+          "K9-K14 call of compress_device == plain (tolerance 0)")
 
     # 10. timing at the 256 MiB shapes
     t0 = time.perf_counter()
@@ -2137,6 +2424,8 @@ def main() -> int:
             row["G"] = 16
             row.update({f"{f}_G65536": v for f, v in cells[65536].items()})
         rows.append(row)
+    rows += bench_rows(plans, columns, dev, errors, bench_launches,
+                       int32_per_s, fp64_per_s, fp32_per_s)
     phase("timing", t0)
     phase("total", t_all)
 

@@ -123,8 +123,10 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
         x32 = COLUMNS[name]
         assert alp_tpu_torch.compress_device(x32).to_bytes() == \
             alp_tpu_torch.compress(x32).to_bytes()
-    for launches in (kenc.LAUNCHES, kffor.LAUNCHES, kscore.LAUNCHES):
+    for launches in (kenc.LAUNCHES, kscore.LAUNCHES):
         assert all(launches.values()), launches
+    assert kffor.LAUNCHES["ffor_pack_f64"] and \
+        kffor.LAUNCHES["ffor_pack_f32"], kffor.LAUNCHES
     torch.cuda.synchronize()
 
 
@@ -433,8 +435,9 @@ def test_sum_in_runs_on_the_card(cuda):
 
 
 def test_work_runs_on_the_tensors_card():
-    """Decode, SUM, device compress and the queries on card 1 while card 0
-    is current."""
+    """Decode, SUM, device compress, the queries, the bench's kernels and
+    the loop steps, timed by loop_bench from their plan alone, on card 1
+    while card 0 is current."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two NVIDIA GPUs")
     x = COLUMNS["f64_mixed_alp_rd"]
@@ -475,6 +478,37 @@ def test_work_runs_on_the_tensors_card():
             for a in got:
                 assert _same_array(got[a], want[a]), a
         assert alp_tpu_torch.query_distinct(col, other) == len(np.unique(x))
+        # the bench's kernels K20-K23 and a loop step on card 1
+        from alp_tpu_torch.kernels import group as kgroup
+        from alp_tpu_torch.ops.fastlanes import unffor_unpack
+        plan = decode.build_plan(col, other)
+        bits = plan.run().view(torch.int64)
+        for b in plan.buckets:
+            if b.scheme == C.SCHEME_ALP:
+                host = [a.cpu() for a in b.args]
+                got = falp.variant_sum_f64(b.args[0], b.bw, *b.args[1:])
+                assert got.device == other and torch.equal(
+                    got.cpu(), falp.variant_sum_plain(host[0], b.bw,
+                                                      *host[1:]))
+                got = kffor.unffor(b.args[0], b.bw, b.args[1])
+                assert got.device == other and torch.equal(
+                    got.cpu(), unffor_unpack(host[0], host[1], b.bw))
+            else:
+                want = bits[b.rows]
+                got = falp.rd_glue_f64(b.args[0], b.bw,
+                                       _left_parts(want, b.bw))
+                assert got.device == other and torch.equal(got, want)
+        got = kgroup.key_extremes_bits_f64(bits)
+        assert got.device == other and torch.equal(
+            got.cpu(), kgroup.key_extremes_bits_plain(bits.cpu()))
+        step, args = engine.make_exact_sum_step(plan)
+        zero = torch.zeros((), dtype=torch.int64, device=other)
+        assert torch.equal(step.result(zero, *args),
+                           engine.exact_sum_totals(plan))
+        from alp_tpu_torch import benchlib
+        for make in (engine.make_exact_sum_step, engine.make_sum_step):
+            assert benchlib.loop_bench(*make(plan), 3) > 0
+        torch.cuda.synchronize(other)
         assert torch.cuda.current_device() == 0
 
 
@@ -739,4 +773,119 @@ def test_group_queries_never_take_the_plain_versions(cuda, monkeypatch):
     assert got["count"].tolist() == np.bincount(keys).tolist()
     got = alp_tpu_torch.query_window(col, 100000)
     assert _same(float(got["sum"][0]), _fsum(x[:100000]))
-    assert all(kgroup.LAUNCHES.values()), kgroup.LAUNCHES
+    assert kgroup.LAUNCHES["vector_sum_extremes"] and \
+        kgroup.LAUNCHES["group_reduce"], kgroup.LAUNCHES
+
+
+# ---------------------------------------------------------------------------
+# The bench's kernels K20-K23 and the loop steps
+# ---------------------------------------------------------------------------
+
+def _left_parts(bits: torch.Tensor, rbw: int) -> torch.Tensor:
+    """The left part above the low ``rbw`` bits of each pattern, int32."""
+    S = 8 * bits.element_size()
+    u = bits.to(torch.int64) & ((1 << S) - 1 if S < 64 else -1)
+    left = (u >> rbw) & ((1 << (S - rbw)) - 1) if rbw else u
+    return left.to(torch.int32) if S == 64 else \
+        torch.where(left >= 1 << 31, left - (1 << 32), left).to(torch.int32)
+
+
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_bench_kernels_equal_plain_versions(name, cuda):
+    """K20 and K22 on every ALP bucket, K21 on every ALP_RD bucket (its
+    left parts from the full decode, so it gives the decode back) and K23
+    on the decoded bits of every f64 column, against their plain versions
+    by bits."""
+    from alp_tpu_torch.kernels import group as kgroup
+    from alp_tpu_torch.ops.fastlanes import unffor_unpack
+    plan = decode.build_plan(alp_tpu_torch.compress(COLUMNS[name]), cuda)
+    bits = plan.run().view(_bits_dtype(plan))
+    for b in plan.buckets:
+        if b.scheme == C.SCHEME_ALP:
+            before = kffor.LAUNCHES["unffor"]
+            got = kffor.unffor(b.args[0], b.bw, b.args[1])
+            assert kffor.LAUNCHES["unffor"] == before + 1
+            assert torch.equal(got, unffor_unpack(b.args[0], b.args[1], b.bw))
+            if plan.f64:
+                before = falp.LAUNCHES["variant_sum_f64"]
+                got = falp.variant_sum_f64(b.args[0], b.bw, *b.args[1:])
+                assert falp.LAUNCHES["variant_sum_f64"] == before + 1
+                want = falp.variant_sum_plain(b.args[0], b.bw, *b.args[1:])
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+            continue
+        fn = falp.rd_glue_f64 if plan.f64 else falp.rd_glue_f32
+        want = bits[b.rows]
+        left = _left_parts(want, b.bw)
+        got = fn(b.args[0], b.bw, left)
+        assert torch.equal(got, want)
+        assert torch.equal(got, falp.rd_glue_plain(b.args[0], b.bw, left))
+    if plan.f64:
+        before = kgroup.LAUNCHES["key_extremes_bits"]
+        got = kgroup.key_extremes_bits_f64(bits)
+        assert kgroup.LAUNCHES["key_extremes_bits"] == before + 1
+        assert torch.equal(got, kgroup.key_extremes_bits_plain(bits))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("S,rbw", [(64, 48), (64, 52), (64, 64), (32, 0),
+                                   (32, 24), (32, 32)])
+def test_k21_on_random_bits(cuda, S, rbw):
+    g = torch.Generator(device=cuda).manual_seed(S + rbw)
+    dt = torch.int64 if S == 64 else torch.int32
+    info = torch.iinfo(dt)
+    right = torch.empty((37, rbw * 1024 // S), dtype=dt, device=cuda).random_(
+        info.min, info.max, generator=g)
+    left = torch.empty((37, 1024), dtype=torch.int32, device=cuda).random_(
+        -2**31, 2**31 - 1, generator=g)
+    fn = falp.rd_glue_f64 if S == 64 else falp.rd_glue_f32
+    assert torch.equal(fn(right, rbw, left),
+                       falp.rd_glue_plain(right, rbw, left))
+
+
+@pytest.mark.parametrize("name", ["bench_bw30_bitcoin", "f32_alp",
+                                  "f64_mixed_alp_rd", "f64_specials_tail"])
+def test_loop_steps_on_card_equal_queries(name, cuda):
+    """Each step at carry 0 on the card against the port's query answers
+    on the card; K20 runs in the sum step of an f64 ALP column; every step
+    takes a carry and loop_bench times it."""
+    from alp_tpu_torch import benchlib
+    x = COLUMNS[name]
+    col = alp_tpu_torch.compress(x)
+    plan = col.plan(cuda)
+    zero = torch.zeros((), dtype=torch.int64, device=cuda)
+    before = falp.LAUNCHES["variant_sum_f64"]
+    step, args = engine.make_sum_step(plan)
+    parts = step.result(zero, *args)
+    if plan.f64 and any(b.scheme == C.SCHEME_ALP and b.bw
+                        for b in plan.buckets):
+        assert falp.LAUNCHES["variant_sum_f64"] > before
+    for b, part in zip(plan.buckets, parts):
+        if plan.f64 and b.scheme == C.SCHEME_ALP and b.bw:
+            want = falp.variant_sum_plain(b.args[0], b.bw, *b.args[1:])
+            assert torch.equal(part.view(torch.int32), want.view(torch.int32))
+    step, args = engine.make_exact_sum_step(plan)
+    assert torch.equal(step.result(zero, *args),
+                       engine.exact_sum_totals(plan))
+    fin = np.sort(x[np.isfinite(x)])
+    lo, hi = float(fin[len(fin) // 4]), float(fin[3 * len(fin) // 4])
+    step, args = engine.make_filter_step(plan, lo, hi)
+    assert step.answer(step.result(zero, *args)) == \
+        alp_tpu_torch.query_filter_count(col, lo, hi)
+    edges = np.linspace(fin[0], fin[-1], 17).tolist()
+    step, args = engine.make_histogram_step(plan, edges)
+    assert np.array_equal(step.answer(step.result(zero, *args)),
+                          alp_tpu_torch.query_histogram(col, edges))
+    t, bins = engine.make_topk_step(plan, 5)[0].result(zero, plan)
+    assert t.device == bins.device == plan.device
+    keys = np.sort(np.random.default_rng(9).integers(0, 7, len(x)))
+    for k in (keys, np.random.default_rng(9).integers(0, 7, len(x))):
+        step, args = engine.make_groupby_step(col, k, 7, plan=plan)
+        got = step.answer(step.result(zero, *args))
+        want = engine.group_totals(col, k, 7)
+        assert got.totals == want.totals and np.array_equal(got.ct, want.ct)
+        assert np.array_equal(got.kmn, want.kmn) and \
+            np.array_equal(got.kmx, want.kmx)
+    for make in (engine.make_sum_step, engine.make_exact_sum_step):
+        assert benchlib.loop_bench(*make(plan), 3) > 0
+    torch.cuda.synchronize()

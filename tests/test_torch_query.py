@@ -303,6 +303,37 @@ def test_histogram_refuses_bad_edges_as_jax():
             jengine.query_histogram(jcol, edges)
 
 
+def test_topk_refuses_negative_k_as_jax():
+    """k < 0 raises ValueError before any plan is built, the exception
+    type of the reference (``jax.lax.top_k``)."""
+    x = np.round(np.random.default_rng(11).uniform(0, 9, 2000), 1)
+    jcol = jcontainer.compress(x)
+    col = alp_tpu_torch.CompressedColumn.from_bytes(jcol.to_bytes())
+    with pytest.raises(ValueError) as mine:
+        alp_tpu_torch.query_topk(col, -1, **CPU)
+    with pytest.raises(Exception) as theirs:
+        jengine.query_topk(jcol, -1)
+    assert type(mine.value) is type(theirs.value) is ValueError
+    assert not col._plans
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_min_max_of_an_empty_column_equal_jax(dtype):
+    """The reference's fill keys: MIN all ones, MAX key 0, through a
+    Python float for f32; no plan is built."""
+    jcol = jcontainer.compress(np.zeros(0, dtype))
+    col = alp_tpu_torch.CompressedColumn.from_bytes(jcol.to_bytes())
+    lo = alp_tpu_torch.query_min(col, **CPU)
+    hi = alp_tpu_torch.query_max(col, **CPU)
+    assert _same(lo, jengine.query_min(jcol))
+    assert _same(hi, jengine.query_max(jcol))
+    want = ((0x7FFFFFFFFFFFFFFF, 0xFFFFFFFFFFFFFFFF) if dtype == np.float64
+            else (0x7FFFFFFFE0000000, 0xFFFFFFFFE0000000))
+    assert (struct.unpack("<Q", struct.pack("<d", lo))[0],
+            struct.unpack("<Q", struct.pack("<d", hi))[0]) == want
+    assert not col._plans
+
+
 def test_empty_selection_and_reversed_bounds():
     x, jcol, col = _columns("bw_le32")
     for lo, hi in ((3.0, -3.0), (100.0, 200.0)):
