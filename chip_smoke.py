@@ -118,12 +118,17 @@ Phases, each printing its wall time:
             K9-K14 read; K15 (E = 2, COUNT, and E = 17) and K16 on the
             256 MiB columns, with ``torch.bucketize`` + ``torch.bincount``
             and ``amin``/``amax`` over the decoded keys as yardsticks, K17
-            at R = 8 brackets and T = 2048 thresholds with
-            ``torch.bucketize`` + ``torch.bincount`` and a masked
-            ``amin``/``amax`` a bracket as its yardstick, the filtered
+            at R = 8 brackets and T = 2048 thresholds, twice: 8 disjoint
+            brackets spanning the column, and a later bisection pass (8
+            bands of 0.1 % of the column, the thresholds spread inside
+            them), each with ``torch.bucketize`` + ``torch.bincount`` and
+            a masked ``amin``/``amax`` a bracket as its yardstick and its
+            bound by RANK_SEARCH and RANK_OPS beside the first design's
+            count (RANK_ALL), the filtered
             K5-K8 beside the plain SUM, K18 with a row sum and
             ``amin``/``amax`` of the decoded values as its yardstick, and
-            K19 at G = 16 and 65,536 with ``index_add_`` and
+            K19 at G = 16 and 65,536 random and at 16 ordered runs, with
+            ``index_add_`` and
             ``scatter_reduce`` of the decoded values and keys by group as
             its yardstick; K20 on the five profiles (bound by VSUM_OPS),
             K21 on f64 and f32 ALP_RD, K22 on the profiles and f32 ALP, K23
@@ -286,14 +291,29 @@ RANK_KERNELS = {
         "alp_tpu/kernels/falp.py:2160", "alp_tpu/kernels/falp.py:2238",
         "alp_tpu/kernels/falp.py:2295"]),
 }
-# Operations K17 needs beyond K15's KEY_OPS (decode, key, ceil(log2(T +
-# 1)) search steps, the count), counted from the algorithm on this run's
-# data: two compares of every value with the ends of each of the R
-# brackets, and a min and a max for each (value, bracket) pair where the
-# value lies inside (each counted as KEY_OPS counts a compare: 2 for a
-# 64-bit key, 1 for 32).
-RANK_OPS = (2, 2)                # (a value and bracket, a value inside one)
-RANK_TIMED = (8, 2048)           # (R, T) of K17's timing row
+# Operations K17 needs beyond the decode and the key of KEY_OPS, counted
+# from its algorithm on this run's data (RANK_SEARCH, RANK_OPS; compares
+# count as KEY_OPS counts them: 2 for a 64-bit key, 1 for 32).  The search,
+# as K15's: a compare a step, ceil(log2(T + 1)) steps, and the count (1).
+# The brackets: the test against their union [min lo, max hi] (2
+# compares); a key inside reads its bin's first cut interval and that
+# interval's bracket mask (2 operations), compares itself with each cut
+# that splits its bin (1 compare each: a later pass's bins between two
+# brackets hold two; the cuts are lo - 1 and hi of the distinct
+# brackets, and every interval between two cuts lies wholly inside or
+# outside each bracket), and takes a min and a max for each bracket that
+# holds it (2 compares).  RANK_ALL is the count of the first design: the
+# same search, two compares of every value with the ends of each of the R
+# brackets, a min and a max for each (value, bracket) pair where the
+# value lies inside.
+RANK_SEARCH = (1, 1)             # (a compare a step, the count)
+RANK_ALL = (2, 2)                # first design: (a value and bracket, a
+                                 #  value inside one)
+RANK_OPS = (2, 2, 1, 2)          # (union test compares, a value inside it,
+                                 #  a value and a cut splitting its bin, a
+                                 #  value inside a bracket)
+RANK_TIMED = (8, 2048)           # (R, T) of K17's timing rows
+RANK_BAND = 1e-3                 # the later-pass row: a bracket's share
 QUANTILE_QS = (0.0, 1e-6, 0.001, 0.1, 0.25, 0.5, 0.75, 0.9, 0.999, 1.0)
 # K18/K19: launch-count key -> the TPU site it replaces (None: no site)
 GROUP_KERNELS = {"vector_sum_extremes": "alp_tpu/kernels/falp.py:2046",
@@ -666,6 +686,66 @@ def bracket_hits(plan, bk, brackets):
     return hits.view(plan.n_vectors, VECTOR).sum(1)
 
 
+def rank_work(plan, bk, thr: np.ndarray, brackets: np.ndarray) -> tuple:
+    """K17's operations beyond the decode and the key on this run's data,
+    int64 [n_vectors] (RANK_SEARCH and RANK_OPS), and the (value, cut)
+    pairs of the whole column whose cut splits the value's bin, from the
+    column's biased keys ``bk`` and the unsigned ``thr`` and ``brackets``
+    ([R, 2])."""
+    import torch
+    cmp = KEY_OPS[plan.f64][5]
+    flip = 1 << (8 * thr.itemsize - 1)
+    top, bottom = (1 << (8 * thr.itemsize)) - 1, 0
+    uniq = {(int(lo), int(hi)) for lo, hi in brackets if lo <= hi}
+    cuts = sorted({c for lo, hi in uniq for c, keep in
+                   ((lo - 1, lo > bottom), (hi, hi < top)) if keep})
+    key = bk.to(torch.int64)
+    bthr = torch.tensor([int(t) - flip for t in thr], device=bk.device)
+    p = torch.searchsorted(bthr, key)
+    ct = torch.tensor([c - flip for c in cuts], dtype=torch.int64,
+                      device=bk.device)
+    # bin b holds the keys in (thr[b - 1], thr[b]]: the cuts splitting it
+    lower = torch.cat([bthr.new_full((1,), bottom - flip), bthr + 1])
+    upper = torch.cat([bthr, bthr.new_full((1,), top - flip)])
+    split = torch.searchsorted(ct, upper) - torch.searchsorted(ct, lower)
+    ulo = min((lo for lo, _ in uniq), default=top) - flip
+    uhi = max((hi for _, hi in uniq), default=bottom) - flip
+    inside_u = (key >= ulo) & (key <= uhi)
+    hits = torch.zeros_like(key)
+    for lo, hi in uniq:
+        hits += ((key >= lo - flip) & (key <= hi - flip)).to(torch.int64)
+    ops = (RANK_SEARCH[0] * math.ceil(math.log2(len(thr) + 1)) * cmp
+           + RANK_SEARCH[1] + RANK_OPS[0] * cmp
+           + inside_u * (RANK_OPS[1] + split[p] * RANK_OPS[2] * cmp)
+           + hits * RANK_OPS[3] * cmp)
+    per = torch.zeros(plan.n_vectors * VECTOR, dtype=torch.int64,
+                      device=bk.device)
+    per[:key.numel()] = ops
+    return (per.view(plan.n_vectors, VECTOR).sum(1),
+            int((inside_u * split[p]).sum()))
+
+
+def later_pass_case(sorted_bk, R: int, T: int) -> tuple:
+    """(unsigned thresholds, [R, 2] unsigned brackets) of a later bisection
+    pass, from ``sorted_bk`` the column's biased keys in order: R brackets,
+    each a narrow band of RANK_BAND of the column around the (r + 1/2) / R
+    quantile, and up to T thresholds spread evenly in key space inside
+    them, as ``_rank_bisect`` places its key-space probes after its first
+    pass."""
+    n = sorted_bk.numel()
+    width = max(1, int(n * RANK_BAND))
+    flip = 1 << (8 * sorted_bk.element_size() - 1)
+    at = [min(int((r + 0.5) / R * n), n - 1 - width) for r in range(R)]
+    # a biased key plus 2^(bits - 1) is the unsigned key
+    bands = [(int(sorted_bk[a]) + flip, int(sorted_bk[a + width]) + flip)
+             for a in at]
+    per = T // R
+    ut = np.uint64 if sorted_bk.element_size() == 8 else np.uint32
+    thr = np.unique(np.array([lo + (hi - lo) * (j + 1) // (per + 1)
+                              for lo, hi in bands for j in range(per)], ut))
+    return thr, np.array(bands, ut)
+
+
 def valid_values(plan, rows) -> int:
     """Values of vectors ``rows`` that are not the pad."""
     last = plan.n_vectors - 1
@@ -674,14 +754,15 @@ def valid_values(plan, rows) -> int:
                                     else 0)
 
 
-def key_work(plan, call, E, R=0, hits=None) -> tuple:
+def key_work(plan, call, E, R=0, hits=None, rank=None) -> tuple:
     """(bytes, integer operations, float operations) one K15 (E
-    thresholds), K16 (E None) or K17 (E thresholds, R brackets, ``hits``
-    the [n_vectors] counts of ``bracket_hits``) call needs on this run's
-    data: its inputs read once (packed words, metadata, row ids, the CSR
-    entries of its vectors and their exceptions, the thresholds and
-    brackets), its outputs written once, KEY_OPS a value and, for K17,
-    RANK_OPS."""
+    thresholds), K16 (E None) or K17 (E thresholds, R brackets) call needs
+    on this run's data: its inputs read once (packed words, metadata, row
+    ids, the CSR entries of its vectors and their exceptions, the
+    thresholds and brackets), its outputs written once, KEY_OPS a value
+    and, for K17, the [n_vectors] operations of ``rank_work`` or, without
+    them, the first design's count (RANK_ALL, ``hits`` the [n_vectors]
+    counts of ``bracket_hits``)."""
     every, unpack, rd_every, rd_unpack, key, cmp = KEY_OPS[plan.f64]
     w = 8 if plan.f64 else 4
     tensors = [a for a in call.args if hasattr(a, "numel")]
@@ -691,15 +772,19 @@ def key_work(plan, call, E, R=0, hits=None) -> tuple:
     # the bucket's words, metadata and row ids; its CSR rows and entries
     moved = sum(nbytes(t) for t in tensors[:-3]) + (rows.numel() + 1) * 8
     moved += n_exc * (8 + exc_data.element_size())
+    inside = 0
     if E is None:
         moved += rows.numel() * 2 * w
         last = 2 * cmp
     else:
         moved += E * w + (E + 1) * 8 + R * 4 * w
-        last = (math.ceil(math.log2(E + 1)) * cmp + 1
-                + R * RANK_OPS[0] * cmp)
+        last = math.ceil(math.log2(E + 1)) * cmp + 1
+        if rank is not None:
+            last, inside = 0, int(rank[rows].sum())
+        elif R:
+            last += R * RANK_ALL[0] * cmp
+            inside = int(hits[rows].sum()) * RANK_ALL[1] * cmp
     n = valid_values(plan, rows)
-    inside = 0 if hits is None else int(hits[rows].sum()) * RANK_OPS[1] * cmp
     if call.scheme == "alp":
         dec = every + (unpack if call.bw else 0)
         flops = 2 * n
@@ -2260,72 +2345,108 @@ def main() -> int:
         rows.append(row)
     R, T = RANK_TIMED
     for k, (site, others) in RANK_KERNELS.items():
-        ms, plain_ms, bound_ms, yard_ms, b_bytes_l, b_ops_l = (
-            [] for _ in range(6))
-        for name in key_timed:
-            col, exp = columns[name]
-            plan = col.plan(dev)
-            calls = engine.key_calls(plan)
-            thr = column_thresholds(exp, T)
-            thr_t, br_t = (thresholds_tensor(thr, plan),
-                           thresholds_tensor(disjoint_brackets(exp, R), plan))
-            outs = kkeys.rank_outputs(T, R, plan.bits_dtype, dev)
-            t_k = cuda_ms(lambda: [c.rank_pass(thr_t, br_t, *outs)
-                                   for c in calls], 20)
-            t_p = cuda_ms(lambda: [c.rank_pass_plain(thr_t, br_t)
-                                   for c in calls], 3)
-            bits = plan.run().view(plan.bits_dtype)
-            bk = biased_keys(bits.reshape(-1)[:plan.n_values])
-            del bits
-            bthr, bbr = bias(thr_t), bias(br_t)
-            top, bottom = torch.iinfo(bk.dtype).max, torch.iinfo(bk.dtype).min
+        cells = {}
+        for label in ("disjoint", "later"):
+            ms, plain_ms, bound_ms, old_ms, yard_ms, b_bytes_l, b_ops_l = (
+                [] for _ in range(7))
+            for name in key_timed:
+                col, exp = columns[name]
+                plan = col.plan(dev)
+                calls = engine.key_calls(plan)
+                bits = plan.run().view(plan.bits_dtype)
+                bk = biased_keys(bits.reshape(-1)[:plan.n_values])
+                del bits
+                if label == "disjoint":
+                    thr, br = (column_thresholds(exp, T),
+                               disjoint_brackets(exp, R))
+                else:
+                    thr, br = later_pass_case(torch.sort(bk).values, R, T)
+                thr_t, br_t = (thresholds_tensor(thr, plan),
+                               thresholds_tensor(br, plan))
+                outs = kkeys.rank_outputs(len(thr), R, plan.bits_dtype, dev)
+                t_k = cuda_ms(lambda: [c.rank_pass(thr_t, br_t, *outs)
+                                       for c in calls], 20)
+                t_p = cuda_ms(lambda: [c.rank_pass_plain(thr_t, br_t)
+                                       for c in calls], 3)
+                for c in calls:                # the timed inputs, by bits
+                    got = c.rank_pass(thr_t, br_t, *kkeys.rank_outputs(
+                        len(thr), R, plan.bits_dtype, dev))
+                    want = c.rank_pass_plain(thr_t, br_t)
+                    if not all(map(torch.equal, got, want)):
+                        raise RuntimeError(f"{name}: {k} {label} differs "
+                                           f"from its plain version")
+                bthr, bbr = bias(thr_t), bias(br_t)
+                top = torch.iinfo(bk.dtype).max
+                bottom = torch.iinfo(bk.dtype).min
 
-            def yardstick():
-                torch.bincount(torch.bucketize(bk, bthr), minlength=T + 1)
-                for r in range(R):
-                    inside = (bk >= bbr[r, 0]) & (bk <= bbr[r, 1])
-                    torch.where(inside, bk, top).amin()
-                    torch.where(inside, bk, bottom).amax()
-            t_y = cuda_ms(yardstick, 5)
-            hits = bracket_hits(plan, bk, bbr.tolist())
-            work = [key_work(plan, c, T, R, hits) for c in calls]
-            moved, int_ops, fl_ops = (sum(w[i] for w in work)
-                                      for i in range(3))
-            b_bytes = moved / HBM_BYTES_PER_S * 1e3
-            b_ops = max(int_ops / int32_per_s, fl_ops / (
-                fp64_per_s if plan.f64 else fp32_per_s)) * 1e3
-            ms.append(t_k)
-            plain_ms.append(t_p)
-            bound_ms.append(max(b_bytes, b_ops))
-            yard_ms.append(t_y)
-            b_bytes_l.append(b_bytes)
-            b_ops_l.append(b_ops)
-            print(f"  {k} R={R} T={T} on {name}: {len(calls)} launches/pass, "
-                  f"{moved} bytes, {int(hits.sum())} values inside a "
-                  f"bracket, {int_ops} int ops, {fl_ops} float ops, "
-                  f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-                  f"{max(b_bytes, b_ops):.4f} ms (bytes {b_bytes:.4f} ms, "
-                  f"operations {b_ops:.4f} ms), share "
-                  f"{max(b_bytes, b_ops) / t_k:.1%}, yardstick {t_y:.4f} ms",
-                  flush=True)
-            del bk, outs
+                def yardstick():
+                    torch.bincount(torch.bucketize(bk, bthr),
+                                   minlength=len(thr) + 1)
+                    for r in range(R):
+                        inside = (bk >= bbr[r, 0]) & (bk <= bbr[r, 1])
+                        torch.where(inside, bk, top).amin()
+                        torch.where(inside, bk, bottom).amax()
+                t_y = cuda_ms(yardstick, 5)
+                hits = bracket_hits(plan, bk, sorted(set(map(
+                    tuple, bbr.tolist()))))
+                rank, split = rank_work(plan, bk, thr, br)
+                work = [key_work(plan, c, len(thr), R, rank=rank)
+                        for c in calls]
+                # the first design's count: a binary search and every
+                # bracket's compares a value
+                old = [key_work(plan, c, len(thr), R, hits) for c in calls]
+                moved, int_ops, fl_ops = (sum(w[i] for w in work)
+                                          for i in range(3))
+                b_bytes = moved / HBM_BYTES_PER_S * 1e3
+                fp_ms = fl_ops / (fp64_per_s if plan.f64 else fp32_per_s)
+                b_ops = max(int_ops / int32_per_s, fp_ms) * 1e3
+                b_old = max(b_bytes, max(sum(w[1] for w in old) / int32_per_s,
+                                         fp_ms) * 1e3)
+                ms.append(t_k)
+                plain_ms.append(t_p)
+                bound_ms.append(max(b_bytes, b_ops))
+                old_ms.append(b_old)
+                yard_ms.append(t_y)
+                b_bytes_l.append(b_bytes)
+                b_ops_l.append(b_ops)
+                print(f"  {k} {label} R={R} T={len(thr)} on {name}: "
+                      f"{len(calls)} launches/pass, {moved} bytes, "
+                      f"{int(hits.sum())} values inside a bracket, "
+                      f"{split} (value, cut) pairs where a "
+                      f"bracket end splits the value's bin, {int_ops} int "
+                      f"ops, {fl_ops} float "
+                      f"ops, kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+                      f"{max(b_bytes, b_ops):.4f} ms (bytes {b_bytes:.4f} "
+                      f"ms, operations {b_ops:.4f} ms), share "
+                      f"{max(b_bytes, b_ops) / t_k:.1%}, bound by the first "
+                      f"design's count {b_old:.4f} ms (share "
+                      f"{b_old / t_k:.1%}),"
+                      f" yardstick {t_y:.4f} ms", flush=True)
+                del bk, outs, hits, split
+            cells[label] = {
+                "ms": float(np.mean(ms)), "plain_ms": float(np.mean(plain_ms)),
+                "bound_ms": float(np.mean(bound_ms)),
+                "bound_by": ("bytes" if sum(b_bytes_l) >= sum(b_ops_l)
+                             else "operations"),
+                "bound_ms_all_brackets": float(np.mean(old_ms)),
+                "yardstick_ms": float(np.mean(yard_ms))}
         rows.append({
             "name": k, "route": "cuda", "source": "alp_tpu_torch/csrc/keys.cu",
             "replaces": site, "also_replaces": others,
             "launches": quantile_launches[k], "max_abs_err": errors[k],
-            "ms": float(np.mean(ms)), "plain_ms": float(np.mean(plain_ms)),
-            "bound_ms": float(np.mean(bound_ms)),
-            "bound_by": ("bytes" if sum(b_bytes_l) >= sum(b_ops_l)
-                         else "operations"),
-            "library_ms": None, "yardstick_ms": float(np.mean(yard_ms)),
+            **cells["disjoint"], "library_ms": None,
             "yardstick": "torch.bucketize + torch.bincount and a masked "
                          "amin/amax a bracket over the decoded keys (not the "
                          "same function: no PyTorch call reads the "
                          "compressed form)",
-            "timed_on": key_timed, "R": R, "T": T})
+            "timed_on": key_timed, "R": R, "T": T,
+            **{f"{f}_later": v for f, v in cells["later"].items()}})
     for k, site in GROUP_KERNELS.items():
         cells = {}
-        for G in ((None,) if k == "vector_sum_extremes" else (16, 65536)):
+        # K19: random ids at G = 16 (shared counters) and 65,536 (device
+        # memory), and 16 ordered runs (whole warps of one group)
+        for G, ordered in (((None, False),) if k == "vector_sum_extremes"
+                           else ((16, False), (65536, False), (16, True))):
             ms, plain_ms, bound_ms, yard_ms, b_bytes_l, b_ops_l = (
                 [] for _ in range(6))
             for name in key_timed:
@@ -2351,13 +2472,21 @@ def main() -> int:
                                            bk.amax(dim=1)), 20)
                     del vals
                 else:
-                    kv = column_group_keys(plan, G, False, args.seed + G)
+                    kv = column_group_keys(plan, G, ordered, args.seed + G)
                     gks = [kv[c.rows].contiguous() for c in calls]
                     outs = kgroup.group_outputs(G, plan.bits_dtype, dev)
                     t_k = cuda_ms(lambda: [c.group_reduce(gk, G, *outs)
                                            for c, gk in zip(calls, gks)], 20)
                     t_p = cuda_ms(lambda: [c.group_reduce_plain(gk, G)
                                            for c, gk in zip(calls, gks)], 3)
+                    for c, gk in zip(calls, gks):  # the timed inputs, by bits
+                        got = c.group_reduce(gk, G, *kgroup.group_outputs(
+                            G, plan.bits_dtype, dev))
+                        if not all(map(torch.equal, got,
+                                       c.group_reduce_plain(gk, G))):
+                            raise RuntimeError(f"{name}: {k} G={G} "
+                                               f"ordered={ordered} differs "
+                                               f"from its plain version")
                     work = [group_work(plan, c, bits, "groups")
                             for c in calls]
                     extra = G * ((W + 4) * 8 + 2 * bits.element_size())
@@ -2386,7 +2515,8 @@ def main() -> int:
                 yard_ms.append(t_y)
                 b_bytes_l.append(b_bytes)
                 b_ops_l.append(b_ops)
-                print(f"  {k}{'' if G is None else f' G={G}'} on {name}: "
+                print(f"  {k}{'' if G is None else f' G={G}'}"
+                      f"{' ordered' if ordered else ''} on {name}: "
                       f"{len(calls)} launches/pass, {moved} bytes, {int_ops} "
                       f"int ops, {fl_ops} float ops, kernel {t_k:.4f} ms, "
                       f"plain {t_p:.4f} ms, bound {max(b_bytes, b_ops):.4f} "
@@ -2394,7 +2524,7 @@ def main() -> int:
                       f"ms), share {max(b_bytes, b_ops) / t_k:.1%}, "
                       f"yardstick {t_y:.4f} ms", flush=True)
                 del bits, bk
-            cells[G] = {
+            cells[G, ordered] = {
                 "ms": float(np.mean(ms)), "plain_ms": float(np.mean(plain_ms)),
                 "bound_ms": float(np.mean(bound_ms)),
                 "bound_by": ("bytes" if sum(b_bytes_l) >= sum(b_ops_l)
@@ -2406,7 +2536,7 @@ def main() -> int:
             "replaces": site or "alp_tpu/engine.py:1920",
             "also_replaces": [],
             "launches": group_launches[k], "max_abs_err": errors[k],
-            **cells[None if k == "vector_sum_extremes" else 16],
+            **cells[None if k == "vector_sum_extremes" else 16, False],
             "library_ms": None,
             "yardstick": ("a row sum and amin/amax over dim=1 of the "
                           "decoded values and keys"
@@ -2422,7 +2552,10 @@ def main() -> int:
                                     " and _groupby_chunk_f64/_f32 (:1735, "
                                     ":1784)")
             row["G"] = 16
-            row.update({f"{f}_G65536": v for f, v in cells[65536].items()})
+            row.update({f"{f}_G65536": v
+                        for f, v in cells[65536, False].items()})
+            row.update({f"{f}_G16_ordered": v
+                        for f, v in cells[16, True].items()})
         rows.append(row)
     rows += bench_rows(plans, columns, dev, errors, bench_launches,
                        int32_per_s, fp64_per_s, fp32_per_s)

@@ -37,6 +37,7 @@ from alp_tpu_torch.kernels import exact_sum as kes
 from alp_tpu_torch.kernels import ffor as kffor
 from alp_tpu_torch.kernels import keys as kkeys
 from alp_tpu_torch.kernels import score as kscore
+from alp_tpu_torch.ops.keys import bias, biased_keys
 
 pytestmark = pytest.mark.cuda
 COLUMNS = route_columns(np.random.default_rng(5),
@@ -640,6 +641,75 @@ def test_k17_equals_its_plain_version(name, cuda):
                 assert torch.equal(mm, want_mm), (name, T, R)
 
 
+def _as_words(plan, keys) -> torch.Tensor:
+    """Unsigned numpy keys as the signed words the kernels take."""
+    keys = np.ascontiguousarray(keys, np.uint64 if plan.f64 else np.uint32)
+    return torch.from_numpy(keys.view(f"i{keys.itemsize}").copy()).to(
+        plan.device)
+
+
+def _all_keys(name: str, plan) -> np.ndarray:
+    """The column's distinct unsigned total-order keys, ascending."""
+    x = COLUMNS[name]
+    bits = torch.from_numpy(x.view(f"i{x.itemsize}").copy())
+    keys = bias(biased_keys(bits)).numpy()
+    return np.unique(keys.view(np.uint64 if plan.f64 else np.uint32))
+
+
+def _k17_cases(name: str, plan):
+    """(label, unsigned thresholds, [R, 2] unsigned brackets) of K17's
+    edges: trees partly full (T in 1, 2, 31, 32, 33, 2047, 2048); brackets
+    that overlap, hold no key (between two keys, reversed) or one key; T
+    thresholds clustered in R narrow bands, each band a bracket, as the
+    bisection places its probes after its first pass."""
+    rng = np.random.default_rng(17)
+    ut = np.uint64 if plan.f64 else np.uint32
+    top = np.iinfo(ut).max
+    keys = _all_keys(name, plan)
+    own = np.unique(engine.vector_extremes(plan).cpu().numpy().view(ut))
+    a, b, c, d = np.sort(rng.choice(keys, 4))
+    gaps = np.nonzero(np.diff(keys) > 1)[0]
+    empty = ((keys[gaps[0]] + 1, keys[gaps[0] + 1] - 1) if len(gaps)
+             else (keys[0] - 1, keys[0] - 1) if keys[0] > 0
+             else (keys[-1] + 1, top))
+    brackets = np.array([(a, c), (b, d), empty, (own[0], own[0]),
+                         (d, a), (0, top), (a, c), (keys[-1], keys[-1])], ut)
+    cases = []
+    for T in (1, 2, 31, 32, 33, 2047, 2048):
+        thr = np.unique(np.concatenate([
+            rng.choice(keys, min(T, len(keys)) // 2),
+            rng.integers(0, top, T, dtype=ut, endpoint=True)]))
+        thr = np.sort(rng.choice(thr, min(T, len(thr)), replace=False))
+        cases.append((f"T={T}", thr, brackets[:1 + T % 8]))
+    R = 8
+    at = np.sort(rng.choice(len(keys), R))
+    bands = np.stack([keys[at], keys[np.minimum(at + 3, len(keys) - 1)]], 1)
+    m = 2046 // R
+    probes = np.unique(np.array(
+        [int(lo) + (int(hi) - int(lo)) * j // m for lo, hi in bands
+         for j in range(m)] + [int(k) for k in bands.ravel()], ut))
+    cases.append(("bands", probes[:2048], bands))
+    return cases
+
+
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_k17_edges_equal_its_plain_version(name, cuda):
+    """K17 on its edges (``_k17_cases``) on every bucket, bit for bit: the
+    bw-0 column puts every value in one bin (the uniform-warp path), the
+    specials column holds NaN of both signs, +-Inf, -0.0 and a partial
+    last vector."""
+    col = alp_tpu_torch.compress(COLUMNS[name])
+    plan = col.plan(cuda)
+    for label, thr, br in _k17_cases(name, plan):
+        thr_t, br_t = _as_words(plan, thr), _as_words(plan, br)
+        for call in engine.key_calls(plan):
+            bins, mm = call.rank_pass(thr_t, br_t, *kkeys.rank_outputs(
+                len(thr), len(br), plan.bits_dtype, cuda))
+            want_bins, want_mm = call.rank_pass_plain(thr_t, br_t)
+            assert torch.equal(bins, want_bins), (name, label)
+            assert torch.equal(mm, want_mm), (name, label)
+
+
 def _quantile_equal(got, want, dtype) -> bool:
     """Bits, a NaN by isnan, a zero by == (numpy returns either sign)."""
     got, want = np.asarray(got), np.asarray(want).astype(dtype)
@@ -717,6 +787,48 @@ def test_group_kernels_equal_plain_versions(name, cuda):
                 want_out, want_ext = call.group_reduce_plain(gk, G)
                 assert torch.equal(out, want_out), (name, G, ordered)
                 assert torch.equal(ext, want_ext), (name, G, ordered)
+
+
+# csrc/group.cu kSharedAcc: K19 keeps G groups in shared memory while
+# G * ((2 W + 1) * 4 + 16 + 2 * key bytes) fits (SharedGroups::group_bytes:
+# f64 363 groups, f32 2048)
+SHARED_ACC_BYTES = 200 * 1024
+
+
+def _shared_groups(plan) -> int:
+    W = kes.WINDOWS[plan.bits_dtype]
+    return SHARED_ACC_BYTES // ((2 * W + 1) * 4 + 16 + 2 * (8 if plan.f64
+                                                             else 4))
+
+
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_k19_edges_equal_its_plain_version(name, cuda):
+    """K19 on every bucket, bit for bit: G on both sides of the shared /
+    device boundary (random ids), every key equal, keys distinct within a
+    vector (and across the column), ids at G and above (counted nowhere);
+    the columns hold NaN of both signs, +-Inf, -0.0 and a partial last
+    vector."""
+    from alp_tpu_torch.kernels import group as kgroup
+    col = alp_tpu_torch.compress(COLUMNS[name])
+    plan = col.plan(cuda)
+    rng = np.random.default_rng(19)
+    n = plan.n_vectors * 1024
+    edge = _shared_groups(plan)
+    cases = [(G, rng.integers(0, G, n)) for G in (edge, edge + 1)]
+    cases += [(16, np.full(n, 5)), (1, np.zeros(n, np.int64)),
+              (1024, np.arange(n) % 1024), (n, np.arange(n)),
+              (16, rng.integers(0, 40, n)), (edge + 1, rng.integers(
+                  edge - 2, 2 * edge, n))]
+    for G, ids in cases:
+        kv = torch.from_numpy(ids.astype(np.int32).reshape(-1, 1024)).to(
+            cuda)
+        for call in engine.group_calls(plan):
+            gk = kv[call.rows].contiguous()
+            out, ext = call.group_reduce(gk, G, *kgroup.group_outputs(
+                G, plan.bits_dtype, cuda))
+            want_out, want_ext = call.group_reduce_plain(gk, G)
+            assert torch.equal(out, want_out), (name, G)
+            assert torch.equal(ext, want_ext), (name, G)
 
 
 def test_group_in_runs_on_the_card(cuda):

@@ -25,11 +25,13 @@ from alp_tpu_torch.kernels import decode
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "alp_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "kernel_ablations.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
     for p in PKG.rglob("*.py")
-    if p.name != "__init__.py") + ["alp_tpu_torch", "chip_smoke"]
+    if p.name != "__init__.py") + ["alp_tpu_torch", "chip_smoke",
+                                   "kernel_ablations"]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|alp_tpu)(\.|\s|$)",
                        re.MULTILINE)
 

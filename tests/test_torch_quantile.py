@@ -43,6 +43,7 @@ from alp_tpu.kernels import decode as jdecode
 import alp_tpu_torch
 from alp_tpu_torch import engine
 from alp_tpu_torch.kernels import keys as kkeys
+from alp_tpu_torch.ops.keys import bias
 from test_torch_query import NAMES, _column
 
 CPU = {"device": "cpu"}
@@ -534,3 +535,147 @@ def test_k17_wrappers_check_their_arguments():
             run(T, R)
     with pytest.raises(TypeError):
         run(2, 1, torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# K17's search tree and bracket masks (csrc/keys.cu), mirrored in torch
+# ---------------------------------------------------------------------------
+
+TREE = kkeys.MAX_THRESHOLDS - 1      # csrc/keys.cu kTree
+
+
+def _tree_mirror(thr: torch.Tensor) -> tuple:
+    """``Tree::build``: the first min(T, TREE) unsigned thresholds (held
+    signed) in Eytzinger order at nodes 1 .. 2^L - 1, padded with all ones;
+    returned as biased keys, with L."""
+    n = min(thr.shape[0], TREE)
+    L = 0
+    while (1 << L) - 1 < n:
+        L += 1
+    tree = torch.full((1 << L,), -1, dtype=thr.dtype)
+    for at in range(1, 1 << L):
+        d = at.bit_length() - 1
+        s = ((2 * (at - (1 << d)) + 1) << (L - 1 - d)) - 1
+        if s < n:
+            tree[at] = thr[s]
+    return bias(tree), L
+
+
+def _tree_bins(thr: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """``Tree::bins`` of each biased key: L levels of at = 2 at +
+    (tree[at] < key), then at - 2^L, plus the compare with the last
+    threshold at T = 2048."""
+    tree, L = _tree_mirror(thr)
+    at = torch.ones(keys.shape, dtype=torch.int64)
+    for _ in range(L):
+        at = 2 * at + (tree[at] < keys).to(torch.int64)
+    p = at - (1 << L)
+    if thr.shape[0] > TREE:
+        p += (bias(thr[-1:]) < keys).to(torch.int64)
+    return p
+
+
+def _threshold_case(T: int, f64: bool, seed: int, kind: str = "random"):
+    """T ascending distinct unsigned thresholds and probe keys (unsigned
+    numpy): seeded random keys, every threshold and its +-1.  ``kind``:
+    thresholds spread over the key space, in 8 narrow bands (a later
+    bisection pass), or 3 apart."""
+    rng = np.random.default_rng(seed)
+    ut = np.uint64 if f64 else np.uint32
+    top = np.iinfo(ut).max
+    if kind == "random":
+        thr = np.unique(rng.integers(0, top, 2 * T, dtype=ut, endpoint=True))
+    elif kind == "bands":
+        lo = np.sort(rng.integers(0, top - (1 << 20), 8, dtype=ut))
+        thr = np.unique(np.concatenate([
+            b + rng.integers(0, 1 << 20, T, dtype=ut) for b in lo]))
+    else:
+        thr = ut(rng.integers(0, top // 2)) + np.arange(T, dtype=ut) * ut(3)
+    thr = np.sort(rng.choice(thr, T, replace=False))
+    keys = np.concatenate([rng.integers(0, top, 4096, dtype=ut,
+                                        endpoint=True), thr, thr + ut(1),
+                           thr - ut(1), [ut(0), ut(top)]]).astype(ut)
+    return thr, keys
+
+
+def _signed(keys: np.ndarray) -> torch.Tensor:
+    """Unsigned numpy keys as the signed words the kernels take."""
+    return torch.from_numpy(keys.view(f"i{keys.itemsize}").copy())
+
+
+@pytest.mark.parametrize("kind", ("random", "bands", "dense"))
+@pytest.mark.parametrize("f64", (True, False))
+@pytest.mark.parametrize("T", (1, 2, 31, 32, 33, 2047, 2048))
+def test_k17_tree_search_equals_searchsorted(T, f64, kind):
+    thr, keys = _threshold_case(T, f64, T, kind)
+    thr_t, keys_t = _signed(thr), bias(_signed(keys))
+    want = torch.searchsorted(bias(thr_t), keys_t, right=False)
+    assert torch.equal(_tree_bins(thr_t, keys_t), want)
+
+
+def _cut_tables(thr: torch.Tensor, brackets: torch.Tensor) -> tuple:
+    """K17's bracket tables (``rank_pass_kernel``), from unsigned
+    thresholds and [R, 2] unsigned brackets held signed, as biased keys:
+    the cut points (lo - 1 and hi of each distinct bracket that holds a
+    key, ascending), each cut interval's bracket mask, and each bin's
+    first interval and the number of cuts that split it."""
+    dt = thr.dtype
+    top, bottom = torch.iinfo(dt).max, torch.iinfo(dt).min
+    br = bias(brackets)
+    uniq = []
+    for lo, hi in br.tolist():
+        if lo <= hi and (lo, hi) not in uniq:
+            uniq.append((lo, hi))
+    cuts = sorted({c for lo, hi in uniq for c, keep in
+                   ((lo - 1, lo > bottom), (hi, hi < top)) if keep})
+    ct = torch.tensor(cuts, dtype=dt)
+    pairs = [tuple(x) for x in br.tolist()]
+    masks = []
+    for q in range(len(cuts) + 1):
+        lower = bottom if q == 0 else cuts[q - 1] + 1
+        upper = top if q == len(cuts) else cuts[q]
+        masks.append(sum(1 << r for r, (lo, hi) in enumerate(pairs)
+                         if pairs.index((lo, hi)) == r and lo <= hi
+                         and lower >= lo and upper <= hi))
+    b = bias(thr)
+    lower = torch.cat([torch.tensor([bottom], dtype=dt),
+                       torch.where(b < top, b + 1, b)])
+    upper = torch.cat([b, torch.tensor([top], dtype=dt)])
+    ql = torch.searchsorted(ct, lower)
+    qu = torch.searchsorted(ct, upper)
+    return ct, torch.tensor(masks), ql, torch.where(lower <= upper,
+                                                    qu - ql, 0)
+
+
+@pytest.mark.parametrize("f64", (True, False))
+def test_k17_cut_intervals_give_each_keys_brackets(f64):
+    """A key's bin gives its cut interval (the bin's first one, plus the
+    cuts inside the bin below the key), and the interval's mask is exactly
+    the brackets that hold the key (the first of equal brackets): brackets
+    that overlap, hold one key, none, lie reversed, or span every key."""
+    thr_u, keys_u = _threshold_case(64, f64, 3)
+    thr, keys = _signed(thr_u), bias(_signed(keys_u))
+    st = thr.dtype
+    pick = torch.sort(bias(keys)[torch.randperm(
+        keys.shape[0], generator=torch.Generator().manual_seed(4))[:6]]
+    ).values
+    top, bottom = torch.iinfo(st).max, torch.iinfo(st).min
+    ends = torch.tensor([bottom, top], dtype=st)
+    brackets = bias(torch.stack(
+        [torch.cat([pick[[0, 1, 2, 3, 5, 0]], ends[:1]]),
+         torch.cat([pick[[2, 4, 2, 3, 4, 2]], ends[1:]])], 1))
+    ct, masks, first, cuts = _cut_tables(thr, brackets)
+    p = _tree_bins(thr, keys)
+    q = first[p].clone()
+    for c in range(int(cuts.max())):          # the cuts inside the bin
+        inside = c < cuts[p]
+        at = torch.clamp(first[p] + c, max=ct.shape[0] - 1)
+        q += (inside & (ct[at] < keys)).to(torch.int64)
+    assert torch.equal(q, torch.searchsorted(ct, keys))
+    got = masks[q]
+    br = bias(brackets).tolist()
+    want = torch.zeros_like(got)
+    for r, (lo, hi) in enumerate(br):
+        if [tuple(x) for x in br].index((lo, hi)) == r:
+            want |= (((keys >= lo) & (keys <= hi)).to(torch.int64) << r)
+    assert torch.equal(got, want)
