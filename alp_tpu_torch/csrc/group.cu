@@ -117,12 +117,14 @@ using alp::Fixed;
 using alp::grid_for;
 using alp::kMarks;
 using alp::kVector;
+using alp::launch_rows;
 using alp::mark_slots;
 using alp::order_key;
 using alp::peer_extremes;
 using alp::round16;
 using alp::RowAhead;
 using alp::stage_layout;
+using alp::start_rows;
 using alp::umax;
 using alp::umin;
 using alp::wait_async;
@@ -499,8 +501,7 @@ group_reduce_kernel(V src, const long long* __restrict__ rows, long long n,
   long long i = blockIdx.x;
   unsigned char* const buf0 = dyn + lay.buf[0];
   unsigned char* const buf1 = dyn + lay.buf[1];
-  if (i < n) src.stage_async(buf0, i);
-  commit_async();
+  start_rows<kThreads>(src, n, dyn, lay);
   if (kShared) {
     for (int j = tid; j < G * SharedGroups<U>::kStride; j += kThreads)
       sgr.half[j] = 0;
@@ -511,9 +512,10 @@ group_reduce_kernel(V src, const long long* __restrict__ rows, long long n,
       sgr.kx[2 * g + 1] = 0;
     }
   }
-  for (int j = tid; j < kMarks * 32; j += kThreads) marks[j] = 0;
   __syncthreads();
-  // the rows are loaded ahead and the exceptions marked as in K17
+  // the rows are loaded ahead and the exceptions marked as in the key
+  // kernels' row loop (vector.cuh), but each exception is patched in by the
+  // thread that loaded it
   RowAhead<V, kPer> ra(src, rows, n, i);
   mark_slots(marks, ra.xk);
   for (int it = 0; i < n; i += gridDim.x, ++it) {
@@ -614,22 +616,9 @@ int launch_group_as(const V& src, const void* rows, long long n,
                     void* ext, int dev, void* stream) {
   using U = typename V::U;
   const GroupLayout lay = group_layout<U>(kShared, G, src.staged_bytes());
-  cudaError_t err = cudaFuncSetAttribute(
-      group_reduce_kernel<V, kShared>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(lay.bytes));
-  unsigned blocks = 0;
-  if (err == cudaSuccess)
-    err = grid_for(group_reduce_kernel<V, kShared>, n, dev, kThreads,
-                   lay.bytes, &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks)
-    group_reduce_kernel<V, kShared><<<blocks, kThreads, lay.bytes,
-                                      static_cast<cudaStream_t>(stream)>>>(
-        src, static_cast<const long long*>(rows), n, n_values,
-        static_cast<const int*>(gkeys), G, lay,
-        static_cast<long long*>(out), static_cast<U*>(ext));
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows<kThreads>(group_reduce_kernel<V, kShared>, n, lay.bytes,
+                               dev, stream, src, rows, n, n_values, gkeys, G,
+                               lay, out, ext);
 }
 
 template <class V>

@@ -30,33 +30,65 @@
 //                     rd_decode_dict_f32_rankpass (:2295).
 //
 // Each is one template over the four routes of vector.cuh (ALP f64, ALP
-// f32, ALP_RD f64, ALP_RD f32), so twelve C entries.
+// f32, ALP_RD f64, ALP_RD f32), so twelve C entries.  The TPU kernels
+// compare every key with every threshold in their 128 lanes, keep a key
+// max per lane column in biased i32 words and leave the exceptions and the
+// pad to host corrections; here a key is one unsigned word, the exceptions
+// are written in and the pad skipped, so the outputs are final.
 //
-// K15.  E ascending thresholds thr_0 < ... < thr_{E-1} (unsigned keys; E
-// at most kMaxThr, which keeps a block's static shared memory under
-// 48 KB).  Every value of the bucket that is not pad adds 1 to bin
-// p = #{thresholds < key}, found by a binary search in shared memory; the
-// warp's lanes that share a bin add to the block's shared histogram with
-// one atomic (__match_any_sync), and each block adds its nonzero bins to
-// the global int64 [E + 1] bins once.  #{key <= thr_e} is the sum of bins
-// 0..e.  The TPU kernels instead compare every key with every threshold
-// in its 128 lanes and leave the exceptions and the pad to host
-// corrections; here the exceptions are written in and the pad skipped, so
-// the counts are final.
+// The row loop (for_each_row in vector.cuh), shared by the three.  A
+// block of T threads (K17 256, K15 and K16 128) walks the rows blockIdx.x,
+// + gridDim.x, ... of the bucket; each thread holds 1024 / T values of a
+// vector in registers (vector.cuh's register decode straight from the
+// staged words), and each exception is patched in by the thread that owns
+// its slot, from the row's marks and payloads in shared memory.  The next
+// row's words are staged with cp.async while the current row is read; its
+// metadata and one exception a thread (slot and payload) are loaded a row
+// ahead (vector.cuh's RowAhead), the rare exceptions beyond T a row when
+// they are stored, its exception range two rows ahead and its vector id
+// three.  A row without exceptions skips the marks.  One barrier a
+// vector.  Each kernel hands the loop its work on a thread's keys.  (K15
+// and K16 first decoded each vector into shared memory behind 3-5
+// barriers, one vector in flight a block, and read it back.)  K15's and
+// K16's blocks are held to at least kKeyBlocks = 5 an SM (at most 102
+// registers); their block size and register bound were chosen by sweeps
+// on the card.
 //
-// K16.  A thread's least and largest key over its values, then warp
-// shuffles, one shared row a block, and thread 0 writes the pair at row
-// rows[i] of out [n_vectors, 2].  The TPU kernels keep a key max per lane
-// column of 128 lanes in biased i32 words; Hopper compares 64-bit
-// integers, so the key is one unsigned word.
+// K15.  E ascending thresholds thr_0 < ... < thr_{E-1} (unsigned keys,
+// 1 <= E <= kMaxThr); every value that is not pad adds 1 to bin
+// p = #{thresholds < key}, and #{key <= thr_e} is the sum of bins 0..e.
+// Two kernels, chosen on the host by E:
+//  - few thresholds (E <= kSmall = 2: COUNT WHERE, TOP-K's tie count): no
+//    search and no shared histogram.  The thresholds, padded to 2 with all
+//    ones, are broadcast from shared memory; a thread counts in registers,
+//    over all its rows, its keys that are not pad and, for each threshold,
+//    its keys above it: a compare and an add a key and threshold, no
+//    branch.  At the end the counts are summed across the warp (redux),
+//    then across the warps into the block's bins once, which the block
+//    adds, where nonzero, into the global int64 bins.  kernel_ablations.py
+//    times this path against the tree at E = 2 (k15_tree) and a path of 16
+//    thresholds against the tree at E = 7 and 16 (k15_small_16); PERF.md
+//    gives the ratios and why kSmall is 2;
+//  - many thresholds: K17's search tree (Tree, below: the first
+//    min(E, 2047) thresholds in Eytzinger order and a last compare) and a
+//    shared histogram of native 32-bit atomics, one atomic for a warp whose
+//    lanes fall in one bin (count_bin), flushed as above.
+// Dynamic shared memory is sized by E (the tree and the histogram, then
+// the loop's payloads, marks and staging buffers), so a small E leaves
+// room for more blocks an SM.
+//
+// K16.  A thread's least and largest key of its 8, then the warp's (redux
+// of the 32-bit halves), one pair a warp into a shared slot; after a
+// second barrier thread 0 merges the 4 slots and writes the pair at row
+// rows[i] of out [n_vectors, 2].  (A merge by warp 0 of the last row's
+// slots after the next row's barrier, with no second barrier, was slower:
+// warp 0 became the straggler at every barrier; k16_warp_merge.)
 //
 // K17.  One pass of the bisection: K15's bins at T <= 2048 thresholds and,
 // for each of R <= 8 brackets [lo_r, hi_r], the least and the largest key
 // inside it, merged into mm [R, 2] with one atomicMin and one atomicMax a
 // bracket and block (the caller starts mm at (all ones, 0), so a bracket
-// that holds no value of the bucket leaves it untouched).  The TPU kernels
-// split each key into two biased i32 words and compare them
-// lexicographically per lane; here a key is one unsigned word.  The first
+// that holds no value of the bucket leaves it untouched).  The first
 // design (K15's binning, then 2R compares a value) lost its time to a
 // serial binary search of 11 dependent shared loads a value, a match and a
 // shared atomic a value, 2R compares and 16 accumulator registers a value,
@@ -71,8 +103,7 @@
 //    a key instead of 11, but measured no faster on the card: its reads
 //    are as random as the tree's deep levels, its search loop diverges,
 //    and its 16-24 KB more of shared memory cost a block an SM);
-//  - the bins: native 32-bit shared atomics, no match; a warp whose 32
-//    lanes fall in one bin (the bw-0 column) adds 32 with one atomic;
+//  - the bins: K15's many-threshold bins (count_bin);
 //  - the brackets: equal brackets are merged (a first pass has R equal
 //    ones), and their ends lo - 1 and hi (at most 16 cut points) split the
 //    keys into intervals that lie wholly inside or outside each bracket.
@@ -87,19 +118,18 @@
 //    writes (no atomics, no register a bracket: per-thread slots took 32
 //    KB and per-thread registers 16-32 more registers a thread, each a
 //    block an SM);
-//  - the round trip: the values stay in registers (vector.cuh's register
-//    decode straight from the staged words), and each exception is patched
-//    in by the thread that owns its slot, from the row's marks and
-//    payloads in shared memory, so no second pass ranks the exceptions.
-//    The next row's words are staged with cp.async while the current row
-//    is ranked; its metadata, exception slots and payloads are loaded a
-//    row ahead (vector.cuh's RowAhead), its exception range two rows and
-//    its vector id three: no load of global memory waits inside a row.
-//    One barrier a vector.
-// What still keeps it from its bound: the deep levels of the tree, the bin
-// and the bin's interval are random shared addresses, so a warp's loads
-// split into several bank wavefronts, and the warps of a block meet at a
-// barrier once a vector.
+//  - the row loop above.
+//
+// What still keeps them from their bounds (kernel_ablations.py on the
+// card): K16 and K15's few-threshold path are little more than the row
+// loop (k15_no_bins), whose exception marks and payloads take about a
+// third of their time, as much on the bw-0 column, which holds none,
+// through the registers the patch path holds (keys_no_exceptions), and
+// whose decode about a quarter (keys_no_decode); the warps of a block meet
+// at a barrier once a vector (K16 twice).  K15's many-threshold path and
+// K17 add the tree's deep levels, the bin and the bin's interval, random
+// shared addresses, so that a warp's loads split into several bank
+// wavefronts.
 //
 // Bound.  All three read only the packed words, the metadata, the row ids
 // and the exceptions of their vectors (a few bits a value) and write a few
@@ -111,10 +141,8 @@
 // compare a cut that splits its bin and a min and a max a bracket that
 // holds it, at the INT32 issue rate.
 // chip_smoke.py counts them (KEY_OPS, RANK_OPS, and beside them the count
-// of the first design: ceil(log2(E + 1)) search steps and 2R compares a
-// value).  K15 and K16 keep the first, simple design: one block of 256
-// threads walks the vectors of its share, and each vector is decoded into
-// shared memory (vector.cuh's decode) before it is read.
+// of K17's first design: ceil(log2(E + 1)) search steps and 2R compares a
+// value).
 
 #include <climits>
 #include <cstdint>
@@ -124,137 +152,36 @@
 
 namespace {
 
-using alp::AlpVector;
 using alp::bad_alp;
 using alp::bad_rd;
-using alp::commit_async;
-using alp::grid_for;
-using alp::kMarks;
+using alp::for_each_row;
 using alp::kVector;
-using alp::mark_slots;
+using alp::launch_rows;
 using alp::merge_key;
-using alp::order_key;
 using alp::peer_extremes;
-using alp::RdVector;
 using alp::round16;
-using alp::RowAhead;
-using alp::stage_layout;
+using alp::row_layout;
+using alp::RowLayout;
+using alp::start_rows;
 using alp::umax;
 using alp::umin;
-using alp::wait_async;
-using alp::warp_max;
-using alp::warp_min;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;                // K17's block
+constexpr int kPer = kVector / kThreads;     // values of a vector a thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kKeyThreads = 128;             // K15's and K16's block
+constexpr int kKeyBlocks = 5;                // ... resident an SM, at least
+constexpr int kKeyPer = kVector / kKeyThreads;
+constexpr int kKeyWarps = kKeyThreads / 32;
 constexpr int kMaxThr = 2048;
 constexpr int kMaxRanks = 8;
+constexpr int kSmall = 2;                    // K15 without a search: E <= 2
 constexpr unsigned kFull = alp::kFullMask;
 
-// K15's binning.  Thresholds into shared th[E], the block's histogram
-// hist[E + 1] zeroed; the caller syncs before use.
-template <typename U>
-__device__ __forceinline__ void load_bins(U* th, unsigned* hist,
-                                          const U* __restrict__ thr, int E) {
-  for (int j = threadIdx.x; j < E; j += blockDim.x) th[j] = thr[j];
-  for (int j = threadIdx.x; j <= E; j += blockDim.x) hist[j] = 0;
-}
+// ---------------------------------------------------------------------------
+// K15 and K17's bins
+// ---------------------------------------------------------------------------
 
-// Count one key (none when `real` is false: the pad) at its bin
-// #{th < key}.  Every lane of the warp calls it together.
-template <typename U>
-__device__ __forceinline__ void bin_key(bool real, U key, const U* th, int E,
-                                        unsigned* hist) {
-  int p = -1;                                // -1: pad, counted nowhere
-  if (real) {
-    int lo = 0, hi = E;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (th[mid] < key)
-        lo = mid + 1;
-      else
-        hi = mid;
-    }
-    p = lo;
-  }
-  const unsigned peers = __match_any_sync(kFull, p);
-  if (p >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)
-    atomicAdd(&hist[p], static_cast<unsigned>(__popc(peers)));
-}
-
-// The block's nonzero bins into the global int64 bins; after a barrier
-// (K15 and K17).
-__device__ __forceinline__ void flush_bins(const unsigned* hist, int E,
-                                           unsigned long long* bins) {
-  for (int j = threadIdx.x; j <= E; j += blockDim.x)
-    if (hist[j]) atomicAdd(&bins[j], static_cast<unsigned long long>(hist[j]));
-}
-
-// K15: prefix-count bins of the keys of rows 0..n-1 (vector rows[i]).
-template <class V>
-__global__ void __launch_bounds__(kThreads)
-key_counts_kernel(V src, const long long* __restrict__ rows, long long n,
-                  long long n_values, const typename V::U* __restrict__ thr,
-                  int E, unsigned long long* __restrict__ bins) {
-  using U = typename V::U;
-  __shared__ typename V::Shared sh;
-  __shared__ U vals[kVector];
-  __shared__ U th[kMaxThr];
-  __shared__ unsigned hist[kMaxThr + 1];
-  load_bins(th, hist, thr, E);
-  for (long long i = blockIdx.x; i < n; i += gridDim.x) {
-    const long long vec = rows[i];
-    src.decode(sh, vals, i, vec);            // ends in a barrier
-    const long long valid = n_values - vec * kVector;
-    for (int k = threadIdx.x; k < kVector; k += kThreads)
-      bin_key(k < valid, order_key(vals[k]), th, E, hist);
-    __syncthreads();                         // vals is read
-  }
-  __syncthreads();
-  flush_bins(hist, E, bins);
-}
-
-// K16: (least key, largest key) of each vector into out[rows[i]].
-template <class V>
-__global__ void __launch_bounds__(kThreads)
-key_extremes_kernel(V src, const long long* __restrict__ rows, long long n,
-                    long long n_values, typename V::U* __restrict__ out) {
-  using U = typename V::U;
-  constexpr int kWarps = kThreads / 32;
-  __shared__ typename V::Shared sh;
-  __shared__ U vals[kVector];
-  __shared__ U wlo[kWarps], whi[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (long long i = blockIdx.x; i < n; i += gridDim.x) {
-    const long long vec = rows[i];
-    src.decode(sh, vals, i, vec);
-    const long long valid = n_values - vec * kVector;
-    U lo = static_cast<U>(~U(0)), hi = 0;
-    for (int k = threadIdx.x; k < kVector; k += kThreads) {
-      if (k < valid) {
-        const U key = order_key(vals[k]);
-        lo = umin(lo, key);
-        hi = umax(hi, key);
-      }
-    }
-    lo = warp_min(lo);
-    hi = warp_max(hi);
-    if (lane == 0) {
-      wlo[warp] = lo;
-      whi[warp] = hi;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < kWarps; ++w) {
-        lo = umin(lo, wlo[w]);
-        hi = umax(hi, whi[w]);
-      }
-      out[vec * 2] = lo;
-      out[vec * 2 + 1] = hi;
-    }
-    __syncthreads();                         // vals and the rows are read
-  }
-}
-
-// K17's search tree: the first min(E, kTree) thresholds in Eytzinger
+// The search tree: the first min(E, kTree) thresholds in Eytzinger
 // (breadth-first) order at nodes 1 .. 2^L - 1 of tree[], padded with all
 // ones (never below a key), so every lane of a warp reads the same node at
 // the root and one of 2^d nodes at depth d.  L levels of
@@ -263,30 +190,12 @@ key_extremes_kernel(V src, const long long* __restrict__ rows, long long n,
 // walks its keys through the levels in lockstep: independent chains of
 // shared loads.
 constexpr int kTree = kMaxThr - 1;
-constexpr int kPer = kVector / kThreads;     // values of a vector a thread
-constexpr int kWarps = kThreads / 32;
-constexpr int kCuts = 32;                    // bracket cut points, padded
 
-// K17's dynamic shared memory: the tree at 0, then these byte offsets and
-// the marks and staging buffers.
-struct RankLayout : alp::StageLayout {
-  int levels;                                // L
-  unsigned hist, qbin, xval;
-};
-
-inline RankLayout rank_layout(int E, unsigned key_bytes, int staged) {
-  RankLayout l{};
+inline int tree_levels(int E) {
   const int tree = E < kTree ? E : kTree;
-  while ((1 << l.levels) - 1 < tree) ++l.levels;
-  unsigned at = round16((1u << l.levels) * key_bytes);
-  l.hist = at;
-  at = round16(at + (E + 1) * 4u);
-  l.qbin = at;
-  at = round16(at + (E + 1u) * 2u);
-  l.xval = at;
-  at = round16(at + 2 * kVector * key_bytes);
-  static_cast<alp::StageLayout&>(l) = stage_layout(at, staged);
-  return l;
+  int levels = 0;
+  while ((1 << levels) - 1 < tree) ++levels;
+  return levels;
 }
 
 template <typename U>
@@ -339,6 +248,223 @@ __device__ __forceinline__ void count_bin(bool real, int p, unsigned* hist) {
   }
 }
 
+// The block's nonzero bins into the global int64 bins; after a barrier
+// (K15's many-threshold path and K17).
+__device__ __forceinline__ void flush_bins(const unsigned* hist, int E,
+                                           unsigned long long* bins) {
+  for (int j = threadIdx.x; j <= E; j += blockDim.x)
+    if (hist[j]) atomicAdd(&bins[j], static_cast<unsigned long long>(hist[j]));
+}
+
+// ---------------------------------------------------------------------------
+// K15
+// ---------------------------------------------------------------------------
+
+// The few-threshold count of a thread's keys: above[0] the keys that are
+// not pad, above[e + 1] those above threshold th[e] (th padded with all
+// ones, which no key is above; a pad key counts as 0, which is above none).
+template <int N, typename U>
+__device__ __forceinline__ void count_small(unsigned (&above)[kSmall + 1],
+                                            const U* th, const U (&key)[N],
+                                            const bool (&real)[N]) {
+  U k[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    k[j] = real[j] ? key[j] : U(0);
+    above[0] += real[j];
+  }
+#pragma unroll
+  for (int e = 0; e < kSmall; ++e) {
+    const U t = th[e];
+#pragma unroll
+    for (int j = 0; j < N; ++j) above[e + 1] += k[j] > t;
+  }
+}
+
+// K15 at E <= kSmall thresholds: the counts in registers, no search.
+template <class V>
+__global__ void __launch_bounds__(kKeyThreads, kKeyBlocks)
+key_counts_small_kernel(V src, const long long* __restrict__ rows,
+                        long long n, long long n_values,
+                        const typename V::U* __restrict__ thr, int E,
+                        RowLayout lay,
+                        unsigned long long* __restrict__ bins) {
+  using U = typename V::U;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ U th[kSmall];
+  __shared__ unsigned part[kKeyWarps][kSmall + 1];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  start_rows<kKeyThreads>(src, n, dyn, lay);
+  if (tid < kSmall) th[tid] = tid < E ? thr[tid] : static_cast<U>(~U(0));
+  __syncthreads();
+  unsigned above[kSmall + 1];
+#pragma unroll
+  for (int e = 0; e <= kSmall; ++e) above[e] = 0;
+  for_each_row<kKeyThreads>(src, rows, n, n_values, dyn, lay,
+                            [&](long long, const U (&key)[kKeyPer],
+                                const bool (&real)[kKeyPer]) {
+    count_small(above, th, key, real);
+  });
+  // the warp's counts, then the block's: bin p holds the keys above
+  // thr_{p-1} (all of them for p = 0) less those above thr_p
+#pragma unroll
+  for (int e = 0; e <= kSmall; ++e)
+    above[e] = __reduce_add_sync(kFull, above[e]);
+  if (lane == 0) {
+#pragma unroll
+    for (int e = 0; e <= kSmall; ++e) part[warp][e] = above[e];
+  }
+  __syncthreads();
+  if (tid <= E) {
+    unsigned a = 0, b = 0;
+    for (int w = 0; w < kKeyWarps; ++w) {
+      a += part[w][tid];
+      b += tid < E ? part[w][tid + 1] : 0u;
+    }
+    if (a != b) atomicAdd(&bins[tid], static_cast<unsigned long long>(a - b));
+  }
+}
+
+// K15 at more thresholds: the dynamic shared memory's byte offsets (the
+// tree at 0, then the histogram and the row loop's).
+struct CountLayout {
+  int levels;                                // L
+  unsigned hist;
+  RowLayout rows;
+};
+
+inline CountLayout count_layout(int E, unsigned key_bytes, int staged) {
+  CountLayout l{};
+  l.levels = tree_levels(E);
+  l.hist = round16((1u << l.levels) * key_bytes);
+  l.rows = row_layout(l.hist + (E + 1) * 4u, key_bytes, staged);
+  return l;
+}
+
+// The many-threshold count of a thread's keys: their bins, then the
+// block's histogram.
+template <int N, typename U>
+__device__ __forceinline__ void count_tree(const Tree<U>& tr, unsigned* hist,
+                                           const U (&key)[N],
+                                           const bool (&real)[N]) {
+  int p[N];
+  tr.bins(key, p);
+#pragma unroll
+  for (int j = 0; j < N; ++j) count_bin(real[j], p[j], hist);
+}
+
+// K15 at kSmall < E <= kMaxThr thresholds: the search tree.
+template <class V>
+__global__ void __launch_bounds__(kKeyThreads, kKeyBlocks)
+key_counts_kernel(V src, const long long* __restrict__ rows, long long n,
+                  long long n_values, const typename V::U* __restrict__ thr,
+                  int E, CountLayout lay,
+                  unsigned long long* __restrict__ bins) {
+  using U = typename V::U;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  U* tree = reinterpret_cast<U*>(dyn);
+  unsigned* hist = reinterpret_cast<unsigned*>(dyn + lay.hist);
+  start_rows<kKeyThreads>(src, n, dyn, lay.rows);
+  const Tree<U> tr{tree, lay.levels, E > kTree, thr[E - 1]};
+  tr.build(tree, thr, E);
+  for (int j = threadIdx.x; j <= E; j += kKeyThreads) hist[j] = 0;
+  __syncthreads();
+  for_each_row<kKeyThreads>(src, rows, n, n_values, dyn, lay.rows,
+                            [&](long long, const U (&key)[kKeyPer],
+                                const bool (&real)[kKeyPer]) {
+    count_tree(tr, hist, key, real);
+  });
+  __syncthreads();
+  flush_bins(hist, E, bins);
+}
+
+// ---------------------------------------------------------------------------
+// K16
+// ---------------------------------------------------------------------------
+
+// The warp's least `lo` and largest `hi` (a 64-bit key in two halves, each
+// a redux); every lane of the warp calls it and gets both.
+__device__ __forceinline__ void warp_extremes(uint64_t& lo, uint64_t& hi) {
+  const unsigned lh = static_cast<unsigned>(lo >> 32);
+  const unsigned hh = static_cast<unsigned>(hi >> 32);
+  const unsigned mh = __reduce_min_sync(kFull, lh);
+  const unsigned ml = __reduce_min_sync(
+      kFull, lh == mh ? static_cast<unsigned>(lo) : 0xffffffffu);
+  const unsigned xh = __reduce_max_sync(kFull, hh);
+  const unsigned xl = __reduce_max_sync(
+      kFull, hh == xh ? static_cast<unsigned>(hi) : 0u);
+  lo = (static_cast<uint64_t>(mh) << 32) | ml;
+  hi = (static_cast<uint64_t>(xh) << 32) | xl;
+}
+__device__ __forceinline__ void warp_extremes(uint32_t& lo, uint32_t& hi) {
+  lo = __reduce_min_sync(kFull, lo);
+  hi = __reduce_max_sync(kFull, hi);
+}
+
+// K16: (least key, largest key) of each vector into out[rows[i]].
+template <class V>
+__global__ void __launch_bounds__(kKeyThreads, kKeyBlocks)
+key_extremes_kernel(V src, const long long* __restrict__ rows, long long n,
+                    long long n_values, RowLayout lay,
+                    typename V::U* __restrict__ out) {
+  using U = typename V::U;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ U wlo[kKeyWarps], whi[kKeyWarps];   // a warp's pair
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  start_rows<kKeyThreads>(src, n, dyn, lay);
+  __syncthreads();
+  for_each_row<kKeyThreads>(src, rows, n, n_values, dyn, lay,
+                            [&](long long vec, const U (&key)[kKeyPer],
+                                const bool (&real)[kKeyPer]) {
+    U lo = static_cast<U>(~U(0)), hi = 0;
+#pragma unroll
+    for (int j = 0; j < kKeyPer; ++j) {
+      if (real[j]) {
+        lo = umin(lo, key[j]);
+        hi = umax(hi, key[j]);
+      }
+    }
+    warp_extremes(lo, hi);
+    if (lane == 0) {
+      wlo[warp] = lo;
+      whi[warp] = hi;
+    }
+    // the slots are written again only after the next row's barrier
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < kKeyWarps; ++w) {
+        lo = umin(lo, wlo[w]);
+        hi = umax(hi, whi[w]);
+      }
+      out[2 * vec] = lo;
+      out[2 * vec + 1] = hi;
+    }
+  });
+}
+
+// ---------------------------------------------------------------------------
+// K17
+// ---------------------------------------------------------------------------
+
+constexpr int kCuts = 32;                    // bracket cut points, padded
+
+// K17's dynamic shared memory: the tree at 0, then these byte offsets and
+// the row loop's.
+struct RankLayout {
+  int levels;                                // L
+  unsigned hist, qbin;
+  RowLayout rows;
+};
+
+inline RankLayout rank_layout(int E, unsigned key_bytes, int staged) {
+  RankLayout l{};
+  l.levels = tree_levels(E);
+  l.hist = round16((1u << l.levels) * key_bytes);
+  l.qbin = round16(l.hist + (E + 1) * 4u);
+  l.rows = row_layout(l.qbin + (E + 1u) * 2u, key_bytes, staged);
+  return l;
+}
+
 // #{cuts < key}: the key's interval of the bracket cut points ct[kCuts]
 // (ascending, padded with all ones), five broadcast-friendly steps.
 template <typename U>
@@ -379,19 +505,6 @@ __device__ __forceinline__ void bracket_key(U key, unsigned m, U* wlo,
       __syncwarp();
     }
   }
-}
-
-// A row's exceptions a thread holds (slots k[], -1 for none, and
-// payloads p[]): their slots into the row's mark set and their payloads
-// into the row's xval[1024], where the slots' owners patch them in.
-template <int N, typename U>
-__device__ __forceinline__ void store_exceptions(unsigned* set, U* xval,
-                                                 const int (&k)[N],
-                                                 const U (&p)[N]) {
-  mark_slots(set, k);
-#pragma unroll
-  for (int m = 0; m < N; ++m)
-    if (k[m] >= 0) xval[k[m]] = p[m];
 }
 
 // The block's shared tables of K17
@@ -449,8 +562,6 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
   U* tree = reinterpret_cast<U*>(dyn);
   unsigned* hist = reinterpret_cast<unsigned*>(dyn + lay.hist);
   uint16_t* qbin = reinterpret_cast<uint16_t*>(dyn + lay.qbin);
-  U* xval = reinterpret_cast<U*>(dyn + lay.xval);
-  unsigned* marks = reinterpret_cast<unsigned*>(dyn + lay.marks);
   __shared__ U blo[kMaxRanks], bhi[kMaxRanks];
   __shared__ U wlo[kWarps][kMaxRanks], whi[kWarps][kMaxRanks];
   __shared__ U ct[kCuts];
@@ -460,13 +571,9 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
   __shared__ U ulo, uhi;
   const int tid = threadIdx.x, warp = tid >> 5;
   const U top = static_cast<U>(~U(0));
-  unsigned char* const buf0 = dyn + lay.buf[0];
-  unsigned char* const buf1 = dyn + lay.buf[1];
-  long long i = blockIdx.x;
-  if (i < n) src.stage_async(buf0, i);
-  commit_async();
-  // the tree, the bins, the brackets, the slots and the exception marks,
-  // while the first row's words arrive
+  start_rows<kThreads>(src, n, dyn, lay.rows);
+  // the tree, the bins, the brackets and the slots, while the first row's
+  // words arrive
   const Tree<U> tr{tree, lay.levels, E > kTree, thr[E - 1]};
   tr.build(tree, thr, E);
   for (int j = tid; j <= E; j += kThreads) hist[j] = 0;
@@ -474,7 +581,6 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
     wlo[j / kMaxRanks][j % kMaxRanks] = top;
     whi[j / kMaxRanks][j % kMaxRanks] = 0;
   }
-  for (int j = tid; j < kMarks * 32; j += kThreads) marks[j] = 0;
   if (tid < R) {
     blo[tid] = br[2 * tid];
     bhi[tid] = br[2 * tid + 1];
@@ -541,38 +647,11 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
   }
   const RankTables<U> tab{tr, hist, qbin, ct, cmask, ulo, uhi, wlo[warp],
                           whi[warp]};
-  // the rows are loaded ahead (vector.cuh's RowAhead); row i's exception
-  // slots are marked in mark set it % kMarks during the row before, and a
-  // set is cleared two rows after its row
-  RowAhead<V, kPer> ra(src, rows, n, i);
-  store_exceptions(marks, xval, ra.xk, ra.xp);
-  for (int it = 0; i < n; i += gridDim.x, ++it) {
-    const long long nxt = i + gridDim.x;
-    ra.ahead();
-    wait_async();
-    __syncthreads();                         // row i staged and marked
-    const unsigned char* buf = it & 1 ? buf1 : buf0;
-    if (nxt < n) src.stage_async(it & 1 ? buf0 : buf1, nxt);
-    commit_async();
-    if (tid < 32) marks[32 * ((it + 2) % kMarks) + tid] = 0;
-    const unsigned* mk = marks + 32 * (it % kMarks);
-    const U* xv = xval + (it & 1) * kVector;
-    const long long valid = n_values - ra.vec * kVector;
-    U key[kPer];
-    bool real[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int k = tid + j * kThreads;
-      real[j] = k < valid;
-      U b = src.value(buf, ra.rw, k);
-      if ((mk[k >> 5] >> (k & 31)) & 1u) b = src.patch(buf, ra.rw, xv[k], k);
-      key[j] = order_key(b);
-    }
+  for_each_row<kThreads>(src, rows, n, n_values, dyn, lay.rows,
+                         [&](long long, const U (&key)[kPer],
+                             const bool (&real)[kPer]) {
     rank_keys(key, real, tab);
-    store_exceptions(marks + 32 * ((it + 1) % kMarks),
-                     xval + ((it + 1) & 1) * kVector, ra.xkn, ra.xpn);
-    ra.next();
-  }
+  });
   __syncthreads();
   flush_bins(hist, E, bins);
   // thread r merges the warps' slots of bracket r (the first of its
@@ -587,34 +666,45 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
   }
 }
 
-// Thresholds, bins and out are optional per kernel: E < 0 launches K16.
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+// K15 over a bucket, 1 <= E <= kMaxThr: the few-threshold kernel or the
+// search tree.
 template <class V>
-int launch(const V& src, const void* rows, long long n, long long n_values,
-           const void* thr, int E, void* bins, void* out, int dev,
-           void* stream) {
+int launch_counts(const V& src, const void* rows, long long n,
+                  long long n_values, const void* thr, int E, void* bins,
+                  int dev, void* stream) {
   using U = typename V::U;
-  if (n < 0 || n_values < 0 || E > kMaxThr || E == 0)
+  if (n < 0 || n_values < 0 || E < 1 || E > kMaxThr)
     return static_cast<int>(cudaErrorInvalidValue);
-  unsigned blocks = 0;
   const auto* r = static_cast<const long long*>(rows);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (E > 0) {
-    const cudaError_t err =
-        grid_for(key_counts_kernel<V>, n, dev, kThreads, 0, &blocks);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (blocks)
-      key_counts_kernel<V><<<blocks, kThreads, 0, s>>>(
-          src, r, n, n_values, static_cast<const U*>(thr), E,
-          static_cast<unsigned long long*>(bins));
-  } else {
-    const cudaError_t err =
-        grid_for(key_extremes_kernel<V>, n, dev, kThreads, 0, &blocks);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (blocks)
-      key_extremes_kernel<V><<<blocks, kThreads, 0, s>>>(
-          src, r, n, n_values, static_cast<U*>(out));
+  const auto* t = static_cast<const U*>(thr);
+  auto* b = static_cast<unsigned long long*>(bins);
+  if (E <= kSmall) {
+    const RowLayout lay = row_layout(0, sizeof(U), src.staged_bytes());
+    return launch_rows<kKeyThreads>(key_counts_small_kernel<V>, n, lay.bytes,
+                                    dev, stream, src, r, n, n_values, t, E,
+                                    lay, b);
   }
-  return static_cast<int>(cudaGetLastError());
+  const CountLayout lay = count_layout(E, sizeof(U), src.staged_bytes());
+  return launch_rows<kKeyThreads>(key_counts_kernel<V>, n, lay.rows.bytes,
+                                  dev, stream, src, r, n, n_values, t, E,
+                                  lay, b);
+}
+
+// K16 over a bucket.
+template <class V>
+int launch_extremes(const V& src, const void* rows, long long n,
+                    long long n_values, void* out, int dev, void* stream) {
+  using U = typename V::U;
+  if (n < 0 || n_values < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const RowLayout lay = row_layout(0, sizeof(U), src.staged_bytes());
+  return launch_rows<kKeyThreads>(key_extremes_kernel<V>, n, lay.bytes, dev,
+                                  stream, src,
+                                  static_cast<const long long*>(rows), n,
+                                  n_values, lay, static_cast<U*>(out));
 }
 
 // K17 over a bucket: 1 <= E <= kMaxThr thresholds, 1 <= R <= kMaxRanks
@@ -628,20 +718,13 @@ int launch_rank(const V& src, const void* rows, long long n,
       R > kMaxRanks)
     return static_cast<int>(cudaErrorInvalidValue);
   const RankLayout lay = rank_layout(E, sizeof(U), src.staged_bytes());
-  cudaError_t err = cudaFuncSetAttribute(
-      rank_pass_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(lay.bytes));
-  unsigned blocks = 0;
-  if (err == cudaSuccess)
-    err = grid_for(rank_pass_kernel<V>, n, dev, kThreads, lay.bytes, &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks)
-    rank_pass_kernel<V><<<blocks, kThreads, lay.bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-        src, static_cast<const long long*>(rows), n, n_values,
-        static_cast<const U*>(thr), E, static_cast<const U*>(br), R, lay,
-        static_cast<unsigned long long*>(bins), static_cast<U*>(mm));
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows<kThreads>(rank_pass_kernel<V>, n, lay.rows.bytes, dev,
+                               stream, src,
+                               static_cast<const long long*>(rows), n,
+                               n_values, static_cast<const U*>(thr), E,
+                               static_cast<const U*>(br), R, lay,
+                               static_cast<unsigned long long*>(bins),
+                               static_cast<U*>(mm));
 }
 
 }  // namespace
@@ -659,60 +742,58 @@ int launch_rank(const V& src, const void* rows, long long n,
 
 extern "C" int alp_key_counts_alp_f64(ALP_ARGS, const void* thr, int E,
                                       void* bins, int dev, void* stream) {
-  if (bad_alp(bw, 64) || E < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(ALP_ROUTE(double), rows, n, n_values, thr, E, bins, nullptr,
-                dev, stream);
+  if (bad_alp(bw, 64)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_counts(ALP_ROUTE(double), rows, n, n_values, thr, E, bins,
+                       dev, stream);
 }
 
 extern "C" int alp_key_counts_alp_f32(ALP_ARGS, const void* thr, int E,
                                       void* bins, int dev, void* stream) {
-  if (bad_alp(bw, 32) || E < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(ALP_ROUTE(float), rows, n, n_values, thr, E, bins, nullptr,
-                dev, stream);
+  if (bad_alp(bw, 32)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_counts(ALP_ROUTE(float), rows, n, n_values, thr, E, bins,
+                       dev, stream);
 }
 
 extern "C" int alp_key_counts_rd_f64(RD_ARGS, const void* thr, int E,
                                      void* bins, int dev, void* stream) {
-  if (bad_rd(rbw, lbw, 64) || E < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch(RD_ROUTE(uint64_t, 64), rows, n, n_values, thr, E, bins,
-                nullptr, dev, stream);
+  if (bad_rd(rbw, lbw, 64)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_counts(RD_ROUTE(uint64_t, 64), rows, n, n_values, thr, E,
+                       bins, dev, stream);
 }
 
 extern "C" int alp_key_counts_rd_f32(RD_ARGS, const void* thr, int E,
                                      void* bins, int dev, void* stream) {
-  if (bad_rd(rbw, lbw, 32) || E < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch(RD_ROUTE(uint32_t, 32), rows, n, n_values, thr, E, bins,
-                nullptr, dev, stream);
+  if (bad_rd(rbw, lbw, 32)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_counts(RD_ROUTE(uint32_t, 32), rows, n, n_values, thr, E,
+                       bins, dev, stream);
 }
 
 extern "C" int alp_key_extremes_alp_f64(ALP_ARGS, void* out, int dev,
                                         void* stream) {
   if (bad_alp(bw, 64)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(ALP_ROUTE(double), rows, n, n_values, nullptr, -1, nullptr,
-                out, dev, stream);
+  return launch_extremes(ALP_ROUTE(double), rows, n, n_values, out, dev,
+                         stream);
 }
 
 extern "C" int alp_key_extremes_alp_f32(ALP_ARGS, void* out, int dev,
                                         void* stream) {
   if (bad_alp(bw, 32)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(ALP_ROUTE(float), rows, n, n_values, nullptr, -1, nullptr,
-                out, dev, stream);
+  return launch_extremes(ALP_ROUTE(float), rows, n, n_values, out, dev,
+                         stream);
 }
 
 extern "C" int alp_key_extremes_rd_f64(RD_ARGS, void* out, int dev,
                                        void* stream) {
   if (bad_rd(rbw, lbw, 64)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(RD_ROUTE(uint64_t, 64), rows, n, n_values, nullptr, -1,
-                nullptr, out, dev, stream);
+  return launch_extremes(RD_ROUTE(uint64_t, 64), rows, n, n_values, out, dev,
+                         stream);
 }
 
 extern "C" int alp_key_extremes_rd_f32(RD_ARGS, void* out, int dev,
                                        void* stream) {
   if (bad_rd(rbw, lbw, 32)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(RD_ROUTE(uint32_t, 32), rows, n, n_values, nullptr, -1,
-                nullptr, out, dev, stream);
+  return launch_extremes(RD_ROUTE(uint32_t, 32), rows, n, n_values, out, dev,
+                         stream);
 }
 
 extern "C" int alp_rank_pass_alp_f64(ALP_ARGS, const void* thr, int E,

@@ -1,5 +1,5 @@
-// One vector of a plan bucket, decoded into shared memory with its true
-// exception bits written in, and the IEEE-754 total-order key of a value.
+// One vector of a plan bucket, decoded with its true exception bits
+// written in, and the IEEE-754 total-order key of a value.
 //
 // The key kernels K15-K17 (keys.cu) and the grouped kernels K18/K19
 // (group.cu) read every value of a vector through one of four routes, ALP
@@ -7,17 +7,17 @@
 // the bucket's arguments, as K1-K4 take them, and the plan's per-vector
 // exception CSR (a compressed row index: vector vec's exceptions are
 // entries exc_ptr[vec] .. exc_ptr[vec + 1] of exc_index, their flat
-// positions vec * 1024 + k, and of the true bits or left parts).  decode()
-// stages the packed words with fastlanes.cuh's stage(), computes K1/K2's
-// formula or K3/K4's glue, then overwrites the exception slots, so the
-// values are the column's own bits (NaN, +-Inf and -0.0 included).  The
-// pad of a partial last vector is left to the caller.  The header also
-// holds what those kernels share around the routes: the key helpers, the
-// grid size and the C arguments of a bucket (ALP_ARGS, RD_ARGS).
+// positions vec * 1024 + k, and of the true bits or left parts).  Either
+// decode computes K1/K2's formula or K3/K4's glue and puts the exceptions'
+// true bits in, so the values are the column's own bits (NaN, +-Inf and
+// -0.0 included).  The pad of a partial last vector is left to the
+// caller.  The header also holds what those kernels share around the
+// routes: the key helpers, the row loop of the key kernels (for_each_row),
+// the grid size and the C arguments of a bucket (ALP_ARGS, RD_ARGS).
 //
-// Beside decode(), each route has a register-resident decode for the
-// kernels that keep a thread's values in registers (K17, K19): stage_async()
-// starts a cp.async copy of a row's packed words (and, for ALP_RD, its
+// Each route has a register-resident decode for the kernels that keep a
+// thread's values in registers (K15-K17, K19): stage_async() starts a
+// cp.async copy of a row's packed words (and, for ALP_RD, its
 // dictionary) into a staging buffer, so the next row's copy runs while the
 // current row is read; value() unpacks value k of the staged row straight
 // into a register, before the exception patch; patches() says whether the
@@ -27,8 +27,15 @@
 // bits from the payload and the staged row.  RowAhead (below) loads the
 // rows' metadata and exceptions ahead of the row being read; the caller
 // marks the exception slots and takes each exception's true bits from
-// patch(), either in the thread that owns the slot (K17) or in the thread
-// that loaded the exception, the owner skipping its slot (K19).
+// patch(), either in the thread that owns the slot (K15-K17) or in the
+// thread that loaded the exception, the owner skipping its slot (K19).
+//
+// decode() is the first design's shared-memory decode, kept only for K18
+// (group.cu), the next kernel to move onto the register path: it stages
+// the packed words with fastlanes.cuh's stage() into the route's Shared
+// struct, writes the 1024 values into shared memory and overwrites the
+// exception slots there, behind three barriers.  When K18 moves, decode()
+// and the Shared structs go.
 //
 // The key of bits b is ~b for a negative value and b | sign otherwise,
 // after -0.0 is mapped to +0.0: unsigned order on keys is the total order
@@ -332,10 +339,11 @@ inline StageLayout stage_layout(unsigned at, int staged) {
 }
 
 // The rows a block reads at a grid stride, for the kernels that keep
-// their values in registers (K17, K19), loaded ahead so that no load of
+// their values in registers (K15-K17, K19), loaded ahead so that no load of
 // global memory waits in the row being read: row i's metadata and its
-// exceptions (each thread's slots and payloads, N a thread: a vector holds
-// at most 1024) one row ahead, its exception range two rows ahead and its
+// exceptions (each thread's slots and payloads, N a thread: K19 loads a
+// vector's 1024 at most, the key kernels one a thread and the rest when
+// they store them) one row ahead, its exception range two rows ahead and its
 // vector id three.  ahead() issues the loads of the rows to come, at the
 // top of row i; next() moves to row i + step.  Every thread of the block
 // calls them the same number of times.
@@ -377,13 +385,19 @@ struct RowAhead {
       b = src.exc_ptr[v + 1];
     }
   }
+  // A thread's exceptions of range [a, b): slots k[] in order, -1 after
+  // the last (then p[] is not set).  A thread past the range, as every
+  // thread of a row without exceptions, sets k[] and stops.
   __device__ __forceinline__ void load(long long a, long long b,
                                        int (&k)[N], U (&p)[N]) const {
 #pragma unroll
+    for (int m = 0; m < N; ++m) k[m] = -1;
+#pragma unroll
     for (int m = 0; m < N; ++m) {
       const long long e = a + threadIdx.x + m * blockDim.x;
-      k[m] = e < b ? src.slot(e) : -1;
-      p[m] = e < b ? src.payload(e) : U(0);
+      if (e >= b) break;
+      k[m] = src.slot(e);
+      p[m] = src.payload(e);
     }
   }
   __device__ __forceinline__ void ahead() {
@@ -435,6 +449,150 @@ cudaError_t grid_for(K kernel, long long n, int dev, int threads, size_t dyn,
   const long long cap = max(static_cast<long long>(sms) * per_sm, 1ll);
   *blocks = static_cast<unsigned>(n < cap ? n : cap);
   return err;
+}
+
+// ---------------------------------------------------------------------------
+// the row loop of the key kernels (keys.cu: K15, K16, K17)
+// ---------------------------------------------------------------------------
+//
+// A block of T threads walks the rows blockIdx.x, + gridDim.x, ... of a
+// bucket; each thread holds 1024 / T values of a vector in registers, and
+// each exception is patched in by the thread that owns its slot, from the
+// row's marks and payloads in shared memory.  The next row's words are
+// staged with cp.async while the current row is read; its metadata and
+// kAhead exceptions a thread (slot and payload) are loaded a row ahead
+// (RowAhead), the rare exceptions beyond them a row when they are stored.
+// A row without exceptions skips the marks.  One barrier a vector.  K19
+// (group.cu) starts and launches its rows with start_rows and launch_rows
+// but keeps its own loop: it patches each exception in the thread that
+// loaded it, so that no payloads take the shared memory its groups use.
+
+constexpr int kAhead = 1;                    // exceptions a thread loads ahead
+
+// A key kernel's dynamic shared memory after its own tables, from byte
+// `at`: the exception payloads of two rows (xval, [2][1024] keys), then
+// the marks and the two staging buffers.
+struct RowLayout : StageLayout {
+  unsigned xval;
+};
+
+inline RowLayout row_layout(unsigned at, unsigned key_bytes, int staged) {
+  RowLayout l{};
+  l.xval = round16(at);
+  static_cast<StageLayout&>(l) =
+      stage_layout(round16(l.xval + 2 * kVector * key_bytes), staged);
+  return l;
+}
+
+// A row's exceptions, entries [a, b) of the CSR: their slots into the
+// row's mark set and their payloads into the row's xval[1024], where the
+// slots' owners patch them in.  A thread stores the kAhead it loaded a row
+// ahead (slots k[] in order, -1 after the last, and payloads p[]), then
+// loads and stores any beyond them (a row of more than kAhead * T
+// exceptions, such as a vector of exceptions only).  T: the block's
+// threads.
+template <int T, class V>
+__device__ __forceinline__ void store_exceptions(
+    const V& src, long long a, long long b, unsigned* set,
+    typename V::U* xval, const int (&k)[kAhead],
+    const typename V::U (&p)[kAhead]) {
+  mark_slots(set, k);
+#pragma unroll
+  for (int m = 0; m < kAhead; ++m)
+    if (k[m] >= 0) xval[k[m]] = p[m];
+  for (long long e = a + threadIdx.x + kAhead * T; e < b; e += T) {
+    const int s = src.slot(e);
+    atomicOr(&set[s >> 5], 1u << (s & 31));
+    xval[s] = src.payload(e);
+  }
+}
+
+// The first row's copy started and the marks cleared: every thread of the
+// block calls it before the kernel builds its own tables, and a barrier
+// follows before the row loop.
+template <int T, class V>
+__device__ __forceinline__ void start_rows(const V& src, long long n,
+                                           unsigned char* dyn,
+                                           const StageLayout& lay) {
+  if (blockIdx.x < n) src.stage_async(dyn + lay.buf[0], blockIdx.x);
+  commit_async();
+  auto* marks = reinterpret_cast<unsigned*>(dyn + lay.marks);
+  for (int j = threadIdx.x; j < kMarks * 32; j += T) marks[j] = 0;
+}
+
+// The block's rows of the bucket (vector rows[i] of the column), each
+// decoded into registers, value k = tid + j * T of the vector (T the
+// block's threads, j < 1024 / T) in key[j] (its total-order key) and
+// real[j] (false for the pad of a partial last vector): work(vec, key,
+// real) on every thread after the row's one barrier, vec the row's vector
+// id.  The block's row `it` (counted from 0) has its exception slots
+// marked in mark set it % kMarks during the row before, and a set is
+// cleared two rows after its row.  Every thread of the block calls it.
+template <int T, class V, class Work>
+__device__ __forceinline__ void for_each_row(const V& src,
+                                             const long long* rows,
+                                             long long n, long long n_values,
+                                             unsigned char* dyn,
+                                             const RowLayout& lay,
+                                             Work&& work) {
+  using U = typename V::U;
+  const int tid = threadIdx.x;
+  U* const xval = reinterpret_cast<U*>(dyn + lay.xval);
+  unsigned* const marks = reinterpret_cast<unsigned*>(dyn + lay.marks);
+  unsigned char* const buf0 = dyn + lay.buf[0];
+  unsigned char* const buf1 = dyn + lay.buf[1];
+  RowAhead<V, kAhead> ra(src, rows, n, blockIdx.x);
+  store_exceptions<T>(src, ra.e0, ra.e1, marks, xval, ra.xk, ra.xp);
+  int it = 0;
+  for (long long i = blockIdx.x; i < n; i += gridDim.x, ++it) {
+    const long long nxt = i + gridDim.x;
+    ra.ahead();
+    wait_async();
+    __syncthreads();                         // row i staged and marked
+    const unsigned char* buf = it & 1 ? buf1 : buf0;
+    if (nxt < n) src.stage_async(it & 1 ? buf0 : buf1, nxt);
+    commit_async();
+    if (tid < 32) marks[32 * ((it + 2) % kMarks) + tid] = 0;
+    const unsigned* mk = marks + 32 * (it % kMarks);
+    const U* xv = xval + (it & 1) * kVector;
+    const long long valid = n_values - ra.vec * kVector;
+    const bool marked = ra.e1 > ra.e0;       // the row holds an exception
+    U key[kVector / T];
+    bool real[kVector / T];
+#pragma unroll
+    for (int j = 0; j < kVector / T; ++j) {
+      const int k = tid + j * T;
+      real[j] = k < valid;
+      U b = src.value(buf, ra.rw, k);
+      if (marked && ((mk[k >> 5] >> (k & 31)) & 1u))
+        b = src.patch(buf, ra.rw, xv[k], k);
+      key[j] = order_key(b);
+    }
+    work(ra.vec, key, real);
+    store_exceptions<T>(src, ra.e0n, ra.e1n,
+                        marks + 32 * ((it + 1) % kMarks),
+                        xval + ((it + 1) & 1) * kVector, ra.xkn, ra.xpn);
+    ra.next();
+  }
+}
+
+// Launches kernel(args...) in blocks of T threads over n rows with `bytes`
+// of dynamic shared memory, as many blocks as fit on card `dev`, on
+// `stream`.
+template <int T, typename... P, typename... A>
+int launch_rows(void (*kernel)(P...), long long n, unsigned bytes, int dev,
+                void* stream, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  unsigned blocks = 0;
+  if (err == cudaSuccess)
+    err = grid_for(kernel, n, dev, T, bytes, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks)
+    kernel<<<blocks, T, bytes, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<P>(args)...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The routes of a bucket's C arguments, shared by the kernels that read

@@ -41,8 +41,21 @@ current stream of the tensors' card, its grid sized by that card's SM
 count, without a synchronise; a CPU tensor goes through the plain version
 beside it.  Counts and keys are integers: the kernels equal their plain
 versions exactly.  ``LAUNCHES`` counts kernel launches per kernel; plain
-runs do not count.  The bound of each, and what its design does about it,
-are in the head of ``csrc/keys.cu``.
+runs do not count.
+
+The three share one row loop (``for_each_row`` in ``csrc/vector.cuh``): a
+block (256 threads for K17, 128 for K15 and K16) walks its rows of the
+bucket, the next row's words staged with cp.async while the current one
+is read, each thread's values of a vector decoded into registers and its
+exceptions patched in by the thread that owns the slot, one barrier a
+vector.  K15 takes one of two kernels, chosen inside the C entry by E:
+at most 2 thresholds (``kSmall``: COUNT WHERE, TOP-K's tie count) are
+compared with every key and counted in registers (no search, no shared
+histogram); more walk K17's search tree and count into a shared
+histogram.  K16 reduces a warp's keys with redux, and thread 0 merges the
+4 warps' pairs after a second barrier.  What still holds each from its
+bound (the row loop's exceptions and decode; the tree's random shared
+reads) is in the head of ``csrc/keys.cu``.
 """
 
 from __future__ import annotations
@@ -54,7 +67,7 @@ from .decode import patch_rd_exceptions
 from .exact_sum import falp_bits_plain
 from .falp import VECTOR_SIZE, _check, _device_kind, _launch, _ptr, rd_plain
 
-MAX_THRESHOLDS = 2048           # csrc/keys.cu kMaxThr: < 48 KB of shared
+MAX_THRESHOLDS = 2048           # csrc/keys.cu kMaxThr: a tree of 2047 + 1
 MAX_RANKS = 8                   # csrc/keys.cu kMaxRanks: a register pair each
 LAUNCHES = {"key_counts": 0, "key_extremes": 0, "rank_pass": 0}
 _WORDS = {torch.int64: ("f64", 64), torch.int32: ("f32", 32)}

@@ -95,9 +95,11 @@ Phases, each printing its wall time:
 11. kernels each kernel against its plain PyTorch version on the card, on
             the same plans, bit for bit (tolerance 0: the codec is
             lossless and the SUM totals are integers); K9-K14 on every
-            call of a second ``compress_device`` of every column; K15 (17
-            thresholds, and 2049 on one column: two launches a bucket) and
-            K16 on every bucket of every column, K17 on every bucket of
+            call of a second ``compress_device`` of every column; K15 (2
+            thresholds: the few-threshold path; 7, the bench histogram's,
+            and 17: the search tree; and 2049 on one column: two launches
+            a bucket) and K16 on every bucket of every column, K17 on
+            every bucket of
             every column at the thresholds and brackets of a real first
             pass of the quantile bisection, K5-K8 with a key range on
             every SUM call, K18 and K19 (G = 16, 65,536 and 1,000 ordered
@@ -115,9 +117,11 @@ Phases, each printing its wall time:
             the same function, a device-to-device ``copy_`` of the decoded
             bytes (decode kernels) and ``torch.sum`` of the decoded values
             (SUM kernels, rounded, not exact), a ``copy_`` of the bytes
-            K9-K14 read; K15 (E = 2, COUNT, and E = 17) and K16 on the
-            256 MiB columns, with ``torch.bucketize`` + ``torch.bincount``
-            and ``amin``/``amax`` over the decoded keys as yardsticks, K17
+            K9-K14 read; K15 (E = 2, COUNT, on its few-threshold path,
+            and E = 17 and 2048 on its search tree) and K16 on the 256 MiB
+            columns, each timed output held against the plain version,
+            with ``torch.bucketize`` + ``torch.bincount`` and
+            ``amin``/``amax`` over the decoded keys as yardsticks, K17
             at R = 8 brackets and T = 2048 thresholds, twice: 8 disjoint
             brackets spanning the column, and a later bisection pass (8
             bands of 0.1 % of the column, the thresholds spread inside
@@ -312,6 +316,7 @@ RANK_ALL = (2, 2)                # first design: (a value and bracket, a
 RANK_OPS = (2, 2, 1, 2)          # (union test compares, a value inside it,
                                  #  a value and a cut splitting its bin, a
                                  #  value inside a bracket)
+KEY_COUNTS_TIMED = (2, 17, 2048)  # K15's thresholds: few, the tree, full
 RANK_TIMED = (8, 2048)           # (R, T) of K17's timing rows
 RANK_BAND = 1e-3                 # the later-pass row: a bracket's share
 QUANTILE_QS = (0.0, 1e-6, 0.001, 0.1, 0.25, 0.5, 0.75, 0.9, 0.999, 1.0)
@@ -1933,8 +1938,9 @@ def main() -> int:
         plan = col.plan(dev)
         thr17 = column_thresholds(exp, 17)
         key_thr[name] = thr17
-        thrs = [thr17] + ([column_thresholds(exp, 2049)]
-                          if name == "f64_mixed_alp_rd" else [])
+        thrs = [column_thresholds(exp, E) for E in (2, 7)] + [thr17] + (
+            [column_thresholds(exp, 2049)] if name == "f64_mixed_alp_rd"
+            else [])
         for thr in thrs:
             thr_t = thresholds_tensor(thr, plan)
             for call in engine.key_calls(plan):
@@ -1989,7 +1995,7 @@ def main() -> int:
                                        f"({len(thr)} thresholds, {len(br)} "
                                        f"brackets) bw={call.bw} differs "
                                        f"from its plain version")
-        print(f"  {name}: K15 (17{' and 2049' if len(thrs) > 1 else ''} "
+        print(f"  {name}: K15 (2, 7, 17{' and 2049' if len(thrs) > 3 else ''} "
               f"thresholds), K16, K17 ("
               + ", ".join(f"{label}: {len(thr)} thresholds, {len(br)} "
                           f"brackets" for label, thr, br in checks)
@@ -2270,7 +2276,7 @@ def main() -> int:
     key_timed = [*BENCH_PROFILES, "f64_alp_rd", "f32_alp", "f32_alp_rd"]
     for k, (site, others) in KEY_KERNELS.items():
         cells = {}
-        for E in ((2, 17) if k == "key_counts" else (None,)):
+        for E in (KEY_COUNTS_TIMED if k == "key_counts" else (None,)):
             ms, plain_ms, bound_ms, yard_ms, b_bytes_l, b_ops_l = (
                 [] for _ in range(6))
             for name in key_timed:
@@ -2285,6 +2291,10 @@ def main() -> int:
                                   20)
                     t_p = cuda_ms(lambda: [c.extremes_plain()
                                            for c in calls], 3)
+                    for c in calls:            # the timed inputs, by bits
+                        if not torch.equal(out[c.rows], c.extremes_plain()):
+                            raise RuntimeError(f"{name}: {k} differs from "
+                                               f"its plain version")
                     bk = biased_keys(bits)
                     t_y = cuda_ms(lambda: (bk.amin(dim=1), bk.amax(dim=1)),
                                   20)
@@ -2296,6 +2306,12 @@ def main() -> int:
                                            for c in calls], 20)
                     t_p = cuda_ms(lambda: [c.counts_plain(thr_t)
                                            for c in calls], 3)
+                    for c in calls:            # the timed inputs, by bits
+                        got = c.counts(thr_t, torch.zeros(
+                            E + 1, dtype=torch.int64, device=dev))
+                        if not torch.equal(got, c.counts_plain(thr_t)):
+                            raise RuntimeError(f"{name}: {k} E={E} differs "
+                                               f"from its plain version")
                     bk = biased_keys(bits.reshape(-1)[:plan.n_values])
                     bthr = bias(thr_t)
                     t_y = cuda_ms(lambda: torch.bincount(
@@ -2341,7 +2357,8 @@ def main() -> int:
             "timed_on": key_timed}
         if k == "key_counts":
             row["E"] = 2
-            row.update({f"{f}_E17": v for f, v in cells[17].items()})
+            for E in KEY_COUNTS_TIMED[1:]:
+                row.update({f"{f}_E{E}": v for f, v in cells[E].items()})
         rows.append(row)
     R, T = RANK_TIMED
     for k, (site, others) in RANK_KERNELS.items():

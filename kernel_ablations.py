@@ -1,6 +1,7 @@
-"""CUDA-event ablations of K17 ``rank_pass`` and K19 ``group_reduce`` on
-the card: what each part of the two kernels costs, and how the variants
-that were weighed against them compare.
+"""CUDA-event ablations of the key kernels K15 ``key_counts``, K16
+``key_extremes`` and K17 ``rank_pass`` and of K19 ``group_reduce`` on the
+card: what each part of the kernels costs, and how the variants that were
+weighed against them compare.
 
 Run from the root of a checkout on a machine with one NVIDIA card::
 
@@ -8,9 +9,12 @@ Run from the root of a checkout on a machine with one NVIDIA card::
 
 Each variant is the sources of ``alp_tpu_torch/csrc`` with a few text
 edits (``VARIANTS``), built beside the library in the ignored
-``alp_tpu_torch/_build/ablate/`` (every source compiled once, then only the
-edited ones again, all in parallel) and timed on the 256 MiB columns of
-``chip_smoke.py`` (``COLUMNS``) at its timing shapes: K17 at R = 8, T = 2048 on 8
+``alp_tpu_torch/_build/ablate/`` (every source compiled once, then the
+edited ones again, every source where a header is edited, all in
+parallel) and timed on the 256 MiB columns of ``chip_smoke.py``
+(``COLUMNS``) at its timing shapes: K15 at E = 2, 7 (the bench's
+histogram) and 16 (``K15_E``; the few-threshold path against the search
+tree) and at 17 and 2048, K16, K17 at R = 8, T = 2048 on 8
 disjoint brackets and on a later pass (8 bands of 0.1 %), K19 at G = 16
 and 65,536 random ids and at 16 ordered runs.  A variant marked exact must
 give its plain version's outputs bit for bit (the script fails
@@ -35,6 +39,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 BUILD = ROOT / "alp_tpu_torch" / "_build" / "ablate"
 COLUMNS = ("bench_bw11_city_temperature", "bench_bw42_nyc29",
            "bench_bw0_gov26", "f64_alp_rd", "f32_alp", "f32_alp_rd")
+K15_E = (2, 7, 16, 17, 2048)        # K15's thresholds a timing
 
 # K17's row loop and its parts, as csrc/keys.cu has them
 _RANK_CALL = "    rank_keys(key, real, tab);\n"
@@ -49,6 +54,51 @@ _TREE_LOOP = """    for (int l = 0; l < L; ++l) {
     }"""
 _TREE_BUILD = "      w[at] = s < n ? thr[s] : static_cast<U>(~U(0));"
 _WARP_PATH = "    if (__all_sync(kFull, real && g == g0))\n      add_warp(g0, b);"
+
+# the key kernels' row loop (vector.cuh), K15's few-threshold path and
+# K16's merge (keys.cu)
+_PATCH = ("      if (marked && ((mk[k >> 5] >> (k & 31)) & 1u))\n"
+          "        b = src.patch(buf, ra.rw, xv[k], k);\n")
+_VALUE = "      U b = src.value(buf, ra.rw, k);\n"
+_STORE_FIRST = ("  store_exceptions<T>(src, ra.e0, ra.e1, marks, xval, ra.xk, "
+                "ra.xp);\n")
+_STORE_NEXT = """    store_exceptions<T>(src, ra.e0n, ra.e1n,
+                        marks + 32 * ((it + 1) % kMarks),
+                        xval + ((it + 1) & 1) * kVector, ra.xkn, ra.xpn);
+"""
+_SMALL = "  if (E <= kSmall) {"
+_K_SMALL = "constexpr int kSmall = 2;"
+_COUNT_SMALL = """  U k[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    k[j] = real[j] ? key[j] : U(0);
+    above[0] += real[j];
+  }
+#pragma unroll
+  for (int e = 0; e < kSmall; ++e) {
+    const U t = th[e];
+#pragma unroll
+    for (int j = 0; j < N; ++j) above[e + 1] += k[j] > t;
+  }"""
+_K16_SLOTS = """  __shared__ U wlo[kKeyWarps], whi[kKeyWarps];   // a warp's pair
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+"""
+_K16_MERGE = """    if (lane == 0) {
+      wlo[warp] = lo;
+      whi[warp] = hi;
+    }
+    // the slots are written again only after the next row's barrier
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < kKeyWarps; ++w) {
+        lo = umin(lo, wlo[w]);
+        hi = umax(hi, whi[w]);
+      }
+      out[2 * vec] = lo;
+      out[2 * vec + 1] = hi;
+    }
+  });
+}"""
 
 # name -> (exact, {source file: [(old, new), ...]})
 VARIANTS = {
@@ -128,22 +178,20 @@ VARIANTS = {
     for (int j = 0; j < N; ++j) bracket_key(key[j], m[j], t.wlo, t.whi);
   }
 }""")]}),
-    # rows staged two ahead (three buffers)
-    "k17_stage_2_ahead": (True, {"keys.cu": [
-        ("  unsigned hist, qbin, xval;\n",
-         "  unsigned hist, qbin, xval, buf2;\n"),
-        ("  static_cast<alp::StageLayout&>(l) = stage_layout(at, staged);\n",
-         """  static_cast<alp::StageLayout&>(l) = stage_layout(at, staged);
+    # the row loop with its rows staged two ahead (three buffers)
+    "keys_stage_2_ahead": (True, {"vector.cuh": [
+        ("  unsigned xval;\n", "  unsigned xval, buf2;\n"),
+        ("""      stage_layout(round16(l.xval + 2 * kVector * key_bytes), staged);
+  return l;""", """      stage_layout(round16(l.xval + 2 * kVector * key_bytes), staged);
   l.buf2 = l.bytes;
   l.bytes = round16(l.buf2 + staged);
-"""),
-        ("""  if (i < n) src.stage_async(buf0, i);
+  return l;"""),
+        ("""  if (blockIdx.x < n) src.stage_async(dyn + lay.buf[0], blockIdx.x);
+  commit_async();""", """  if (blockIdx.x < n) src.stage_async(dyn + lay.buf[0], blockIdx.x);
   commit_async();
-  // the tree""", """  if (i < n) src.stage_async(buf0, i);
-  commit_async();
-  if (i + gridDim.x < n) src.stage_async(buf1, i + gridDim.x);
-  commit_async();
-  // the tree"""),
+  if (blockIdx.x + gridDim.x < n)
+    src.stage_async(dyn + lay.buf[1], blockIdx.x + gridDim.x);
+  commit_async();"""),
         ("""    wait_async();
     __syncthreads();                         // row i staged and marked
     const unsigned char* buf = it & 1 ? buf1 : buf0;
@@ -155,6 +203,49 @@ VARIANTS = {
     if (nxt + gridDim.x < n)
       src.stage_async(dyn + bufs[(it + 2) % 3], nxt + gridDim.x);
     commit_async();""")]}),
+    # the row loop without its exceptions (no marks, no payloads, no
+    # patch): wrong where a vector holds one
+    "keys_no_exceptions": (False, {"vector.cuh": [
+        (_PATCH, ""), (_STORE_FIRST, ""), (_STORE_NEXT, "")]}),
+    # the row loop without the decode: a payload slot's word a value
+    "keys_no_decode": (False, {"vector.cuh": [(_VALUE, """      U b = static_cast<U>(k) ^ xv[k];
+""")]}),
+    # K15's few-threshold path forced onto the search tree
+    "k15_tree": (True, {"keys.cu": [(_SMALL, _SMALL.replace("kSmall", "0"))]}),
+    # K15's few-threshold path at up to 16 thresholds (padded to 16)
+    "k15_small_16": (True, {"keys.cu": [(_K_SMALL, _K_SMALL.replace(
+        "2;", "16;"))]}),
+    # K15's few-threshold path without its counts: the row loop alone, the
+    # keys folded into one count so that the decode stays
+    "k15_no_bins": (False, {"keys.cu": [(_COUNT_SMALL, """  U k = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) k ^= real[j] ? key[j] : U(0);
+  above[0] += static_cast<unsigned>(k) & 1u;""")]}),
+    # K16 merged by warp 0, which takes the last row's pairs (slots of two
+    # parities) after the next row's barrier: no second barrier a vector
+    "k16_warp_merge": (True, {"keys.cu": [
+        (_K16_SLOTS, """  __shared__ U wlo[2][kKeyWarps], whi[2][kKeyWarps];
+  __shared__ long long wvec[2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int it = 0;
+  const auto merge = [&](int s) {
+    U lo = lane < kKeyWarps ? wlo[s][lane] : static_cast<U>(~U(0));
+    U hi = lane < kKeyWarps ? whi[s][lane] : U(0);
+    warp_extremes(lo, hi);
+    if (lane < 2) out[2 * wvec[s] + lane] = lane ? hi : lo;
+  };
+"""),
+        (_K16_MERGE, """    if (lane == 0) {
+      wlo[it & 1][warp] = lo;
+      whi[it & 1][warp] = hi;
+      if (warp == 0) wvec[it & 1] = vec;
+    }
+    if (warp == 0 && it > 0) merge((it - 1) & 1);
+    ++it;
+  });
+  __syncthreads();
+  if (warp == 0 && it > 0) merge((it - 1) & 1);
+}""")]}),
     # K19 without its path for a warp of one group
     "k19_no_warp_path": (True, {"group.cu": [(_WARP_PATH, _WARP_PATH.replace(
         "real && g == g0)", "real && g == g0) && g0 < 0"))]}),
@@ -162,14 +253,15 @@ VARIANTS = {
 
 
 def ptxas_lines(log: str) -> list:
-    """"<kernel> <route>: <registers, spills, shared memory>" of K17 and
-    K19 from nvcc's -Xptxas -v log."""
+    """"<kernel> <route>: <registers, spills, shared memory>" of K15-K17
+    and K19 from nvcc's -Xptxas -v log."""
     out, entry = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            kernel = next((k for k in ("rank_pass", "group_reduce")
-                           if k in name), None)
+            kernel = next((k for k in ("key_counts_small", "key_counts",
+                                       "key_extremes", "rank_pass",
+                                       "group_reduce") if k in name), None)
             route = next((r for t, r in (("AlpVectorId", "ALP f64"),
                                          ("AlpVectorIf", "ALP f32"),
                                          ("RdVectorIm", "RD f64"),
@@ -194,6 +286,13 @@ def build_variants(names, build, nvcc) -> dict:
     src_dir = ROOT / "alp_tpu_torch" / "csrc"
     sources = sorted(src_dir.glob("*.cu"))
     jobs = []                            # (variant, source name, path)
+
+    def rebuilt(name, src):
+        """Whether variant `name` compiles `src` itself (else base's)."""
+        edits = {} if name == "base" else VARIANTS[name][1]
+        return name == "base" or src.name in edits or any(
+            f.endswith(".cuh") for f in edits)
+
     for name in ["base", *names]:
         d = BUILD / name
         shutil.copytree(src_dir, d)
@@ -207,7 +306,7 @@ def build_variants(names, build, nvcc) -> dict:
                 text = text.replace(old, new)
             (d / f).write_text(text)
         for src in sources:
-            if name == "base" or src.name in edits:
+            if rebuilt(name, src):
                 jobs.append((name, src.name, d / src.name))
     procs = [(n, s, subprocess.Popen(
         [nvcc, *build.FLAGS, "-c", "-o", str(p.with_suffix(".o")), str(p)],
@@ -221,9 +320,8 @@ def build_variants(names, build, nvcc) -> dict:
         logs[n, s] = out
     libs = {}
     for name in ["base", *names]:
-        edited = {} if name == "base" else VARIANTS[name][1]
-        objs = [BUILD / (name if name == "base" or s.name in edited
-                         else "base") / f"{s.stem}.o" for s in sources]
+        objs = [BUILD / (name if rebuilt(name, s) else "base")
+                / f"{s.stem}.o" for s in sources]
         so = BUILD / name / "lib.so"
         subprocess.run([nvcc, *build.ARCH, "-shared", "-o", str(so),
                         *map(str, objs)], check=True)
@@ -277,6 +375,40 @@ def main() -> int:
             del bits
             cells = {}
             kcalls, gcalls = engine.key_calls(plan), engine.group_calls(plan)
+            for E in K15_E:
+                thr_t = cs.thresholds_tensor(cs.column_thresholds(x, E), plan)
+                want = [c.counts_plain(thr_t) for c in kcalls]
+                for lname, dll in libs.items():
+                    if not lname.startswith(("base", "k15", "keys")) or (
+                            lname == "k15_no_bins" and E != 2):
+                        continue
+                    _build.lib = lambda dll=dll: dll
+                    if lname == "base" or VARIANTS[lname][0]:
+                        for c, w in zip(kcalls, want):
+                            got = c.counts(thr_t, torch.zeros(
+                                E + 1, dtype=torch.int64, device=dev))
+                            if not torch.equal(got, w):
+                                raise SystemExit(f"{name}: {lname} K15 at "
+                                                 f"E={E} differs from its "
+                                                 f"plain version")
+                    out = torch.zeros(E + 1, dtype=torch.int64, device=dev)
+                    cells[f"k15 E={E} {lname}"] = cs.cuda_ms(
+                        lambda: [c.counts(thr_t, out) for c in kcalls], 20)
+            want = [c.extremes_plain() for c in kcalls]
+            for lname, dll in libs.items():
+                if not lname.startswith(("base", "k16", "keys")):
+                    continue
+                _build.lib = lambda dll=dll: dll
+                out = torch.zeros((plan.n_vectors, 2), dtype=plan.bits_dtype,
+                                  device=dev)
+                for c, w in zip(kcalls, want):
+                    if (lname == "base" or VARIANTS[lname][0]) and not (
+                            torch.equal(c.extremes(out)[c.rows], w)):
+                        raise SystemExit(f"{name}: {lname} K16 differs from "
+                                         f"its plain version")
+                cells[f"k16 {lname}"] = cs.cuda_ms(
+                    lambda: [c.extremes(out) for c in kcalls], 20)
+            del want
             for label, (thr, br) in (
                     ("k17 disjoint", (cs.column_thresholds(x, T),
                                       cs.disjoint_brackets(x, R))),
@@ -286,7 +418,7 @@ def main() -> int:
                 br_t = cs.thresholds_tensor(br, plan)
                 want = [c.rank_pass_plain(thr_t, br_t) for c in kcalls]
                 for lname, dll in libs.items():
-                    if not lname.startswith(("base", "k17")):
+                    if not lname.startswith(("base", "k17", "keys")):
                         continue
                     _build.lib = lambda dll=dll: dll
                     if lname == "base" or VARIANTS[lname][0]:

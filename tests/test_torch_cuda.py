@@ -517,6 +517,9 @@ def test_work_runs_on_the_tensors_card():
 # predicate and order queries: K15, K16, the filtered K5-K8
 # ---------------------------------------------------------------------------
 
+K15_SMALL = 2           # csrc/keys.cu kSmall: K15 without a search
+
+
 def _thresholds(plan, n: int, seed: int) -> torch.Tensor:
     """n ascending distinct unsigned keys (held in the bit patterns' signed
     dtype): keys of the column's own values, then random keys."""
@@ -533,9 +536,12 @@ def _thresholds(plan, n: int, seed: int) -> torch.Tensor:
 
 @pytest.mark.parametrize("name", sorted(COLUMNS))
 def test_key_kernels_equal_plain_versions(name, cuda):
+    """K15 on both sides of its few-threshold path (E <= K15_SMALL), at the
+    bench histogram's 7, and across the chunks of 2048, and K16, on every
+    bucket, bit for bit."""
     col = alp_tpu_torch.compress(COLUMNS[name])
     plan = col.plan(cuda)
-    for E in (1, 2, 2048, 2049):
+    for E in (1, K15_SMALL, K15_SMALL + 1, 7, 16, 17, 2048, 2049):
         thr = _thresholds(plan, E, E)
         for call in engine.key_calls(plan):
             before = kkeys.LAUNCHES["key_counts"]
@@ -550,6 +556,98 @@ def test_key_kernels_equal_plain_versions(name, cuda):
         call.extremes(out)
         assert kkeys.LAUNCHES["key_extremes"] == before + 1
         assert torch.equal(out[call.rows], call.extremes_plain()), name
+
+
+def _edge_columns() -> dict:
+    """name -> (column, the count of vectors whose every value is an
+    exception) of the key kernels' edges: among decimals (ALP) a vector of
+    NaN and one of huge values, among normals (ALP_RD) a vector of tiny
+    negatives, in f64 and f32, and a constant column with a tail (bit
+    width 0: a warp's keys all in one bin)."""
+    rng = np.random.default_rng(15)
+    n = 2 * C.N_VECTORS_PER_ROWGROUP * 1024
+    cols = {}
+    for dt, huge, tiny in ((np.float64, 1e300, 1e-300),
+                           (np.float32, 1e30, 1e-41)):
+        alp = np.round(rng.uniform(-50, 50, n), 2).astype(dt)
+        alp[5 * 1024:6 * 1024] = np.nan
+        alp[7 * 1024:8 * 1024] = (rng.standard_normal(1024) * huge).astype(dt)
+        rd = rng.standard_normal(n).astype(dt)
+        rd[3 * 1024:4 * 1024] = (-np.abs(rng.standard_normal(1024))
+                                 * tiny).astype(dt)
+        bits = np.dtype(dt).itemsize * 8
+        cols[f"all_exceptions_alp_f{bits}"] = (alp, 2)
+        cols[f"all_exceptions_rd_f{bits}"] = (rd, 1)
+    cols["constant_tail"] = (np.full(n + 100, -7.25), 0)
+    return cols
+
+
+EDGE_COLUMNS = _edge_columns()
+
+
+def _reversed_call(call):
+    """The bucket of ``call`` with its rows in reversed vector order."""
+    per_row = (0, 2, 3, 4, 5) if call.scheme == "alp" else (0, 2, 4, 5, 6)
+    args = tuple(a.flip(0).contiguous() if j in per_row else a
+                 for j, a in enumerate(call.args))
+    return engine.KeyCall(call.scheme, args, call.rows.flip(0).contiguous(),
+                          call.bw)
+
+
+def _edge_thresholds(x: np.ndarray, plan) -> list:
+    """Ascending unsigned keys for K15: 0 alone, all ones alone, both, and
+    both among the column's own keys and random ones, at one more than
+    K15_SMALL, at 17 and at MAX_THRESHOLDS."""
+    rng = np.random.default_rng(16)
+    ut = np.uint64 if plan.f64 else np.uint32
+    top = np.iinfo(ut).max
+    bits = torch.from_numpy(x.view(f"i{x.itemsize}").copy())
+    own = np.unique(bias(biased_keys(bits)).numpy().view(ut))
+    out = [np.array([0], ut), np.array([top], ut), np.array([0, top], ut)]
+    for E in (K15_SMALL + 1, 17, kkeys.MAX_THRESHOLDS):
+        pool = np.unique(np.concatenate([
+            rng.choice(own, min(E, len(own)), replace=False),
+            rng.integers(1, top, E, dtype=ut)]))
+        pool = pool[(pool != 0) & (pool != top)]
+        mid = rng.choice(pool, E - 2, replace=False)
+        out.append(np.sort(np.concatenate([out[2], mid])))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_COLUMNS))
+def test_key_kernels_on_edges_equal_plain_versions(name, cuda):
+    """K15 (its few-threshold path and its search tree) and K16 on every
+    bucket, and on every bucket with its rows in reversed vector order,
+    bit for bit: vectors whose every value is an exception, a constant
+    column with a partial last vector, thresholds 0 and all ones; the
+    buckets' K15 bins added into one tensor, and K16 writing only its own
+    rows of ``out``."""
+    x, n_full = EDGE_COLUMNS[name]
+    col = alp_tpu_torch.compress(x)
+    assert int((np.asarray(col.exc_count) == 1024).sum()) == n_full
+    plan = col.plan(cuda)
+    calls = engine.key_calls(plan)
+    calls += [_reversed_call(c) for c in calls]
+    for thr in _edge_thresholds(x, plan):
+        thr_t = _as_words(plan, thr)
+        total = torch.zeros(len(thr) + 1, dtype=torch.int64, device=cuda)
+        for call in calls:
+            got = call.counts(thr_t, torch.zeros(
+                len(thr) + 1, dtype=torch.int64, device=cuda))
+            assert torch.equal(got, call.counts_plain(thr_t)), (name,
+                                                                len(thr))
+            call.counts(thr_t, total)
+        want = sum(c.counts_plain(thr_t) for c in calls)
+        assert torch.equal(total, want), (name, len(thr))
+        assert int(total.sum()) == 2 * col.n_values
+    for call in calls:
+        out = torch.full((plan.n_vectors, 2), 7, dtype=plan.bits_dtype,
+                         device=cuda)
+        call.extremes(out)
+        assert torch.equal(out[call.rows], call.extremes_plain()), name
+        others = torch.ones(plan.n_vectors, dtype=torch.bool, device=cuda)
+        others[call.rows] = False
+        assert bool((out[others] == 7).all()), name
 
 
 @pytest.mark.parametrize("name", sorted(COLUMNS))
