@@ -24,7 +24,13 @@
 // the block's shared-memory row) and Jw moves to the warp's lowest window;
 // a value still outside (a warp spanning more than kAccR windows: 1e300
 // beside 1.0, subnormals beside normals) adds its digits to the shared row
-// with atomics.  settle() leaves the block's totals in the shared row.
+// with atomics, and so do the counts of the rare NaN and +-Inf.  settle()
+// leaves the block's totals in the shared row (K5-K8).  K18 sums one
+// vector a row and calls add() once a row: instead of settle(), store()
+// puts each warp's register windows, summed over the warp, and its base
+// window into slots of the warp's own with plain stores, which the block
+// gathers (group.cu), so that only the rare digits outside a warp's
+// windows and the rare counts take the shared row's atomics.
 
 #pragma once
 
@@ -113,14 +119,12 @@ struct Acc {
   static constexpr int kRegs = kAccR + Fx::P - 1;
   long long reg[kRegs];
   int base;                // Jw, warp-uniform; -1 before the first value
-  unsigned cnt[3];         // NaN, +Inf, -Inf
   long long* row;          // the block's shared [W + 3] totals
 
   __device__ __forceinline__ explicit Acc(long long* shared_row)
       : base(-1), row(shared_row) {
 #pragma unroll
     for (int w = 0; w < kRegs; ++w) reg[w] = 0;
-    cnt[0] = cnt[1] = cnt[2] = 0;
   }
 
   // Register window w holds window base + w; a nonzero one is always a
@@ -134,13 +138,13 @@ struct Acc {
     }
   }
 
-  // One thread's kAccPer values of a vector; ok[r] is false for values
-  // that are not summed (the pad).
-  __device__ __forceinline__ void add(const U (&b)[kAccPer],
-                                      const bool (&ok)[kAccPer]) {
+  // One thread's N values of a vector (kAccPer in K5-K8); ok[r] is false
+  // for values that are not summed (the pad).
+  template <int N>
+  __device__ __forceinline__ void add(const U (&b)[N], const bool (&ok)[N]) {
     int lo = INT_MAX, hi = -1;
 #pragma unroll
-    for (int r = 0; r < kAccPer; ++r) {
+    for (int r = 0; r < N; ++r) {
       const int j = ok[r] ? Fx::window(b[r]) : -1;
       if (j >= 0) {
         lo = min(lo, j);
@@ -153,11 +157,12 @@ struct Acc {
       if (base >= 0) flush();
       base = lo;
     }
+    int special = 0;                         // a NaN or an Inf among them
 #pragma unroll
-    for (int r = 0; r < kAccPer; ++r) {
+    for (int r = 0; r < N; ++r) {
       if (!ok[r]) continue;
       const Fx x(b[r]);
-      if (x.cls) ++cnt[x.cls - 1];
+      special |= x.cls;
       if (x.j < 0) continue;
       long long sd[Fx::P];
 #pragma unroll
@@ -178,17 +183,48 @@ struct Acc {
           if (w - p >= 0 && w - p < kAccR)
             reg[w] += rel == w - p ? sd[p] : 0;
     }
+    // NaN and +-Inf are rare: where the warp holds one, each class is
+    // counted with a ballot a value and lane 0 adds the count into the
+    // shared row (no per-thread counters: registers, and an index
+    // cnt[cls - 1] the compiler cannot resolve would put the whole
+    // accumulator in local memory)
+    if (__any_sync(kFullMask, special)) {
+#pragma unroll
+      for (int r = 0; r < N; ++r) {
+        const int cls = ok[r] ? Fx(b[r]).cls : 0;
+#pragma unroll
+        for (int c = 1; c <= 3; ++c) {
+          const int k = __popc(__ballot_sync(kFullMask, cls == c));
+          if ((threadIdx.x & 31) == 0 && k)
+            atomic_add(&row[Fx::W + c - 1], k);
+        }
+      }
+    }
   }
 
-  // Flush the registers and add the counts into the shared row; the row
-  // holds the block's totals after the caller's next barrier.
+  // Flush the registers into the shared row; the row holds the block's
+  // totals after the caller's next barrier.
   __device__ __forceinline__ void settle() {
     if (base >= 0) flush();
+  }
+
+  // After one add() of N <= 64 values (K18): lane 0 stores the warp's sum
+  // of each register window at part[0 .. kRegs) and the base window at
+  // *pbase (-1: the warp holds no finite nonzero value).  A register holds
+  // at most N digits of one add() (|reg| < 2^38), so the warp sums its
+  // signed 16-bit-split halves with one redux each (|sum of the high
+  // halves| < 2^27).
+  __device__ __forceinline__ void store(long long* part, int* pbase) const {
+    const bool lead = (threadIdx.x & 31) == 0;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const unsigned v = __reduce_add_sync(kFullMask, cnt[c]);
-      if ((threadIdx.x & 31) == 0 && v) atomic_add(&row[Fx::W + c], v);
+    for (int w = 0; w < kRegs; ++w) {
+      const int lo = __reduce_add_sync(
+          kFullMask, static_cast<int>(reg[w] & 0xffff));
+      const int hi = __reduce_add_sync(
+          kFullMask, static_cast<int>(reg[w] >> 16));
+      if (lead) part[w] = static_cast<long long>(hi) * 65536 + lo;
     }
+    if (lead) *pbase = base;
   }
 
   // settle(), then add the block's row into the global total.

@@ -66,14 +66,28 @@
 // shared memory with coalesced loads, then each thread extracts values
 // k, k + 256, ... so that the stores of a warp are contiguous.
 //
-// K20 is bound by operations, not bytes: per value it reads bw / 8 bytes
-// and writes 4 / 64 bytes, but does the unpack, the FOR add, the 64-bit
-// FACT product, two FP64 operations, ~8 integer operations of the cut and
-// one float add.  Sixteen threads take a vector, one a lane: a thread
-// walks its lane's bitstream slot by slot (the words of the 16 lanes are
-// adjacent, so a half warp reads 128 contiguous bytes), keeps its sum in a
-// register in slot order and writes one float; no shared memory, no
-// reduction across threads.  K21 moves bytes, as K3 does: one block a
+// K20 reads bw / 8 bytes a value and writes 4 / 64, and does the unpack,
+// the FOR add, the 64-bit FACT product, two FP64 operations, ~8 integer
+// operations of the cut and one float add: bound by operations at small
+// bit widths, by the packed bytes from bw ~30 up (chip_smoke.py's
+// VSUM_OPS).  Sixteen threads take a vector, one a lane (the words of the
+// 16 lanes are adjacent, so a half warp reads 128 contiguous bytes); a
+// thread keeps its sum in a register in slot order and writes one float:
+// no shared memory, no reduction across threads.  The first design called
+// unpack() for every slot: a runtime slot * bw with its divide and modulo,
+// one or two loads of the lane's words (each word loaded again for every
+// slot it holds, up to 128 loads a lane) and three 64-bit shifts and a
+// computed mask.  The present design reads the lane as a stream
+// (fastlanes.cuh's LaneStream): bw loads a lane, each two words ahead of
+// its first use, a funnel shift and one mask a field; it takes 4 fields a
+// step and decodes and cuts them as independent chains before adding them
+// in slot order, so the decode of later slots overlaps the in-order float
+// adds; at bw = 0 it decodes once.  kernel_ablations.py times it against
+// the per-slot unpack (k20_slot_unpack), a word-by-word loop of one field
+// at a time (k20_word_loop: fewer instructions, slower), loading each
+// field's words where it is taken (k20_direct), the 2^52 magic add for
+// the int64 -> double convert (k20_magic_convert) and no convert
+// (k20_no_convert).  K21 moves bytes, as K3 does: one block a
 // vector, the right words staged in shared memory, each thread writing
 // values k, k + 256, ... so a warp's loads of the left parts and stores of
 // the bits are contiguous.
@@ -163,7 +177,12 @@ __device__ __forceinline__ float trunc_f32(uint64_t b) {
 constexpr int kLanes64 = kVector / 64;       // FastLanes lanes of f64: 16
 constexpr int kSlots64 = kVector / kLanes64;  // values a lane: 64
 
-// K20: one thread a (vector, lane); 16 vectors a block.
+constexpr int kSumStep = 4;                  // K20's slots a step
+
+// K20: one thread a (vector, lane); 16 vectors a block.  A step takes
+// kSumStep fields off the lane's stream, decodes and cuts them
+// (independent chains), then adds them in slot order.  At bit width 0
+// every field is 0: one decode, added 64 times in order.
 __global__ void __launch_bounds__(kThreads)
 variant_sum_kernel(const uint64_t* __restrict__ packed, int bw,
                    const uint64_t* __restrict__ base,
@@ -174,16 +193,25 @@ variant_sum_kernel(const uint64_t* __restrict__ packed, int bw,
                             (kThreads / kLanes64) + threadIdx.x / kLanes64;
   const int lane = threadIdx.x % kLanes64;
   if (vec >= n) return;
-  const uint64_t* words = packed + vec * bw * kLanes64;
   const uint64_t b = base[vec], f = fact[vec];
   const double fr = frac[vec];
+  const auto cut = [&](uint64_t u) {
+    return trunc_f32(Num<double>::bits(
+        Num<double>::decode(static_cast<uint64_t>((b + u) * f), fr)));
+  };
   float acc = 0.0f;
-  for (int s = 0; s < kSlots64; ++s) {
-    const uint64_t u =
-        bw ? unpack<uint64_t, 64>(words, bw, s * kLanes64 + lane) : 0;
-    const double x = Num<double>::decode(static_cast<uint64_t>((b + u) * f),
-                                         fr);
-    acc = __fadd_rn(acc, trunc_f32(Num<double>::bits(x)));
+  if (bw == 0) {
+    const float t = cut(0);
+    for (int s = 0; s < kSlots64; ++s) acc = __fadd_rn(acc, t);
+  } else {
+    alp::LaneStream in(packed + vec * bw * kLanes64 + lane, bw);
+    for (int s = 0; s < kSlots64; s += kSumStep) {
+      float t[kSumStep];
+#pragma unroll
+      for (int q = 0; q < kSumStep; ++q) t[q] = cut(in.next());
+#pragma unroll
+      for (int q = 0; q < kSumStep; ++q) acc = __fadd_rn(acc, t[q]);
+    }
   }
   out[vec * kLanes64 + lane] = acc;
 }

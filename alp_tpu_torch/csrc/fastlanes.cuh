@@ -1,10 +1,11 @@
 // Device helpers shared by the port's kernels: the FastLanes unpack of one
-// vector's packed words and its inverse, the pack of one word, their
-// staging into shared memory, and the ALP decode formula.  The decode
-// kernels K1/K2 (falp.cu) and the fused decode + exact-SUM kernels K7/K8
-// (exact_sum.cu) decode with these same lines, so a value summed by K7 has
-// the bits K1 writes; the pack kernel K10 (ffor.cu) places each value with
-// the same slot_pos that unpack reads it with.
+// vector's packed words and its inverse, the pack of one word, a lane's
+// fields read as a stream (K20), their staging into shared memory, and
+// the ALP decode formula.  The decode kernels K1/K2 (falp.cu) and the
+// fused decode + exact-SUM kernels K7/K8 (exact_sum.cu) decode with these
+// same lines, so a value summed by K7 has the bits K1 writes; the pack
+// kernel K10 (ffor.cu) places each value with the same slot_pos that
+// unpack reads it with.
 //
 // Layout (reference FastLanes layout): for S-bit words a 1024-value
 // vector has L = 1024 / S lanes; value k lives in lane k % L at slot
@@ -66,6 +67,57 @@ __device__ __forceinline__ W pack_word(const W* vals, int bw, int w,
   }
   return acc;
 }
+
+// Bits [s, s + 64) of the 128-bit word hi:lo, 0 <= s < 64, by two 32-bit
+// funnel shifts.
+__device__ __forceinline__ uint64_t funnel_r(uint64_t lo, uint64_t hi,
+                                             int s) {
+  const uint32_t l0 = static_cast<uint32_t>(lo);
+  const uint32_t l1 = static_cast<uint32_t>(lo >> 32);
+  const uint32_t h0 = static_cast<uint32_t>(hi);
+  const uint32_t h1 = static_cast<uint32_t>(hi >> 32);
+  const bool up = s >= 32;
+  const uint32_t a = up ? l1 : l0, b = up ? h0 : l1, c = up ? h1 : h0;
+  return (static_cast<uint64_t>(__funnelshift_r(b, c, s)) << 32) |
+         __funnelshift_r(a, b, s);
+}
+
+// The bw-bit fields of one lane of 64-bit words, slot 0, 1, ... in order,
+// read as a stream (0 < bw <= 64): the thread holds the current word and
+// the next (a field may spill into it) and one more ahead, and loads each
+// of the lane's bw words once, two words before the field that first
+// needs it; next() takes a field with a funnel shift and the mask, moves
+// the bit offset by bw and rotates the words where it passes 64 (the same
+// for every lane of a warp).  No divide, no per-slot address and no word
+// loaded twice, where unpack() pays all three for every value.  `lane`
+// points at the lane's word 0 (its word w at lane[w * 16]).
+struct LaneStream {
+  static constexpr int L = kVector / 64;
+  const uint64_t* lane;
+  int bw, off, at;                           // at: the word in `ahead`
+  uint64_t cur, nxt, ahead, mask;
+
+  __device__ __forceinline__ LaneStream(const uint64_t* words, int width)
+      : lane(words), bw(width), off(0), at(2) {
+    cur = lane[0];
+    nxt = bw > 1 ? lane[L] : 0;
+    ahead = bw > 2 ? lane[2 * L] : 0;
+    mask = bw >= 64 ? ~0ull : (1ull << bw) - 1;
+  }
+
+  __device__ __forceinline__ uint64_t next() {
+    const uint64_t u = funnel_r(cur, nxt, off) & mask;
+    off += bw;
+    if (off >= 64) {
+      off -= 64;
+      cur = nxt;
+      nxt = ahead;
+      ++at;
+      ahead = at < bw ? lane[at * L] : 0;
+    }
+    return u;
+  }
+};
 
 // One vector's bw * L packed words, global -> shared, coalesced.
 template <typename W, int S>

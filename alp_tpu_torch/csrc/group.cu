@@ -14,9 +14,9 @@
 //
 // Both are one template over the four routes of vector.cuh (ALP f64, ALP
 // f32, ALP_RD f64, ALP_RD f32), so eight C entries.  Each decodes the
-// vectors of its bucket with their true exception bits (vector.cuh: K18
-// into shared memory, K19 into registers), skips the pad of a partial
-// last vector and adds each value's signed 32-bit digits in digits.cuh's
+// vectors of its bucket with their true exception bits into registers
+// (vector.cuh), skips the pad of a partial last vector and adds each
+// value's signed 32-bit digits in digits.cuh's
 // window layout: W windows over the whole exponent range (W = 66 for f64,
 // 9 for f32), then the counts of NaN, +Inf and -Inf.  Integer sums are
 // exact in any order, so both equal their plain versions exactly
@@ -28,10 +28,31 @@
 // (alp_tpu/engine.py:2573-2601), is what K18 writes per vector: the int64
 // row [W + 3] of vector rows[i] into sums[rows[i]] and its (least, largest)
 // key into keys[rows[i]].  Every value lands in its window, so there is no
-// envelope and no out-of-envelope row.  One block of 256 threads a vector
-// (a grid stride over the bucket): digits.cuh's Acc sums the block's 1024
-// values into a shared row, a warp and a block reduction take the keys'
-// extremes, and the block stores the row and the pair: no global atomics.
+// envelope and no out-of-envelope row.  The first design took one vector
+// at a time a block of 256 threads: a shared-memory decode behind three
+// barriers with the row's metadata and exceptions loaded only when the row
+// began, digits.cuh's Acc settled into a shared row with 64-bit shared
+// atomics (compare-and-swap loops on Hopper, up to 4 windows x 8 warps a
+// row), then two more barriers, the row's store and re-zero and a serial
+// key merge.  The present design reads the values through the key
+// kernels' row loop (for_each_row, vector.cuh: blocks of 128 threads, 8
+// values a thread in registers, the next row staged with cp.async and its
+// metadata and exceptions loaded a row ahead, one barrier a vector), which
+// hands it keys: key_bits() takes them back to bits (-0.0 to +0.0, which
+// adds nothing).  Acc adds a thread's 8 values into its register windows,
+// then each warp stores its windows summed over the warp (a redux of each
+// 16-bit-split half), its base window and its key pair into slots of its
+// own, one set a row parity (RowSlots): no atomic.  After the next row's
+// barrier threads 0 .. W + 2 each sum one column over the 4 warps and
+// store it, and two threads merge the keys, so a row's totals cost no
+// barrier of their own.  Only digits outside a warp's register windows
+// (1e300 beside 1.0, subnormals beside normals) and the counts of NaN and
+// +-Inf still take 64-bit shared atomics, into the parity's spill row,
+// which its gathering threads clear.  Every column and both keys of every
+// row are written, so the outputs need no zeroing.  kernel_ablations.py
+// weighs the old atomic settle on this loop (k18_atomic_settle) and
+// blocks of 256 threads (k18_256_threads), and removes the digits and the
+// keys in turn (k18_no_digits, k18_no_keys).
 //
 // K19.  keys[i * 1024 + k] is the group id of value k of row i; an id
 // outside [0, G) is not counted (the engine checks the keys first).  The
@@ -49,7 +70,7 @@
 //    staged with cp.async and each row's metadata loaded a row ahead, the
 //    exceptions marked, skipped by their owners and added from their true
 //    bits by the threads that read them (as K17);
-//  - G within the shared budget (G * SharedGroups::group_bytes() <=
+//  - G within the shared budget (G * GroupCounters::group_bytes() <=
 //    kSharedAcc = 200 KB: f64 363 groups, f32 2048; it was 355 and 1828):
 //    each block keeps int32 counters, the 16-bit halves of each window's
 //    digit sum, and a lane adds its value with native 32-bit shared
@@ -97,7 +118,10 @@
 // plus the decode and the key (KEY_OPS) and two compares a value, at the
 // INT32 issue rate: both are bound by operations, K19 at 256 MiB by the
 // bytes of its group ids as well.  The atomics, reductions and flushes
-// above are the design's cost, not the function's.
+// above are the design's cost, not the function's.  On this card about
+// half of K18's time is Acc's digits (selects into 4 int64 register
+// windows a value; k18_no_digits) and most of the rest the row loop it
+// shares with K15-K17 (decode, exception marks, one barrier a vector).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -114,7 +138,9 @@ using alp::bad_alp;
 using alp::bad_rd;
 using alp::commit_async;
 using alp::Fixed;
+using alp::for_each_row;
 using alp::grid_for;
+using alp::key_bits;
 using alp::kMarks;
 using alp::kVector;
 using alp::launch_rows;
@@ -122,20 +148,25 @@ using alp::mark_slots;
 using alp::order_key;
 using alp::peer_extremes;
 using alp::round16;
+using alp::row_layout;
 using alp::RowAhead;
+using alp::RowLayout;
 using alp::stage_layout;
 using alp::start_rows;
 using alp::umax;
 using alp::umin;
 using alp::wait_async;
+using alp::warp_extremes;
 using alp::warp_max;
 using alp::warp_min;
-using alp::zero_row;
 constexpr int kThreads = alp::kAccThreads;
 constexpr int kPer = alp::kAccPer;
 constexpr int kWarps = kThreads / 32;
+constexpr int kSumThreads = 128;            // K18's block
+constexpr int kSumPer = kVector / kSumThreads;
+constexpr int kSumWarps = kSumThreads / 32;
 constexpr unsigned kFull = alp::kFullMask;
-// K19's shared accumulators: G * SharedGroups::group_bytes() bytes at
+// K19's shared accumulators: G * GroupCounters::group_bytes() bytes at
 // most (564 a group for f64: 363 groups; 100 for f32: 2048), so that with
 // the staging buffers (at most 2 x 10,256 bytes, f64 ALP_RD at bit widths
 // 64 and 16) and the marks a block fits in the 232,448 bytes of shared
@@ -144,62 +175,99 @@ constexpr size_t kSharedAcc = 200 * 1024;
 constexpr int kFlushRows = 31;              // 31 * 1024 * 65535 < 2^31
 constexpr int kMaxGroups = 1 << 24;         // a group id fills 24 bits
 
-// K18: the exact-SUM row and the key extremes of each vector.
+// K18's slots of one row (two sets, by row parity): each warp's sums of
+// its register windows, its base window and its key pair, stored without
+// atomics (Acc::store), and the rare digits outside a warp's windows and
+// counts of NaN and +-Inf, added with shared atomics into spill.
+template <typename U>
+struct RowSlots {
+  static constexpr int kRow = Fixed<U>::W + 3;
+  long long part[kSumWarps][Acc<U>::kRegs];
+  long long spill[kRow];
+  U lo[kSumWarps], hi[kSumWarps];
+  int base[kSumWarps];
+};
+
+// The totals and keys of vector `vec` from its row's slots, into
+// sums[vec] and keys[vec]: thread j < W sums window j over the warps and
+// the spill, thread W + c takes the count of class c from the spill (each
+// clears its spill column for the row after next), threads W + 3 and
+// W + 4 merge the keys' extremes.
+template <typename U>
+__device__ __forceinline__ void gather(RowSlots<U>& s, long long vec,
+                                       long long* __restrict__ sums,
+                                       U* __restrict__ keys) {
+  constexpr int W = Fixed<U>::W, kRow = W + 3;
+  const int j = threadIdx.x;
+  if (j < kRow) {
+    long long v = s.spill[j];
+    s.spill[j] = 0;
+    if (j < W) {
+#pragma unroll
+      for (int w = 0; w < kSumWarps; ++w) {
+        const int rel = j - s.base[w];
+        if (s.base[w] >= 0 && rel >= 0 && rel < Acc<U>::kRegs)
+          v += s.part[w][rel];
+      }
+    }
+    sums[vec * kRow + j] = v;
+  } else if (j < kRow + 2) {
+    U k = j == kRow ? s.lo[0] : s.hi[0];
+#pragma unroll
+    for (int w = 1; w < kSumWarps; ++w)
+      k = j == kRow ? umin(k, s.lo[w]) : umax(k, s.hi[w]);
+    keys[vec * 2 + (j - kRow)] = k;
+  }
+}
+
+// K18: the exact-SUM row and the key extremes of each vector, on the row
+// loop.  Row it's warps store their slots (set it % 2) after row it's
+// barrier; threads 0 .. W + 4 gather them after row it + 1's barrier, and
+// after one more barrier at the end.
 template <class V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSumThreads)
 vector_sums_kernel(V src, const long long* __restrict__ rows, long long n,
-                   long long n_values, long long* __restrict__ sums,
+                   long long n_values, RowLayout lay,
+                   long long* __restrict__ sums,
                    typename V::U* __restrict__ keys) {
   using U = typename V::U;
-  constexpr int kRow = Fixed<U>::W + 3;
-  __shared__ typename V::Shared sh;
-  __shared__ U vals[kVector];
-  __shared__ long long row[kRow];
-  __shared__ U wlo[kWarps], whi[kWarps];
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ RowSlots<U> slots[2];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  zero_row<U>(row);
-  for (long long i = blockIdx.x; i < n; i += gridDim.x) {
-    const long long vec = rows[i];
-    src.decode(sh, vals, i, vec);            // ends in a barrier
-    const long long valid = n_values - vec * kVector;
-    U b[kPer];
-    bool ok[kPer];
+  start_rows<kSumThreads>(src, n, dyn, lay);
+  for (int j = threadIdx.x; j < 2 * RowSlots<U>::kRow; j += kSumThreads)
+    slots[j / RowSlots<U>::kRow].spill[j % RowSlots<U>::kRow] = 0;
+  __syncthreads();
+  int it = 0;
+  long long last = 0;                        // the vector of row it - 1
+  for_each_row<kSumThreads>(src, rows, n, n_values, dyn, lay,
+                            [&](long long vec, const U (&key)[kSumPer],
+                                const bool (&real)[kSumPer]) {
+    if (it > 0) gather(slots[(it - 1) & 1], last, sums, keys);
+    RowSlots<U>& s = slots[it & 1];
+    U b[kSumPer];
     U lo = static_cast<U>(~U(0)), hi = 0;
 #pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int k = threadIdx.x + r * kThreads;
-      b[r] = vals[k];
-      ok[r] = k < valid;
-      if (ok[r]) {
-        const U key = order_key(b[r]);
-        lo = umin(lo, key);
-        hi = umax(hi, key);
+    for (int j = 0; j < kSumPer; ++j) {
+      b[j] = key_bits(key[j]);
+      if (real[j]) {
+        lo = umin(lo, key[j]);
+        hi = umax(hi, key[j]);
       }
     }
-    Acc<U> acc(row);
-    acc.add(b, ok);
-    acc.settle();
-    lo = warp_min(lo);
-    hi = warp_max(hi);
+    Acc<U> acc(s.spill);
+    acc.add(b, real);
+    acc.store(s.part[warp], &s.base[warp]);
+    warp_extremes(lo, hi);
     if (lane == 0) {
-      wlo[warp] = lo;
-      whi[warp] = hi;
+      s.lo[warp] = lo;
+      s.hi[warp] = hi;
     }
-    __syncthreads();                         // the row and the keys are in
-    for (int j = threadIdx.x; j < kRow; j += kThreads) {
-      sums[vec * kRow + j] = row[j];
-      row[j] = 0;
-    }
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < kWarps; ++w) {
-        lo = umin(lo, wlo[w]);
-        hi = umax(hi, whi[w]);
-      }
-      keys[vec * 2] = lo;
-      keys[vec * 2 + 1] = hi;
-    }
-    __syncthreads();                         // vals, row and wlo/whi are read
-  }
+    last = vec;
+    ++it;
+  });
+  __syncthreads();
+  if (it > 0) gather(slots[(it - 1) & 1], last, sums, keys);
 }
 
 // atomicMin / atomicMax of an unsigned key of either width, shared or
@@ -322,7 +390,7 @@ __device__ __forceinline__ void add_run(bool real, int g, U b, long long* acc,
 // exact for kFlushRows rows; then the block adds them into out and clears
 // them.
 template <typename U>
-struct SharedGroups {
+struct GroupCounters {
   using Fx = Fixed<U>;
   static constexpr int kStride = 2 * Fx::W + 1;
   int* half;                                 // [G, kStride]
@@ -470,7 +538,7 @@ GroupLayout group_layout(bool in_shared, int G, int staged) {
   unsigned at = 0;
   if (in_shared) {
     const unsigned g = static_cast<unsigned>(G);
-    l.count = at = round16(g * SharedGroups<U>::kStride * 4u);
+    l.count = at = round16(g * GroupCounters<U>::kStride * 4u);
     l.spec = at = round16(at + g * 4u);
     l.kx = at = round16(at + 3u * g * 4u);
     at = round16(at + 2u * g * sizeof(U));
@@ -492,10 +560,10 @@ group_reduce_kernel(V src, const long long* __restrict__ rows, long long n,
                     typename V::U* __restrict__ ext) {
   using U = typename V::U;
   extern __shared__ __align__(16) unsigned char dyn[];
-  const SharedGroups<U> sgr{reinterpret_cast<int*>(dyn),
-                            reinterpret_cast<unsigned*>(dyn + lay.count),
-                            reinterpret_cast<unsigned*>(dyn + lay.spec),
-                            reinterpret_cast<U*>(dyn + lay.kx), G};
+  const GroupCounters<U> sgr{reinterpret_cast<int*>(dyn),
+                             reinterpret_cast<unsigned*>(dyn + lay.count),
+                             reinterpret_cast<unsigned*>(dyn + lay.spec),
+                             reinterpret_cast<U*>(dyn + lay.kx), G};
   unsigned* marks = reinterpret_cast<unsigned*>(dyn + lay.marks);
   const int tid = threadIdx.x;
   long long i = blockIdx.x;
@@ -503,7 +571,7 @@ group_reduce_kernel(V src, const long long* __restrict__ rows, long long n,
   unsigned char* const buf1 = dyn + lay.buf[1];
   start_rows<kThreads>(src, n, dyn, lay);
   if (kShared) {
-    for (int j = tid; j < G * SharedGroups<U>::kStride; j += kThreads)
+    for (int j = tid; j < G * GroupCounters<U>::kStride; j += kThreads)
       sgr.half[j] = 0;
     for (int g = tid; g < G; g += kThreads) {
       sgr.count[g] = 0;
@@ -598,16 +666,13 @@ int launch_sums(const V& src, const void* rows, long long n,
   using U = typename V::U;
   // each row holds one vector's totals: no call size can overflow them
   if (n < 0 || n_values < 0) return static_cast<int>(cudaErrorInvalidValue);
-  unsigned blocks = 0;
-  const cudaError_t err =
-      grid_for(vector_sums_kernel<V>, n, dev, kThreads, 0, &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks)
-    vector_sums_kernel<V><<<blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        src, static_cast<const long long*>(rows), n, n_values,
-        static_cast<long long*>(sums), static_cast<U*>(keys));
-  return static_cast<int>(cudaGetLastError());
+  const RowLayout lay = row_layout(0, sizeof(U), src.staged_bytes());
+  return launch_rows<kSumThreads>(vector_sums_kernel<V>, n, lay.bytes, dev,
+                                  stream, src,
+                                  static_cast<const long long*>(rows), n,
+                                  n_values, lay,
+                                  static_cast<long long*>(sums),
+                                  static_cast<U*>(keys));
 }
 
 template <class V, bool kShared>
@@ -629,7 +694,7 @@ int launch_group(const V& src, const void* rows, long long n,
   if (bad_size(n, n_values) || G < 1 || G > kMaxGroups)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool in_shared =
-      static_cast<size_t>(G) * SharedGroups<U>::group_bytes() <= kSharedAcc;
+      static_cast<size_t>(G) * GroupCounters<U>::group_bytes() <= kSharedAcc;
   return in_shared ? launch_group_as<V, true>(src, rows, n, n_values, gkeys,
                                               G, out, ext, dev, stream)
                    : launch_group_as<V, false>(src, rows, n, n_values, gkeys,

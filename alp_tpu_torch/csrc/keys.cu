@@ -165,6 +165,7 @@ using alp::RowLayout;
 using alp::start_rows;
 using alp::umax;
 using alp::umin;
+using alp::warp_extremes;
 constexpr int kThreads = 256;                // K17's block
 constexpr int kPer = kVector / kThreads;     // values of a vector a thread
 constexpr int kWarps = kThreads / 32;
@@ -381,25 +382,6 @@ key_counts_kernel(V src, const long long* __restrict__ rows, long long n,
 // ---------------------------------------------------------------------------
 // K16
 // ---------------------------------------------------------------------------
-
-// The warp's least `lo` and largest `hi` (a 64-bit key in two halves, each
-// a redux); every lane of the warp calls it and gets both.
-__device__ __forceinline__ void warp_extremes(uint64_t& lo, uint64_t& hi) {
-  const unsigned lh = static_cast<unsigned>(lo >> 32);
-  const unsigned hh = static_cast<unsigned>(hi >> 32);
-  const unsigned mh = __reduce_min_sync(kFull, lh);
-  const unsigned ml = __reduce_min_sync(
-      kFull, lh == mh ? static_cast<unsigned>(lo) : 0xffffffffu);
-  const unsigned xh = __reduce_max_sync(kFull, hh);
-  const unsigned xl = __reduce_max_sync(
-      kFull, hh == xh ? static_cast<unsigned>(hi) : 0u);
-  lo = (static_cast<uint64_t>(mh) << 32) | ml;
-  hi = (static_cast<uint64_t>(xh) << 32) | xl;
-}
-__device__ __forceinline__ void warp_extremes(uint32_t& lo, uint32_t& hi) {
-  lo = __reduce_min_sync(kFull, lo);
-  hi = __reduce_max_sync(kFull, hi);
-}
 
 // K16: (least key, largest key) of each vector into out[rows[i]].
 template <class V>

@@ -7,16 +7,15 @@
 // the bucket's arguments, as K1-K4 take them, and the plan's per-vector
 // exception CSR (a compressed row index: vector vec's exceptions are
 // entries exc_ptr[vec] .. exc_ptr[vec + 1] of exc_index, their flat
-// positions vec * 1024 + k, and of the true bits or left parts).  Either
+// positions vec * 1024 + k, and of the true bits or left parts).  The
 // decode computes K1/K2's formula or K3/K4's glue and puts the exceptions'
 // true bits in, so the values are the column's own bits (NaN, +-Inf and
 // -0.0 included).  The pad of a partial last vector is left to the
 // caller.  The header also holds what those kernels share around the
-// routes: the key helpers, the row loop of the key kernels (for_each_row),
-// the grid size and the C arguments of a bucket (ALP_ARGS, RD_ARGS).
+// routes: the key helpers, the row loop (for_each_row), the grid size and
+// the C arguments of a bucket (ALP_ARGS, RD_ARGS).
 //
-// Each route has a register-resident decode for the kernels that keep a
-// thread's values in registers (K15-K17, K19): stage_async() starts a
+// The decode keeps a thread's values in registers: stage_async() starts a
 // cp.async copy of a row's packed words (and, for ALP_RD, its
 // dictionary) into a staging buffer, so the next row's copy runs while the
 // current row is read; value() unpacks value k of the staged row straight
@@ -27,20 +26,14 @@
 // bits from the payload and the staged row.  RowAhead (below) loads the
 // rows' metadata and exceptions ahead of the row being read; the caller
 // marks the exception slots and takes each exception's true bits from
-// patch(), either in the thread that owns the slot (K15-K17) or in the
+// patch(), either in the thread that owns the slot (K15-K18) or in the
 // thread that loaded the exception, the owner skipping its slot (K19).
-//
-// decode() is the first design's shared-memory decode, kept only for K18
-// (group.cu), the next kernel to move onto the register path: it stages
-// the packed words with fastlanes.cuh's stage() into the route's Shared
-// struct, writes the 1024 values into shared memory and overwrites the
-// exception slots there, behind three barriers.  When K18 moves, decode()
-// and the Shared structs go.
 //
 // The key of bits b is ~b for a negative value and b | sign otherwise,
 // after -0.0 is mapped to +0.0: unsigned order on keys is the total order
 // -NaN < -Inf < finite < +Inf < +NaN, with the two zeros equal
-// (alp_tpu/engine.py _float_key and _key_from_limbs).
+// (alp_tpu/engine.py _float_key and _key_from_limbs).  key_bits() takes a
+// key back to bits, -0.0 coming back as +0.0.
 
 #pragma once
 
@@ -56,6 +49,12 @@ __device__ __forceinline__ U order_key(U b) {
   constexpr U kSign = U(1) << (sizeof(U) * 8 - 1);
   if (b == kSign) b = 0;
   return (b & kSign) ? static_cast<U>(~b) : static_cast<U>(b | kSign);
+}
+
+template <typename U>
+__device__ __forceinline__ U key_bits(U key) {
+  constexpr U kSign = U(1) << (sizeof(U) * 8 - 1);
+  return (key & kSign) ? static_cast<U>(key ^ kSign) : static_cast<U>(~key);
 }
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -113,6 +112,25 @@ __device__ __forceinline__ void peer_extremes(unsigned peers, uint32_t key,
   hi = __reduce_max_sync(peers, key);
 }
 
+// The warp's least `lo` and largest `hi` (a 64-bit key in two halves, each
+// a redux); every lane of the warp calls it and gets both.
+__device__ __forceinline__ void warp_extremes(uint64_t& lo, uint64_t& hi) {
+  const unsigned lh = static_cast<unsigned>(lo >> 32);
+  const unsigned hh = static_cast<unsigned>(hi >> 32);
+  const unsigned mh = __reduce_min_sync(kFullMask, lh);
+  const unsigned ml = __reduce_min_sync(
+      kFullMask, lh == mh ? static_cast<unsigned>(lo) : 0xffffffffu);
+  const unsigned xh = __reduce_max_sync(kFullMask, hh);
+  const unsigned xl = __reduce_max_sync(
+      kFullMask, hh == xh ? static_cast<unsigned>(hi) : 0u);
+  lo = (static_cast<uint64_t>(mh) << 32) | ml;
+  hi = (static_cast<uint64_t>(xh) << 32) | xl;
+}
+__device__ __forceinline__ void warp_extremes(uint32_t& lo, uint32_t& hi) {
+  lo = __reduce_min_sync(kFullMask, lo);
+  hi = __reduce_max_sync(kFullMask, hi);
+}
+
 // 16-byte cp.async of `bytes` (a multiple of 16) from global `src` into
 // shared `dst` (16-byte aligned) by the block's threads; a source that is
 // not 16-byte aligned is copied by plain 2-byte stores instead.  Either is
@@ -145,9 +163,6 @@ template <typename F>
 struct AlpVector {
   using U = typename Num<F>::U;
   static constexpr int S = Num<F>::S;
-  struct Shared {
-    U words[kVector];                        // bw <= S: at most 1024 words
-  };
   const U* packed;
   int bw;
   const U* base;
@@ -156,26 +171,6 @@ struct AlpVector {
   const long long* exc_ptr;
   const long long* exc_index;
   const U* exc_bits;
-
-  // Row i of the bucket, vector `vec` of the column, into vals[1024].
-  // Every thread of the block calls it; it returns after a barrier.
-  __device__ __forceinline__ void decode(Shared& sh, U* vals, long long i,
-                                         long long vec) const {
-    stage<U, S>(sh.words, packed + i * bw * (kVector / S), bw);
-    __syncthreads();
-    const U b0 = base[i], f = fact[i];
-    const F fr = frac[i];
-    for (int k = threadIdx.x; k < kVector; k += blockDim.x) {
-      const U u = bw ? unpack<U, S>(sh.words, bw, k) : U(0);
-      vals[k] = Num<F>::bits(Num<F>::decode(static_cast<U>((b0 + u) * f),
-                                            fr));
-    }
-    __syncthreads();
-    const long long e1 = exc_ptr[vec + 1];
-    for (long long e = exc_ptr[vec] + threadIdx.x; e < e1; e += blockDim.x)
-      vals[exc_index[e] & (kVector - 1)] = exc_bits[e];
-    __syncthreads();
-  }
 
   // The register-resident decode (see the head of this file).
   struct Row {
@@ -218,11 +213,6 @@ template <typename U_, int S_>
 struct RdVector {
   using U = U_;
   static constexpr int S = S_;
-  struct Shared {
-    U rwords[kVector];
-    uint16_t lwords[kVector];                // lbw <= 16: at most 1024
-    U entries[8];
-  };
   const U* right;
   int rbw;
   const uint16_t* left;
@@ -232,36 +222,6 @@ struct RdVector {
   const long long* exc_ptr;
   const long long* exc_index;
   const long long* exc_left;
-
-  __device__ __forceinline__ void decode(Shared& sh, U* vals, long long i,
-                                         long long vec) const {
-    stage<U, S>(sh.rwords, right + i * rbw * (kVector / S), rbw);
-    stage<uint16_t, 16>(sh.lwords, left + i * lbw * (kVector / 16), lbw);
-    if (threadIdx.x < 8) sh.entries[threadIdx.x] = dict[i * 8 + threadIdx.x];
-    __syncthreads();
-    // indexes past the dictionary (exceptions) take its last entry, as in
-    // K3/K4; the exception pass below overwrites those slots
-    const int last = max(min(dict_size[i], 8) - 1, 0);
-    for (int k = threadIdx.x; k < kVector; k += blockDim.x) {
-      const U r = rbw ? unpack<U, S>(sh.rwords, rbw, k) : U(0);
-      const int idx = lbw ? unpack<uint16_t, 16>(sh.lwords, lbw, k) : 0;
-      const U l = sh.entries[min(idx, last)];
-      vals[k] = rbw < S ? static_cast<U>(static_cast<U>(l << rbw) | r) : r;
-    }
-    __syncthreads();
-    const long long e1 = exc_ptr[vec + 1];
-    if (rbw < S) {
-      const U rmask = static_cast<U>((U(1) << rbw) - U(1));
-      for (long long e = exc_ptr[vec] + threadIdx.x; e < e1;
-           e += blockDim.x) {
-        const int k = static_cast<int>(exc_index[e] & (kVector - 1));
-        vals[k] = static_cast<U>(
-            static_cast<U>(static_cast<U>(exc_left[e]) << rbw) |
-            (vals[k] & rmask));
-      }
-    }
-    __syncthreads();
-  }
 
   // The register-resident decode (see the head of this file).  The staged
   // row: the right words, the left words, then the 8 dictionary entries.
@@ -339,10 +299,10 @@ inline StageLayout stage_layout(unsigned at, int staged) {
 }
 
 // The rows a block reads at a grid stride, for the kernels that keep
-// their values in registers (K15-K17, K19), loaded ahead so that no load of
+// their values in registers (K15-K19), loaded ahead so that no load of
 // global memory waits in the row being read: row i's metadata and its
 // exceptions (each thread's slots and payloads, N a thread: K19 loads a
-// vector's 1024 at most, the key kernels one a thread and the rest when
+// vector's 1024 at most, K15-K18 one a thread and the rest when
 // they store them) one row ahead, its exception range two rows ahead and its
 // vector id three.  ahead() issues the loads of the rows to come, at the
 // top of row i; next() moves to row i + step.  Every thread of the block
@@ -452,7 +412,7 @@ cudaError_t grid_for(K kernel, long long n, int dev, int threads, size_t dyn,
 }
 
 // ---------------------------------------------------------------------------
-// the row loop of the key kernels (keys.cu: K15, K16, K17)
+// the row loop of the key kernels (keys.cu: K15, K16, K17) and of K18
 // ---------------------------------------------------------------------------
 //
 // A block of T threads walks the rows blockIdx.x, + gridDim.x, ... of a
@@ -462,7 +422,8 @@ cudaError_t grid_for(K kernel, long long n, int dev, int threads, size_t dyn,
 // staged with cp.async while the current row is read; its metadata and
 // kAhead exceptions a thread (slot and payload) are loaded a row ahead
 // (RowAhead), the rare exceptions beyond them a row when they are stored.
-// A row without exceptions skips the marks.  One barrier a vector.  K19
+// A row without exceptions skips the marks.  One barrier a vector (K18
+// gathers a row's totals after the next row's barrier).  K19
 // (group.cu) starts and launches its rows with start_rows and launch_rows
 // but keeps its own loop: it patches each exception in the thread that
 // loaded it, so that no payloads take the shared memory its groups use.

@@ -2003,10 +2003,11 @@ def main() -> int:
     for name, (col, exp) in columns.items():
         plan = col.plan(dev)
         W = kes.WINDOWS[plan.bits_dtype]
-        sums_t = torch.zeros((plan.n_vectors, W + 3), dtype=torch.int64,
-                             device=dev)
-        keys_t = torch.zeros((plan.n_vectors, 2), dtype=plan.bits_dtype,
-                             device=dev)
+        # a sentinel, not zeros: K18 writes every column and both keys
+        sums_t = torch.full((plan.n_vectors, W + 3), -7, dtype=torch.int64,
+                            device=dev)
+        keys_t = torch.full((plan.n_vectors, 2), 7, dtype=plan.bits_dtype,
+                            device=dev)
         for call in engine.group_calls(plan):
             call.vector_sums(sums_t, keys_t)
             want_s, want_k = call.vector_sums_plain()

@@ -1,7 +1,8 @@
 """CUDA-event ablations of the key kernels K15 ``key_counts``, K16
-``key_extremes`` and K17 ``rank_pass`` and of K19 ``group_reduce`` on the
-card: what each part of the kernels costs, and how the variants that were
-weighed against them compare.
+``key_extremes`` and K17 ``rank_pass``, of the grouped kernels K18
+``vector_sum_extremes`` and K19 ``group_reduce`` and of the bench's K20
+``variant_sum_f64`` on the card: what each part of the kernels costs, and
+how the variants that were weighed against them compare.
 
 Run from the root of a checkout on a machine with one NVIDIA card::
 
@@ -15,13 +16,25 @@ parallel) and timed on the 256 MiB columns of ``chip_smoke.py``
 (``COLUMNS``) at its timing shapes: K15 at E = 2, 7 (the bench's
 histogram) and 16 (``K15_E``; the few-threshold path against the search
 tree) and at 17 and 2048, K16, K17 at R = 8, T = 2048 on 8
-disjoint brackets and on a later pass (8 bands of 0.1 %), K19 at G = 16
-and 65,536 random ids and at 16 ordered runs.  A variant marked exact must
-give its plain version's outputs bit for bit (the script fails
+disjoint brackets and on a later pass (8 bands of 0.1 %), K18 on every
+bucket, K19 at G = 16 and 65,536 random ids and at 16 ordered runs, and
+K20 on the f64 ALP buckets.  K18's variants: ``k18_atomic_settle`` (the
+first design's settle, 64-bit shared atomics into a row, on the present
+row loop; exact), ``k18_256_threads`` (blocks of 256, 4 values a thread;
+exact), ``k18_no_digits`` and ``k18_no_keys`` (the digit sums or the key
+extremes removed).  K20's: ``k20_slot_unpack`` (the first design,
+``unpack()`` for every slot; exact), ``k20_word_loop`` (the lane word by
+word, one field at a time; exact), ``k20_direct`` (each field's words
+loaded where it is taken; exact), ``k20_magic_convert``
+(the int64 -> double convert by the 2^52 magic add where |m| < 2^51;
+exact) and ``k20_no_convert`` (the convert removed).  A variant marked
+exact must give its plain version's outputs bit for bit (the script fails
 otherwise); the ablations (a part removed) give wrong outputs and are
-timed only.  Prints the card and its power limit, a line a column and a
-JSON object of every time, in milliseconds (CUDA events, 20 launches
-after a warm-up, as ``chip_smoke.cuda_ms``).
+timed only.  Prints the card and its power limit, the ptxas line of each
+rebuilt kernel, K20's loops in the SASS of each K20 variant (``cuobjdump
+-sass``: the instructions of each loop body a slot, one float add a slot),
+a line a column and a JSON object of every time, in milliseconds (CUDA
+events, 20 launches after a warm-up, as ``chip_smoke.cuda_ms``).
 """
 
 from __future__ import annotations
@@ -37,8 +50,9 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 BUILD = ROOT / "alp_tpu_torch" / "_build" / "ablate"
-COLUMNS = ("bench_bw11_city_temperature", "bench_bw42_nyc29",
-           "bench_bw0_gov26", "f64_alp_rd", "f32_alp", "f32_alp_rd")
+COLUMNS = ("bench_bw11_city_temperature", "bench_bw20_food_prices",
+           "bench_bw30_bitcoin", "bench_bw42_nyc29", "bench_bw0_gov26",
+           "f64_alp_rd", "f32_alp", "f32_alp_rd")
 K15_E = (2, 7, 16, 17, 2048)        # K15's thresholds a timing
 
 # K17's row loop and its parts, as csrc/keys.cu has them
@@ -99,6 +113,27 @@ _K16_MERGE = """    if (lane == 0) {
     }
   });
 }"""
+
+# K18 (group.cu) and K20 (falp.cu), as the sources have them
+_K18_STORE = "    acc.store(s.part[warp], &s.base[warp]);\n"
+_K18_KEYS = """      if (real[j]) {
+        lo = umin(lo, key[j]);
+        hi = umax(hi, key[j]);
+      }
+"""
+_K20_STREAM = """\
+    alp::LaneStream in(packed + vec * bw * kLanes64 + lane, bw);
+    for (int s = 0; s < kSlots64; s += kSumStep) {
+      float t[kSumStep];
+#pragma unroll
+      for (int q = 0; q < kSumStep; ++q) t[q] = cut(in.next());
+#pragma unroll
+      for (int q = 0; q < kSumStep; ++q) acc = __fadd_rn(acc, t[q]);
+    }
+"""
+_K20_DECODE = """    return trunc_f32(Num<double>::bits(
+        Num<double>::decode(static_cast<uint64_t>((b + u) * f), fr)));
+"""
 
 # name -> (exact, {source file: [(old, new), ...]})
 VARIANTS = {
@@ -246,6 +281,80 @@ VARIANTS = {
   __syncthreads();
   if (warp == 0 && it > 0) merge((it - 1) & 1);
 }""")]}),
+    # K18 with the first design's settle (64-bit shared atomics of each
+    # warp's windows into the parity's row) on the row loop
+    "k18_atomic_settle": (True, {"group.cu": [(_K18_STORE, """    acc.settle();
+    if (lane == 0) s.base[warp] = -1;
+""")]}),
+    # K18 without its digit sums, and without its key extremes
+    "k18_no_digits": (False, {"group.cu": [("    acc.add(b, real);\n", "")]}),
+    "k18_no_keys": (False, {"group.cu": [
+        (_K18_KEYS, ""), ("    warp_extremes(lo, hi);\n", "")]}),
+    # K18 in blocks of 256 threads, 4 values a thread
+    "k18_256_threads": (True, {"group.cu": [(
+        "constexpr int kSumThreads = 128;",
+        "constexpr int kSumThreads = 256;")]}),
+    # K20's first design: unpack() of every slot from the packed words
+    "k20_slot_unpack": (True, {"falp.cu": [(_K20_STREAM, """\
+    const uint64_t* words = packed + vec * bw * kLanes64;
+    for (int s = 0; s < kSlots64; ++s)
+      acc = __fadd_rn(acc, cut(unpack<uint64_t, 64>(words, bw,
+                                                    s * kLanes64 + lane)));
+""")]}),
+    # K20 word by word, one field at a time: the fields that start in the
+    # current word, then one rotation of the words
+    "k20_word_loop": (True, {"falp.cu": [(_K20_STREAM, """\
+    const uint64_t* lanep = packed + vec * bw * kLanes64 + lane;
+    const uint64_t mask = bw >= 64 ? ~0ull : (1ull << bw) - 1;
+    uint64_t cur = lanep[0];
+    uint64_t nxt = bw > 1 ? lanep[kLanes64] : 0;
+    uint64_t ahead = bw > 2 ? lanep[2 * kLanes64] : 0;
+    int s = 0, off = 0;
+    for (int w = 0; s < kSlots64; ++w) {
+      for (; s < kSlots64 && off < 64; ++s, off += bw)
+        acc = __fadd_rn(acc, cut(alp::funnel_r(cur, nxt, off) & mask));
+      off -= 64;
+      cur = nxt;
+      nxt = ahead;
+      ahead = w + 3 < bw ? lanep[(w + 3) * kLanes64] : 0;
+    }
+""")]}),
+    # K20 with each field's one or two words loaded where it is taken (L1
+    # hits after the first), in steps of 4
+    "k20_direct": (True, {"falp.cu": [(_K20_STREAM, """\
+    const uint64_t* lanep = packed + vec * bw * kLanes64 + lane;
+    const uint64_t mask = bw >= 64 ? ~0ull : (1ull << bw) - 1;
+    for (int s = 0; s < kSlots64; s += kSumStep) {
+      float t[kSumStep];
+#pragma unroll
+      for (int q = 0; q < kSumStep; ++q) {
+        const int off = (s + q) * bw, w0 = off >> 6, s0 = off & 63;
+        t[q] = cut(alp::funnel_r(lanep[w0 * kLanes64],
+                                 s0 + bw > 64 ? lanep[(w0 + 1) * kLanes64]
+                                              : 0ull,
+                                 s0) & mask);
+      }
+#pragma unroll
+      for (int q = 0; q < kSumStep; ++q) acc = __fadd_rn(acc, t[q]);
+    }
+""")]}),
+    # K20's int64 -> double by the 2^52 magic add where |m| < 2^51 (exact
+    # there), the convert elsewhere
+    "k20_magic_convert": (True, {"falp.cu": [(_K20_DECODE, """\
+    const long long m = static_cast<long long>((b + u) * f);
+    return trunc_f32(Num<double>::bits(__dmul_rn(
+        static_cast<unsigned long long>(m + (1ll << 51)) < (1ull << 52)
+            ? __dsub_rn(__longlong_as_double(m + 0x4338000000000000ll),
+                        6755399441055744.0)
+            : __ll2double_rn(m),
+        fr)));
+""")]}),
+    # K20 without the int64 -> double convert (the integer's bits taken as
+    # a double)
+    "k20_no_convert": (False, {"falp.cu": [(_K20_DECODE, """\
+    return trunc_f32(Num<double>::bits(__dmul_rn(
+        __longlong_as_double(static_cast<long long>((b + u) * f)), fr)));
+""")]}),
     # K19 without its path for a warp of one group
     "k19_no_warp_path": (True, {"group.cu": [(_WARP_PATH, _WARP_PATH.replace(
         "real && g == g0)", "real && g == g0) && g0 < 0"))]}),
@@ -253,15 +362,16 @@ VARIANTS = {
 
 
 def ptxas_lines(log: str) -> list:
-    """"<kernel> <route>: <registers, spills, shared memory>" of K15-K17
-    and K19 from nvcc's -Xptxas -v log."""
+    """"<kernel> <route>: <registers, spills, shared memory>" of K15-K20
+    from nvcc's -Xptxas -v log."""
     out, entry = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
             kernel = next((k for k in ("key_counts_small", "key_counts",
                                        "key_extremes", "rank_pass",
-                                       "group_reduce") if k in name), None)
+                                       "vector_sums", "group_reduce",
+                                       "variant_sum") if k in name), None)
             route = next((r for t, r in (("AlpVectorId", "ALP f64"),
                                          ("AlpVectorIf", "ALP f32"),
                                          ("RdVectorIm", "RD f64"),
@@ -276,6 +386,41 @@ def ptxas_lines(log: str) -> list:
             out.append(f"{entry} {ln.split('info    :')[-1].strip()}")
             entry = None
     return out
+
+
+def sass_loops(obj: pathlib.Path, cuobjdump: str, kernel: str) -> list:
+    """The loops of `kernel` in the SASS of object `obj` that hold a float
+    add (K20's slot loops: one FADD a slot), innermost first: for each, the
+    instructions from the target of its backward branch to the branch, its
+    FADDs, I2F, DMUL and global loads, and its instructions a slot.  A code
+    block the compiler placed outside that range is not counted."""
+    sass = subprocess.run([cuobjdump, "-sass", str(obj)], check=True,
+                          capture_output=True, text=True).stdout
+    body, inside = [], False                 # (address, opcode, operands)
+    for ln in sass.splitlines():
+        s = ln.strip()
+        if "Function :" in s:
+            inside = kernel in s
+        elif inside and s.startswith("/*") and ";" in s:
+            words = s.split("*/", 1)[1].split(";")[0].split()
+            if words[0].startswith("@"):     # a predicate
+                words = words[1:]
+            body.append((int(s[2:].split("*/")[0], 16), words[0],
+                         words[1:]))
+    loops = []
+    for at, op, args in body:
+        if not op.startswith("BRA") or not args[-1].startswith("0x"):
+            continue
+        to = int(args[-1], 16)
+        span = [o for a, o, _ in body if to <= a <= at]
+        count = {k: sum(o.startswith(k) for o in span)
+                 for k in ("FADD", "I2F", "DMUL", "LDG")}
+        if to < at and count["FADD"]:
+            loops.append(dict(count, instructions=len(span),
+                              per_slot=len(span) / count["FADD"]))
+    if not loops:
+        raise SystemExit(f"no loop with a float add in {kernel} of {obj}")
+    return sorted(loops, key=lambda c: c["instructions"])
 
 
 def build_variants(names, build, nvcc) -> dict:
@@ -331,7 +476,7 @@ def build_variants(names, build, nvcc) -> dict:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         libs[name] = dll
-        for f in ("keys.cu", "group.cu"):
+        for f in ("keys.cu", "group.cu", "falp.cu"):
             if (name, f) in logs:
                 print(f"  {name}: {'; '.join(ptxas_lines(logs[name, f]))}",
                       flush=True)
@@ -346,17 +491,26 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import alp_tpu_torch
     import chip_smoke as cs
+    from alp_tpu_torch import constants as C
     from alp_tpu_torch import engine
     from alp_tpu_torch.columns import BENCH_PROFILES, route_columns
     from alp_tpu_torch.columns import tile_column
-    from alp_tpu_torch.kernels import _build
+    from alp_tpu_torch.kernels import _build, falp
+    from alp_tpu_torch.kernels import exact_sum as kes
     from alp_tpu_torch.kernels import group as kgroup
     from alp_tpu_torch.kernels import keys as kkeys
     from alp_tpu_torch.ops.keys import biased_keys
 
     dev = torch.device("cuda")
     print(cs.nvidia_smi(), flush=True)
-    libs = build_variants(list(VARIANTS), _build, _build.nvcc_path())
+    nvcc = _build.nvcc_path()
+    libs = build_variants(list(VARIANTS), _build, nvcc)
+    cuobjdump = str(pathlib.Path(nvcc).with_name("cuobjdump"))
+    sass = {}
+    for lname in ("base", *(v for v in VARIANTS if v.startswith("k20"))):
+        sass[lname] = sass_loops(BUILD / lname / "falp.o", cuobjdump,
+                                 "variant_sum_kernel")
+        print(f"  K20 SASS {lname}: {sass[lname]}", flush=True)
     real_lib = _build.lib
     tile_to = dict(cs.TILE_TO, **{n: cs.BENCH_VECTORS for n in BENCH_PROFILES})
     sources = route_columns(np.random.default_rng(0), cs.SOURCE_VECTORS)
@@ -434,6 +588,49 @@ def main() -> int:
                     cells[f"{label} {lname}"] = cs.cuda_ms(
                         lambda: [c.rank_pass(thr_t, br_t, *outs)
                                  for c in kcalls], 20)
+            want = [c.vector_sums_plain() for c in gcalls]
+            row = kes.WINDOWS[plan.bits_dtype] + 3
+            for lname, dll in libs.items():
+                if not lname.startswith(("base", "k18")):
+                    continue
+                _build.lib = lambda dll=dll: dll
+                # a sentinel, not zeros: every column must be written
+                sums = torch.full((plan.n_vectors, row), -7,
+                                  dtype=torch.int64, device=dev)
+                keys = torch.full((plan.n_vectors, 2), 7,
+                                  dtype=plan.bits_dtype, device=dev)
+                for c, (ws, wk) in zip(gcalls, want):
+                    c.vector_sums(sums, keys)
+                    if (lname == "base" or VARIANTS[lname][0]) and not (
+                            torch.equal(sums[c.rows], ws)
+                            and torch.equal(keys[c.rows], wk)):
+                        raise SystemExit(f"{name}: {lname} K18 differs from "
+                                         f"its plain version")
+                cells[f"k18 {lname}"] = cs.cuda_ms(
+                    lambda: [c.vector_sums(sums, keys) for c in gcalls], 20)
+            del want
+            alp_f64 = [b for b in plan.buckets
+                       if plan.f64 and b.scheme == C.SCHEME_ALP]
+            want = [falp.variant_sum_plain(b.args[0], b.bw, *b.args[1:])
+                    for b in alp_f64]
+            for lname, dll in libs.items():
+                if not alp_f64 or not lname.startswith(("base", "k20")):
+                    continue
+                _build.lib = lambda dll=dll: dll
+                if lname == "base" or VARIANTS[lname][0]:
+                    for b, w in zip(alp_f64, want):
+                        got = falp.variant_sum_f64(b.args[0], b.bw,
+                                                   *b.args[1:])
+                        if not torch.equal(got.view(torch.int32),
+                                           w.view(torch.int32)):
+                            raise SystemExit(f"{name}: {lname} K20 bw="
+                                             f"{b.bw} differs from its plain "
+                                             f"version")
+                cells[f"k20 {lname}"] = cs.cuda_ms(
+                    lambda: [falp.variant_sum_f64(b.args[0], b.bw,
+                                                  *b.args[1:])
+                             for b in alp_f64], 20)
+            del want
             for G, ordered in ((16, False), (65536, False), (16, True)):
                 kv = cs.column_group_keys(plan, G, ordered, G)
                 gks = [kv[c.rows].contiguous() for c in gcalls]
@@ -462,7 +659,7 @@ def main() -> int:
             del bk, plan, col
     finally:
         _build.lib = real_lib
-    print(json.dumps({"ms": result}))
+    print(json.dumps({"ms": result, "k20_sass": sass}))
     return 0
 
 

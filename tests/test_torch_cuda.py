@@ -853,6 +853,16 @@ def _column_keys(plan, G: int, ordered: bool, seed: int) -> torch.Tensor:
     return torch.from_numpy(kv.reshape(-1, 1024)).to(plan.device)
 
 
+def _sentinel_sums(plan) -> tuple:
+    """K18's outputs [n_vectors, W + 3] and [n_vectors, 2] filled with a
+    sentinel, not zeros, so that a column K18 leaves unwritten shows."""
+    W = kes.WINDOWS[plan.bits_dtype]
+    return (torch.full((plan.n_vectors, W + 3), -7, dtype=torch.int64,
+                       device=plan.device),
+            torch.full((plan.n_vectors, 2), 7, dtype=plan.bits_dtype,
+                       device=plan.device))
+
+
 @pytest.mark.parametrize("name", sorted(COLUMNS))
 def test_group_kernels_equal_plain_versions(name, cuda):
     """K18 on every bucket, K19 on every bucket at G in {1, 16, 300, 65536}
@@ -861,11 +871,7 @@ def test_group_kernels_equal_plain_versions(name, cuda):
     from alp_tpu_torch.kernels import group as kgroup
     col = alp_tpu_torch.compress(COLUMNS[name])
     plan = col.plan(cuda)
-    W = kes.WINDOWS[plan.bits_dtype]
-    sums = torch.zeros((plan.n_vectors, W + 3), dtype=torch.int64,
-                       device=cuda)
-    keys = torch.zeros((plan.n_vectors, 2), dtype=plan.bits_dtype,
-                       device=cuda)
+    sums, keys = _sentinel_sums(plan)
     for call in engine.group_calls(plan):
         before = kgroup.LAUNCHES["vector_sum_extremes"]
         call.vector_sums(sums, keys)
@@ -888,7 +894,7 @@ def test_group_kernels_equal_plain_versions(name, cuda):
 
 
 # csrc/group.cu kSharedAcc: K19 keeps G groups in shared memory while
-# G * ((2 W + 1) * 4 + 16 + 2 * key bytes) fits (SharedGroups::group_bytes:
+# G * ((2 W + 1) * 4 + 16 + 2 * key bytes) fits (GroupCounters::group_bytes:
 # f64 363 groups, f32 2048)
 SHARED_ACC_BYTES = 200 * 1024
 
@@ -927,6 +933,94 @@ def test_k19_edges_equal_its_plain_version(name, cuda):
             want_out, want_ext = call.group_reduce_plain(gk, G)
             assert torch.equal(out, want_out), (name, G)
             assert torch.equal(ext, want_ext), (name, G)
+
+
+def _k18_edge_columns() -> dict:
+    """name -> (column, the scheme of its edge buckets) of K18's edges on
+    each route, 2 rowgroups and a partial last vector of 333 values: a
+    vector whose every value is an exception (NaN among decimals, tiny
+    negatives among normals), a vector whose warps span
+    more than two digit windows (huge and subnormal values beside
+    moderate ones), NaN of both signs, a signaling NaN, +-Inf and -0.0;
+    and a constant column (bit width 0)."""
+    rng = np.random.default_rng(18)
+    n = 2 * C.N_VECTORS_PER_ROWGROUP * 1024 + 333
+    cols = {}
+    for dt, ut, huge, tiny, rd_tiny in (
+            (np.float64, np.uint64, 1e300, 1e-310, 1e-300),
+            (np.float32, np.uint32, 1e30, 1e-41, 1e-41)):
+        width = np.dtype(dt).itemsize * 8
+        sign = 1 << (width - 1)
+        exp = (1 << (width - 1)) - (1 << (23 if width == 32 else 52))
+        quiet = 1 << (22 if width == 32 else 51)
+        specials = np.array([exp | quiet, sign | exp | quiet, exp | 1,
+                             exp, sign | exp, sign, 0], ut).view(dt)
+        for scheme, x in (("alp", np.round(rng.uniform(-50, 50, n), 2)),
+                          ("rd", rng.standard_normal(n))):
+            x = x.astype(dt)
+            if scheme == "alp":
+                x[5 * 1024:6 * 1024] = np.nan
+            else:                            # as _edge_columns
+                x[3 * 1024:4 * 1024] = (-np.abs(rng.standard_normal(1024))
+                                        * rd_tiny).astype(dt)
+            wide = x[7 * 1024:8 * 1024]
+            wide[::3] = (rng.standard_normal(342) * huge).astype(dt)
+            wide[1::5] = (rng.standard_normal(205) * tiny).astype(dt)
+            x[9 * 1024:9 * 1024 + 8 * len(specials)] = np.tile(specials, 8)
+            cols[f"{scheme}_f{width}"] = (x, scheme)
+    cols["constant_tail"] = (np.full(n, -7.25), "alp")
+    return cols
+
+
+K18_EDGES = _k18_edge_columns()
+
+
+def _permuted_call(call, seed: int):
+    """The bucket of ``call`` with its rows in a random order."""
+    per_row = (0, 2, 3, 4, 5) if call.scheme == "alp" else (0, 2, 4, 5, 6)
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(len(call.rows), generator=g).to(call.rows.device)
+    args = tuple(a[perm].contiguous() if j in per_row else a
+                 for j, a in enumerate(call.args))
+    return engine.KeyCall(call.scheme, args, call.rows[perm].contiguous(),
+                          call.bw)
+
+
+@pytest.mark.parametrize("name", sorted(K18_EDGES))
+def test_k18_edges_equal_its_plain_version(name, cuda):
+    """K18 on every bucket of each route's edge column, and with each
+    bucket's rows permuted, bit for bit, into outputs filled with a
+    sentinel (every column and both keys of a row written, no other row
+    touched); then the column's whole rowgroups tiled to 4096 vectors,
+    more rows than blocks can be resident on the card (at most 8 blocks of
+    256 threads an SM), so that a block walks many rows."""
+    from alp_tpu_torch.columns import tile_column
+    x, scheme = K18_EDGES[name]
+    whole = len(x) - len(x) % (C.N_VECTORS_PER_ROWGROUP * 1024)
+    col = alp_tpu_torch.compress(x)
+    if name != "constant_tail":
+        assert int((np.asarray(col.exc_count) == 1024).sum()) >= 1, name
+    tiled = tile_column(alp_tpu_torch.compress(x[:whole]), 4096)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tiled.n_vectors > 8 * n_sm
+    for c in (col, tiled):
+        plan = c.plan(cuda)
+        calls = engine.group_calls(plan)
+        assert scheme in {call.scheme for call in calls}, name
+        if name == "constant_tail":
+            assert {call.bw for call in calls} == {0}
+        calls += [_permuted_call(call, s) for s, call in enumerate(calls)]
+        for call in calls:
+            sums, keys = _sentinel_sums(plan)
+            call.vector_sums(sums, keys)
+            want_sums, want_keys = call.vector_sums_plain()
+            assert torch.equal(sums[call.rows], want_sums), (name, call.bw)
+            assert torch.equal(keys[call.rows], want_keys), (name, call.bw)
+            others = torch.ones(plan.n_vectors, dtype=torch.bool,
+                                device=cuda)
+            others[call.rows] = False
+            assert bool((sums[others] == -7).all()), name
+            assert bool((keys[others] == 7).all()), name
 
 
 def test_group_in_runs_on_the_card(cuda):
@@ -1036,6 +1130,29 @@ def test_bench_kernels_equal_plain_versions(name, cuda):
         assert kgroup.LAUNCHES["key_extremes_bits"] == before + 1
         assert torch.equal(got, kgroup.key_extremes_bits_plain(bits))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bw", range(65))
+def test_k20_every_bit_width(cuda, bw):
+    """K20 at every bit width on seeded random words, bases and factors
+    whose products wrap, and 37 vectors (not a multiple of a block's 16),
+    against its plain version by bits."""
+    g = torch.Generator(device=cuda).manual_seed(bw)
+    n = 37
+    info = torch.iinfo(torch.int64)
+
+    def words(*shape):
+        return torch.empty(shape, dtype=torch.int64, device=cuda).random_(
+            info.min, info.max, generator=g)
+
+    packed, base, fact = words(n, bw * 16), words(n), words(n)
+    frac = torch.pow(10.0, -torch.randint(0, 21, (n,), generator=g,
+                                          device=cuda).double())
+    before = falp.LAUNCHES["variant_sum_f64"]
+    got = falp.variant_sum_f64(packed, bw, base, fact, frac)
+    assert falp.LAUNCHES["variant_sum_f64"] == before + 1
+    want = falp.variant_sum_plain(packed, bw, base, fact, frac)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), bw
 
 
 @pytest.mark.parametrize("S,rbw", [(64, 48), (64, 52), (64, 64), (32, 0),
