@@ -12,14 +12,20 @@
 // plus 2 spill windows, W = 66; f32: j in 0..7 plus 1, W = 9), then the
 // counts of NaN, +Inf and -Inf.  The host forms sum_w row[w] << 32 w and
 // rounds once.  |digit| < 2^32, so a window stays exact in int64 for fewer
-// than 2^31 values.
+// than 2^31 values (and, summed with wrapping atomics, for any terms whose
+// true total is such a sum: exact_sum.cu).
 //
-// Acc, the per-thread superaccumulator of a block of kAccThreads threads
-// that each hold kAccPer values of a 1024-value vector: each warp keeps a
-// base window Jw, the same for its 32 lanes, and each thread kAccR + P - 1
+// Acc, the per-thread superaccumulator of a block: each warp keeps a base
+// window Jw, the same for its 32 lanes, and each thread kAccR + P - 1
 // int64 register windows Jw .. (kAccR = 2 value windows: 64 binary orders
 // of magnitude).  A value with j in [Jw, Jw + kAccR) adds its digits there
-// by selects, without divergence.  When a warp's values leave that range
+// without divergence: its window is computed once, its digits by funnel
+// shifts of the mantissa's halves, each placed by a 32-bit select on
+// rel = j - Jw and added, times the value's sign, into every register
+// window (a zero or a value not summed adds 0).  The first design computed
+// the window twice, negated each digit in 64 bits and added it by a
+// 64-bit select for each (window, digit) pair; kernel_ablations.py times
+// it (k7_select_digits).  When a warp's values leave that range
 // its registers are flushed (a warp reduction per window, lane 0 adds to
 // the block's shared-memory row) and Jw moves to the warp's lowest window;
 // a value still outside (a warp spanning more than kAccR windows: 1e300
@@ -74,6 +80,21 @@ template <> struct Fixed<uint64_t> {
     d[2] = sh ? static_cast<uint32_t>(mp >> (64 - sh)) : 0u;
     j = mp ? static_cast<int>(ee >> 5) : -1;
   }
+  static __device__ __forceinline__ bool special(uint64_t b) {
+    return (static_cast<uint32_t>(b >> 52) & 0x7FFu) == 0x7FFu;
+  }
+  // The digits d of a value whose window() is not -1, from the mantissa's
+  // 32-bit halves by funnel shifts (garbage for a NaN or an Inf).
+  static __device__ __forceinline__ void digits(uint64_t b, uint32_t (&d)[P]) {
+    const uint32_t hi = static_cast<uint32_t>(b >> 32);
+    const uint32_t lo = static_cast<uint32_t>(b);
+    const uint32_t e = (hi >> 20) & 0x7FFu;
+    const uint32_t m1 = (hi & 0xFFFFFu) | (e ? 0x100000u : 0u);
+    const int sh = max(e, 1u) & 31;
+    d[0] = lo << sh;
+    d[1] = __funnelshift_l(lo, m1, sh);
+    d[2] = __funnelshift_l(m1, 0u, sh);
+  }
 };
 template <> struct Fixed<uint32_t> {
   static constexpr int W = 9, P = 2;
@@ -96,6 +117,16 @@ template <> struct Fixed<uint32_t> {
     d[0] = static_cast<uint32_t>(c);
     d[1] = static_cast<uint32_t>(c >> 32);
     j = mp ? static_cast<int>(ee >> 5) : -1;
+  }
+  static __device__ __forceinline__ bool special(uint32_t b) {
+    return ((b >> 23) & 0xFFu) == 0xFFu;
+  }
+  static __device__ __forceinline__ void digits(uint32_t b, uint32_t (&d)[P]) {
+    const uint32_t e = (b >> 23) & 0xFFu;
+    const uint32_t m = (b & 0x7FFFFFu) | (e ? 0x800000u : 0u);
+    const int sh = max(e, 1u) & 31;
+    d[0] = m << sh;
+    d[1] = __funnelshift_l(m, 0u, sh);
   }
 };
 
@@ -138,50 +169,52 @@ struct Acc {
     }
   }
 
-  // One thread's N values of a vector (kAccPer in K5-K8); ok[r] is false
-  // for values that are not summed (the pad).
+  // One thread's N values (K5/K6: kAccPer of a vector; K7/K8: kLaneStep
+  // of a FastLanes lane, or an exception's true bits and its negated
+  // placeholder); ok[r] is false for values that are not summed (the pad).
+  // Each value's window is computed once.  A value in the warp's register
+  // range adds its P digits, placed by rel = j - Jw (a select a window),
+  // into all kRegs windows unconditionally, times its sign (+1 or -1): a
+  // zero, a NaN, an Inf or a value not summed has rel < 0 and adds 0.
   template <int N>
   __device__ __forceinline__ void add(const U (&b)[N], const bool (&ok)[N]) {
-    int lo = INT_MAX, hi = -1;
+    int j[N];
+    unsigned lo = UINT_MAX;                  // j = -1 is the largest unsigned
+    int hi = -1;
+    bool special = false;                    // a NaN or an Inf among them
 #pragma unroll
     for (int r = 0; r < N; ++r) {
-      const int j = ok[r] ? Fx::window(b[r]) : -1;
-      if (j >= 0) {
-        lo = min(lo, j);
-        hi = max(hi, j);
-      }
+      j[r] = ok[r] ? Fx::window(b[r]) : -1;
+      special |= ok[r] && Fx::special(b[r]);
+      lo = min(lo, static_cast<unsigned>(j[r]));
+      hi = max(hi, j[r]);
     }
     lo = __reduce_min_sync(kFullMask, lo);
     hi = __reduce_max_sync(kFullMask, hi);
-    if (hi >= 0 && (base < 0 || lo < base || hi >= base + kAccR)) {
+    if (hi >= 0 && (base < 0 || static_cast<int>(lo) < base ||
+                    hi >= base + kAccR)) {
       if (base >= 0) flush();
-      base = lo;
+      base = static_cast<int>(lo);
     }
-    int special = 0;                         // a NaN or an Inf among them
 #pragma unroll
     for (int r = 0; r < N; ++r) {
-      if (!ok[r]) continue;
-      const Fx x(b[r]);
-      special |= x.cls;
-      if (x.j < 0) continue;
-      long long sd[Fx::P];
-#pragma unroll
-      for (int p = 0; p < Fx::P; ++p)
-        sd[p] = x.neg ? -static_cast<long long>(x.d[p])
-                      : static_cast<long long>(x.d[p]);
-      const int rel = x.j - base;            // >= 0: base <= the warp's lo
+      uint32_t d[Fx::P];
+      Fx::digits(b[r], d);
+      const long long sgn = (b[r] >> (8 * sizeof(U) - 1)) ? -1 : 1;
+      const int rel = j[r] < 0 ? -1 : j[r] - base;   // base <= the warp's lo
       if (rel >= kAccR) {                    // beyond the register range
 #pragma unroll
         for (int p = 0; p < Fx::P; ++p)
-          if (sd[p]) atomic_add(&row[x.j + p], sd[p]);
-        continue;
+          if (d[p]) atomic_add(&row[j[r] + p], sgn * d[p]);
       }
 #pragma unroll
-      for (int w = 0; w < kRegs; ++w)
+      for (int w = 0; w < kRegs; ++w) {
+        uint32_t dw = 0;
 #pragma unroll
-        for (int p = 0; p < Fx::P; ++p)
-          if (w - p >= 0 && w - p < kAccR)
-            reg[w] += rel == w - p ? sd[p] : 0;
+        for (int q = 0; q < kAccR; ++q)
+          if (w - q >= 0 && w - q < Fx::P) dw = rel == q ? d[w - q] : dw;
+        reg[w] += sgn * static_cast<long long>(dw);
+      }
     }
     // NaN and +-Inf are rare: where the warp holds one, each class is
     // counted with a ballot a value and lane 0 adds the count into the

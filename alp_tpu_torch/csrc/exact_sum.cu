@@ -24,7 +24,16 @@
 // every run and equal the plain version's (tolerance 0).  |digit| < 2^32
 // and fewer than 2^31 values a call (the wrappers check; a longer column
 // is summed in runs, each into its own total) keep every total within
-// int64.
+// int64.  K7/K8 add two more terms an exception (below), and that bound
+// still holds without a smaller run: every add into the block's shared row
+// and into the total is an unsigned (wrapping) atomic, so each window of
+// the total is exact modulo 2^64, and its true value is the sum of the
+// digits of the summed values alone, fewer than 2^31 terms of |digit| <
+// 2^32, because each placeholder's negated digits cancel the ones the
+// stream added for it in the same windows.  A thread's registers hold at
+// most 3 * 2^23 terms between flushes (2^21 rows, 8 warps a block, 64
+// values a lane), far within int64.  So engine.exact_sum_totals keeps its
+// runs of < 2^31 values.
 //
 // Pad values.  The container pads a partial last vector with the column's
 // final value; position vec * 1024 + k >= n_values is skipped, with vec
@@ -41,21 +50,39 @@
 // (alp_tpu/engine.py _filter_sum_mxu), here the predicate rides the SUM.
 //
 // Exceptions (K7/K8).  The formula's value at an exception slot is a
-// placeholder.  A vector with exceptions writes its decoded bits to shared
-// memory, and the block overwrites its slots with the true bits, read
-// through the plan's per-vector CSR (exc_ptr[vec] .. exc_ptr[vec + 1]
-// into exc_index, the flat positions, and exc_bits); then the sum reads
-// them back.  No correction is left for the host.
+// placeholder, always finite (an integer converted, times 10^-e).  The
+// stream sums it like any value; then a lane of the warp that loaded the
+// exception, through the plan's per-vector CSR (exc_ptr[vec] ..
+// exc_ptr[vec + 1] into exc_index, the flat positions, and exc_bits), adds
+// the true bits and the placeholder with its sign flipped, whose digits
+// are the negation of the ones added: each under the pad test and, with a
+// key range, each under its own key test (the placeholder's the one the
+// stream applied).  A NaN or an Inf among the true bits is counted like
+// any value; the placeholder never is one.  No correction is left for the
+// host, and no barrier, shared copy or second pass over the values.
 //
-// Design.  As many blocks of 256 threads as the card holds at once (at
-// most one per vector) walk the vectors with a grid stride; a thread holds
-// 4 values of a vector (k = tid + 256 r) and adds them into digits.cuh's
-// Acc, warp register windows over a shared-memory row.  At the end each
+// Design.  K5/K6: as many blocks of 256 threads as the card holds at once
+// (at most one per vector) walk the rows with a grid stride; a thread
+// holds 4 values of a row (k = tid + 256 r).  K7/K8: one thread a
+// FastLanes lane, reading its fields as a stream (fastlanes.cuh
+// LaneStream, as K20 does: each packed word loaded once, from device
+// memory, a funnel shift and a mask a field), 8 fields an add(); a warp
+// takes 2 (f64) or 1 (f32) rows at a time with a grid stride over warps,
+// with no barrier and no shared memory but the block's row.  Both add into
+// digits.cuh's Acc, warp register windows over a shared-memory row: each
+// value's window computed once, its digits placed by a select a window and
+// added with their sign into every register window.  At the end each
 // block adds the nonzero entries of its row to the global total, one
 // atomicAdd each: a few global atomics per block.  The values of a typical
 // vector (decimals within 19 orders of magnitude, or the doubles of an
 // ALP_RD rowgroup) span at most two windows, so a warp's base window
-// settles at the first vectors and the shared fallback stays rare.
+// settles at the first vectors and the shared fallback stays rare.  The
+// first design of K7/K8 staged each row's words in shared memory behind two
+// barriers, took 4 values a thread by unpack(), patched the exceptions
+// through a shared copy of the row behind two more, and added the digits
+// by 64-bit select chains; kernel_ablations.py times each of those parts
+// against the kept ones (k7_staged, k7_shared_exceptions,
+// k7_select_digits).
 //
 // Bound.  K5/K6 read each decoded value once (8 or 4 bytes) and write a
 // few hundred bytes; K7/K8 read only the packed words and 32 bytes of
@@ -71,6 +98,7 @@
 // reductions above are the design's overhead and are not in the bound.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "digits.cuh"
@@ -84,7 +112,6 @@ using alp::grid_for;
 using alp::kVector;
 using alp::Num;
 using alp::order_key;
-using alp::stage;
 using alp::unpack;
 using alp::zero_row;
 constexpr int kThreads = alp::kAccThreads;
@@ -126,9 +153,20 @@ exact_sum_kernel(const U* __restrict__ bits,
   acc.finish(out);
 }
 
-// K7 / K8: the falp decode of K1 / K2, its exceptions substituted, summed.
+// K7 / K8: the falp decode of K1 / K2 summed, its exceptions corrected.
+// One thread a FastLanes lane (L = 1024 / S lanes a vector: 16 for f64,
+// 32 for f32), so a warp takes 32 / L vectors; the warps walk the bucket's
+// rows with a grid stride and no barrier.
+constexpr int kLaneThreads = 256;
+constexpr int kLaneStep = 4;                 // a lane's values an add()
+
+template <typename F>
+__host__ __device__ constexpr int lane_rows() {   // rows a warp
+  return 32 / (kVector / Num<F>::S);
+}
+
 template <typename F, bool Filter>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kLaneThreads)
 falp_exact_sum_kernel(const typename Num<F>::U* __restrict__ packed, int bw,
                       const typename Num<F>::U* __restrict__ base,
                       const typename Num<F>::U* __restrict__ fact,
@@ -141,45 +179,89 @@ falp_exact_sum_kernel(const typename Num<F>::U* __restrict__ packed, int bw,
                       typename Num<F>::U klo, typename Num<F>::U khi,
                       long long* __restrict__ out) {
   using U = typename Num<F>::U;
-  constexpr int S = Num<F>::S;
-  __shared__ U words[kVector];               // bw <= S: at most 1024 words
-  __shared__ U vals[kVector];
+  constexpr int S = Num<F>::S, L = kVector / S, R = lane_rows<F>();
+  constexpr U kSign = U(1) << (S - 1);
   __shared__ long long row[Fixed<U>::W + 3];
   zero_row<U>(row);
   Acc<U> acc(row);
-  for (long long i = blockIdx.x; i < n; i += gridDim.x) {
-    __syncthreads();                         // the last vector is read
-    stage<U, S>(words, packed + i * bw * (kVector / S), bw);
-    __syncthreads();
-    const U b0 = base[i], f = fact[i];
-    const F fr = frac[i];
-    const long long vec = rows[i];
-    U b[kPer];
-    bool ok[kPer];
+  const int lane = threadIdx.x & 31, ln = lane % L;
+  const long long warps = static_cast<long long>(gridDim.x) *
+                          (kLaneThreads / 32);
+  for (long long i0 = (static_cast<long long>(blockIdx.x) *
+                       (kLaneThreads / 32) + threadIdx.x / 32) * R;
+       i0 < n; i0 += warps * R) {
+    const long long i = i0 + lane / L;
+    const bool live = i < n;                 // the last warp's rows may end
+    const long long ic = live ? i : i0;
+    const U b0 = base[ic], f = fact[ic];
+    const F fr = frac[ic];
+    const long long vec = rows[ic];
+    // slots k < lim of the row are summed (the pad and a dead row not)
+    const long long left = live ? n_values - vec * kVector : 0;
+    const int lim = static_cast<int>(left < 0 ? 0 : min(left, 1ll * kVector));
+    // the lane's values, from its stream of fields or, at bit width 0
+    // (uniform over the launch), from no words at all
+    const auto lane_values = [&](auto packed_words) {
+      alp::LaneStream<U> in(packed + ic * bw * L + ln, bw);
+      for (int s = 0; s < S; s += kLaneStep) {
+        U b[kLaneStep];
+        bool ok[kLaneStep];
 #pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int k = threadIdx.x + r * kThreads;
-      const U u = bw ? unpack<U, S>(words, bw, k) : U(0);
-      b[r] = Num<F>::bits(Num<F>::decode(static_cast<U>((b0 + u) * f), fr));
-      ok[r] = vec * kVector + k < n_values;
+        for (int q = 0; q < kLaneStep; ++q) {
+          const U u = decltype(packed_words)::value ? in.next() : U(0);
+          b[q] = Num<F>::bits(
+              Num<F>::decode(static_cast<U>((b0 + u) * f), fr));
+          ok[q] = (s + q) * L + ln < lim && selected<Filter>(b[q], klo, khi);
+        }
+        acc.add(b, ok);
+      }
+    };
+    if (bw)
+      lane_values(std::true_type{});
+    else
+      lane_values(std::false_type{});
+    // The warp's exceptions: its rows' CSR ranges, concatenated, in turns of
+    // 32; a lane adds an exception's true bits and subtracts the
+    // placeholder the stream summed at its slot, each under the pad test
+    // and its own key test.
+    long long first[R], count[R], total = 0;
+    const long long e0 = live ? exc_ptr[vec] : 0;
+    const long long e1 = live ? exc_ptr[vec + 1] : 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      first[r] = __shfl_sync(alp::kFullMask, e0, r * L);
+      count[r] = __shfl_sync(alp::kFullMask, e1 - e0, r * L);
+      total += count[r];
     }
-    const long long e0 = exc_ptr[vec], e1 = exc_ptr[vec + 1];
-    if (e1 > e0) {                           // block-uniform
+    for (long long t0 = 0; t0 < total; t0 += 32) {   // the same for the warp
+      U x[2] = {0, 0};
+      bool xok[2] = {false, false};
+      long long t = t0 + lane;
+      if (t < total) {
+        // the entry's row r by selects (first[r] with r unknown to the
+        // compiler would put the arrays in local memory)
+        int r = 0;
+        long long e = first[0] + t;
 #pragma unroll
-      for (int r = 0; r < kPer; ++r) vals[threadIdx.x + r * kThreads] = b[r];
-      __syncthreads();
-      for (long long e = e0 + threadIdx.x; e < e1; e += kThreads)
-        vals[exc_index[e] & (kVector - 1)] = exc_bits[e];
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < kPer; ++r) b[r] = vals[threadIdx.x + r * kThreads];
+        for (int q = 0; q + 1 < R; ++q)
+          if (r == q && t >= count[q]) {
+            t -= count[q];
+            r = q + 1;
+            e = first[q + 1] + t;
+          }
+        const long long ir = i0 + r;
+        const int k = static_cast<int>(exc_index[e] & (kVector - 1));
+        const U u = bw ? unpack<U, S>(packed + ir * bw * L, bw, k) : U(0);
+        const U ph = Num<F>::bits(Num<F>::decode(
+            static_cast<U>((base[ir] + u) * fact[ir]), frac[ir]));
+        const bool in_col = rows[ir] * kVector + k < n_values;
+        x[0] = exc_bits[e];
+        x[1] = ph ^ kSign;
+        xok[0] = in_col && selected<Filter>(x[0], klo, khi);
+        xok[1] = in_col && selected<Filter>(ph, klo, khi);
+      }
+      acc.add(x, xok);
     }
-    if constexpr (Filter) {
-#pragma unroll
-      for (int r = 0; r < kPer; ++r)
-        ok[r] = ok[r] && selected<Filter>(b[r], klo, khi);
-    }
-    acc.add(b, ok);
   }
   acc.finish(out);
 }
@@ -218,13 +300,14 @@ int launch_falp_exact_sum(const void* packed, int bw, const void* base,
   using U = typename Num<F>::U;
   if (bad_size(n, n_values) || bw < 0 || bw > Num<F>::S)
     return static_cast<int>(cudaErrorInvalidValue);
+  constexpr long long kRows = kLaneThreads / 32 * lane_rows<F>();
   unsigned blocks = 0;
   const cudaError_t err =
-      grid_for(falp_exact_sum_kernel<F, Filter>, n, dev, kThreads, 0,
-               &blocks);
+      grid_for(falp_exact_sum_kernel<F, Filter>, (n + kRows - 1) / kRows,
+               dev, kLaneThreads, 0, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks)
-    falp_exact_sum_kernel<F, Filter><<<blocks, kThreads, 0,
+    falp_exact_sum_kernel<F, Filter><<<blocks, kLaneThreads, 0,
                                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const U*>(packed), bw, static_cast<const U*>(base),
         static_cast<const U*>(fact), static_cast<const F*>(frac),

@@ -204,7 +204,7 @@ variant_sum_kernel(const uint64_t* __restrict__ packed, int bw,
     const float t = cut(0);
     for (int s = 0; s < kSlots64; ++s) acc = __fadd_rn(acc, t);
   } else {
-    alp::LaneStream in(packed + vec * bw * kLanes64 + lane, bw);
+    alp::LaneStream<uint64_t> in(packed + vec * bw * kLanes64 + lane, bw);
     for (int s = 0; s < kSlots64; s += kSumStep) {
       float t[kSumStep];
 #pragma unroll

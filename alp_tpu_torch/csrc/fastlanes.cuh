@@ -1,7 +1,7 @@
 // Device helpers shared by the port's kernels: the FastLanes unpack of one
 // vector's packed words and its inverse, the pack of one word, a lane's
-// fields read as a stream (K20), their staging into shared memory, and
-// the ALP decode formula.  The decode kernels K1/K2 (falp.cu) and the
+// fields read as a stream (K20, K7/K8), their staging into shared memory,
+// and the ALP decode formula.  The decode kernels K1/K2 (falp.cu) and the
 // fused decode + exact-SUM kernels K7/K8 (exact_sum.cu) decode with these
 // same lines, so a value summed by K7 has the bits K1 writes; the pack
 // kernel K10 (ffor.cu) places each value with the same slot_pos that
@@ -82,38 +82,48 @@ __device__ __forceinline__ uint64_t funnel_r(uint64_t lo, uint64_t hi,
          __funnelshift_r(a, b, s);
 }
 
-// The bw-bit fields of one lane of 64-bit words, slot 0, 1, ... in order,
-// read as a stream (0 < bw <= 64): the thread holds the current word and
-// the next (a field may spill into it) and one more ahead, and loads each
-// of the lane's bw words once, two words before the field that first
-// needs it; next() takes a field with a funnel shift and the mask, moves
-// the bit offset by bw and rotates the words where it passes 64 (the same
-// for every lane of a warp).  No divide, no per-slot address and no word
-// loaded twice, where unpack() pays all three for every value.  `lane`
-// points at the lane's word 0 (its word w at lane[w * 16]).
-struct LaneStream {
-  static constexpr int L = kVector / 64;
-  const uint64_t* lane;
-  int bw, off, at;                           // at: the word in `ahead`
-  uint64_t cur, nxt, ahead, mask;
+// Bits [s, s + 32) of the 64-bit word hi:lo, 0 <= s < 32.
+__device__ __forceinline__ uint32_t funnel_r(uint32_t lo, uint32_t hi,
+                                             int s) {
+  return __funnelshift_r(lo, hi, s);
+}
 
-  __device__ __forceinline__ LaneStream(const uint64_t* words, int width)
+// The bw-bit fields of one lane of S-bit words (W = uint64_t or uint32_t),
+// slot 0, 1, ... in order, read as a stream (0 <= bw <= S): the thread
+// holds the current word and the next (a field may spill into it) and one
+// more ahead, and loads each of the lane's bw words once, two words before
+// the field that first needs it; next() takes a field with a funnel shift
+// and the mask, moves the bit offset by bw and rotates the words where it
+// passes S (the same for every lane of a warp).  No divide, no per-slot
+// address and no word loaded twice, where unpack() pays all three for every
+// value.  At bw = 0 it loads nothing and every field is 0.  `lane` points
+// at the lane's word 0 (its word w at lane[w * L]).  K20 (falp.cu) and
+// K7/K8 (exact_sum.cu) read their words with it.
+template <typename W>
+struct LaneStream {
+  static constexpr int S = 8 * sizeof(W);
+  static constexpr int L = kVector / S;
+  const W* lane;
+  int bw, off, at;                           // at: the word in `ahead`
+  W cur, nxt, ahead, mask;
+
+  __device__ __forceinline__ LaneStream(const W* words, int width)
       : lane(words), bw(width), off(0), at(2) {
-    cur = lane[0];
-    nxt = bw > 1 ? lane[L] : 0;
-    ahead = bw > 2 ? lane[2 * L] : 0;
-    mask = bw >= 64 ? ~0ull : (1ull << bw) - 1;
+    cur = bw > 0 ? lane[0] : W(0);
+    nxt = bw > 1 ? lane[L] : W(0);
+    ahead = bw > 2 ? lane[2 * L] : W(0);
+    mask = bw >= S ? static_cast<W>(~W(0)) : static_cast<W>((W(1) << bw) - 1);
   }
 
-  __device__ __forceinline__ uint64_t next() {
-    const uint64_t u = funnel_r(cur, nxt, off) & mask;
+  __device__ __forceinline__ W next() {
+    const W u = funnel_r(cur, nxt, off) & mask;
     off += bw;
-    if (off >= 64) {
-      off -= 64;
+    if (off >= S) {
+      off -= S;
       cur = nxt;
       nxt = ahead;
       ++at;
-      ahead = at < bw ? lane[at * L] : 0;
+      ahead = at < bw ? lane[at * L] : W(0);
     }
     return u;
   }

@@ -38,11 +38,26 @@
 // integer product) per (sample, candidate), then a min, a max and a count;
 // the samples are a few MB.  A 256 MiB f64 column asks for ~17.9 M
 // first-level and ~5.2 M second-level trials, a 256 MiB f32 column ~12.4 M
-// and up to ~10.5 M.  One warp per (segment, candidate), one sample per
-// lane: min, max and the count are warp shuffles (32-bit ones for f32) and
-// a ballot, with no shared memory and no divergence; the warps of a
-// segment read its 32 samples through the caches.  The same grid shape
-// serves both levels and both precisions.
+// and up to ~10.5 M.
+//
+// Design.  One thread a (segment, candidate) task: the thread keeps its
+// pair's constants, the running max, min and count in registers and walks
+// the segment's 32 samples (unrolled by 4, so that the trials' FP64 and
+// conversion chains overlap), with no shuffle and no ballot.  A block takes
+// `segs` consecutive segments, as many as fill ~kBlock threads with their
+// tasks where the pairs are shared and ~kBlockOwn where each segment has
+// its own (at least 1 and at most kMaxSegs): the first planning level (C =
+// 190 f64 / 66 f32 shared pairs) one or three segments a block, the
+// second (C = 5 pairs of each segment's own, many past its k_count) 25,
+// smaller blocks that spread its idle candidates over more SMs.  The
+// block stages its segments' samples into shared memory once, with
+// coalesced loads, at a stride of 33 so that the threads of a warp, which
+// read sample i of up to 7 segments at once, hit distinct banks; the
+// threads of one segment read the same address, a broadcast.  Task t of a
+// block is (t / C, t % C): one 32-bit division a task.  The first design
+// (one warp a task, one sample a lane, a 64-bit task / C, and ten 64-bit
+// shuffles, a ballot and a popc a task) spent as many instructions on the
+// task as on its trial; kernel_ablations.py times it (k11_warp_task).
 
 #include <climits>
 #include <cstdint>
@@ -52,42 +67,50 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kBlock = 256;      // the tasks a block aims at: shared pairs
+constexpr int kBlockOwn = 128;   // and each segment's own
 constexpr int kSamples = 32;
+constexpr int kStride = kSamples + 1;   // a segment's samples in shared memory
+constexpr int kMaxSegs = 64;     // segments a block at most
 
 template <typename F>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlock)
 score_kernel(const typename alp::Alp<F>::U* __restrict__ samples,
              const int* __restrict__ ef, int ef_per_segment, int n_cand,
-             const int* __restrict__ k_count, long long n_tasks,
+             const int* __restrict__ k_count, int n, int segs,
              typename alp::Alp<F>::Tables t, int exc_bits,
              int* __restrict__ est, int* __restrict__ non_exc) {
   using A = alp::Alp<F>;
+  using U = typename A::U;
   using I = typename A::I;
-  const long long task =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (task >= n_tasks) return;               // whole warps leave together
-  const long long seg = task / n_cand;
-  const int c = static_cast<int>(task % n_cand);
-  if (k_count && c >= k_count[seg]) {
-    if (lane == 0) est[task] = non_exc[task] = 0;
-    return;
-  }
-  const int* pair = ef + 2 * ((ef_per_segment ? seg * n_cand : 0) + c);
-  const typename A::Pair p = A::pair_of(t, pair[0], pair[1]);
-  const alp::Encoded<I> enc =
-      A::search(samples[seg * kSamples + lane], p, t);
-  I mx = enc.exc ? A::kMin : enc.n;
-  I mn = enc.exc ? A::kMax : enc.n;
-  for (int o = 16; o > 0; o >>= 1) {
-    mx = max(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
-    mn = min(mn, __shfl_xor_sync(0xFFFFFFFFu, mn, o));
-  }
-  const int ne = __popc(__ballot_sync(0xFFFFFFFFu, !enc.exc));
-  if (lane == 0) {
-    est[task] = kSamples * A::width(mx, mn) + (kSamples - ne) * exc_bits;
-    non_exc[task] = ne;
+  __shared__ U smp[kMaxSegs * kStride];
+  const int seg0 = blockIdx.x * segs;
+  const int m = min(segs, n - seg0);         // this block's segments
+  const U* src = samples + static_cast<long long>(seg0) * kSamples;
+  for (int i = threadIdx.x; i < m * kSamples; i += blockDim.x)
+    smp[(i / kSamples) * kStride + i % kSamples] = src[i];
+  __syncthreads();
+  for (int task = threadIdx.x; task < m * n_cand; task += blockDim.x) {
+    const int sl = task / n_cand, c = task - sl * n_cand;
+    const long long at = static_cast<long long>(seg0 + sl) * n_cand + c;
+    if (k_count && c >= k_count[seg0 + sl]) {
+      est[at] = non_exc[at] = 0;
+      continue;
+    }
+    const int* pair = ef + 2 * (ef_per_segment ? at : c);
+    const typename A::Pair p = A::pair_of(t, pair[0], pair[1]);
+    const U* s = smp + sl * kStride;
+    I mx = A::kMin, mn = A::kMax;
+    int ne = 0;
+#pragma unroll 4
+    for (int i = 0; i < kSamples; ++i) {
+      const alp::Encoded<I> enc = A::search(s[i], p, t);
+      mx = enc.exc ? mx : max(mx, enc.n);
+      mn = enc.exc ? mn : min(mn, enc.n);
+      ne += !enc.exc;
+    }
+    est[at] = kSamples * A::width(mx, mn) + (kSamples - ne) * exc_bits;
+    non_exc[at] = ne;
   }
 }
 
@@ -96,17 +119,18 @@ int launch(const void* samples, const void* ef, int ef_per_segment,
            int n_cand, const void* k_count, long long n,
            const typename alp::Alp<F>::Tables& t, int exc_bits, void* est,
            void* non_exc, void* stream) {
-  const long long tasks = n * n_cand;
-  const long long blocks = (tasks * 32 + kThreads - 1) / kThreads;
-  if (n < 0 || n_cand < 1 || blocks > INT_MAX)
+  if (n < 0 || n > INT_MAX || n_cand < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (tasks)
-    score_kernel<F><<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const int aim = ef_per_segment ? kBlockOwn : kBlock;
+  const int segs = max(1, min(aim / n_cand, kMaxSegs));
+  const int threads = min(aim, (segs * n_cand + 31) / 32 * 32);
+  if (n)
+    score_kernel<F><<<static_cast<unsigned>((n + segs - 1) / segs), threads,
+                      0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const typename alp::Alp<F>::U*>(samples),
         static_cast<const int*>(ef), ef_per_segment, n_cand,
-        static_cast<const int*>(k_count), tasks, t, exc_bits,
-        static_cast<int*>(est), static_cast<int*>(non_exc));
+        static_cast<const int*>(k_count), static_cast<int>(n), segs, t,
+        exc_bits, static_cast<int*>(est), static_cast<int*>(non_exc));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -110,7 +110,9 @@ Phases, each printing its wall time:
             K23 on the decoded bits of every f64 column.
 12. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
             their launches as the wrappers made them, without the
-            wrappers' synchronising range checks), beside
+            wrappers' synchronising range checks; K11/K14 also by planning
+            level, each level with its launches on the dcompress phase,
+            its time, bound and plain version's time), beside
             its bound (the bytes it must move at 3.35 TB/s, or the
             operations its function needs at the card's rate, whichever
             is larger) and the plain version's time; as yardsticks, not
@@ -360,6 +362,8 @@ GROUP_SAMPLES = 256              # groups checked where not every one is,
 SAMPLE_VALUES = 2 << 20          # at most this many values of them
 METHODS = ("linear", "lower", "higher", "midpoint", "nearest")
 QUERY_SMALL_K = 7                # TOP-K at n_vectors + 7 on small columns
+# K11/K14, whose rows split their time by planning level
+SCORE_LEVELS = ("score_pairs_f64", "score_pairs_f32")
 DC_WRAPPERS = {  # launch-count key -> (module holding it, plain version)
     "alp_encode_f64": ("dc", "encode_plain"),
     "alp_encode_f32": ("dc", "encode_plain_f32"),
@@ -502,6 +506,29 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_graph_ms(fn, reps: int) -> float:
+    """The device time of ``fn``'s launches without their host cost:
+    ``reps`` calls captured in one CUDA graph, replayed once to warm up and
+    once between CUDA events.  ``cuda_ms`` reads the host's launch time
+    where a kernel takes less than its Python launch."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -1851,6 +1878,17 @@ def main() -> int:
     # 8. dcompress: the device compress path, through the public entry
     t0 = time.perf_counter()
     host_blobs = {}
+    # K11/K14's launches by planning level: the first scores pairs shared by
+    # every segment, the second each segment's own (ef_per_segment)
+    level_launches = {(k, lv): 0 for k in SCORE_LEVELS
+                      for lv in ("first", "second")}
+    score_launch = kscore._launch
+
+    def count_level(entry, device, *call_args):
+        score_launch(entry, device, *call_args)
+        level_launches[entry, "second" if call_args[2] else "first"] += 1
+
+    kscore._launch = count_level
     torch.cuda.synchronize()
     dc_reset()
     dc.reset_to_host()
@@ -1891,6 +1929,11 @@ def main() -> int:
               f"{trip_s:.4f} s, same bytes", flush=True)
     dc_launches = dc_counts()
     dc_s = time.perf_counter() - tp
+    kscore._launch = score_launch
+    for (k, lv), v in level_launches.items():
+        if v == 0 and (k, lv) != ("score_pairs_f32", "second"):
+            raise RuntimeError(f"kernel {k} was not launched at the {lv} "
+                               f"planning level")
     for k, v in dc_launches.items():
         if v == 0:
             raise RuntimeError(f"kernel {k} was not launched on the device "
@@ -2222,26 +2265,64 @@ def main() -> int:
     for k, (src, site, others, timed_on) in DC_KERNELS.items():
         ms, plain_ms, bound_ms, copy_ms, b_by_bytes, b_by_ops = ([] for _ in
                                                                   range(6))
-        per_col = []
+        per_col, graph_ms = [], []
+        levels = {lv: {"ms": [], "graph_ms": [], "plain_ms": [],
+                       "bound_ms": [], "by_bytes": [], "by_ops": [],
+                       "timed_on": []}
+                  for lv in ("first", "second")}
+
+        def timed_calls(mine, graph=False):
+            """(kernel ms, in a CUDA graph (None unless `graph`), plain ms,
+            bytes bound ms, operations bound ms, the work's numbers) of one
+            column's calls."""
+            kernels = [ln for c in mine for ln in c[4]]
+
+            def launch():
+                return [falp._launch(e, d, *a) for e, d, a in kernels]
+
+            t_k = cuda_ms(launch, 10)
+            t_g = cuda_graph_ms(launch, 10) if graph else None
+            t_p = cuda_ms(lambda: [dc_plain(k, c[1], c[2]) for c in mine],
+                          2)
+            work = [dc_work(k, c[1], c[2]) for c in mine]
+            sums = [sum(w[i] for w in work) for i in range(4)]
+            moved, fp_ops, fp32_ops, int_ops = sums
+            b_ops = max(fp_ops / fp64_per_s, fp32_ops / fp32_per_s,
+                        int_ops / int32_per_s) * 1e3
+            return t_k, t_g, t_p, moved / HBM_BYTES_PER_S * 1e3, b_ops, sums
+
         for name in timed_on:
             mine = [c for c in dc_calls[name] if c[0] == k]
             if not mine:      # bw 0 packs nothing; ALP_RD encodes nothing
                 print(f"  {k} on {name}: no launch", flush=True)
                 continue
             kernels = [ln for c in mine for ln in c[4]]
-            t_k = cuda_ms(lambda: [falp._launch(e, d, *a)
-                                   for e, d, a in kernels], 10)
-            t_p = cuda_ms(lambda: [dc_plain(k, c[1], c[2]) for c in mine],
-                          2)
+            t_k, t_g, t_p, b_bytes, b_ops, (moved, fp_ops, fp32_ops,
+                                            int_ops) = timed_calls(
+                mine, graph=k in SCORE_LEVELS)
+            graph_ms.append(t_g)
             src_t = mine[0][1][0]
             dst = torch.empty_like(src_t)
             t_c = cuda_ms(lambda: dst.copy_(src_t), 10)
-            work = [dc_work(k, c[1], c[2]) for c in mine]
-            moved, fp_ops, fp32_ops, int_ops = (sum(w[i] for w in work)
-                                                for i in range(4))
-            b_bytes = moved / HBM_BYTES_PER_S * 1e3
-            b_ops = max(fp_ops / fp64_per_s, fp32_ops / fp32_per_s,
-                        int_ops / int32_per_s) * 1e3
+            for lv, cell in (levels.items() if k in SCORE_LEVELS else ()):
+                part = [c for c in mine
+                        if (c[1][1].shape[0] == 1) == (lv == "first")]
+                if not part:
+                    continue
+                l_ms, l_graph, l_plain, l_bytes, l_ops, _ = timed_calls(
+                    part, graph=True)
+                l_bound = max(l_bytes, l_ops)
+                for key, v in (("ms", l_ms), ("graph_ms", l_graph),
+                               ("plain_ms", l_plain), ("bound_ms", l_bound),
+                               ("by_bytes", l_bytes), ("by_ops", l_ops),
+                               ("timed_on", name)):
+                    cell[key].append(v)
+                print(f"  {k} on {name}, {lv} planning level: {len(part)} "
+                      f"calls, kernel {l_ms:.4f} ms (in a CUDA graph "
+                      f"{l_graph:.4f} ms), plain {l_plain:.4f} ms, bound "
+                      f"{l_bound:.4f} ms (bytes {l_bytes:.4f} ms, operations "
+                      f"{l_ops:.4f} ms), share {l_bound / l_ms:.1%}",
+                      flush=True)
             ms.append(t_k)
             plain_ms.append(t_p)
             bound_ms.append(max(b_bytes, b_ops))
@@ -2273,6 +2354,18 @@ def main() -> int:
             "timed_on": [n for n in timed_on
                          if any(c[0] == k for c in dc_calls[n])],
         })
+        if k in SCORE_LEVELS:
+            rows[-1]["graph_ms"] = float(np.mean(graph_ms))
+            rows[-1]["levels"] = {
+                lv: {"launches": level_launches[k, lv],
+                     "ms": float(np.mean(c["ms"])),
+                     "graph_ms": float(np.mean(c["graph_ms"])),
+                     "plain_ms": float(np.mean(c["plain_ms"])),
+                     "bound_ms": float(np.mean(c["bound_ms"])),
+                     "bound_by": ("bytes" if sum(c["by_bytes"])
+                                  >= sum(c["by_ops"]) else "operations"),
+                     "timed_on": c["timed_on"]}
+                for lv, c in levels.items() if c["ms"]}
     del dc_calls
     key_timed = [*BENCH_PROFILES, "f64_alp_rd", "f32_alp", "f32_alp_rd"]
     for k, (site, others) in KEY_KERNELS.items():

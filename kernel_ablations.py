@@ -1,39 +1,64 @@
-"""CUDA-event ablations of the key kernels K15 ``key_counts``, K16
-``key_extremes`` and K17 ``rank_pass``, of the grouped kernels K18
-``vector_sum_extremes`` and K19 ``group_reduce`` and of the bench's K20
-``variant_sum_f64`` on the card: what each part of the kernels costs, and
-how the variants that were weighed against them compare.
+"""CUDA-event ablations of the exact-SUM kernels K5-K8, the (e, f)
+scorers K11/K14, the key kernels K15 ``key_counts``, K16 ``key_extremes``
+and K17 ``rank_pass``, the grouped kernels K18 ``vector_sum_extremes`` and
+K19 ``group_reduce`` and the bench's K20 ``variant_sum_f64`` on the card:
+what each part of the kernels costs, and how the variants that were
+weighed against them compare.
 
 Run from the root of a checkout on a machine with one NVIDIA card::
 
-    python3 kernel_ablations.py
+    python3 kernel_ablations.py [kernel ...]
 
-Each variant is the sources of ``alp_tpu_torch/csrc`` with a few text
-edits (``VARIANTS``), built beside the library in the ignored
-``alp_tpu_torch/_build/ablate/`` (every source compiled once, then the
-edited ones again, every source where a header is edited, all in
-parallel) and timed on the 256 MiB columns of ``chip_smoke.py``
-(``COLUMNS``) at its timing shapes: K15 at E = 2, 7 (the bench's
-histogram) and 16 (``K15_E``; the few-threshold path against the search
-tree) and at 17 and 2048, K16, K17 at R = 8, T = 2048 on 8
-disjoint brackets and on a later pass (8 bands of 0.1 %), K18 on every
-bucket, K19 at G = 16 and 65,536 random ids and at 16 ordered runs, and
-K20 on the f64 ALP buckets.  K18's variants: ``k18_atomic_settle`` (the
-first design's settle, 64-bit shared atomics into a row, on the present
-row loop; exact), ``k18_256_threads`` (blocks of 256, 4 values a thread;
-exact), ``k18_no_digits`` and ``k18_no_keys`` (the digit sums or the key
-extremes removed).  K20's: ``k20_slot_unpack`` (the first design,
-``unpack()`` for every slot; exact), ``k20_word_loop`` (the lane word by
-word, one field at a time; exact), ``k20_direct`` (each field's words
-loaded where it is taken; exact), ``k20_magic_convert``
-(the int64 -> double convert by the 2^52 magic add where |m| < 2^51;
-exact) and ``k20_no_convert`` (the convert removed).  A variant marked
-exact must give its plain version's outputs bit for bit (the script fails
-otherwise); the ablations (a part removed) give wrong outputs and are
-timed only.  Prints the card and its power limit, the ptxas line of each
-rebuilt kernel, K20's loops in the SASS of each K20 variant (``cuobjdump
--sass``: the instructions of each loop body a slot, one float add a slot),
-a line a column and a JSON object of every time, in milliseconds (CUDA
+with kernels named as in ``KERNELS`` (``k7 k11``: only the variants that
+change K7/K8 or K11/K14, and only their timings; none: every one).  Each
+variant is the sources of ``alp_tpu_torch/csrc`` with a few text edits
+(``VARIANTS``: a string replaced, or a region from a start to an end),
+built beside the library in the ignored ``alp_tpu_torch/_build/ablate/``
+(every source compiled once, then the edited ones again, every source
+where a header is edited, all in parallel) and timed on the 256 MiB
+columns of ``chip_smoke.py`` (``COLUMNS``) at its timing shapes: K5-K8 on
+each column's SUM calls, K11/K14 on the launches of a ``compress_device``
+of the column, by planning level, K15 at E = 2, 7 (the bench's histogram)
+and 16 (``K15_E``; the few-threshold path against the search tree) and at
+17 and 2048, K16, K17 at R = 8, T = 2048 on 8 disjoint brackets and on a
+later pass (8 bands of 0.1 %), K18 on every bucket, K19 at G = 16 and
+65,536 random ids and at 16 ordered runs, and K20 on the f64 ALP buckets.
+K7's variants: the first design's parts over the kept ones,
+``k7_staged`` (a block a row, its words staged in shared memory, 4 values
+a thread by ``unpack()``, with the kept exception path),
+``k7_shared_exceptions`` (that loop with the exceptions patched through a
+shared copy of the row: the whole first loop) and ``k7_select_digits``
+(the first ``Acc::add``: it changes K5-K8 and K18 too); ``k7_slot_unpack``
+(the lanes by ``unpack()`` of every slot), ``k7_early_csr`` (a row's CSR
+range loaded before its stream, not after: longer live ranges), the sweeps ``k7_step_2`` /
+``_8``, ``k7_block_128`` / ``_512`` and ``k7_block_512_step_8``, all
+exact; ``k7_no_digits`` (the
+decoded bits XOR-folded into one output) and ``k7_no_exceptions``; and
+``k7_no_stage``, a split of the first loop (its words read straight from
+device memory).  K11's: ``k11_warp_task`` (the first design, a warp a
+task), its splits ``k11_no_reduce`` (only lane 0's trial, no shuffles) and
+``k11_no_index`` (a 32-bit task / C), ``k11_one_trial`` (one sample a
+task: the task's own cost), and the sweeps ``k11_unroll_1`` / ``_8`` /
+``_32``, ``k11_block_128`` / ``_512`` (shared pairs), ``k11_own_64`` /
+``_256`` (each segment's own) and ``k11_stride_32`` (the samples
+in shared memory at a stride of 32: bank conflicts).  K18's variants:
+``k18_atomic_settle`` (the first design's settle, 64-bit shared atomics
+into a row, on the present row loop; exact), ``k18_256_threads`` (blocks
+of 256, 4 values a thread; exact), ``k18_no_digits`` and ``k18_no_keys``
+(the digit sums or the key extremes removed).  K20's:
+``k20_slot_unpack`` (the first design, ``unpack()`` for every slot;
+exact), ``k20_word_loop`` (the lane word by word, one field at a time;
+exact), ``k20_direct`` (each field's words loaded where it is taken;
+exact), ``k20_magic_convert`` (the int64 -> double convert by the 2^52
+magic add where |m| < 2^51; exact) and ``k20_no_convert`` (the convert
+removed).  A variant marked exact must give its plain version's outputs
+bit for bit (the script fails otherwise); the ablations (a part removed)
+give wrong outputs and are timed only.  Prints the card and its power
+limit, the ptxas line of each rebuilt kernel, the SASS of K7's, K11's
+and K20's loops in each of their variants (``cuobjdump -sass``: each
+loop's instructions, those of ``SASS_OPS``, and the instructions a value
+or trial: K20's float add, K7's and K11's int64 -> double convert), a
+line a column and a JSON object of every time, in milliseconds (CUDA
 events, 20 launches after a warm-up, as ``chip_smoke.cuda_ms``).
 """
 
@@ -122,7 +147,7 @@ _K18_KEYS = """      if (real[j]) {
       }
 """
 _K20_STREAM = """\
-    alp::LaneStream in(packed + vec * bw * kLanes64 + lane, bw);
+    alp::LaneStream<uint64_t> in(packed + vec * bw * kLanes64 + lane, bw);
     for (int s = 0; s < kSlots64; s += kSumStep) {
       float t[kSumStep];
 #pragma unroll
@@ -133,6 +158,77 @@ _K20_STREAM = """\
 """
 _K20_DECODE = """    return trunc_f32(Num<double>::bits(
         Num<double>::decode(static_cast<uint64_t>((b + u) * f), fr)));
+"""
+
+# K7 (exact_sum.cu) and K11 (score.cu), as the sources have them, and the
+# first designs that kernel_ablations.py weighs against them
+_K7_KERNEL = ("template <typename F, bool Filter>\n__global__ void "
+              "__launch_bounds__(kLaneThreads)\nfalp_exact_sum_kernel(",
+              "      acc.add(x, xok);\n    }\n  }\n  acc.finish(out);\n}\n")
+_K7_ROWS = "  constexpr long long kRows = kLaneThreads / 32 * lane_rows<F>();"
+# the first design's loop: a block a row, its words staged in shared
+# memory, 4 values a thread by unpack(), the exceptions patched through a
+# shared copy of the row
+_K7_SHARED_EXCEPTIONS = 'template <typename F, bool Filter>\n__global__ void __launch_bounds__(kThreads)\nfalp_exact_sum_kernel(const typename Num<F>::U* __restrict__ packed, int bw,\n                      const typename Num<F>::U* __restrict__ base,\n                      const typename Num<F>::U* __restrict__ fact,\n                      const F* __restrict__ frac,\n                      const long long* __restrict__ rows,\n                      const long long* __restrict__ exc_ptr,\n                      const long long* __restrict__ exc_index,\n                      const typename Num<F>::U* __restrict__ exc_bits,\n                      long long n, long long n_values,\n                      typename Num<F>::U klo, typename Num<F>::U khi,\n                      long long* __restrict__ out) {\n  using U = typename Num<F>::U;\n  constexpr int S = Num<F>::S;\n  __shared__ U words[kVector];               // bw <= S: at most 1024 words\n  __shared__ U vals[kVector];\n  __shared__ long long row[Fixed<U>::W + 3];\n  zero_row<U>(row);\n  Acc<U> acc(row);\n  for (long long i = blockIdx.x; i < n; i += gridDim.x) {\n    __syncthreads();                         // the last vector is read\n    alp::stage<U, S>(words, packed + i * bw * (kVector / S), bw);\n    __syncthreads();\n    const U b0 = base[i], f = fact[i];\n    const F fr = frac[i];\n    const long long vec = rows[i];\n    U b[kPer];\n    bool ok[kPer];\n#pragma unroll\n    for (int r = 0; r < kPer; ++r) {\n      const int k = threadIdx.x + r * kThreads;\n      const U u = bw ? unpack<U, S>(words, bw, k) : U(0);\n      b[r] = Num<F>::bits(Num<F>::decode(static_cast<U>((b0 + u) * f), fr));\n      ok[r] = vec * kVector + k < n_values;\n    }\n    const long long e0 = exc_ptr[vec], e1 = exc_ptr[vec + 1];\n    if (e1 > e0) {                           // block-uniform\n#pragma unroll\n      for (int r = 0; r < kPer; ++r) vals[threadIdx.x + r * kThreads] = b[r];\n      __syncthreads();\n      for (long long e = e0 + threadIdx.x; e < e1; e += kThreads)\n        vals[exc_index[e] & (kVector - 1)] = exc_bits[e];\n      __syncthreads();\n#pragma unroll\n      for (int r = 0; r < kPer; ++r) b[r] = vals[threadIdx.x + r * kThreads];\n    }\n    if constexpr (Filter) {\n#pragma unroll\n      for (int r = 0; r < kPer; ++r)\n        ok[r] = ok[r] && selected<Filter>(b[r], klo, khi);\n    }\n    acc.add(b, ok);\n  }\n  acc.finish(out);\n}\n\n'
+# the same loop with the kept exception path: the true bits added and the
+# placeholder subtracted by the thread that loads the exception
+_K7_STAGED = 'template <typename F, bool Filter>\n__global__ void __launch_bounds__(kThreads)\nfalp_exact_sum_kernel(const typename Num<F>::U* __restrict__ packed, int bw,\n                      const typename Num<F>::U* __restrict__ base,\n                      const typename Num<F>::U* __restrict__ fact,\n                      const F* __restrict__ frac,\n                      const long long* __restrict__ rows,\n                      const long long* __restrict__ exc_ptr,\n                      const long long* __restrict__ exc_index,\n                      const typename Num<F>::U* __restrict__ exc_bits,\n                      long long n, long long n_values,\n                      typename Num<F>::U klo, typename Num<F>::U khi,\n                      long long* __restrict__ out) {\n  using U = typename Num<F>::U;\n  constexpr int S = Num<F>::S;\n  __shared__ U words[kVector];               // bw <= S: at most 1024 words\n  __shared__ long long row[Fixed<U>::W + 3];\n  zero_row<U>(row);\n  Acc<U> acc(row);\n  for (long long i = blockIdx.x; i < n; i += gridDim.x) {\n    __syncthreads();                         // the last vector is read\n    alp::stage<U, S>(words, packed + i * bw * (kVector / S), bw);\n    __syncthreads();\n    const U b0 = base[i], f = fact[i];\n    const F fr = frac[i];\n    const long long vec = rows[i];\n    U b[kPer];\n    bool ok[kPer];\n#pragma unroll\n    for (int r = 0; r < kPer; ++r) {\n      const int k = threadIdx.x + r * kThreads;\n      const U u = bw ? unpack<U, S>(words, bw, k) : U(0);\n      b[r] = Num<F>::bits(Num<F>::decode(static_cast<U>((b0 + u) * f), fr));\n      ok[r] = vec * kVector + k < n_values;\n    }\n    if constexpr (Filter) {\n#pragma unroll\n      for (int r = 0; r < kPer; ++r)\n        ok[r] = ok[r] && selected<Filter>(b[r], klo, khi);\n    }\n    acc.add(b, ok);\n    const long long e0 = exc_ptr[vec], e1 = exc_ptr[vec + 1];\n    for (long long eb = e0; eb < e1; eb += kThreads) {   // block-uniform\n      const long long e = eb + threadIdx.x;\n      U x[2] = {0, 0};\n      bool xok[2] = {false, false};\n      if (e < e1) {\n        const int k = static_cast<int>(exc_index[e] & (kVector - 1));\n        const U u = bw ? unpack<U, S>(words, bw, k) : U(0);\n        const U ph = Num<F>::bits(\n            Num<F>::decode(static_cast<U>((b0 + u) * f), fr));\n        const bool in_col = vec * kVector + k < n_values;\n        x[0] = exc_bits[e];\n        x[1] = ph ^ (U(1) << (S - 1));\n        xok[0] = in_col && selected<Filter>(x[0], klo, khi);\n        xok[1] = in_col && selected<Filter>(ph, klo, khi);\n      }\n      acc.add(x, xok);\n    }\n  }\n  acc.finish(out);\n}\n\n'
+_K7_STREAM_ADD = "        acc.add(b, ok);\n      }\n    };\n"
+_K7_FOLD = """        U fold = 0;
+#pragma unroll
+        for (int q = 0; q < kLaneStep; ++q) fold ^= ok[q] ? b[q] : U(0);
+        if (fold == U(0x5bd1e995u)) out[Fixed<U>::W] = 1;
+      }
+    };
+"""
+_K7_EXC_ADD = "      acc.add(x, xok);\n"
+_K7_EXC_FOLD = """      if (((xok[0] ? x[0] : U(0)) ^ (xok[1] ? x[1] : U(0))) ==
+          U(0x5bd1e995u))
+        out[Fixed<U>::W] = 1;
+"""
+_K7_CSR = """    const long long e0 = live ? exc_ptr[vec] : 0;
+    const long long e1 = live ? exc_ptr[vec + 1] : 0;
+"""
+_K7_STREAM = "      alp::LaneStream<U> in(packed + ic * bw * L + ln, bw);\n"
+_K7_FIELD = """          const U u = decltype(packed_words)::value ? in.next() : U(0);
+"""
+_K7_SLOT_UNPACK = """          const U u = decltype(packed_words)::value
+                          ? unpack<U, S>(packed + ic * bw * L, bw,
+                                         (s + q) * L + ln)
+                          : U(0);
+"""
+# Acc::add (digits.cuh) as kept, and the first design's: the window
+# computed twice a value, each digit negated in 64 bits, and a 64-bit select
+# and add for each pair of a register window and a digit
+_ACC_ADD = ("  // One thread's N values (K5/K6: kAccPer of a vector; K7/K8: "
+            "kLaneStep",
+            "            atomic_add(&row[Fx::W + c - 1], k);\n        }\n"
+            "      }\n    }\n  }\n\n")
+_SELECT_ADD = "  // One thread's N values of a vector (kAccPer in K5-K8); ok[r] is false\n  // for values that are not summed (the pad).\n  template <int N>\n  __device__ __forceinline__ void add(const U (&b)[N], const bool (&ok)[N]) {\n    int lo = INT_MAX, hi = -1;\n#pragma unroll\n    for (int r = 0; r < N; ++r) {\n      const int j = ok[r] ? Fx::window(b[r]) : -1;\n      if (j >= 0) {\n        lo = min(lo, j);\n        hi = max(hi, j);\n      }\n    }\n    lo = __reduce_min_sync(kFullMask, lo);\n    hi = __reduce_max_sync(kFullMask, hi);\n    if (hi >= 0 && (base < 0 || lo < base || hi >= base + kAccR)) {\n      if (base >= 0) flush();\n      base = lo;\n    }\n    int special = 0;                         // a NaN or an Inf among them\n#pragma unroll\n    for (int r = 0; r < N; ++r) {\n      if (!ok[r]) continue;\n      const Fx x(b[r]);\n      special |= x.cls;\n      if (x.j < 0) continue;\n      long long sd[Fx::P];\n#pragma unroll\n      for (int p = 0; p < Fx::P; ++p)\n        sd[p] = x.neg ? -static_cast<long long>(x.d[p])\n                      : static_cast<long long>(x.d[p]);\n      const int rel = x.j - base;            // >= 0: base <= the warp's lo\n      if (rel >= kAccR) {                    // beyond the register range\n#pragma unroll\n        for (int p = 0; p < Fx::P; ++p)\n          if (sd[p]) atomic_add(&row[x.j + p], sd[p]);\n        continue;\n      }\n#pragma unroll\n      for (int w = 0; w < kRegs; ++w)\n#pragma unroll\n        for (int p = 0; p < Fx::P; ++p)\n          if (w - p >= 0 && w - p < kAccR)\n            reg[w] += rel == w - p ? sd[p] : 0;\n    }\n    // NaN and +-Inf are rare: where the warp holds one, each class is\n    // counted with a ballot a value and lane 0 adds the count into the\n    // shared row (no per-thread counters: registers, and an index\n    // cnt[cls - 1] the compiler cannot resolve would put the whole\n    // accumulator in local memory)\n    if (__any_sync(kFullMask, special)) {\n#pragma unroll\n      for (int r = 0; r < N; ++r) {\n        const int cls = ok[r] ? Fx(b[r]).cls : 0;\n#pragma unroll\n        for (int c = 1; c <= 3; ++c) {\n          const int k = __popc(__ballot_sync(kFullMask, cls == c));\n          if ((threadIdx.x & 31) == 0 && k)\n            atomic_add(&row[Fx::W + c - 1], k);\n        }\n      }\n    }\n  }\n\n"
+_K11_KERNEL = ("template <typename F>\n__global__ void __launch_bounds__(kBlock)"
+               "\nscore_kernel(",
+               "  return static_cast<int>(cudaGetLastError());\n}\n")
+# the first design: one warp a task, one sample a lane, a 64-bit task / C,
+# min, max and count by shuffles and a ballot
+_K11_WARP_TASK = 'constexpr int kThreads = 256;\n\ntemplate <typename F>\n__global__ void __launch_bounds__(kThreads)\nscore_kernel(const typename alp::Alp<F>::U* __restrict__ samples,\n             const int* __restrict__ ef, int ef_per_segment, int n_cand,\n             const int* __restrict__ k_count, long long n_tasks,\n             typename alp::Alp<F>::Tables t, int exc_bits,\n             int* __restrict__ est, int* __restrict__ non_exc) {\n  using A = alp::Alp<F>;\n  using I = typename A::I;\n  const long long task =\n      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32;\n  const int lane = threadIdx.x % 32;\n  if (task >= n_tasks) return;               // whole warps leave together\n  const long long seg = task / n_cand;\n  const int c = static_cast<int>(task % n_cand);\n  if (k_count && c >= k_count[seg]) {\n    if (lane == 0) est[task] = non_exc[task] = 0;\n    return;\n  }\n  const int* pair = ef + 2 * ((ef_per_segment ? seg * n_cand : 0) + c);\n  const typename A::Pair p = A::pair_of(t, pair[0], pair[1]);\n  const alp::Encoded<I> enc =\n      A::search(samples[seg * kSamples + lane], p, t);\n  I mx = enc.exc ? A::kMin : enc.n;\n  I mn = enc.exc ? A::kMax : enc.n;\n  for (int o = 16; o > 0; o >>= 1) {\n    mx = max(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));\n    mn = min(mn, __shfl_xor_sync(0xFFFFFFFFu, mn, o));\n  }\n  const int ne = __popc(__ballot_sync(0xFFFFFFFFu, !enc.exc));\n  if (lane == 0) {\n    est[task] = kSamples * A::width(mx, mn) + (kSamples - ne) * exc_bits;\n    non_exc[task] = ne;\n  }\n}\n\ntemplate <typename F>\nint launch(const void* samples, const void* ef, int ef_per_segment,\n           int n_cand, const void* k_count, long long n,\n           const typename alp::Alp<F>::Tables& t, int exc_bits, void* est,\n           void* non_exc, void* stream) {\n  const long long tasks = n * n_cand;\n  const long long blocks = (tasks * 32 + kThreads - 1) / kThreads;\n  if (n < 0 || n_cand < 1 || blocks > INT_MAX)\n    return static_cast<int>(cudaErrorInvalidValue);\n  if (tasks)\n    score_kernel<F><<<static_cast<unsigned>(blocks), kThreads, 0,\n                      static_cast<cudaStream_t>(stream)>>>(\n        static_cast<const typename alp::Alp<F>::U*>(samples),\n        static_cast<const int*>(ef), ef_per_segment, n_cand,\n        static_cast<const int*>(k_count), tasks, t, exc_bits,\n        static_cast<int*>(est), static_cast<int*>(non_exc));\n  return static_cast<int>(cudaGetLastError());\n}\n\n'
+_K11_LOOP = "    for (int i = 0; i < kSamples; ++i) {\n"
+_STAGE = """    __syncthreads();                         // the last vector is read
+    alp::stage<U, S>(words, packed + i * bw * (kVector / S), bw);
+    __syncthreads();
+"""
+_DIRECT = "    const U* words = packed + i * bw * (kVector / S);\n"
+_REDUCE = """  for (int o = 16; o > 0; o >>= 1) {
+    mx = max(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
+    mn = min(mn, __shfl_xor_sync(0xFFFFFFFFu, mn, o));
+  }
+  const int ne = __popc(__ballot_sync(0xFFFFFFFFu, !enc.exc));
+"""
+_INDEX = """  const long long seg = task / n_cand;
+  const int c = static_cast<int>(task % n_cand);
+"""
+_INDEX32 = """  const int t32 = static_cast<int>(task);
+  const long long seg = t32 / n_cand;
+  const int c = t32 % n_cand;
 """
 
 # name -> (exact, {source file: [(old, new), ...]})
@@ -358,6 +454,81 @@ VARIANTS = {
     # K19 without its path for a warp of one group
     "k19_no_warp_path": (True, {"group.cu": [(_WARP_PATH, _WARP_PATH.replace(
         "real && g == g0)", "real && g == g0) && g0 < 0"))]}),
+    # K7: the first design's parts over the kept ones (exact)
+    "k7_staged": (True, {"exact_sum.cu": [(_K7_KERNEL, _K7_STAGED),
+                                          (_K7_ROWS, _K7_ROWS.replace(
+                                              "kLaneThreads / 32 * "
+                                              "lane_rows<F>()", "1"))]}),
+    "k7_shared_exceptions": (True, {"exact_sum.cu": [
+        (_K7_KERNEL, _K7_SHARED_EXCEPTIONS),
+        (_K7_ROWS, _K7_ROWS.replace("kLaneThreads / 32 * lane_rows<F>()",
+                                    "1"))]}),
+    "k7_select_digits": (True, {"digits.cuh": [(_ACC_ADD, _SELECT_ADD)]}),
+    # K7's lanes through unpack() of every slot instead of the stream
+    "k7_slot_unpack": (True, {"exact_sum.cu": [(_K7_STREAM, ""),
+                                               (_K7_FIELD, _K7_SLOT_UNPACK)]}),
+    # K7's parts removed (the outputs are wrong): the digit sums (the
+    # decoded bits XOR-folded into one output, so that the decode stays),
+    # the exception path
+    "k7_no_digits": (False, {"exact_sum.cu": [(_K7_STREAM_ADD, _K7_FOLD),
+                                              (_K7_EXC_ADD, _K7_EXC_FOLD)]}),
+    "k7_no_exceptions": (False, {"exact_sum.cu": [(_K7_CSR, """\
+    const long long e0 = 0, e1 = 0;
+""")]}),
+    # K7's sweeps: values an add(), threads a block
+    "k7_step_2": (True, {"exact_sum.cu": [(
+        "constexpr int kLaneStep = 4;", "constexpr int kLaneStep = 2;")]}),
+    "k7_step_8": (True, {"exact_sum.cu": [(
+        "constexpr int kLaneStep = 4;", "constexpr int kLaneStep = 8;")]}),
+    "k7_early_csr": (True, {"exact_sum.cu": [(_K7_CSR, ""), (
+        "    const long long left = live ?",
+        _K7_CSR + "    const long long left = live ?")]}),
+    "k7_block_128": (True, {"exact_sum.cu": [(
+        "constexpr int kLaneThreads = 256;",
+        "constexpr int kLaneThreads = 128;")]}),
+    "k7_block_512": (True, {"exact_sum.cu": [(
+        "constexpr int kLaneThreads = 256;",
+        "constexpr int kLaneThreads = 512;")]}),
+    "k7_block_512_step_8": (True, {"exact_sum.cu": [
+        ("constexpr int kLaneThreads = 256;",
+         "constexpr int kLaneThreads = 512;"),
+        ("constexpr int kLaneStep = 4;", "constexpr int kLaneStep = 8;")]}),
+    # the splits of the first designs, measured before the redesign: K7's
+    # loop with its words read straight from device memory (exact); K11's
+    # warp a task with only lane 0's trial stored (no shuffles, no ballot;
+    # wrong outputs) and with a 32-bit task / C (exact)
+    "k7_no_stage": (True, {"exact_sum.cu": [
+        (_K7_KERNEL, _K7_SHARED_EXCEPTIONS.replace(_STAGE, _DIRECT)),
+        (_K7_ROWS, _K7_ROWS.replace("kLaneThreads / 32 * lane_rows<F>()",
+                                    "1"))]}),
+    "k11_no_reduce": (False, {"score.cu": [
+        (_K11_KERNEL, _K11_WARP_TASK.replace(_REDUCE,
+                                             "  const int ne = !enc.exc;\n"))]}),
+    "k11_no_index": (True, {"score.cu": [
+        (_K11_KERNEL, _K11_WARP_TASK.replace(_INDEX, _INDEX32))]}),
+    # K11: the first design (exact), one trial a task (the task's own cost;
+    # wrong outputs), and the sweeps: the loop's unroll, the tasks a block
+    # aims at, and the samples' stride in shared memory (32: bank conflicts)
+    "k11_warp_task": (True, {"score.cu": [(_K11_KERNEL, _K11_WARP_TASK)]}),
+    "k11_one_trial": (False, {"score.cu": [(_K11_LOOP, _K11_LOOP.replace(
+        "i < kSamples", "i < 1"))]}),
+    "k11_unroll_1": (True, {"score.cu": [("#pragma unroll 4",
+                                          "#pragma unroll 1")]}),
+    "k11_unroll_8": (True, {"score.cu": [("#pragma unroll 4",
+                                          "#pragma unroll 8")]}),
+    "k11_unroll_32": (True, {"score.cu": [("#pragma unroll 4",
+                                           "#pragma unroll 32")]}),
+    "k11_block_128": (True, {"score.cu": [(
+        "constexpr int kBlock = 256;", "constexpr int kBlock = 128;")]}),
+    "k11_block_512": (True, {"score.cu": [(
+        "constexpr int kBlock = 256;", "constexpr int kBlock = 512;")]}),
+    "k11_own_64": (True, {"score.cu": [(
+        "constexpr int kBlockOwn = 128;", "constexpr int kBlockOwn = 64;")]}),
+    "k11_own_256": (True, {"score.cu": [(
+        "constexpr int kBlockOwn = 128;", "constexpr int kBlockOwn = 256;")]}),
+    "k11_stride_32": (True, {"score.cu": [(
+        "constexpr int kStride = kSamples + 1;",
+        "constexpr int kStride = kSamples;")]}),
 }
 
 
@@ -371,11 +542,21 @@ def ptxas_lines(log: str) -> list:
             kernel = next((k for k in ("key_counts_small", "key_counts",
                                        "key_extremes", "rank_pass",
                                        "vector_sums", "group_reduce",
-                                       "variant_sum") if k in name), None)
+                                       "variant_sum", "falp_exact_sum",
+                                       "exact_sum", "score")
+                           if k in name), None)
             route = next((r for t, r in (("AlpVectorId", "ALP f64"),
                                          ("AlpVectorIf", "ALP f32"),
                                          ("RdVectorIm", "RD f64"),
-                                         ("RdVectorIj", "RD f32"))
+                                         ("RdVectorIj", "RD f32"),
+                                         ("IdLb0", "f64"), ("IfLb0", "f32"),
+                                         ("ImLb0", "f64"), ("IjLb0", "f32"),
+                                         ("IdLb1", "f64 where"),
+                                         ("IfLb1", "f32 where"),
+                                         ("ImLb1", "f64 where"),
+                                         ("IjLb1", "f32 where"),
+                                         ("kernelIdE", "f64"),
+                                         ("kernelIfE", "f32"))
                           if t in name), "")
             shared = "Lb1E" in name
             entry = (f"{kernel} {route}"
@@ -388,12 +569,24 @@ def ptxas_lines(log: str) -> list:
     return out
 
 
-def sass_loops(obj: pathlib.Path, cuobjdump: str, kernel: str) -> list:
-    """The loops of `kernel` in the SASS of object `obj` that hold a float
-    add (K20's slot loops: one FADD a slot), innermost first: for each, the
-    instructions from the target of its backward branch to the branch, its
-    FADDs, I2F, DMUL and global loads, and its instructions a slot.  A code
-    block the compiler placed outside that range is not counted."""
+SASS_OPS = ("FADD", "I2F", "F2I", "DMUL", "DADD", "LDG", "LDS", "STS",
+            "BAR", "SHFL", "REDUX", "VOTE", "ATOMS", "SEL")
+# kernel label -> (object, a substring of the kernel's mangled name, the
+# opcode that marks one value or trial of its loop: K20's float add, the
+# int64 -> double convert of K7's decode and of K11's verify)
+SASS_KERNELS = {"k20": ("falp.o", "variant_sum_kernel", "FADD"),
+                "k7": ("exact_sum.o", "falp_exact_sum_kernelIdLb0E", "I2F"),
+                "k11": ("score.o", "score_kernelIdE", "I2F")}
+
+
+def sass_loops(obj: pathlib.Path, cuobjdump: str, kernel: str,
+               unit: str = "FADD") -> dict:
+    """The SASS of `kernel` in object `obj` (``cuobjdump -sass``): its
+    instruction count and, in "loops", each loop that holds the opcode
+    `unit` (one a value or trial), innermost first: the instructions from
+    the target of its backward branch to the branch, the count of each of
+    SASS_OPS and the instructions a `unit`.  A code block the compiler
+    placed outside that range is not counted."""
     sass = subprocess.run([cuobjdump, "-sass", str(obj)], check=True,
                           capture_output=True, text=True).stdout
     body, inside = [], False                 # (address, opcode, operands)
@@ -407,20 +600,37 @@ def sass_loops(obj: pathlib.Path, cuobjdump: str, kernel: str) -> list:
                 words = words[1:]
             body.append((int(s[2:].split("*/")[0], 16), words[0],
                          words[1:]))
+    if not body:
+        raise SystemExit(f"no kernel {kernel} in {obj}")
+
+    def counted(span):
+        count = {k: sum(o.split(".")[0] == k for o in span)
+                 for k in SASS_OPS}
+        return dict(count, instructions=len(span),
+                    per_unit=len(span) / max(count[unit], 1))
+
     loops = []
     for at, op, args in body:
         if not op.startswith("BRA") or not args[-1].startswith("0x"):
             continue
         to = int(args[-1], 16)
         span = [o for a, o, _ in body if to <= a <= at]
-        count = {k: sum(o.startswith(k) for o in span)
-                 for k in ("FADD", "I2F", "DMUL", "LDG")}
-        if to < at and count["FADD"]:
-            loops.append(dict(count, instructions=len(span),
-                              per_slot=len(span) / count["FADD"]))
-    if not loops:
-        raise SystemExit(f"no loop with a float add in {kernel} of {obj}")
-    return sorted(loops, key=lambda c: c["instructions"])
+        if to < at and any(o.split(".")[0] == unit for o in span):
+            loops.append(counted(span))
+    return {"kernel": counted([o for _, o, _ in body]),
+            "loops": sorted(loops, key=lambda c: c["instructions"])}
+
+
+def apply_edit(text: str, old, new: str, what: str) -> str:
+    """`text` with `old` replaced by `new`: `old` a string that occurs
+    once, or a region (start, end) from the one occurrence of start
+    through the first end after it.  Exits when the edit does not apply."""
+    start, end = old if isinstance(old, tuple) else (old, "")
+    at = text.find(start)
+    stop = text.find(end, at + len(start)) if end else at + len(start)
+    if text.count(start) != 1 or stop < 0:
+        raise SystemExit(f"{what}: the edit does not apply: {start[:60]!r}")
+    return text[:at] + new + text[stop + len(end):]
 
 
 def build_variants(names, build, nvcc) -> dict:
@@ -445,10 +655,7 @@ def build_variants(names, build, nvcc) -> dict:
         for f, pairs in edits.items():
             text = (d / f).read_text()
             for old, new in pairs:
-                if text.count(old) != 1:
-                    raise SystemExit(f"{name}: the edit of {f} does not "
-                                     f"apply: {old[:60]!r}")
-                text = text.replace(old, new)
+                text = apply_edit(text, old, new, f"{name}: {f}")
             (d / f).write_text(text)
         for src in sources:
             if rebuilt(name, src):
@@ -476,11 +683,33 @@ def build_variants(names, build, nvcc) -> dict:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         libs[name] = dll
-        for f in ("keys.cu", "group.cu", "falp.cu"):
+        for f in ("keys.cu", "group.cu", "falp.cu", "exact_sum.cu",
+                  "score.cu"):
             if (name, f) in logs:
                 print(f"  {name}: {'; '.join(ptxas_lines(logs[name, f]))}",
                       flush=True)
     return libs
+
+
+# SUM call kernel -> the label of its timing cells
+SUM_LABELS = {"exact_sum_f64": "k5", "exact_sum_f32": "k6",
+              "falp_decode_f64_exact_sum": "k7",
+              "falp_decode_f32_exact_sum": "k8"}
+# a variant's family (its name's first word) -> the kernels it changes
+FAMILIES = {"keys": ("k15", "k16", "k17"), "k7": ("k7", "k8"),
+            "k11": ("k11", "k14")}
+# variants that change more than their family: the shared accumulator
+CHANGES = {"k7_select_digits": ("k5", "k6", "k7", "k8", "k18")}
+KERNELS = ("k5", "k6", "k7", "k8", "k11", "k14", "k15", "k16", "k17", "k18",
+           "k19", "k20")
+
+
+def changes(variant: str) -> tuple:
+    """The kernels that `variant` ("base": every one) changes."""
+    if variant == "base":
+        return KERNELS
+    family = variant.split("_")[0]
+    return CHANGES.get(variant, FAMILIES.get(family, (family,)))
 
 
 def main() -> int:
@@ -488,6 +717,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ablations.py: no CUDA card", file=sys.stderr)
         return 1
+    only = set(sys.argv[1:]) or set(KERNELS)
+    if only - set(KERNELS):
+        print(f"kernel_ablations.py: unknown kernels {only - set(KERNELS)}; "
+              f"choose from {KERNELS}", file=sys.stderr)
+        return 2
+
+    def timed(lname: str, kernel: str) -> bool:
+        return kernel in only and kernel in changes(lname)
     sys.path.insert(0, str(ROOT))
     import alp_tpu_torch
     import chip_smoke as cs
@@ -504,13 +741,18 @@ def main() -> int:
     dev = torch.device("cuda")
     print(cs.nvidia_smi(), flush=True)
     nvcc = _build.nvcc_path()
-    libs = build_variants(list(VARIANTS), _build, nvcc)
+    libs = build_variants([v for v in VARIANTS if only & set(changes(v))],
+                          _build, nvcc)
     cuobjdump = str(pathlib.Path(nvcc).with_name("cuobjdump"))
     sass = {}
-    for lname in ("base", *(v for v in VARIANTS if v.startswith("k20"))):
-        sass[lname] = sass_loops(BUILD / lname / "falp.o", cuobjdump,
-                                 "variant_sum_kernel")
-        print(f"  K20 SASS {lname}: {sass[lname]}", flush=True)
+    for label, (obj, kernel, unit) in SASS_KERNELS.items():
+        for lname in libs:
+            if label in only and label in changes(lname) and (
+                    BUILD / lname / obj).exists():
+                sass[f"{label} {lname}"] = sass_loops(
+                    BUILD / lname / obj, cuobjdump, kernel, unit)
+                print(f"  {label} SASS {lname}: {sass[f'{label} {lname}']}",
+                      flush=True)
     real_lib = _build.lib
     tile_to = dict(cs.TILE_TO, **{n: cs.BENCH_VECTORS for n in BENCH_PROFILES})
     sources = route_columns(np.random.default_rng(0), cs.SOURCE_VECTORS)
@@ -529,129 +771,200 @@ def main() -> int:
             del bits
             cells = {}
             kcalls, gcalls = engine.key_calls(plan), engine.group_calls(plan)
-            for E in K15_E:
-                thr_t = cs.thresholds_tensor(cs.column_thresholds(x, E), plan)
-                want = [c.counts_plain(thr_t) for c in kcalls]
+            if "k15" in only:
+                for E in K15_E:
+                    thr_t = cs.thresholds_tensor(cs.column_thresholds(x, E), plan)
+                    want = [c.counts_plain(thr_t) for c in kcalls]
+                    for lname, dll in libs.items():
+                        if not timed(lname, "k15") or (
+                                lname == "k15_no_bins" and E != 2):
+                            continue
+                        _build.lib = lambda dll=dll: dll
+                        if lname == "base" or VARIANTS[lname][0]:
+                            for c, w in zip(kcalls, want):
+                                got = c.counts(thr_t, torch.zeros(
+                                    E + 1, dtype=torch.int64, device=dev))
+                                if not torch.equal(got, w):
+                                    raise SystemExit(f"{name}: {lname} K15 at "
+                                                     f"E={E} differs from its "
+                                                     f"plain version")
+                        out = torch.zeros(E + 1, dtype=torch.int64, device=dev)
+                        cells[f"k15 E={E} {lname}"] = cs.cuda_ms(
+                            lambda: [c.counts(thr_t, out) for c in kcalls], 20)
+            if "k16" in only:
+                want = [c.extremes_plain() for c in kcalls]
                 for lname, dll in libs.items():
-                    if not lname.startswith(("base", "k15", "keys")) or (
-                            lname == "k15_no_bins" and E != 2):
+                    if not timed(lname, "k16"):
+                        continue
+                    _build.lib = lambda dll=dll: dll
+                    out = torch.zeros((plan.n_vectors, 2), dtype=plan.bits_dtype,
+                                      device=dev)
+                    for c, w in zip(kcalls, want):
+                        if (lname == "base" or VARIANTS[lname][0]) and not (
+                                torch.equal(c.extremes(out)[c.rows], w)):
+                            raise SystemExit(f"{name}: {lname} K16 differs from "
+                                             f"its plain version")
+                    cells[f"k16 {lname}"] = cs.cuda_ms(
+                        lambda: [c.extremes(out) for c in kcalls], 20)
+                del want
+            if "k17" in only:
+                for label, (thr, br) in (
+                        ("k17 disjoint", (cs.column_thresholds(x, T),
+                                          cs.disjoint_brackets(x, R))),
+                        ("k17 later", cs.later_pass_case(torch.sort(bk).values,
+                                                         R, T))):
+                    thr_t = cs.thresholds_tensor(thr, plan)
+                    br_t = cs.thresholds_tensor(br, plan)
+                    want = [c.rank_pass_plain(thr_t, br_t) for c in kcalls]
+                    for lname, dll in libs.items():
+                        if not timed(lname, "k17"):
+                            continue
+                        _build.lib = lambda dll=dll: dll
+                        if lname == "base" or VARIANTS[lname][0]:
+                            for c, w in zip(kcalls, want):
+                                got = c.rank_pass(thr_t, br_t, *kkeys.rank_outputs(
+                                    len(thr), R, plan.bits_dtype, dev))
+                                if not all(map(torch.equal, got, w)):
+                                    raise SystemExit(f"{name}: {lname} K17 "
+                                                     f"differs from its plain "
+                                                     f"version")
+                        outs = kkeys.rank_outputs(len(thr), R, plan.bits_dtype,
+                                                  dev)
+                        cells[f"{label} {lname}"] = cs.cuda_ms(
+                            lambda: [c.rank_pass(thr_t, br_t, *outs)
+                                     for c in kcalls], 20)
+            if "k18" in only:
+                want = [c.vector_sums_plain() for c in gcalls]
+                row = kes.WINDOWS[plan.bits_dtype] + 3
+                for lname, dll in libs.items():
+                    if not timed(lname, "k18"):
+                        continue
+                    _build.lib = lambda dll=dll: dll
+                    # a sentinel, not zeros: every column must be written
+                    sums = torch.full((plan.n_vectors, row), -7,
+                                      dtype=torch.int64, device=dev)
+                    keys = torch.full((plan.n_vectors, 2), 7,
+                                      dtype=plan.bits_dtype, device=dev)
+                    for c, (ws, wk) in zip(gcalls, want):
+                        c.vector_sums(sums, keys)
+                        if (lname == "base" or VARIANTS[lname][0]) and not (
+                                torch.equal(sums[c.rows], ws)
+                                and torch.equal(keys[c.rows], wk)):
+                            raise SystemExit(f"{name}: {lname} K18 differs from "
+                                             f"its plain version")
+                    cells[f"k18 {lname}"] = cs.cuda_ms(
+                        lambda: [c.vector_sums(sums, keys) for c in gcalls], 20)
+                del want
+            if "k20" in only:
+                alp_f64 = [b for b in plan.buckets
+                           if plan.f64 and b.scheme == C.SCHEME_ALP]
+                want = [falp.variant_sum_plain(b.args[0], b.bw, *b.args[1:])
+                        for b in alp_f64]
+                for lname, dll in libs.items():
+                    if not alp_f64 or not timed(lname, "k20"):
                         continue
                     _build.lib = lambda dll=dll: dll
                     if lname == "base" or VARIANTS[lname][0]:
-                        for c, w in zip(kcalls, want):
-                            got = c.counts(thr_t, torch.zeros(
-                                E + 1, dtype=torch.int64, device=dev))
-                            if not torch.equal(got, w):
-                                raise SystemExit(f"{name}: {lname} K15 at "
-                                                 f"E={E} differs from its "
-                                                 f"plain version")
-                    out = torch.zeros(E + 1, dtype=torch.int64, device=dev)
-                    cells[f"k15 E={E} {lname}"] = cs.cuda_ms(
-                        lambda: [c.counts(thr_t, out) for c in kcalls], 20)
-            want = [c.extremes_plain() for c in kcalls]
-            for lname, dll in libs.items():
-                if not lname.startswith(("base", "k16", "keys")):
-                    continue
-                _build.lib = lambda dll=dll: dll
-                out = torch.zeros((plan.n_vectors, 2), dtype=plan.bits_dtype,
-                                  device=dev)
-                for c, w in zip(kcalls, want):
-                    if (lname == "base" or VARIANTS[lname][0]) and not (
-                            torch.equal(c.extremes(out)[c.rows], w)):
-                        raise SystemExit(f"{name}: {lname} K16 differs from "
-                                         f"its plain version")
-                cells[f"k16 {lname}"] = cs.cuda_ms(
-                    lambda: [c.extremes(out) for c in kcalls], 20)
-            del want
-            for label, (thr, br) in (
-                    ("k17 disjoint", (cs.column_thresholds(x, T),
-                                      cs.disjoint_brackets(x, R))),
-                    ("k17 later", cs.later_pass_case(torch.sort(bk).values,
-                                                     R, T))):
-                thr_t = cs.thresholds_tensor(thr, plan)
-                br_t = cs.thresholds_tensor(br, plan)
-                want = [c.rank_pass_plain(thr_t, br_t) for c in kcalls]
-                for lname, dll in libs.items():
-                    if not lname.startswith(("base", "k17", "keys")):
-                        continue
-                    _build.lib = lambda dll=dll: dll
-                    if lname == "base" or VARIANTS[lname][0]:
-                        for c, w in zip(kcalls, want):
-                            got = c.rank_pass(thr_t, br_t, *kkeys.rank_outputs(
-                                len(thr), R, plan.bits_dtype, dev))
+                        for b, w in zip(alp_f64, want):
+                            got = falp.variant_sum_f64(b.args[0], b.bw,
+                                                       *b.args[1:])
+                            if not torch.equal(got.view(torch.int32),
+                                               w.view(torch.int32)):
+                                raise SystemExit(f"{name}: {lname} K20 bw="
+                                                 f"{b.bw} differs from its plain "
+                                                 f"version")
+                    cells[f"k20 {lname}"] = cs.cuda_ms(
+                        lambda: [falp.variant_sum_f64(b.args[0], b.bw,
+                                                      *b.args[1:])
+                                 for b in alp_f64], 20)
+                del want
+            if "k19" in only:
+                for G, ordered in ((16, False), (65536, False), (16, True)):
+                    kv = cs.column_group_keys(plan, G, ordered, G)
+                    gks = [kv[c.rows].contiguous() for c in gcalls]
+                    want = [c.group_reduce_plain(gk, G)
+                            for c, gk in zip(gcalls, gks)]
+                    for lname, dll in libs.items():
+                        if not timed(lname, "k19"):
+                            continue
+                        _build.lib = lambda dll=dll: dll
+                        for c, gk, w in zip(gcalls, gks, want):
+                            got = c.group_reduce(gk, G, *kgroup.group_outputs(
+                                G, plan.bits_dtype, dev))
                             if not all(map(torch.equal, got, w)):
-                                raise SystemExit(f"{name}: {lname} K17 "
+                                raise SystemExit(f"{name}: {lname} K19 differs "
+                                                 f"from its plain version")
+                        outs = kgroup.group_outputs(G, plan.bits_dtype, dev)
+                        cells[f"k19 G={G}{' ordered' if ordered else ''} "
+                              f"{lname}"] = cs.cuda_ms(
+                            lambda: [c.group_reduce(gk, G, *outs)
+                                     for c, gk in zip(gcalls, gks)], 20)
+                    del kv, gks, want
+            for call_kernel, label in SUM_LABELS.items():
+                mine = [c for c in engine.sum_calls(plan)
+                        if c.kernel == call_kernel]
+                if label not in only or not mine:
+                    continue
+                want = [c.plain() for c in mine]
+                out = kes.totals(plan.bits_dtype, dev)
+                for lname, dll in libs.items():
+                    if not timed(lname, label):
+                        continue
+                    _build.lib = lambda dll=dll: dll
+                    if lname == "base" or VARIANTS[lname][0]:
+                        for c, w in zip(mine, want):
+                            got = c.launch(kes.totals(plan.bits_dtype, dev))
+                            if not torch.equal(got, w):
+                                raise SystemExit(f"{name}: {lname} "
+                                                 f"{label.upper()} bw={c.bw} "
                                                  f"differs from its plain "
                                                  f"version")
-                    outs = kkeys.rank_outputs(len(thr), R, plan.bits_dtype,
-                                              dev)
                     cells[f"{label} {lname}"] = cs.cuda_ms(
-                        lambda: [c.rank_pass(thr_t, br_t, *outs)
-                                 for c in kcalls], 20)
-            want = [c.vector_sums_plain() for c in gcalls]
-            row = kes.WINDOWS[plan.bits_dtype] + 3
-            for lname, dll in libs.items():
-                if not lname.startswith(("base", "k18")):
-                    continue
-                _build.lib = lambda dll=dll: dll
-                # a sentinel, not zeros: every column must be written
-                sums = torch.full((plan.n_vectors, row), -7,
-                                  dtype=torch.int64, device=dev)
-                keys = torch.full((plan.n_vectors, 2), 7,
-                                  dtype=plan.bits_dtype, device=dev)
-                for c, (ws, wk) in zip(gcalls, want):
-                    c.vector_sums(sums, keys)
-                    if (lname == "base" or VARIANTS[lname][0]) and not (
-                            torch.equal(sums[c.rows], ws)
-                            and torch.equal(keys[c.rows], wk)):
-                        raise SystemExit(f"{name}: {lname} K18 differs from "
-                                         f"its plain version")
-                cells[f"k18 {lname}"] = cs.cuda_ms(
-                    lambda: [c.vector_sums(sums, keys) for c in gcalls], 20)
-            del want
-            alp_f64 = [b for b in plan.buckets
-                       if plan.f64 and b.scheme == C.SCHEME_ALP]
-            want = [falp.variant_sum_plain(b.args[0], b.bw, *b.args[1:])
-                    for b in alp_f64]
-            for lname, dll in libs.items():
-                if not alp_f64 or not lname.startswith(("base", "k20")):
-                    continue
-                _build.lib = lambda dll=dll: dll
-                if lname == "base" or VARIANTS[lname][0]:
-                    for b, w in zip(alp_f64, want):
-                        got = falp.variant_sum_f64(b.args[0], b.bw,
-                                                   *b.args[1:])
-                        if not torch.equal(got.view(torch.int32),
-                                           w.view(torch.int32)):
-                            raise SystemExit(f"{name}: {lname} K20 bw="
-                                             f"{b.bw} differs from its plain "
-                                             f"version")
-                cells[f"k20 {lname}"] = cs.cuda_ms(
-                    lambda: [falp.variant_sum_f64(b.args[0], b.bw,
-                                                  *b.args[1:])
-                             for b in alp_f64], 20)
-            del want
-            for G, ordered in ((16, False), (65536, False), (16, True)):
-                kv = cs.column_group_keys(plan, G, ordered, G)
-                gks = [kv[c.rows].contiguous() for c in gcalls]
-                want = [c.group_reduce_plain(gk, G)
-                        for c, gk in zip(gcalls, gks)]
-                for lname, dll in libs.items():
-                    if not lname.startswith(("base", "k19")):
+                        lambda: [c.launch(out) for c in mine], 20)
+                del want
+            score = "k11" if plan.f64 else "k14"
+            if score in only:
+                # K11 / K14 as compress_device launches them, by planning
+                # level: the first scores shared pairs, the second each
+                # segment's own
+                _build.lib = real_lib
+                _, dc_calls = cs.record_dc_calls(
+                    lambda: alp_tpu_torch.compress_device(x))
+                for level, shared in (("first", True), ("second", False)):
+                    mine = [c for c in dc_calls
+                            if c[0].startswith("score_pairs")
+                            and (c[1][1].shape[0] == 1) == shared]
+                    if not mine:
                         continue
-                    _build.lib = lambda dll=dll: dll
-                    for c, gk, w in zip(gcalls, gks, want):
-                        got = c.group_reduce(gk, G, *kgroup.group_outputs(
-                            G, plan.bits_dtype, dev))
-                        if not all(map(torch.equal, got, w)):
-                            raise SystemExit(f"{name}: {lname} K19 differs "
-                                             f"from its plain version")
-                    outs = kgroup.group_outputs(G, plan.bits_dtype, dev)
-                    cells[f"k19 G={G}{' ordered' if ordered else ''} "
-                          f"{lname}"] = cs.cuda_ms(
-                        lambda: [c.group_reduce(gk, G, *outs)
-                                 for c, gk in zip(gcalls, gks)], 20)
-                del kv, gks, want
+                    want = [cs.dc_plain(c[0], c[1], c[2]) for c in mine]
+                    launches = [ln for c in mine for ln in c[4]]
+                    for lname, dll in libs.items():
+                        if not timed(lname, score):
+                            continue
+                        _build.lib = lambda dll=dll: dll
+                        if lname == "base" or VARIANTS[lname][0]:
+                            for c in mine:       # every output is written
+                                for t in c[5]:
+                                    t.fill_(-7)
+                            for e, d, args in launches:
+                                falp._launch(e, d, *args)
+                            for c, w in zip(mine, want):
+                                if not all(map(torch.equal, c[5], w)):
+                                    raise SystemExit(
+                                        f"{name}: {lname} {score.upper()} "
+                                        f"{level} level differs from its "
+                                        f"plain version")
+                        def launch():
+                            return [falp._launch(e, d, *args)
+                                    for e, d, args in launches]
+
+                        cells[f"{score} {level} {lname}"] = cs.cuda_ms(
+                            launch, 20)
+                        # the device time alone: the launches' host cost
+                        # is about a second-level kernel's
+                        cells[f"{score} {level} graph {lname}"] = (
+                            cs.cuda_graph_ms(launch, 20))
+                del dc_calls
             result[name] = cells
             print(f"{name}: " + "; ".join(f"{k} {v:.4f}"
                                           for k, v in cells.items()),
@@ -659,7 +972,7 @@ def main() -> int:
             del bk, plan, col
     finally:
         _build.lib = real_lib
-    print(json.dumps({"ms": result, "k20_sass": sass}))
+    print(json.dumps({"ms": result, "sass": sass}))
     return 0
 
 

@@ -243,6 +243,147 @@ def test_query_sum_and_mean_on_card_special_cases(name, cuda):
     assert _same(alp_tpu_torch.query_mean(col), want)
 
 
+def _key(u: int, S: int) -> int:
+    """The unsigned total-order key of the S-bit pattern u."""
+    sign = 1 << (S - 1)
+    u = 0 if u == sign else u
+    return ((1 << S) - 1) ^ u if u & sign else u | sign
+
+
+_SPECIALS64 = [0x7FF8000000000000, 0xFFF8000000000001, 0x7FF0000000000000,
+               0xFFF0000000000000, 0x8000000000000000, 0, 1, 0x000FFFFFFFFFFFFF,
+               0x7E37E43C8800759C, 0xFE37E43C8800759C, 0x3FF0000000000000]
+_SPECIALS32 = [0x7FC00000, 0xFFC00001, 0x7F800000, 0xFF800000, 0x80000000, 0,
+               1, 0x007FFFFF, 0x7F7FFFFF, 0xFF7FFFFF, 0x3F800000]
+
+
+def _k7_case(f64: bool, bw: int, n: int, tail: int, wide: bool, seed: int):
+    """The arguments of a K7 (f64) or K8 (f32) call, CPU tensors, on seeded
+    words: n rows of n + 3 vectors, in no order, the last vector among them
+    with its last `tail` positions pad.  Row 0's exceptions cover every
+    slot of every lane, row 1 is exceptions only, row 2 has none, the last
+    vector has some in its pad, the others ~5 %; their true bits are NaN of
+    both signs, +-Inf, -0.0, subnormals, the largest finite values, 1.0
+    and random patterns.  `wide`: random words, bases and factors whose
+    products wrap, so a warp's values span far more than two windows;
+    else small decimals."""
+    rng = np.random.default_rng(seed)
+    S = 64 if f64 else 32
+    wdt = np.int64 if f64 else np.int32
+    tc = C.DOUBLE if f64 else C.FLOAT
+    L = 1024 // S
+    nv = n + 3
+    rows = rng.permutation(nv)[:n]
+    if nv - 1 not in rows:
+        rows[-1] = nv - 1
+    info = np.iinfo(wdt)
+    if wide:
+        packed = rng.integers(info.min, info.max, (n, bw * L), dtype=wdt,
+                              endpoint=True)
+        base = rng.integers(info.min, info.max, n, dtype=wdt, endpoint=True)
+        fact = tc.fact_arr[rng.integers(0, len(tc.fact_arr), n)].astype(wdt)
+    else:
+        packed = np.zeros((n, bw * L), dtype=wdt)
+        if bw:
+            packed[:] = rng.integers(0, 1 << min(bw, 62), (n, bw * L)).astype(
+                wdt) if bw < S else rng.integers(info.min, info.max,
+                                                 (n, bw * L), dtype=wdt)
+        base = rng.integers(-500, 500, n).astype(wdt)
+        fact = tc.fact_arr[rng.integers(0, 3, n)].astype(wdt)
+    frac = tc.frac_arr[rng.integers(0, len(tc.frac_arr), n)]
+    specials = _SPECIALS64 if f64 else _SPECIALS32
+    n_values = nv * 1024 - tail
+    slots = 1024 // L
+    per_vec = {}
+    for i, vec in enumerate(rows.tolist()):
+        if i == 0:
+            ks = sorted({L * s + s % L for s in range(slots)}
+                        | {L * s + (s + 5) % L for s in range(slots)})
+        elif i == 1:
+            ks = list(range(1024))
+        elif i == 2:
+            ks = []
+        else:
+            ks = sorted(rng.choice(1024, 50, replace=False).tolist())
+        if vec == nv - 1 and tail:
+            ks = sorted(set(ks) | {1023, 1024 - tail, 1024 - tail - 1})
+        per_vec[vec] = ks
+    counts = np.array([len(per_vec.get(v, [])) for v in range(nv)])
+    exc_ptr = np.concatenate([[0], np.cumsum(counts)])
+    exc_index = np.array([v * 1024 + k for v in range(nv)
+                          for k in per_vec.get(v, [])], dtype=np.int64)
+    pool = np.array(specials, dtype=np.uint64)
+    n_exc = len(exc_index)
+    true = np.where(rng.random(n_exc) < 0.5, pool[rng.integers(
+        0, len(pool), n_exc)], rng.integers(0, 1 << S, n_exc,
+                                            dtype=np.uint64))
+    exc_bits = true.view(wdt) if f64 else true.astype(np.uint32).view(wdt)
+    t = torch.from_numpy
+    return (t(packed), bw, t(base), t(fact.astype(wdt)), t(frac),
+            t(rows.astype(np.int64)), t(exc_ptr.astype(np.int64)),
+            t(exc_index), t(np.ascontiguousarray(exc_bits)), n_values)
+
+
+def _k7_key_ranges(args, f64: bool) -> list:
+    """Key ranges for the filtered instance: all keys, the middle half of
+    the summed values, and two exceptions each alone: one range holding
+    only its true value (its placeholder dropped), one holding only its
+    placeholder (its true value dropped)."""
+    S = 64 if f64 else 32
+    packed, bw, base, fact, frac, rows, exc_ptr, exc_index, exc_bits, _ = args
+    ph = falp.falp_plain(packed, bw, base, fact, frac).view(base.dtype)
+    bits = kes.falp_bits_plain(*args[:-1])
+    mask = (1 << S) - 1
+    keys = sorted(_key(int(u) & mask, S) for u in bits.reshape(-1).tolist())
+    ranges = [(0, mask), (keys[len(keys) // 4], keys[3 * len(keys) // 4])]
+    where = {int(r): i for i, r in enumerate(rows.tolist())}
+    for e in range(exc_index.shape[0]):
+        vec, k = divmod(int(exc_index[e]), 1024)
+        if vec not in where:
+            continue
+        u_true = int(exc_bits[e]) & mask
+        u_ph = int(ph[where[vec], k]) & mask
+        if _key(u_true, S) != _key(u_ph, S):
+            ranges += [(_key(u_true, S),) * 2, (_key(u_ph, S),) * 2]
+            if len(ranges) >= 6:
+                break
+    return ranges
+
+
+@pytest.mark.parametrize("f64", [True, False])
+@pytest.mark.parametrize("bw,n,tail,wide", [
+    (0, 5, 0, False), (7, 9, 300, False), (11, 33, 1, True),
+    (37, 6, 1023, True), (64, 7, 512, True), (32, 8, 5, True),
+    (3, 2, 0, False), (1, 1, 17, False)])
+def test_k7_k8_edges_equal_plain_versions(cuda, f64, bw, n, tail, wide):
+    """K7 / K8 (and their filtered instance) against their plain versions
+    by bits on seeded rows: exceptions at every lane and slot of a vector,
+    a vector of exceptions only, exceptions in the pad of a partial last
+    vector, NaN of both signs, +-Inf, -0.0, subnormals and the largest
+    finite values as true bits, warps spanning many digit windows, an odd
+    number of rows (half of an f64 warp idle), and key ranges that keep an
+    exception's true value but drop its placeholder, and the reverse."""
+    S = 64 if f64 else 32
+    bw %= S + 1                              # f32 words hold 0..32 bits
+    args = _k7_case(f64, bw, n, tail, wide, seed=bw * 100 + n + tail)
+    fn = (kes.falp_decode_f64_exact_sum if f64
+          else kes.falp_decode_f32_exact_sum)
+    name = ("falp_decode_f64_exact_sum" if f64
+            else "falp_decode_f32_exact_sum")
+    dev_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a
+                for a in args]
+    before = kes.LAUNCHES[name]
+    got = fn(*dev_args)
+    assert kes.LAUNCHES[name] == before + 1
+    want = kes.falp_exact_sum_plain(*args)
+    assert torch.equal(got.cpu(), want), (bw, n, tail, wide)
+    assert int(want[-3:].sum()) > 0          # NaN / Inf counts exercised
+    for key_range in _k7_key_ranges(args, f64):
+        got = fn(*dev_args, key_range=key_range)
+        want = kes.falp_exact_sum_plain(*args, key_range=key_range)
+        assert torch.equal(got.cpu(), want), key_range
+
+
 def test_sum_kernels_refuse_cpu_out_for_cuda_input(cuda):
     bits = torch.zeros((2, 1024), dtype=torch.int64, device=cuda)
     vec = torch.arange(2, device=cuda)
@@ -410,6 +551,65 @@ def test_k14_equals_its_plain_version(cuda):
                                          k.to(cuda))
     assert torch.equal(got.cpu(),
                        kscore.second_level_scores_f32(strides, combos, k))
+
+
+def _score_samples(rng, n, f64):
+    """Seeded segments of 32 samples: decimals, and segments of NaN only
+    (every trial an exception: max - min wraps to 1), of NaN, +-Inf, -0.0,
+    subnormals and huge values, and of wide random values."""
+    dt = np.float64 if f64 else np.float32
+    x = np.round(rng.uniform(-100, 100, (n, 32)), 2).astype(dt)
+    x[0] = np.nan
+    x[1, :8] = [np.nan, np.inf, -np.inf, -0.0, 5e-324 if f64 else 1e-45,
+                -(2.0 ** 63), 3e38, 1e-40]
+    x[2, ::2] = -0.0
+    x[3] = (rng.standard_normal(32) * 1e12).astype(dt)
+    x[4] = np.inf
+    return torch.from_numpy(x)
+
+
+def _score_pairs(rng, shape, f64):
+    top = C.DOUBLE.max_exponent if f64 else C.FLOAT.max_exponent
+    e = rng.integers(0, top + 1, shape)
+    f = rng.integers(0, top + 1, shape) % (e + 1)
+    ef = np.stack([e, f], -1)
+    flat = ef.reshape(-1, 2)
+    flat[:2] = [[top, top], [0, 0]][:len(flat)]
+    return torch.from_numpy(ef.astype(np.int32))
+
+
+@pytest.mark.parametrize("f64", [True, False])
+@pytest.mark.parametrize("n_cand,n,shared,counted", [
+    (1, 200, False, False), (1, 130, True, False), (5, 103, False, True),
+    (5, 52, True, False), (190, 7, True, False), (66, 11, True, True),
+    (300, 5, False, True)])
+def test_k11_k14_edges_equal_plain_versions(cuda, f64, n_cand, n, shared,
+                                            counted):
+    """K11 / K14 at 1, 5, 66, 190 and 300 candidates (more than a block's
+    threads), pairs shared by every segment or a segment's own, with and
+    without k_count (0..n_cand a segment), segment counts that leave a
+    block partly empty, and segments of NaN only, of specials and of
+    huge values, against the plain versions by bits."""
+    rng = np.random.default_rng(n_cand * 1000 + n + 7 * shared)
+    samples = _score_samples(rng, n, f64)
+    ef = _score_pairs(rng, (1 if shared else n, n_cand), f64)
+    k = (torch.from_numpy(rng.integers(0, n_cand + 1, n).astype(np.int32))
+         if counted else None)
+    fn = kscore.score_pairs_f64 if f64 else kscore.score_pairs_f32
+    plain = kscore.score_plain if f64 else kscore.score_plain_f32
+    name = "score_pairs_f64" if f64 else "score_pairs_f32"
+    before = kscore.LAUNCHES[name]
+    got = fn(samples.to(cuda), ef.to(cuda), None if k is None else k.to(cuda))
+    assert kscore.LAUNCHES[name] == before + 1
+    want = plain(samples, ef, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w), (n_cand, n, shared, counted)
+    # a segment of NaN only: every trial an exception, INT_MIN / INT_MAX
+    # wrap to a width of 1
+    exc = kscore.EXC_BITS if f64 else kscore.EXC_BITS32
+    live = torch.ones(n_cand, dtype=torch.bool) if k is None else (
+        torch.arange(n_cand) < int(k[0]))
+    assert bool((want[0][0][live] == 32 + 32 * exc).all())
 
 
 @pytest.mark.parametrize("name", F64 + F32)
