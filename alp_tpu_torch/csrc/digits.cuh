@@ -21,12 +21,18 @@
 // of magnitude).  A value with j in [Jw, Jw + kAccR) adds its digits there
 // without divergence: its window is computed once, its digits by funnel
 // shifts of the mantissa's halves, each placed by a 32-bit select on
-// rel = j - Jw and added, times the value's sign, into every register
-// window (a zero or a value not summed adds 0).  The first design computed
-// the window twice, negated each digit in 64 bits and added it by a
-// 64-bit select for each (window, digit) pair; kernel_ablations.py times
-// it (k7_select_digits).  When a warp's values leave that range
-// its registers are flushed (a warp reduction per window, lane 0 adds to
+// j == Jw + q and added, times the value's sign, into every register
+// window (a zero or a value not summed adds 0); the test against the top of
+// the range is made once a warp, and a warp of zeros or pad adds nothing.
+// The first design computed the window twice, negated each digit in 64
+// bits and added it by a 64-bit select for each (window, digit) pair
+// (kernel_ablations.py's k7_select_digits); the next tested every value
+// against the top of the range and added in every warp (k6_multiply_add).
+// Two sign adds were weighed against the multiply: the digit XORed with the
+// sign mask and added with a carry in (k6_carry_add), and the sign as the
+// multipliers (1, 0) or (2^32 - 1, 2^32 - 1) of two 32-bit multiply-adds
+// (k6_fma_add).  When a warp's values leave that range its registers are
+// flushed (a warp reduction per window, lane 0 adds to
 // the block's shared-memory row) and Jw moves to the warp's lowest window;
 // a value still outside (a warp spanning more than kAccR windows: 1e300
 // beside 1.0, subnormals beside normals) adds its digits to the shared row
@@ -169,13 +175,17 @@ struct Acc {
     }
   }
 
-  // One thread's N values (K5/K6: kAccPer of a vector; K7/K8: kLaneStep
+  // One thread's N values (K5/K6: kSumVals of a row; K7/K8: kLaneStep
   // of a FastLanes lane, or an exception's true bits and its negated
   // placeholder); ok[r] is false for values that are not summed (the pad).
   // Each value's window is computed once.  A value in the warp's register
-  // range adds its P digits, placed by rel = j - Jw (a select a window),
-  // into all kRegs windows unconditionally, times its sign (+1 or -1): a
-  // zero, a NaN, an Inf or a value not summed has rel < 0 and adds 0.
+  // range adds its P digits, placed by a select a window on j == Jw + q,
+  // into all kRegs windows unconditionally, times its sign (+1 or -1); a
+  // window the value does not reach takes 0, and so does a zero, a NaN, an
+  // Inf or a value not summed (j = -1, never a window of the range once the
+  // warp holds a finite nonzero value; before that, in a warp of zeros or
+  // pad, the adds are skipped).  Digits beyond the range take the shared
+  // row, behind a test that is the same for the warp.
   template <int N>
   __device__ __forceinline__ void add(const U (&b)[N], const bool (&ok)[N]) {
     int j[N];
@@ -196,24 +206,33 @@ struct Acc {
       if (base >= 0) flush();
       base = static_cast<int>(lo);
     }
+    if (hi >= base + kAccR) {                // beyond the register range
 #pragma unroll
-    for (int r = 0; r < N; ++r) {
-      uint32_t d[Fx::P];
-      Fx::digits(b[r], d);
-      const long long sgn = (b[r] >> (8 * sizeof(U) - 1)) ? -1 : 1;
-      const int rel = j[r] < 0 ? -1 : j[r] - base;   // base <= the warp's lo
-      if (rel >= kAccR) {                    // beyond the register range
+      for (int r = 0; r < N; ++r)
+        if (j[r] >= base + kAccR) {
+          uint32_t d[Fx::P];
+          Fx::digits(b[r], d);
+          const long long sgn = (b[r] >> (8 * sizeof(U) - 1)) ? -1 : 1;
 #pragma unroll
-        for (int p = 0; p < Fx::P; ++p)
-          if (d[p]) atomic_add(&row[j[r] + p], sgn * d[p]);
-      }
+          for (int p = 0; p < Fx::P; ++p)
+            if (d[p]) atomic_add(&row[j[r] + p], sgn * d[p]);
+        }
+    }
+    if (hi >= 0) {                           // base >= 0 from here
 #pragma unroll
-      for (int w = 0; w < kRegs; ++w) {
-        uint32_t dw = 0;
+      for (int r = 0; r < N; ++r) {
+        uint32_t d[Fx::P];
+        Fx::digits(b[r], d);
+        const long long sgn = (b[r] >> (8 * sizeof(U) - 1)) ? -1 : 1;
 #pragma unroll
-        for (int q = 0; q < kAccR; ++q)
-          if (w - q >= 0 && w - q < Fx::P) dw = rel == q ? d[w - q] : dw;
-        reg[w] += sgn * static_cast<long long>(dw);
+        for (int w = 0; w < kRegs; ++w) {
+          uint32_t dw = 0;
+#pragma unroll
+          for (int q = 0; q < kAccR; ++q)
+            if (w - q >= 0 && w - q < Fx::P)
+              dw = j[r] == base + q ? d[w - q] : dw;
+          reg[w] += sgn * static_cast<long long>(dw);
+        }
       }
     }
     // NaN and +-Inf are rare: where the warp holds one, each class is

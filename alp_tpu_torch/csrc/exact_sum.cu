@@ -61,12 +61,16 @@
 // any value; the placeholder never is one.  No correction is left for the
 // host, and no barrier, shared copy or second pass over the values.
 //
-// Design.  K5/K6: as many blocks of 256 threads as the card holds at once
-// (at most one per vector) walk the rows with a grid stride; a thread
-// holds 4 values of a row (k = tid + 256 r).  K7/K8: one thread a
+// Design.  K5/K6: as many blocks of 1024 threads as the card holds at once
+// walk the rows with a grid stride, eight rows a block at a time; a thread
+// takes 8 adjacent values of a row an add(), by 16-byte loads (K6 twice
+// K5's values a byte, so its time is the instructions a value: the first
+// loop's 4 scalar loads at k = tid + 256 r, one add() of 4 values and a
+// 64-bit pad test a value are kernel_ablations.py's k6_first_loop,
+// k6_scalar_loads and k6_four_per_add).  K7/K8: one thread a
 // FastLanes lane, reading its fields as a stream (fastlanes.cuh
 // LaneStream, as K20 does: each packed word loaded once, from device
-// memory, a funnel shift and a mask a field), 8 fields an add(); a warp
+// memory, a funnel shift and a mask a field), 4 fields an add(); a warp
 // takes 2 (f64) or 1 (f32) rows at a time with a grid stride over warps,
 // with no barrier and no shared memory but the block's row.  Both add into
 // digits.cuh's Acc, warp register windows over a shared-memory row: each
@@ -114,8 +118,6 @@ using alp::Num;
 using alp::order_key;
 using alp::unpack;
 using alp::zero_row;
-constexpr int kThreads = alp::kAccThreads;
-constexpr int kPer = alp::kAccPer;           // values of a vector a thread
 
 // Whether value bits b are summed: always, or (Filter) if klo <= key <= khi.
 template <bool Filter, typename U>
@@ -128,25 +130,62 @@ __device__ __forceinline__ bool selected(U b, U klo, U khi) {
   }
 }
 
-// K5 / K6: rows of decoded bit patterns, row i of vector vec[i].
+// K5 / K6: rows of decoded bit patterns, row i of vector vec[i].  A thread
+// takes kSumVals values of a row an add(), by 16-byte loads of adjacent
+// values (a warp's load is 512 contiguous bytes); P = 1024 / kSumVals
+// threads take a row, so a block takes kSumThreads / P rows at a time, on a
+// grid stride.  The pad test is one compare a value, against the count of
+// the row's real values from the thread's first one.
+constexpr int kSumThreads = 1024;
+constexpr int kSumVals = 8;                  // a thread's values an add()
+
+// The 16 / sizeof(U) values at p (16-byte aligned) by one load.
+template <typename U>
+__device__ __forceinline__ void load16(const U* p, U* b) {
+  if constexpr (sizeof(U) == 8) {
+    const ulonglong2 w = *reinterpret_cast<const ulonglong2*>(p);
+    b[0] = w.x;
+    b[1] = w.y;
+  } else {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    b[0] = w.x;
+    b[1] = w.y;
+    b[2] = w.z;
+    b[3] = w.w;
+  }
+}
+
 template <typename U, bool Filter>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSumThreads)
 exact_sum_kernel(const U* __restrict__ bits,
                  const long long* __restrict__ vec, long long n,
                  long long n_values, U klo, U khi,
                  long long* __restrict__ out) {
+  constexpr int V = 16 / sizeof(U);          // values a 16-byte load
+  constexpr int P = kVector / kSumVals;      // threads a row
+  constexpr int R = kSumThreads / P;         // rows a block at a time
+  static_assert(kSumVals % V == 0 && kSumThreads % P == 0, "whole rows");
   __shared__ long long row[Fixed<U>::W + 3];
   zero_row<U>(row);
   Acc<U> acc(row);
-  for (long long i = blockIdx.x; i < n; i += gridDim.x) {
-    const long long first = vec[i] * kVector;
-    U b[kPer];
-    bool ok[kPer];
+  const int t = threadIdx.x % P;
+  for (long long i0 = static_cast<long long>(blockIdx.x) * R; i0 < n;
+       i0 += static_cast<long long>(gridDim.x) * R) {   // block-uniform
+    const long long i = i0 + threadIdx.x / P;
+    const bool live = i < n;                 // the last rows may end
+    const long long ic = live ? i : i0;
+    // the row's real values from the thread's first one on
+    const long long rest = live ? n_values - vec[ic] * kVector - V * t : 0;
+    const int lim = static_cast<int>(rest < 0 ? 0 : min(rest, 1ll * kVector));
+    U b[kSumVals];
+    bool ok[kSumVals];
 #pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int k = threadIdx.x + r * kThreads;
-      b[r] = bits[i * kVector + k];
-      ok[r] = first + k < n_values && selected<Filter>(b[r], klo, khi);
+    for (int q = 0; q < kSumVals / V; ++q) {
+      load16(bits + ic * kVector + V * (t + q * P), &b[q * V]);
+#pragma unroll
+      for (int c = 0; c < V; ++c)
+        ok[q * V + c] = V * q * P + c < lim &&
+                        selected<Filter>(b[q * V + c], klo, khi);
     }
     acc.add(b, ok);
   }
@@ -276,13 +315,17 @@ template <typename U, bool Filter>
 int launch_exact_sum(const void* bits, const void* vec, long long n,
                      long long n_values, U klo, U khi, void* out, int dev,
                      void* stream) {
+  constexpr long long kRows = kSumThreads / (kVector / kSumVals);
   if (bad_size(n, n_values)) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(bits) % 16)   // the 16-byte loads
+    return static_cast<int>(cudaErrorMisalignedAddress);
   unsigned blocks = 0;
   const cudaError_t err =
-      grid_for(exact_sum_kernel<U, Filter>, n, dev, kThreads, 0, &blocks);
+      grid_for(exact_sum_kernel<U, Filter>, (n + kRows - 1) / kRows, dev,
+               kSumThreads, 0, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks)
-    exact_sum_kernel<U, Filter><<<blocks, kThreads, 0,
+    exact_sum_kernel<U, Filter><<<blocks, kSumThreads, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
         static_cast<const U*>(bits), static_cast<const long long*>(vec), n,
         n_values, klo, khi, static_cast<long long*>(out));

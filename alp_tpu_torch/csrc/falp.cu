@@ -20,7 +20,7 @@
 //                    look the index up in the rowgroup's dictionary (at
 //                    most 8 u16 entries) and glue (left << rbw) | right.
 //   K4 alp_rd_f32    replaces rd_decode_dict_f32 (falp.py:1530), the same
-//                    over 32-bit words; K3 and K4 are one template.
+//                    over 32-bit words, by another design than K3's.
 //
 // Two more serve the port's bench (alp_tpu_torch/bench_speed.py and the
 // sum step of engine.make_sum_step):
@@ -61,10 +61,23 @@
 // words) and 32 bytes of metadata, and writes 8 KiB (f64) or 4 KiB (f32)
 // of values.  At 3.35 TB/s a 256 MiB f64 decode cannot take less than
 // ~80 us plus its packed input; one FP64 multiply per value is ~2 us of
-// the card's FP64 rate.  The design is the simple one for a memory-bound
+// the card's FP64 rate.  K1/K2 take the simple design for a memory-bound
 // pass: one block per vector, the vector's packed words staged once into
 // shared memory with coalesced loads, then each thread extracts values
 // k, k + 256, ... so that the stores of a warp are contiguous.
+//
+// K3/K4 decode twice K1's fields a value (the right part and the index),
+// and K4 writes half K3's bytes a value: the first design (K1's, with
+// unpack() of both parts, a runtime slot * bw with its divide and modulo
+// and one or two shared loads each) was set by its instructions a value,
+// not its bytes (K4 at 45 % of its byte bound, K3 at 66 %).  The present
+// K4 reads both parts as lane streams (one thread a right lane, below; no
+// staging, no barrier), as K20 and K7/K8 do; K3 keeps the first design's
+// block a vector but reads its words straight from device memory.
+// kernel_ablations.py times them against the first design (k4_staged) and
+// its splits (k4_no_index, k4_no_unpack, k4_no_stage: the present K3), the
+// dictionary in registers (k4_register_dict), K3 on the lane streams
+// (k4_stream_f64) and the step and block sweeps.
 //
 // K20 reads bw / 8 bytes a value and writes 4 / 64, and does the unpack,
 // the FOR add, the 64-bit FACT product, two FP64 operations, ~8 integer
@@ -87,7 +100,7 @@
 // at a time (k20_word_loop: fewer instructions, slower), loading each
 // field's words where it is taken (k20_direct), the 2^52 magic add for
 // the int64 -> double convert (k20_magic_convert) and no convert
-// (k20_no_convert).  K21 moves bytes, as K3 does: one block a
+// (k20_no_convert).  K21 moves bytes, as K1 does: one block a
 // vector, the right words staged in shared memory, each thread writing
 // values k, k + 256, ... so a warp's loads of the left parts and stores of
 // the bits are contiguous.
@@ -133,24 +146,82 @@ falp_kernel(const typename Num<F>::U* __restrict__ packed, int bw,
   }
 }
 
-// K3 / K4: ALP_RD glue, one block per vector.  Indexes past the
-// dictionary (exceptions) are clamped to its last entry, as the host
-// decode does; the exception scatter overwrites them afterwards.
+// K3 / K4: ALP_RD glue.  Indexes past the dictionary (exceptions) are
+// clamped to its last entry, as the host decode does; the exception
+// scatter overwrites them afterwards.  Two designs, one a width, each the
+// faster on its own (kernel_ablations.py, PERF.md):
+//
+// K4: one thread a FastLanes lane of the right part (L = 1024 / S = 32
+// lanes), so a warp decodes one vector, with no barrier.  The thread reads
+// its lane's right fields as a stream (LaneStream); value k = i + L s of
+// lane i has its index in left lane k % 64 at slot k / 64, so it also
+// reads the Q = 64 / L left lanes i + L q it meets, each as a stream of 16
+// fields, taking them in turn.  A vector's 8 u16 entries are copied to
+// shared memory by its first lanes and read there.  A step takes kRdStep
+// values of the lane, so the steps' extract chains overlap, and a warp's
+// store of one value a lane is 128 contiguous bytes.
+//
+// K3: one block a vector, each thread values k, k + 256, ... by unpack() of
+// both parts straight from device memory (the lanes of a warp read
+// neighbouring words, which L1 keeps for the slots that share them), so a
+// warp's stores are contiguous.  K3 writes 8 bytes a value and reads
+// ~7 (the right part at 48-64 bits): its bytes, not its instructions, set
+// its pace, and one vector a block keeps more loads in flight than a lane
+// stream, which holds two words ahead of its fields.
+constexpr int kRdThreads = 256;
+constexpr int kRdStep = 4;                   // a lane's values a step
+
+template <typename U, int S>
+__global__ void __launch_bounds__(kRdThreads)
+rd_stream_kernel(const U* __restrict__ right, int rbw,
+                 const uint16_t* __restrict__ left, int lbw,
+                 const uint16_t* __restrict__ dict,
+                 const int* __restrict__ dict_size,
+                 const long long* __restrict__ rows, U* __restrict__ out,
+                 long long n) {
+  constexpr int L = kVector / S, Q = 64 / L;
+  constexpr unsigned kLanes = L == 32 ? 0xffffffffu : (1u << (L % 32)) - 1;
+  static_assert(kRdStep % Q == 0, "a step takes each left lane in turn");
+  __shared__ uint16_t entries[kRdThreads / L][8];
+  uint16_t* mine = entries[threadIdx.x / L];
+  const long long vec =
+      (static_cast<long long>(blockIdx.x) * kRdThreads + threadIdx.x) / L;
+  const int lane = threadIdx.x % L;
+  if (vec >= n) return;
+  if (lane < 8) mine[lane] = dict[vec * 8 + lane];
+  __syncwarp(kLanes << ((threadIdx.x & 31) / L * L));   // the vector's lanes
+  const uint32_t last = max(min(dict_size[vec], 8) - 1, 0);
+  alp::LaneStream<U> rs(right + vec * rbw * L + lane, rbw);
+  alp::LaneStream<uint16_t> ls[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    ls[q] = alp::LaneStream<uint16_t>(left + vec * lbw * 64 + lane + L * q,
+                                      lbw);
+  U* dst = out + (rows ? rows[vec] : vec) * kVector + lane;
+  for (int s = 0; s < S; s += kRdStep) {
+    U v[kRdStep];
+#pragma unroll
+    for (int q = 0; q < kRdStep; ++q) {
+      const U r = rs.next();
+      const U l = mine[min(static_cast<uint32_t>(ls[q % Q].next()), last)];
+      v[q] = rbw < S ? static_cast<U>(static_cast<U>(l << rbw) | r) : r;
+    }
+#pragma unroll
+    for (int q = 0; q < kRdStep; ++q) dst[(s + q) * L] = v[q];
+  }
+}
+
 template <typename U, int S>
 __global__ void __launch_bounds__(kThreads)
-rd_kernel(const U* __restrict__ right, int rbw,
-          const uint16_t* __restrict__ left, int lbw,
-          const uint16_t* __restrict__ dict,
-          const int* __restrict__ dict_size,
-          const long long* __restrict__ rows, U* __restrict__ out) {
-  __shared__ U rwords[kVector];
-  __shared__ uint16_t lwords[kVector];       // lbw <= 16: at most 1024
-  __shared__ U entries[8];
+rd_block_kernel(const U* __restrict__ right, int rbw,
+                const uint16_t* __restrict__ left, int lbw,
+                const uint16_t* __restrict__ dict,
+                const int* __restrict__ dict_size,
+                const long long* __restrict__ rows, U* __restrict__ out) {
   const long long vec = blockIdx.x;
-  stage<U, S>(rwords, right + vec * rbw * (kVector / S), rbw);
-  stage<uint16_t, 16>(lwords, left + vec * lbw * (kVector / 16), lbw);
-  if (threadIdx.x < 8) entries[threadIdx.x] = dict[vec * 8 + threadIdx.x];
-  __syncthreads();
+  const U* rwords = right + vec * rbw * (kVector / S);
+  const uint16_t* lwords = left + vec * lbw * (kVector / 16);
+  const uint16_t* entries = dict + vec * 8;
   const int last = max(min(dict_size[vec], 8) - 1, 0);
   U* dst = out + (rows ? rows[vec] : vec) * kVector;
   for (int k = threadIdx.x; k < kVector; k += kThreads) {
@@ -281,14 +352,23 @@ static int launch_rd(const void* right, int rbw, const void* left, int lbw,
                      void* stream) {
   if (n < 0 || n > INT_MAX || rbw < 0 || rbw > S || lbw < 0 || lbw > 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0)
-    rd_kernel<U, S><<<static_cast<unsigned>(n), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const U*>(right), rbw,
-        static_cast<const uint16_t*>(left), lbw,
-        static_cast<const uint16_t*>(dict),
-        static_cast<const int*>(dict_size),
-        static_cast<const long long*>(rows), static_cast<U*>(out));
+  const auto r = static_cast<const U*>(right);
+  const auto l = static_cast<const uint16_t*>(left);
+  const auto d = static_cast<const uint16_t*>(dict);
+  const auto ds = static_cast<const int*>(dict_size);
+  const auto rw = static_cast<const long long*>(rows);
+  const auto o = static_cast<U*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  if constexpr (S == 64) {
+    rd_block_kernel<U, S><<<static_cast<unsigned>(n), kThreads, 0, st>>>(
+        r, rbw, l, lbw, d, ds, rw, o);
+  } else {
+    constexpr long long kPerBlock = kRdThreads / (kVector / S);  // vectors
+    rd_stream_kernel<U, S>
+        <<<static_cast<unsigned>((n + kPerBlock - 1) / kPerBlock),
+           kRdThreads, 0, st>>>(r, rbw, l, lbw, d, ds, rw, o, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

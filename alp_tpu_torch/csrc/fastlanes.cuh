@@ -88,7 +88,15 @@ __device__ __forceinline__ uint32_t funnel_r(uint32_t lo, uint32_t hi,
   return __funnelshift_r(lo, hi, s);
 }
 
-// The bw-bit fields of one lane of S-bit words (W = uint64_t or uint32_t),
+// Bits [s, s + 16) of the 32-bit word hi:lo, 0 <= s < 16 (the ALP_RD
+// dictionary indexes, K3/K4).
+__device__ __forceinline__ uint16_t funnel_r(uint16_t lo, uint16_t hi,
+                                             int s) {
+  return static_cast<uint16_t>((static_cast<uint32_t>(hi) << 16 | lo) >> s);
+}
+
+// The bw-bit fields of one lane of S-bit words (W = uint64_t, uint32_t or
+// uint16_t),
 // slot 0, 1, ... in order, read as a stream (0 <= bw <= S): the thread
 // holds the current word and the next (a field may spill into it) and one
 // more ahead, and loads each of the lane's bw words once, two words before
@@ -97,8 +105,8 @@ __device__ __forceinline__ uint32_t funnel_r(uint32_t lo, uint32_t hi,
 // passes S (the same for every lane of a warp).  No divide, no per-slot
 // address and no word loaded twice, where unpack() pays all three for every
 // value.  At bw = 0 it loads nothing and every field is 0.  `lane` points
-// at the lane's word 0 (its word w at lane[w * L]).  K20 (falp.cu) and
-// K7/K8 (exact_sum.cu) read their words with it.
+// at the lane's word 0 (its word w at lane[w * L]).  K20 (falp.cu), K7/K8
+// (exact_sum.cu) and K3/K4 (falp.cu, both parts) read their words with it.
 template <typename W>
 struct LaneStream {
   static constexpr int S = 8 * sizeof(W);
@@ -107,6 +115,7 @@ struct LaneStream {
   int bw, off, at;                           // at: the word in `ahead`
   W cur, nxt, ahead, mask;
 
+  LaneStream() = default;
   __device__ __forceinline__ LaneStream(const W* words, int width)
       : lane(words), bw(width), off(0), at(2) {
     cur = bw > 0 ? lane[0] : W(0);

@@ -1,28 +1,56 @@
-"""CUDA-event ablations of the exact-SUM kernels K5-K8, the (e, f)
-scorers K11/K14, the key kernels K15 ``key_counts``, K16 ``key_extremes``
-and K17 ``rank_pass``, the grouped kernels K18 ``vector_sum_extremes`` and
-K19 ``group_reduce`` and the bench's K20 ``variant_sum_f64`` on the card:
-what each part of the kernels costs, and how the variants that were
-weighed against them compare.
+"""CUDA-event ablations of the ALP_RD decode kernels K3/K4
+``rd_decode_dict``, the exact-SUM kernels K5-K8, the (e, f) scorers
+K11/K14, the key kernels K15 ``key_counts``, K16 ``key_extremes`` and K17
+``rank_pass``, the grouped kernels K18 ``vector_sum_extremes`` and K19
+``group_reduce`` and the bench's K20 ``variant_sum_f64`` on the card: what
+each part of the kernels costs, and how the variants that were weighed
+against them compare.
 
 Run from the root of a checkout on a machine with one NVIDIA card::
 
     python3 kernel_ablations.py [kernel ...]
 
 with kernels named as in ``KERNELS`` (``k7 k11``: only the variants that
-change K7/K8 or K11/K14, and only their timings; none: every one).  Each
+change K7/K8 or K11/K14, and only their timings; none: every one; only
+K3-K6: only the ALP_RD columns).  Each
 variant is the sources of ``alp_tpu_torch/csrc`` with a few text edits
 (``VARIANTS``: a string replaced, or a region from a start to an end),
 built beside the library in the ignored ``alp_tpu_torch/_build/ablate/``
 (every source compiled once, then the edited ones again, every source
 where a header is edited, all in parallel) and timed on the 256 MiB
-columns of ``chip_smoke.py`` (``COLUMNS``) at its timing shapes: K5-K8 on
-each column's SUM calls, K11/K14 on the launches of a ``compress_device``
+columns of ``chip_smoke.py`` (``COLUMNS``) at its timing shapes: K3/K4 on
+the ALP_RD buckets of the f64 and f32 ALP_RD columns, K5-K8 on each
+column's SUM calls (K5/K6 also filtered, at ``chip_smoke.py``'s key
+range), K11/K14 on the launches of a ``compress_device``
 of the column, by planning level, K15 at E = 2, 7 (the bench's histogram)
 and 16 (``K15_E``; the few-threshold path against the search tree) and at
 17 and 2048, K16, K17 at R = 8, T = 2048 on 8 disjoint brackets and on a
 later pass (8 bands of 0.1 %), K18 on every bucket, K19 at G = 16 and
 65,536 random ids and at 16 ordered runs, and K20 on the f64 ALP buckets.
+K3/K4's variants (the ``k4`` family): the first design ``k4_staged`` (a
+block a vector, both parts staged in shared memory behind a barrier, two
+``unpack()`` calls a value; exact) and its splits ``k4_no_index`` (index
+0), ``k4_no_unpack`` (the right part read as whole words) and
+``k4_no_stage`` (the words read from device memory, no barrier; exact);
+over the kept K4 ``k4_register_dict`` (the dictionary in registers,
+looked up by byte permutes; exact), ``k4_stream_f64`` (K3 on K4's lane
+streams; exact), ``k4_kept_no_index`` and ``k4_kept_no_right`` (the
+index or the right stream removed), and the sweeps ``k4_step_8``,
+``k4_block_128`` / ``_512`` (exact); K3 is the first design unstaged, as
+``k4_no_stage``.  K5/K6's (the
+``k6`` family): the
+first loop ``k6_first_loop`` (a block a row, 4 scalar loads a thread,
+one ``add()`` of 4 values, a 64-bit pad test a value; exact) and its
+splits ``k6_no_digits`` (the bits XOR-folded into one output) and
+``k6_one_row_check`` (the pad test once a row; exact); over the kept loop
+``k6_scalar_loads`` (the same values by 4-byte loads), ``k6_four_per_add``
+and ``k6_vals_16`` (4 or 16 values an ``add()``), ``k6_block_256`` /
+``_512``, and three other ``Acc::add``s, which change K5-K8 and K18:
+``k6_multiply_add`` (the one before: the range tested a value, every warp
+adding), ``k6_carry_add`` (the digit XORed with the sign mask, added by
+64-bit adds with a carry in) and ``k6_fma_add`` (the sign as the
+multipliers of two 32-bit multiply-adds), all exact; and
+``k6_kept_no_digits``.
 K7's variants: the first design's parts over the kept ones,
 ``k7_staged`` (a block a row, its words staged in shared memory, 4 values
 a thread by ``unpack()``, with the kept exception path),
@@ -54,10 +82,12 @@ magic add where |m| < 2^51; exact) and ``k20_no_convert`` (the convert
 removed).  A variant marked exact must give its plain version's outputs
 bit for bit (the script fails otherwise); the ablations (a part removed)
 give wrong outputs and are timed only.  Prints the card and its power
-limit, the ptxas line of each rebuilt kernel, the SASS of K7's, K11's
-and K20's loops in each of their variants (``cuobjdump -sass``: each
-loop's instructions, those of ``SASS_OPS``, and the instructions a value
-or trial: K20's float add, K7's and K11's int64 -> double convert), a
+limit, the ptxas line of each rebuilt kernel, the SASS of K4's, K6's,
+K7's, K11's and K20's loops in each of their variants (``cuobjdump
+-sass``: each loop's and the whole kernel's instructions, those of
+``SASS_OPS``, and the instructions a unit and a value: K4's store, K6's
+load (``UNIT_VALUES``), K20's float add, K7's and K11's int64 -> double
+convert), a
 line a column and a JSON object of every time, in milliseconds (CUDA
 events, 20 launches after a warm-up, as ``chip_smoke.cuda_ms``).
 """
@@ -173,6 +203,9 @@ _K7_SHARED_EXCEPTIONS = 'template <typename F, bool Filter>\n__global__ void __l
 # the same loop with the kept exception path: the true bits added and the
 # placeholder subtracted by the thread that loads the exception
 _K7_STAGED = 'template <typename F, bool Filter>\n__global__ void __launch_bounds__(kThreads)\nfalp_exact_sum_kernel(const typename Num<F>::U* __restrict__ packed, int bw,\n                      const typename Num<F>::U* __restrict__ base,\n                      const typename Num<F>::U* __restrict__ fact,\n                      const F* __restrict__ frac,\n                      const long long* __restrict__ rows,\n                      const long long* __restrict__ exc_ptr,\n                      const long long* __restrict__ exc_index,\n                      const typename Num<F>::U* __restrict__ exc_bits,\n                      long long n, long long n_values,\n                      typename Num<F>::U klo, typename Num<F>::U khi,\n                      long long* __restrict__ out) {\n  using U = typename Num<F>::U;\n  constexpr int S = Num<F>::S;\n  __shared__ U words[kVector];               // bw <= S: at most 1024 words\n  __shared__ long long row[Fixed<U>::W + 3];\n  zero_row<U>(row);\n  Acc<U> acc(row);\n  for (long long i = blockIdx.x; i < n; i += gridDim.x) {\n    __syncthreads();                         // the last vector is read\n    alp::stage<U, S>(words, packed + i * bw * (kVector / S), bw);\n    __syncthreads();\n    const U b0 = base[i], f = fact[i];\n    const F fr = frac[i];\n    const long long vec = rows[i];\n    U b[kPer];\n    bool ok[kPer];\n#pragma unroll\n    for (int r = 0; r < kPer; ++r) {\n      const int k = threadIdx.x + r * kThreads;\n      const U u = bw ? unpack<U, S>(words, bw, k) : U(0);\n      b[r] = Num<F>::bits(Num<F>::decode(static_cast<U>((b0 + u) * f), fr));\n      ok[r] = vec * kVector + k < n_values;\n    }\n    if constexpr (Filter) {\n#pragma unroll\n      for (int r = 0; r < kPer; ++r)\n        ok[r] = ok[r] && selected<Filter>(b[r], klo, khi);\n    }\n    acc.add(b, ok);\n    const long long e0 = exc_ptr[vec], e1 = exc_ptr[vec + 1];\n    for (long long eb = e0; eb < e1; eb += kThreads) {   // block-uniform\n      const long long e = eb + threadIdx.x;\n      U x[2] = {0, 0};\n      bool xok[2] = {false, false};\n      if (e < e1) {\n        const int k = static_cast<int>(exc_index[e] & (kVector - 1));\n        const U u = bw ? unpack<U, S>(words, bw, k) : U(0);\n        const U ph = Num<F>::bits(\n            Num<F>::decode(static_cast<U>((b0 + u) * f), fr));\n        const bool in_col = vec * kVector + k < n_values;\n        x[0] = exc_bits[e];\n        x[1] = ph ^ (U(1) << (S - 1));\n        xok[0] = in_col && selected<Filter>(x[0], klo, khi);\n        xok[1] = in_col && selected<Filter>(ph, klo, khi);\n      }\n      acc.add(x, xok);\n    }\n  }\n  acc.finish(out);\n}\n\n'
+# the first designs' shapes, which the kept kernels no longer name
+_FIRST_SHAPES = ("constexpr int kThreads = alp::kAccThreads;\n"
+                 "constexpr int kPer = alp::kAccPer;\n")
 _K7_STREAM_ADD = "        acc.add(b, ok);\n      }\n    };\n"
 _K7_FOLD = """        U fold = 0;
 #pragma unroll
@@ -200,11 +233,19 @@ _K7_SLOT_UNPACK = """          const U u = decltype(packed_words)::value
 # Acc::add (digits.cuh) as kept, and the first design's: the window
 # computed twice a value, each digit negated in 64 bits, and a 64-bit select
 # and add for each pair of a register window and a digit
-_ACC_ADD = ("  // One thread's N values (K5/K6: kAccPer of a vector; K7/K8: "
+_ACC_ADD = ("  // One thread's N values (K5/K6: kSumVals of a row; K7/K8: "
             "kLaneStep",
             "            atomic_add(&row[Fx::W + c - 1], k);\n        }\n"
             "      }\n    }\n  }\n\n")
 _SELECT_ADD = "  // One thread's N values of a vector (kAccPer in K5-K8); ok[r] is false\n  // for values that are not summed (the pad).\n  template <int N>\n  __device__ __forceinline__ void add(const U (&b)[N], const bool (&ok)[N]) {\n    int lo = INT_MAX, hi = -1;\n#pragma unroll\n    for (int r = 0; r < N; ++r) {\n      const int j = ok[r] ? Fx::window(b[r]) : -1;\n      if (j >= 0) {\n        lo = min(lo, j);\n        hi = max(hi, j);\n      }\n    }\n    lo = __reduce_min_sync(kFullMask, lo);\n    hi = __reduce_max_sync(kFullMask, hi);\n    if (hi >= 0 && (base < 0 || lo < base || hi >= base + kAccR)) {\n      if (base >= 0) flush();\n      base = lo;\n    }\n    int special = 0;                         // a NaN or an Inf among them\n#pragma unroll\n    for (int r = 0; r < N; ++r) {\n      if (!ok[r]) continue;\n      const Fx x(b[r]);\n      special |= x.cls;\n      if (x.j < 0) continue;\n      long long sd[Fx::P];\n#pragma unroll\n      for (int p = 0; p < Fx::P; ++p)\n        sd[p] = x.neg ? -static_cast<long long>(x.d[p])\n                      : static_cast<long long>(x.d[p]);\n      const int rel = x.j - base;            // >= 0: base <= the warp's lo\n      if (rel >= kAccR) {                    // beyond the register range\n#pragma unroll\n        for (int p = 0; p < Fx::P; ++p)\n          if (sd[p]) atomic_add(&row[x.j + p], sd[p]);\n        continue;\n      }\n#pragma unroll\n      for (int w = 0; w < kRegs; ++w)\n#pragma unroll\n        for (int p = 0; p < Fx::P; ++p)\n          if (w - p >= 0 && w - p < kAccR)\n            reg[w] += rel == w - p ? sd[p] : 0;\n    }\n    // NaN and +-Inf are rare: where the warp holds one, each class is\n    // counted with a ballot a value and lane 0 adds the count into the\n    // shared row (no per-thread counters: registers, and an index\n    // cnt[cls - 1] the compiler cannot resolve would put the whole\n    // accumulator in local memory)\n    if (__any_sync(kFullMask, special)) {\n#pragma unroll\n      for (int r = 0; r < N; ++r) {\n        const int cls = ok[r] ? Fx(b[r]).cls : 0;\n#pragma unroll\n        for (int c = 1; c <= 3; ++c) {\n          const int k = __popc(__ballot_sync(kFullMask, cls == c));\n          if ((threadIdx.x & 31) == 0 && k)\n            atomic_add(&row[Fx::W + c - 1], k);\n        }\n      }\n    }\n  }\n\n"
+# the add before it: each window's digit times the value's sign (+1 or -1)
+# in 64 bits, the test beyond the register range made a value
+_MULTIPLY_ADD = "  // One thread's N values (K5/K6: kAccPer of a vector; K7/K8: kLaneStep\n  // of a FastLanes lane, or an exception's true bits and its negated\n  // placeholder); ok[r] is false for values that are not summed (the pad).\n  // Each value's window is computed once.  A value in the warp's register\n  // range adds its P digits, placed by rel = j - Jw (a select a window),\n  // into all kRegs windows unconditionally, times its sign (+1 or -1): a\n  // zero, a NaN, an Inf or a value not summed has rel < 0 and adds 0.\n  template <int N>\n  __device__ __forceinline__ void add(const U (&b)[N], const bool (&ok)[N]) {\n    int j[N];\n    unsigned lo = UINT_MAX;                  // j = -1 is the largest unsigned\n    int hi = -1;\n    bool special = false;                    // a NaN or an Inf among them\n#pragma unroll\n    for (int r = 0; r < N; ++r) {\n      j[r] = ok[r] ? Fx::window(b[r]) : -1;\n      special |= ok[r] && Fx::special(b[r]);\n      lo = min(lo, static_cast<unsigned>(j[r]));\n      hi = max(hi, j[r]);\n    }\n    lo = __reduce_min_sync(kFullMask, lo);\n    hi = __reduce_max_sync(kFullMask, hi);\n    if (hi >= 0 && (base < 0 || static_cast<int>(lo) < base ||\n                    hi >= base + kAccR)) {\n      if (base >= 0) flush();\n      base = static_cast<int>(lo);\n    }\n#pragma unroll\n    for (int r = 0; r < N; ++r) {\n      uint32_t d[Fx::P];\n      Fx::digits(b[r], d);\n      const long long sgn = (b[r] >> (8 * sizeof(U) - 1)) ? -1 : 1;\n      const int rel = j[r] < 0 ? -1 : j[r] - base;   // base <= the warp's lo\n      if (rel >= kAccR) {                    // beyond the register range\n#pragma unroll\n        for (int p = 0; p < Fx::P; ++p)\n          if (d[p]) atomic_add(&row[j[r] + p], sgn * d[p]);\n      }\n#pragma unroll\n      for (int w = 0; w < kRegs; ++w) {\n        uint32_t dw = 0;\n#pragma unroll\n        for (int q = 0; q < kAccR; ++q)\n          if (w - q >= 0 && w - q < Fx::P) dw = rel == q ? d[w - q] : dw;\n        reg[w] += sgn * static_cast<long long>(dw);\n      }\n    }\n    // NaN and +-Inf are rare: where the warp holds one, each class is\n    // counted with a ballot a value and lane 0 adds the count into the\n    // shared row (no per-thread counters: registers, and an index\n    // cnt[cls - 1] the compiler cannot resolve would put the whole\n    // accumulator in local memory)\n    if (__any_sync(kFullMask, special)) {\n#pragma unroll\n      for (int r = 0; r < N; ++r) {\n        const int cls = ok[r] ? Fx(b[r]).cls : 0;\n#pragma unroll\n        for (int c = 1; c <= 3; ++c) {\n          const int k = __popc(__ballot_sync(kFullMask, cls == c));\n          if ((threadIdx.x & 31) == 0 && k)\n            atomic_add(&row[Fx::W + c - 1], k);\n        }\n      }\n    }\n  }\n\n"
+# the add with the digit XORed with the sign mask and added by 64-bit adds
+# with a carry in
+_CARRY_ADD = "  // One thread's N values (K5/K6: kSumVals of a row; K7/K8: kLaneStep\n  // of a FastLanes lane, or an exception's true bits and its negated\n  // placeholder); ok[r] is false for values that are not summed (the pad).\n  // Each value's window is computed once.  A value in the warp's register\n  // range adds its P digits, placed by a select a window on j == Jw + q,\n  // into all kRegs windows unconditionally, with its sign: a digit d enters\n  // as the int64 whose high word is m and low word d ^ m, plus m & 1, with\n  // m all ones for a negative value (-d) and 0 else (d): a 64-bit add with\n  // a carry in and no multiply.  A window the value does\n  // not reach takes d = 0, and so does a zero, a NaN, an Inf or a value not\n  // summed (j = -1, never a window of the range once the warp holds a\n  // finite nonzero value; before that the adds are skipped).  Digits beyond\n  // the range take the shared row, behind a test that is the same for the\n  // warp.\n  template <int N>\n  __device__ __forceinline__ void add(const U (&b)[N], const bool (&ok)[N]) {\n    int j[N];\n    unsigned lo = UINT_MAX;                  // j = -1 is the largest unsigned\n    int hi = -1;\n    bool special = false;                    // a NaN or an Inf among them\n#pragma unroll\n    for (int r = 0; r < N; ++r) {\n      j[r] = ok[r] ? Fx::window(b[r]) : -1;\n      special |= ok[r] && Fx::special(b[r]);\n      lo = min(lo, static_cast<unsigned>(j[r]));\n      hi = max(hi, j[r]);\n    }\n    lo = __reduce_min_sync(kFullMask, lo);\n    hi = __reduce_max_sync(kFullMask, hi);\n    if (hi >= 0 && (base < 0 || static_cast<int>(lo) < base ||\n                    hi >= base + kAccR)) {\n      if (base >= 0) flush();\n      base = static_cast<int>(lo);\n    }\n    if (hi >= base + kAccR) {                // beyond the register range\n#pragma unroll\n      for (int r = 0; r < N; ++r)\n        if (j[r] >= base + kAccR) {\n          uint32_t d[Fx::P];\n          Fx::digits(b[r], d);\n          const long long sgn = (b[r] >> (8 * sizeof(U) - 1)) ? -1 : 1;\n#pragma unroll\n          for (int p = 0; p < Fx::P; ++p)\n            if (d[p]) atomic_add(&row[j[r] + p], sgn * d[p]);\n        }\n    }\n    if (hi >= 0) {                           // base >= 0 from here\n#pragma unroll\n      for (int r = 0; r < N; ++r) {\n        uint32_t d[Fx::P];\n        Fx::digits(b[r], d);\n        const uint32_t m = 0u - static_cast<uint32_t>(\n            b[r] >> (8 * sizeof(U) - 1));\n#pragma unroll\n        for (int w = 0; w < kRegs; ++w) {\n          uint32_t x = m;\n#pragma unroll\n          for (int q = 0; q < kAccR; ++q)\n            if (w - q >= 0 && w - q < Fx::P)\n              x = j[r] == base + q ? d[w - q] ^ m : x;\n          reg[w] += static_cast<long long>(\n                        (static_cast<unsigned long long>(m) << 32) | x) +\n                    (m & 1u);\n        }\n      }\n    }\n    // NaN and +-Inf are rare: where the warp holds one, each class is\n    // counted with a ballot a value and lane 0 adds the count into the\n    // shared row (no per-thread counters: registers, and an index\n    // cnt[cls - 1] the compiler cannot resolve would put the whole\n    // accumulator in local memory)\n    if (__any_sync(kFullMask, special)) {\n#pragma unroll\n      for (int r = 0; r < N; ++r) {\n        const int cls = ok[r] ? Fx(b[r]).cls : 0;\n#pragma unroll\n        for (int c = 1; c <= 3; ++c) {\n          const int k = __popc(__ballot_sync(kFullMask, cls == c));\n          if ((threadIdx.x & 31) == 0 && k)\n            atomic_add(&row[Fx::W + c - 1], k);\n        }\n      }\n    }\n  }\n\n"
+# the add with the sign as the multipliers of two 32-bit multiply-adds
+_FMA_ADD = "  // One thread's N values (K5/K6: kSumVals of a row; K7/K8: kLaneStep\n  // of a FastLanes lane, or an exception's true bits and its negated\n  // placeholder); ok[r] is false for values that are not summed (the pad).\n  // Each value's window is computed once.  A value in the warp's register\n  // range adds its P digits, placed by a select a window on j == Jw + q,\n  // into all kRegs windows unconditionally, with its sign: a digit d enters\n  // as d * sl widened to 64 bits plus d * sh in the high word, with\n  // (sl, sh) = (1, 0) for a positive value and (2^32 - 1, 2^32 - 1) for a\n  // negative one (-d modulo 2^64): two multiply-adds, on the multiply-add\n  // pipe beside the selects and shifts.  A window the value does\n  // not reach takes d = 0, and so does a zero, a NaN, an Inf or a value not\n  // summed (j = -1, never a window of the range once the warp holds a\n  // finite nonzero value; before that the adds are skipped).  Digits beyond\n  // the range take the shared row, behind a test that is the same for the\n  // warp.\n  template <int N>\n  __device__ __forceinline__ void add(const U (&b)[N], const bool (&ok)[N]) {\n    int j[N];\n    unsigned lo = UINT_MAX;                  // j = -1 is the largest unsigned\n    int hi = -1;\n    bool special = false;                    // a NaN or an Inf among them\n#pragma unroll\n    for (int r = 0; r < N; ++r) {\n      j[r] = ok[r] ? Fx::window(b[r]) : -1;\n      special |= ok[r] && Fx::special(b[r]);\n      lo = min(lo, static_cast<unsigned>(j[r]));\n      hi = max(hi, j[r]);\n    }\n    lo = __reduce_min_sync(kFullMask, lo);\n    hi = __reduce_max_sync(kFullMask, hi);\n    if (hi >= 0 && (base < 0 || static_cast<int>(lo) < base ||\n                    hi >= base + kAccR)) {\n      if (base >= 0) flush();\n      base = static_cast<int>(lo);\n    }\n    if (hi >= base + kAccR) {                // beyond the register range\n#pragma unroll\n      for (int r = 0; r < N; ++r)\n        if (j[r] >= base + kAccR) {\n          uint32_t d[Fx::P];\n          Fx::digits(b[r], d);\n          const long long sgn = (b[r] >> (8 * sizeof(U) - 1)) ? -1 : 1;\n#pragma unroll\n          for (int p = 0; p < Fx::P; ++p)\n            if (d[p]) atomic_add(&row[j[r] + p], sgn * d[p]);\n        }\n    }\n    if (hi >= 0) {                           // base >= 0 from here\n#pragma unroll\n      for (int r = 0; r < N; ++r) {\n        uint32_t d[Fx::P];\n        Fx::digits(b[r], d);\n        const uint32_t sh = 0u - static_cast<uint32_t>(\n            b[r] >> (8 * sizeof(U) - 1));\n        const uint32_t sl = sh | 1u;\n#pragma unroll\n        for (int w = 0; w < kRegs; ++w) {\n          uint32_t dw = 0;\n#pragma unroll\n          for (int q = 0; q < kAccR; ++q)\n            if (w - q >= 0 && w - q < Fx::P)\n              dw = j[r] == base + q ? d[w - q] : dw;\n          unsigned long long a = static_cast<unsigned long long>(reg[w]);\n          a += static_cast<unsigned long long>(dw) * sl;\n          a += static_cast<unsigned long long>(dw * sh) << 32;\n          reg[w] = static_cast<long long>(a);\n        }\n      }\n    }\n    // NaN and +-Inf are rare: where the warp holds one, each class is\n    // counted with a ballot a value and lane 0 adds the count into the\n    // shared row (no per-thread counters: registers, and an index\n    // cnt[cls - 1] the compiler cannot resolve would put the whole\n    // accumulator in local memory)\n    if (__any_sync(kFullMask, special)) {\n#pragma unroll\n      for (int r = 0; r < N; ++r) {\n        const int cls = ok[r] ? Fx(b[r]).cls : 0;\n#pragma unroll\n        for (int c = 1; c <= 3; ++c) {\n          const int k = __popc(__ballot_sync(kFullMask, cls == c));\n          if ((threadIdx.x & 31) == 0 && k)\n            atomic_add(&row[Fx::W + c - 1], k);\n        }\n      }\n    }\n  }\n\n"
 _K11_KERNEL = ("template <typename F>\n__global__ void __launch_bounds__(kBlock)"
                "\nscore_kernel(",
                "  return static_cast<int>(cudaGetLastError());\n}\n")
@@ -231,8 +272,179 @@ _INDEX32 = """  const int t32 = static_cast<int>(task);
   const int c = t32 % n_cand;
 """
 
+
+# K3/K4 (falp.cu) and K5/K6 (exact_sum.cu): each kernel and its launch as
+# regions of the sources, and the first designs that replace them: K4 a
+# block a vector, both parts staged in shared memory behind a barrier, two
+# unpack() calls a value; K6 a block a row, 4 scalar loads a thread at
+# k = tid + 256 r and a pad test a value
+_K4_KERNEL = ("// K3 / K4: ALP_RD glue", "// The reference's truncating f64-bits")
+_K4_END = "// The reference's truncating f64-bits"
+_K4_LAUNCH = ("template <typename U, int S>\nstatic int launch_rd(",
+              "  return static_cast<int>(cudaGetLastError());\n}\n")
+_K4_STAGED = '// K3 / K4: ALP_RD glue, one block per vector.  Indexes past the\n// dictionary (exceptions) are clamped to its last entry, as the host\n// decode does; the exception scatter overwrites them afterwards.\ntemplate <typename U, int S>\n__global__ void __launch_bounds__(kThreads)\nrd_kernel(const U* __restrict__ right, int rbw,\n          const uint16_t* __restrict__ left, int lbw,\n          const uint16_t* __restrict__ dict,\n          const int* __restrict__ dict_size,\n          const long long* __restrict__ rows, U* __restrict__ out) {\n  __shared__ U rwords[kVector];\n  __shared__ uint16_t lwords[kVector];       // lbw <= 16: at most 1024\n  __shared__ U entries[8];\n  const long long vec = blockIdx.x;\n  stage<U, S>(rwords, right + vec * rbw * (kVector / S), rbw);\n  stage<uint16_t, 16>(lwords, left + vec * lbw * (kVector / 16), lbw);\n  if (threadIdx.x < 8) entries[threadIdx.x] = dict[vec * 8 + threadIdx.x];\n  __syncthreads();\n  const int last = max(min(dict_size[vec], 8) - 1, 0);\n  U* dst = out + (rows ? rows[vec] : vec) * kVector;\n  for (int k = threadIdx.x; k < kVector; k += kThreads) {\n    const U r = rbw ? unpack<U, S>(rwords, rbw, k) : U(0);\n    const int idx = lbw ? unpack<uint16_t, 16>(lwords, lbw, k) : 0;\n    const U l = entries[min(idx, last)];\n    dst[k] = rbw < S ? static_cast<U>(static_cast<U>(l << rbw) | r) : r;\n  }\n}\n\n'
+_K4_STAGED_LAUNCH = 'template <typename U, int S>\nstatic int launch_rd(const void* right, int rbw, const void* left, int lbw,\n                     const void* dict, const void* dict_size,\n                     const void* rows, void* out, long long n,\n                     void* stream) {\n  if (n < 0 || n > INT_MAX || rbw < 0 || rbw > S || lbw < 0 || lbw > 16)\n    return static_cast<int>(cudaErrorInvalidValue);\n  if (n > 0)\n    rd_kernel<U, S><<<static_cast<unsigned>(n), kThreads, 0,\n                      static_cast<cudaStream_t>(stream)>>>(\n        static_cast<const U*>(right), rbw,\n        static_cast<const uint16_t*>(left), lbw,\n        static_cast<const uint16_t*>(dict),\n        static_cast<const int*>(dict_size),\n        static_cast<const long long*>(rows), static_cast<U*>(out));\n  return static_cast<int>(cudaGetLastError());\n}\n'
+_K4_INDEX = "    const int idx = lbw ? unpack<uint16_t, 16>(lwords, lbw, k) : 0;\n"
+_K4_RIGHT = "    const U r = rbw ? unpack<U, S>(rwords, rbw, k) : U(0);\n"
+_K4_STAGE = """  __shared__ U rwords[kVector];
+  __shared__ uint16_t lwords[kVector];       // lbw <= 16: at most 1024
+  __shared__ U entries[8];
+  const long long vec = blockIdx.x;
+  stage<U, S>(rwords, right + vec * rbw * (kVector / S), rbw);
+  stage<uint16_t, 16>(lwords, left + vec * lbw * (kVector / 16), lbw);
+  if (threadIdx.x < 8) entries[threadIdx.x] = dict[vec * 8 + threadIdx.x];
+  __syncthreads();
+"""
+_K4_DIRECT = """  const long long vec = blockIdx.x;
+  const U* rwords = right + vec * rbw * (kVector / S);
+  const uint16_t* lwords = left + vec * lbw * (kVector / 16);
+  const uint16_t* entries = dict + vec * 8;
+"""
+# the kept K4's dictionary in shared memory and its lookup, and the same in
+# registers (four words of two u16, an entry picked by two byte permutes and
+# a select)
+_K4_DICT = """  if (lane < 8) mine[lane] = dict[vec * 8 + lane];
+  __syncwarp(kLanes << ((threadIdx.x & 31) / L * L));   // the vector's lanes
+"""
+_K4_REGISTER_DICT = """  uint32_t e[4];
+  const uint16_t* d = dict + vec * 8;
+  if ((reinterpret_cast<uintptr_t>(dict) & 15u) == 0) {   // uniform
+    const uint4 w = *reinterpret_cast<const uint4*>(d);
+    e[0] = w.x;
+    e[1] = w.y;
+    e[2] = w.z;
+    e[3] = w.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      e[q] = d[2 * q] | static_cast<uint32_t>(d[2 * q + 1]) << 16;
+  }
+"""
+_K4_LOOKUP = """      const U l = mine[min(static_cast<uint32_t>(ls[q % Q].next()), last)];
+"""
+_K4_REGISTER_LOOKUP = """      const uint32_t c = min(static_cast<uint32_t>(ls[q % Q].next()), last);
+      const uint32_t sel = (c & 3u) * 0x22u + 0x10u;
+      const U l = (c & 4u ? __byte_perm(e[2], e[3], sel)
+                          : __byte_perm(e[0], e[1], sel)) & 0xFFFFu;
+"""
+# the kept K5/K6's 16-byte load and its add
+_K6_LOAD = """      load16(bits + ic * kVector + V * (t + q * P), &b[q * V]);
+"""
+_K6_SCALAR_LOAD = """#pragma unroll
+      for (int c = 0; c < V; ++c)
+        b[q * V + c] = bits[ic * kVector + V * (t + q * P) + c];
+"""
+_K6_ADD = "    acc.add(b, ok);\n  }\n  acc.finish(out);\n"
+_K6_KERNEL = ("// K5 / K6: rows of decoded", "// K7 / K8: the falp decode")
+_K6_END = "// K7 / K8: the falp decode"
+_K6_LAUNCH = ("template <typename U, bool Filter>\nint launch_exact_sum(",
+              "  return static_cast<int>(cudaGetLastError());\n}\n")
+_K6_FIRST = '// K5 / K6: rows of decoded bit patterns, row i of vector vec[i].\ntemplate <typename U, bool Filter>\n__global__ void __launch_bounds__(kThreads)\nexact_sum_kernel(const U* __restrict__ bits,\n                 const long long* __restrict__ vec, long long n,\n                 long long n_values, U klo, U khi,\n                 long long* __restrict__ out) {\n  __shared__ long long row[Fixed<U>::W + 3];\n  zero_row<U>(row);\n  Acc<U> acc(row);\n  for (long long i = blockIdx.x; i < n; i += gridDim.x) {\n    const long long first = vec[i] * kVector;\n    U b[kPer];\n    bool ok[kPer];\n#pragma unroll\n    for (int r = 0; r < kPer; ++r) {\n      const int k = threadIdx.x + r * kThreads;\n      b[r] = bits[i * kVector + k];\n      ok[r] = first + k < n_values && selected<Filter>(b[r], klo, khi);\n    }\n    acc.add(b, ok);\n  }\n  acc.finish(out);\n}\n\n'
+_K6_FIRST_LAUNCH = 'template <typename U, bool Filter>\nint launch_exact_sum(const void* bits, const void* vec, long long n,\n                     long long n_values, U klo, U khi, void* out, int dev,\n                     void* stream) {\n  if (bad_size(n, n_values)) return static_cast<int>(cudaErrorInvalidValue);\n  unsigned blocks = 0;\n  const cudaError_t err =\n      grid_for(exact_sum_kernel<U, Filter>, n, dev, kThreads, 0, &blocks);\n  if (err != cudaSuccess) return static_cast<int>(err);\n  if (blocks)\n    exact_sum_kernel<U, Filter><<<blocks, kThreads, 0,\n                                  static_cast<cudaStream_t>(stream)>>>(\n        static_cast<const U*>(bits), static_cast<const long long*>(vec), n,\n        n_values, klo, khi, static_cast<long long*>(out));\n  return static_cast<int>(cudaGetLastError());\n}\n'
+_K6_FIRST_ADD = "    acc.add(b, ok);\n  }\n  acc.finish(out);\n"
+_K6_FIRST_OK = """#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int k = threadIdx.x + r * kThreads;
+      b[r] = bits[i * kVector + k];
+      ok[r] = first + k < n_values && selected<Filter>(b[r], klo, khi);
+    }
+"""
+# the decoded bits XOR-folded into one output: the loads and the pad test
+# stay, the digits go
+_FOLD = """    U fold = 0;
+#pragma unroll
+    for (int r = 0; r < %s; ++r) fold ^= ok[r] ? b[r] : U(0);
+    if (fold == U(0x5bd1e995u)) out[Fixed<U>::W] = 1;
+  }
+  acc.finish(out);
+"""
+
+
+
+def _k4_first(kernel: str = _K4_STAGED) -> dict:
+    """The edits that put K4's first design (or a split of it) and its
+    launch in place of the kept kernel's."""
+    return {"falp.cu": [(_K4_KERNEL, kernel + _K4_END),
+                        (_K4_LAUNCH, _K4_STAGED_LAUNCH)]}
+
+
+def _k6_first(kernel: str = _K6_FIRST) -> dict:
+    """The same for K6's first loop (or a split of it)."""
+    return {"exact_sum.cu": [(_K6_KERNEL, _FIRST_SHAPES + kernel + _K6_END),
+                             (_K6_LAUNCH, _K6_FIRST_LAUNCH)]}
+
+
 # name -> (exact, {source file: [(old, new), ...]})
 VARIANTS = {
+    # K3/K4's first design (exact) and its splits, measured before the
+    # redesign: no second unpack (index 0; wrong outputs), the right part
+    # read as whole words (no field extraction; wrong outputs), the words
+    # read straight from device memory (no staging, no barrier; exact)
+    "k4_staged": (True, _k4_first()),
+    "k4_no_index": (False, _k4_first(_K4_STAGED.replace(
+        _K4_INDEX, "    const int idx = 0;\n"))),
+    "k4_no_unpack": (False, _k4_first(_K4_STAGED.replace(
+        _K4_RIGHT, "    const U r = rbw ? rwords[k % (kVector / S) + (kVector "
+                   "/ S) * (k / (kVector / S) * rbw / S)] : U(0);\n"))),
+    "k4_no_stage": (True, _k4_first(_K4_STAGED.replace(_K4_STAGE,
+                                                       _K4_DIRECT))),
+    # the kept K4 (and K3 through it): the dictionary in registers (exact),
+    # K3 on K4's lane streams (exact); the index streams removed (index 0)
+    # and the right stream removed (wrong outputs); the sweeps of the step
+    # and of the block (exact)
+    "k4_register_dict": (True, {"falp.cu": [
+        (_K4_DICT, _K4_REGISTER_DICT), (_K4_LOOKUP, _K4_REGISTER_LOOKUP)]}),
+    "k4_stream_f64": (True, {"falp.cu": [("  if constexpr (S == 64) {",
+                                          "  if constexpr (S == 0) {")]}),
+    "k4_kept_no_index": (False, {"falp.cu": [(_K4_LOOKUP, _K4_LOOKUP.replace(
+        "ls[q % Q].next()", "0u"))]}),
+    "k4_kept_no_right": (False, {"falp.cu": [(
+        "      const U r = rs.next();\n", "      const U r = U(0);\n")]}),
+    "k4_step_8": (True, {"falp.cu": [("constexpr int kRdStep = 4;",
+                                      "constexpr int kRdStep = 8;")]}),
+    "k4_block_128": (True, {"falp.cu": [("constexpr int kRdThreads = 256;",
+                                         "constexpr int kRdThreads = 128;")]}),
+    "k4_block_512": (True, {"falp.cu": [("constexpr int kRdThreads = 256;",
+                                         "constexpr int kRdThreads = 512;")]}),
+    # the kept K5/K6: scalar loads of the same values (exact), 4 or 16
+    # values an add() (exact), blocks of 256 or 512 (exact), the three adds
+    # weighed against the present one (exact; they change K5-K8 and K18),
+    # and the digits removed (wrong outputs)
+    "k6_scalar_loads": (True, {"exact_sum.cu": [(_K6_LOAD, _K6_SCALAR_LOAD)]}),
+    "k6_four_per_add": (True, {"exact_sum.cu": [(
+        "constexpr int kSumVals = 8;", "constexpr int kSumVals = 4;")]}),
+    "k6_vals_16": (True, {"exact_sum.cu": [(
+        "constexpr int kSumVals = 8;", "constexpr int kSumVals = 16;")]}),
+    "k6_block_256": (True, {"exact_sum.cu": [(
+        "constexpr int kSumThreads = 1024;",
+        "constexpr int kSumThreads = 256;")]}),
+    "k6_block_512": (True, {"exact_sum.cu": [(
+        "constexpr int kSumThreads = 1024;",
+        "constexpr int kSumThreads = 512;")]}),
+    "k6_multiply_add": (True, {"digits.cuh": [(_ACC_ADD, _MULTIPLY_ADD)]}),
+    "k6_carry_add": (True, {"digits.cuh": [(_ACC_ADD, _CARRY_ADD)]}),
+    "k6_fma_add": (True, {"digits.cuh": [(_ACC_ADD, _FMA_ADD)]}),
+    "k6_kept_no_digits": (False, {"exact_sum.cu": [(_K6_ADD,
+                                                    _FOLD % "kSumVals")]}),
+    # K5/K6's first loop (exact) and its splits: the digits removed (the
+    # bits XOR-folded into one output), the pad test once a row (exact)
+    "k6_first_loop": (True, _k6_first()),
+    "k6_no_digits": (False, _k6_first(_K6_FIRST.replace(
+        _K6_FIRST_ADD, _FOLD % "kPer"))),
+    "k6_one_row_check": (True, _k6_first(_K6_FIRST.replace(_K6_FIRST_OK, """\
+#pragma unroll
+    for (int r = 0; r < kPer; ++r)
+      b[r] = bits[i * kVector + threadIdx.x + r * kThreads];
+    if (first + kVector <= n_values) {       // block-uniform: a whole row
+#pragma unroll
+      for (int r = 0; r < kPer; ++r) ok[r] = selected<Filter>(b[r], klo, khi);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kPer; ++r)
+        ok[r] = first + threadIdx.x + r * kThreads < n_values &&
+                selected<Filter>(b[r], klo, khi);
+    }
+"""))),
     # the parts of K17, each removed in turn (the outputs are wrong)
     "k17_no_brackets": (False, {"keys.cu": [(_BRACKETS, "    if (false) {")]}),
     "k17_no_search": (False, {"keys.cu": [(_SEARCH, """#pragma unroll
@@ -455,12 +667,13 @@ VARIANTS = {
     "k19_no_warp_path": (True, {"group.cu": [(_WARP_PATH, _WARP_PATH.replace(
         "real && g == g0)", "real && g == g0) && g0 < 0"))]}),
     # K7: the first design's parts over the kept ones (exact)
-    "k7_staged": (True, {"exact_sum.cu": [(_K7_KERNEL, _K7_STAGED),
+    "k7_staged": (True, {"exact_sum.cu": [(_K7_KERNEL,
+                                           _FIRST_SHAPES + _K7_STAGED),
                                           (_K7_ROWS, _K7_ROWS.replace(
                                               "kLaneThreads / 32 * "
                                               "lane_rows<F>()", "1"))]}),
     "k7_shared_exceptions": (True, {"exact_sum.cu": [
-        (_K7_KERNEL, _K7_SHARED_EXCEPTIONS),
+        (_K7_KERNEL, _FIRST_SHAPES + _K7_SHARED_EXCEPTIONS),
         (_K7_ROWS, _K7_ROWS.replace("kLaneThreads / 32 * lane_rows<F>()",
                                     "1"))]}),
     "k7_select_digits": (True, {"digits.cuh": [(_ACC_ADD, _SELECT_ADD)]}),
@@ -498,7 +711,8 @@ VARIANTS = {
     # warp a task with only lane 0's trial stored (no shuffles, no ballot;
     # wrong outputs) and with a 32-bit task / C (exact)
     "k7_no_stage": (True, {"exact_sum.cu": [
-        (_K7_KERNEL, _K7_SHARED_EXCEPTIONS.replace(_STAGE, _DIRECT)),
+        (_K7_KERNEL, _FIRST_SHAPES + _K7_SHARED_EXCEPTIONS.replace(
+            _STAGE, _DIRECT)),
         (_K7_ROWS, _K7_ROWS.replace("kLaneThreads / 32 * lane_rows<F>()",
                                     "1"))]}),
     "k11_no_reduce": (False, {"score.cu": [
@@ -543,7 +757,8 @@ def ptxas_lines(log: str) -> list:
                                        "key_extremes", "rank_pass",
                                        "vector_sums", "group_reduce",
                                        "variant_sum", "falp_exact_sum",
-                                       "exact_sum", "score")
+                                       "exact_sum", "score", "rd_stream",
+                                       "rd_block", "rd_kernel")
                            if k in name), None)
             route = next((r for t, r in (("AlpVectorId", "ALP f64"),
                                          ("AlpVectorIf", "ALP f32"),
@@ -556,7 +771,9 @@ def ptxas_lines(log: str) -> list:
                                          ("ImLb1", "f64 where"),
                                          ("IjLb1", "f32 where"),
                                          ("kernelIdE", "f64"),
-                                         ("kernelIfE", "f32"))
+                                         ("kernelIfE", "f32"),
+                                         ("ImLi64E", "f64"),
+                                         ("IjLi32E", "f32"))
                           if t in name), "")
             shared = "Lb1E" in name
             entry = (f"{kernel} {route}"
@@ -569,19 +786,27 @@ def ptxas_lines(log: str) -> list:
     return out
 
 
-SASS_OPS = ("FADD", "I2F", "F2I", "DMUL", "DADD", "LDG", "LDS", "STS",
-            "BAR", "SHFL", "REDUX", "VOTE", "ATOMS", "SEL")
+SASS_OPS = ("FADD", "I2F", "F2I", "DMUL", "DADD", "LDG", "STG", "LDS",
+            "STS", "BAR", "SHFL", "REDUX", "VOTE", "ATOMS", "SEL", "PRMT")
 # kernel label -> (object, a substring of the kernel's mangled name, the
 # opcode that marks one value or trial of its loop: K20's float add, the
 # int64 -> double convert of K7's decode and of K11's verify)
 SASS_KERNELS = {"k20": ("falp.o", "variant_sum_kernel", "FADD"),
                 "k7": ("exact_sum.o", "falp_exact_sum_kernelIdLb0E", "I2F"),
-                "k11": ("score.o", "score_kernelIdE", "I2F")}
+                "k11": ("score.o", "score_kernelIdE", "I2F"),
+                "k4": ("falp.o", "rd_stream_kernelIjLi32E|rd_kernelIjLi32E",
+                       "STG"),
+                "k6": ("exact_sum.o", "exact_sum_kernelIjLb0E", "LDG")}
+# values a unit where it is not one: K6's 16-byte load holds 4 values, the
+# first loop's and k6_scalar_loads' load one
+UNIT_VALUES = {"k6": 4, "k6 k6_first_loop": 1, "k6 k6_no_digits": 1,
+               "k6 k6_one_row_check": 1, "k6 k6_scalar_loads": 1}
 
 
 def sass_loops(obj: pathlib.Path, cuobjdump: str, kernel: str,
                unit: str = "FADD") -> dict:
-    """The SASS of `kernel` in object `obj` (``cuobjdump -sass``): its
+    """The SASS of `kernel` in object `obj` (``cuobjdump -sass``; the
+    first of its names, "|"-separated, that the object holds): its
     instruction count and, in "loops", each loop that holds the opcode
     `unit` (one a value or trial), innermost first: the instructions from
     the target of its backward branch to the branch, the count of each of
@@ -589,6 +814,7 @@ def sass_loops(obj: pathlib.Path, cuobjdump: str, kernel: str,
     placed outside that range is not counted."""
     sass = subprocess.run([cuobjdump, "-sass", str(obj)], check=True,
                           capture_output=True, text=True).stdout
+    kernel = next((k for k in kernel.split("|") if k in sass), kernel)
     body, inside = [], False                 # (address, opcode, operands)
     for ln in sass.splitlines():
         s = ln.strip()
@@ -697,11 +923,16 @@ SUM_LABELS = {"exact_sum_f64": "k5", "exact_sum_f32": "k6",
               "falp_decode_f32_exact_sum": "k8"}
 # a variant's family (its name's first word) -> the kernels it changes
 FAMILIES = {"keys": ("k15", "k16", "k17"), "k7": ("k7", "k8"),
-            "k11": ("k11", "k14")}
+            "k11": ("k11", "k14"), "k4": ("k3", "k4"), "k6": ("k5", "k6")}
 # variants that change more than their family: the shared accumulator
-CHANGES = {"k7_select_digits": ("k5", "k6", "k7", "k8", "k18")}
-KERNELS = ("k5", "k6", "k7", "k8", "k11", "k14", "k15", "k16", "k17", "k18",
-           "k19", "k20")
+CHANGES = {"k7_select_digits": ("k5", "k6", "k7", "k8", "k18"),
+           "k6_multiply_add": ("k5", "k6", "k7", "k8", "k18"),
+           "k6_carry_add": ("k5", "k6", "k7", "k8", "k18"),
+           "k6_fma_add": ("k5", "k6", "k7", "k8", "k18")}
+KERNELS = ("k3", "k4", "k5", "k6", "k7", "k8", "k11", "k14", "k15", "k16",
+           "k17", "k18", "k19", "k20")
+# the kernels timed on the ALP_RD columns alone
+RD_KERNELS = {"k3", "k4", "k5", "k6"}
 
 
 def changes(variant: str) -> tuple:
@@ -749,8 +980,13 @@ def main() -> int:
         for lname in libs:
             if label in only and label in changes(lname) and (
                     BUILD / lname / obj).exists():
-                sass[f"{label} {lname}"] = sass_loops(
-                    BUILD / lname / obj, cuobjdump, kernel, unit)
+                got = sass_loops(BUILD / lname / obj, cuobjdump, kernel,
+                                 unit)
+                per = UNIT_VALUES.get(f"{label} {lname}",
+                                      UNIT_VALUES.get(label, 1))
+                for c in [got["kernel"], *got["loops"]]:
+                    c["per_value"] = c["per_unit"] / per
+                sass[f"{label} {lname}"] = got
                 print(f"  {label} SASS {lname}: {sass[f'{label} {lname}']}",
                       flush=True)
     real_lib = _build.lib
@@ -760,6 +996,8 @@ def main() -> int:
     result = {}
     try:
         for name in COLUMNS:
+            if only <= RD_KERNELS and "alp_rd" not in name:
+                continue
             col = alp_tpu_torch.compress(sources[name])
             if name in tile_to:
                 col = tile_column(col, tile_to[name])
@@ -878,6 +1116,29 @@ def main() -> int:
                                                       *b.args[1:])
                                  for b in alp_f64], 20)
                 del want
+            rd = [b for b in plan.buckets if b.scheme == C.SCHEME_ALP_RD]
+            rd_label = "k3" if plan.f64 else "k4"
+            if rd_label in only and rd:
+                want = [falp.rd_plain(b.args[0], b.bw, b.args[1], b.lbw,
+                                      *b.args[2:]) for b in rd]
+                out = torch.empty((plan.n_vectors, 1024),
+                                  dtype=plan.bits_dtype, device=dev)
+                for lname, dll in libs.items():
+                    if not timed(lname, rd_label):
+                        continue
+                    _build.lib = lambda dll=dll: dll
+                    if lname == "base" or VARIANTS[lname][0]:
+                        out.fill_(-7)
+                        for b, w in zip(rd, want):
+                            plan.launch(b, out)
+                            if not torch.equal(out[b.rows], w):
+                                raise SystemExit(f"{name}: {lname} "
+                                                 f"{rd_label.upper()} rbw="
+                                                 f"{b.bw} lbw={b.lbw} differs "
+                                                 f"from its plain version")
+                    cells[f"{rd_label} {lname}"] = cs.cuda_ms(
+                        lambda: [plan.launch(b, out) for b in rd], 20)
+                del want, out
             if "k19" in only:
                 for G, ordered in ((16, False), (65536, False), (16, True)):
                     kv = cs.column_group_keys(plan, G, ordered, G)
@@ -921,6 +1182,30 @@ def main() -> int:
                                                  f"version")
                     cells[f"{label} {lname}"] = cs.cuda_ms(
                         lambda: [c.launch(out) for c in mine], 20)
+                del want
+                if label not in ("k5", "k6"):
+                    continue
+                # the filtered instance (SUM WHERE) at chip_smoke.py's key
+                # range: the 5th to the 13th of 17 thresholds
+                thr = cs.column_thresholds(x, 17)
+                where = [c for c in engine.sum_calls(plan, (int(thr[4]),
+                                                            int(thr[12])))
+                         if c.kernel == call_kernel]
+                want = [c.plain() for c in where]
+                for lname, dll in libs.items():
+                    if not timed(lname, label):
+                        continue
+                    _build.lib = lambda dll=dll: dll
+                    if lname == "base" or VARIANTS[lname][0]:
+                        for c, w in zip(where, want):
+                            got = c.launch(kes.totals(plan.bits_dtype, dev))
+                            if not torch.equal(got, w):
+                                raise SystemExit(f"{name}: {lname} "
+                                                 f"{label.upper()} with a key "
+                                                 f"range differs from its "
+                                                 f"plain version")
+                    cells[f"{label} where {lname}"] = cs.cuda_ms(
+                        lambda: [c.launch(out) for c in where], 20)
                 del want
             score = "k11" if plan.f64 else "k14"
             if score in only:

@@ -384,6 +384,131 @@ def test_k7_k8_edges_equal_plain_versions(cuda, f64, bw, n, tail, wide):
         assert torch.equal(got.cpu(), want), key_range
 
 
+def _sum_rows(f64: bool, n: int, tail: int, seed: int):
+    """Seeded K5 (f64) / K6 (f32) arguments, CPU tensors: n rows of n + 3
+    vectors in no order, the last vector among them with its last `tail`
+    positions pad; rows of random bit patterns (every exponent window, NaN
+    of both signs, +-Inf and subnormals among them), of normal values (at
+    most two digit windows a warp), of 1e30 beside 1e-30 (more than two),
+    of subnormals, of zeros of both signs, and of specials alone."""
+    rng = np.random.default_rng(seed)
+    S = 64 if f64 else 32
+    ut, ft = (np.uint64, np.float64) if f64 else (np.uint32, np.float32)
+    nv = n + 3
+    vec = rng.permutation(nv)[:n]
+    if nv - 1 not in vec:
+        vec[-1] = nv - 1
+    bits = rng.integers(0, 1 << S, (n, 1024), dtype=np.uint64).astype(ut)
+    bits[1::6] = rng.standard_normal((len(bits[1::6]), 1024)).astype(
+        ft).view(ut)
+    far = np.where(rng.random((len(bits[2::6]), 1024)) < 0.5, 1e30, -1e-30)
+    bits[2::6] = (far * rng.random(far.shape)).astype(ft).view(ut)
+    sub = rng.integers(1, 1 << (52 if f64 else 23), (len(bits[3::6]), 1024),
+                       dtype=np.uint64)
+    bits[3::6] = (sub | (rng.integers(0, 2, sub.shape, dtype=np.uint64)
+                         << np.uint64(S - 1))).astype(ut)
+    bits[4::6] = np.where(rng.random((len(bits[4::6]), 1024)) < 0.5, ut(0),
+                          ut(1) << ut(S - 1))
+    pool = np.array(_SPECIALS64 if f64 else _SPECIALS32,
+                    dtype=np.uint64).astype(ut)
+    bits[5::6] = pool[rng.integers(0, len(pool), (len(bits[5::6]), 1024))]
+    bits[0, :len(pool)] = pool
+    wdt = np.int64 if f64 else np.int32
+    return (torch.from_numpy(bits.view(wdt)), torch.from_numpy(vec.astype(
+        np.int64)), nv * 1024 - tail)
+
+
+def _sum_key_ranges(bits: torch.Tensor, f64: bool) -> list:
+    """Every key, the middle half of the keys, a range that cuts through
+    row 1 (its 300th to its 700th key; row 0 where it is the only one), and
+    one key alone."""
+    S = 64 if f64 else 32
+    mask = (1 << S) - 1
+    keys = sorted(_key(int(u) & mask, S) for u in bits.reshape(-1).tolist())
+    row = sorted(_key(int(u) & mask, S)
+                 for u in bits[min(1, len(bits) - 1)].tolist())
+    return [(0, mask), (keys[len(keys) // 4], keys[3 * len(keys) // 4]),
+            (row[300], row[700]), (row[512],) * 2]
+
+
+@pytest.mark.parametrize("f64", [True, False])
+@pytest.mark.parametrize("n,tail", [(37, 0), (37, 1), (13, 1023), (12, 513),
+                                    (1, 300), (61, 7)])
+def test_k5_k6_edges_equal_plain_versions(cuda, f64, n, tail):
+    """K5 / K6 (and their filtered instance) against their plain versions
+    by bits on seeded rows: random bit patterns (every exponent window,
+    subnormals, NaN of both signs, +-Inf), -0.0 and +0.0, warps spanning
+    more than two digit windows, a partial last vector, odd and even row
+    counts (whole and partial steps of a block's rows), rows out of vector
+    order, and key ranges that cut through a row."""
+    bits, vec, n_values = _sum_rows(f64, n, tail, seed=n * 1000 + tail)
+    fn = kes.exact_sum_f64 if f64 else kes.exact_sum_f32
+    name = "exact_sum_f64" if f64 else "exact_sum_f32"
+    before = kes.LAUNCHES[name]
+    got = fn(bits.to(cuda), vec.to(cuda), n_values)
+    assert kes.LAUNCHES[name] == before + 1
+    want = kes.exact_sum_plain(bits, vec, n_values)
+    assert torch.equal(got.cpu(), want), (n, tail)
+    assert int(want[-3:].sum()) > 0          # NaN / Inf counts exercised
+    for key_range in _sum_key_ranges(bits, f64):
+        got = fn(bits.to(cuda), vec.to(cuda), n_values, key_range=key_range)
+        want = kes.exact_sum_plain(bits, vec, n_values, key_range)
+        assert torch.equal(got.cpu(), want), key_range
+
+
+def test_k5_k6_refuse_misaligned_rows(cuda):
+    """K5/K6 read 16 bytes at a time: rows that do not start on 16 bytes
+    raise instead of reading astray."""
+    for dt, fn in ((torch.int64, kes.exact_sum_f64),
+                   (torch.int32, kes.exact_sum_f32)):
+        flat = torch.zeros(2 * 1024 + 1, dtype=dt, device=cuda)
+        with pytest.raises(RuntimeError):
+            fn(flat[1:].view(2, 1024), torch.arange(2, device=cuda), 2048)
+
+
+@pytest.mark.parametrize("S,rbw", [(64, r) for r in range(65)] +
+                         [(32, r) for r in range(33)])
+def test_k3_k4_every_bit_width(cuda, S, rbw):
+    """K3 (S = 64) / K4 (S = 32) at every right bit width and left bit
+    widths 0, 1, 2, 3, 8 and 16 on seeded random words, dictionary sizes
+    0-8 with indexes past the dictionary, and 37 vectors (not a multiple
+    of a block's vectors), written as a new output and into permuted rows
+    of a larger one (the others left as they were), against the plain
+    version by bits; every other case reads its dictionary from an address
+    that is not 16-byte aligned."""
+    g = torch.Generator(device=cuda).manual_seed(S * 100 + rbw)
+    n = 37
+    dt = torch.int64 if S == 64 else torch.int32
+    fn = falp.rd_decode_dict_f64 if S == 64 else falp.rd_decode_dict_f32
+    name = "rd_decode_dict_f64" if S == 64 else "rd_decode_dict_f32"
+
+    def words(dtype, *shape):
+        info = torch.iinfo(dtype)
+        return torch.empty(shape, dtype=dtype, device=cuda).random_(
+            info.min, info.max, generator=g)
+
+    for i, lbw in enumerate((0, 1, 2, 3, 8, 16)):
+        right = words(dt, n, rbw * 1024 // S)
+        left = words(torch.int16, n, lbw * 64)
+        dictionary = words(torch.int16, n, 8)
+        if i % 2:
+            dictionary = torch.cat([words(torch.int16, 1), dictionary.view(
+                -1)])[1:].view(n, 8)
+        dict_size = torch.randint(0, 9, (n,), dtype=torch.int32,
+                                  generator=g, device=cuda)
+        want = falp.rd_plain(right, rbw, left, lbw, dictionary, dict_size)
+        before = falp.LAUNCHES[name]
+        got = fn(right, rbw, left, lbw, dictionary, dict_size)
+        assert falp.LAUNCHES[name] == before + 1
+        assert torch.equal(got, want), (rbw, lbw)
+        rows = torch.randperm(n + 5, generator=g, device=cuda)[:n]
+        out = torch.full((n + 5, 1024), 7, dtype=dt, device=cuda)
+        fn(right, rbw, left, lbw, dictionary, dict_size, out=out, rows=rows)
+        sentinel = torch.full_like(out, 7)
+        sentinel[rows] = want
+        assert torch.equal(out, sentinel), (rbw, lbw)
+
+
 def test_sum_kernels_refuse_cpu_out_for_cuda_input(cuda):
     bits = torch.zeros((2, 1024), dtype=torch.int64, device=cuda)
     vec = torch.arange(2, device=cuda)
