@@ -9,6 +9,10 @@ order queries COUNT WHERE, MIN / MAX, TOP-K, histogram (K15
 with a key range), exact QUANTILE / MEDIAN (a bisection over K17
 ``rank_pass`` passes), and exact GROUP-BY and windowed aggregates (K18
 ``vector_sum_extremes`` and K19 ``group_reduce``) and COUNT DISTINCT.
+A built decode plan can be kept as a file and restored on a card
+(``save_plan`` / ``load_plan``, ``plan_store``), and compress, decompress,
+SUM, COUNT and GROUP-BY can run over the ranks of a ``torch.distributed``
+group, a card each (``compress(x, mesh=...)``, ``parallel``).
 Its bench times the card: ``benchlib.loop_bench`` over the loop steps
 ``make_*_step``, the headline ``python -m alp_tpu_torch.bench`` and the
 per-kernel rows ``python -m alp_tpu_torch.bench_speed`` (with K20-K23, the
@@ -21,6 +25,7 @@ imports neither JAX nor ``alp_tpu``.
 
 from .container import CompressedColumn, compress, decompress
 from .device_compress import compress_device
+from .plan_store import load_plan, save_plan
 from .engine import (groupby_keys, make_exact_sum_step, make_filter_step,
                      make_groupby_step, make_histogram_step, make_sum_step,
                      make_topk_step, query_compression,
@@ -32,14 +37,14 @@ from .engine import (groupby_keys, make_exact_sum_step, make_filter_step,
 from . import benchlib
 
 __all__ = ["CompressedColumn", "bench", "benchlib", "compress",
-           "compress_device", "decompress", "groupby_keys",
+           "compress_device", "decompress", "groupby_keys", "load_plan",
            "make_exact_sum_step", "make_filter_step", "make_groupby_step",
            "make_histogram_step", "make_sum_step", "make_topk_step",
            "query_compression", "query_count_exceptions", "query_distinct",
            "query_filter_count", "query_filter_sum", "query_groupby",
            "query_histogram", "query_max", "query_mean", "query_median",
            "query_min", "query_quantile", "query_scan", "query_sum",
-           "query_topk", "query_window"]
+           "query_topk", "query_window", "save_plan"]
 
 
 def __getattr__(name):

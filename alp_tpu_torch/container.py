@@ -119,36 +119,15 @@ class CompressedColumn:
     # -- serialization -----------------------------------------------------
 
     def to_bytes(self) -> bytes:
-        dtype_tag = 0 if self.dtype == np.float64 else 1
-        flags = _FLAG_ENC_MAX if self.enc_max is not None else 0
-        head = struct.pack(_HEAD, _MAGIC, _VERSION, dtype_tag, flags,
-                           self.n_values, self.n_vectors, self.n_rowgroups)
-        tc = constants_for(self.dtype)
-
-        def ragged(parts, dt):
-            if not parts:
-                return b""
-            return np.concatenate([np.asarray(p, dt) for p in parts]).tobytes()
-
-        sections = [
-            self.rg_scheme.astype(np.uint8).tobytes(),
-            self.rd_dict.astype(np.uint16).tobytes(),
-            self.rd_dict_size.astype(np.uint8).tobytes(),
-            self.rd_left_bw.astype(np.uint8).tobytes(),
-            self.rd_right_bw.astype(np.uint8).tobytes(),
-            self.fac.astype(np.uint8).tobytes(),
-            self.exp.astype(np.uint8).tobytes(),
-            self.bit_width.astype(np.uint8).tobytes(),
-            self.base.tobytes(),
-            self.exc_count.astype(np.uint16).tobytes(),
-            (self.enc_max.astype(np.uint64).tobytes()
-             if self.enc_max is not None else b""),
-            ragged(self.packed, tc.ut),
-            ragged(self.left_packed, np.uint16),
-            b"".join(np.asarray(p).tobytes() for p in self.exc_values),
-            ragged(self.exc_positions, np.uint16),
-        ]
-        return head + b"".join(sections)
+        return alpt_bytes(
+            self.dtype, self.n_values, self.n_vectors,
+            (self.rg_scheme, self.rd_dict, self.rd_dict_size,
+             self.rd_left_bw, self.rd_right_bw),
+            vector_sections(
+                self.dtype, self.fac, self.exp, self.bit_width, self.base,
+                self.exc_count, self.enc_max, self.packed, self.left_packed,
+                self.exc_values, self.exc_positions),
+            self.enc_max is not None)
 
     @classmethod
     def from_bytes(cls, buf: bytes) -> "CompressedColumn":
@@ -240,6 +219,54 @@ class CompressedColumn:
                    enc_max=enc_max)
 
 
+def alpt_bytes(dtype, n_values: int, n_vectors: int, rowgroups: tuple,
+               sections: list, enc_max: bool) -> bytes:
+    """An ALPT blob from its parts: ``rowgroups`` (rg_scheme, rd_dict,
+    rd_dict_size, rd_left_bw, rd_right_bw) and the :func:`vector_sections`
+    of every vector; ``enc_max`` says whether they hold the v2 enc_max."""
+    dtype_tag = 0 if np.dtype(dtype) == np.float64 else 1
+    rg_scheme, rd_dict, rd_dict_size, rd_left_bw, rd_right_bw = rowgroups
+    head = struct.pack(_HEAD, _MAGIC, _VERSION, dtype_tag,
+                       _FLAG_ENC_MAX if enc_max else 0, n_values, n_vectors,
+                       len(rg_scheme))
+    return head + b"".join([
+        rg_scheme.astype(np.uint8).tobytes(),
+        rd_dict.astype(np.uint16).tobytes(),
+        rd_dict_size.astype(np.uint8).tobytes(),
+        rd_left_bw.astype(np.uint8).tobytes(),
+        rd_right_bw.astype(np.uint8).tobytes(),
+        *sections])
+
+
+def vector_sections(dtype, fac, exp, bit_width, base, exc_count, enc_max,
+                    packed, left_packed, exc_values, exc_positions) -> list:
+    """The ALPT sections of some consecutive vectors, in the format's order
+    (each the concatenation of its vectors' entries, so the sections of
+    consecutive runs of vectors join into the column's): fac, exp, bit
+    width, base, exception count, enc_max (empty when None), then the
+    ragged packed words, left words, exception values and positions."""
+    tc = constants_for(dtype)
+
+    def ragged(parts, dt):
+        if not parts:
+            return b""
+        return np.concatenate([np.asarray(p, dt) for p in parts]).tobytes()
+
+    return [
+        np.asarray(fac).astype(np.uint8).tobytes(),
+        np.asarray(exp).astype(np.uint8).tobytes(),
+        np.asarray(bit_width).astype(np.uint8).tobytes(),
+        np.asarray(base).astype(tc.st).tobytes(),
+        np.asarray(exc_count).astype(np.uint16).tobytes(),
+        (np.asarray(enc_max).astype(np.uint64).tobytes()
+         if enc_max is not None else b""),
+        ragged(packed, tc.ut),
+        ragged(left_packed, np.uint16),
+        b"".join(np.asarray(p).tobytes() for p in exc_values),
+        ragged(exc_positions, np.uint16),
+    ]
+
+
 # ---------------------------------------------------------------------------
 # Compress (host)
 # ---------------------------------------------------------------------------
@@ -256,12 +283,59 @@ def _pad_to_vectors(data: np.ndarray):
     return padded.reshape(n_vec, C.VECTOR_SIZE), n_vec
 
 
-def compress(data: np.ndarray, device=False) -> CompressedColumn:
+def plan_rowgroups(vectors: np.ndarray, tc) -> tuple:
+    """Host planning of every rowgroup of ``vectors`` [n_vec, 1024] (the
+    native sampler, top-k search and scheme choice; the ALP_RD states from
+    ``oracle.rd``): (is ALP_RD, bool [n_rg]; candidates, int32 [n_rg, 5,
+    2] (e, f), zero past the count; their count, int32 [n_rg]; the ALP_RD
+    states, rowgroup -> ``RdState``).  An ALP rowgroup offers its first k
+    candidates (at least one), an ALP_RD one the single pair (0, 0), whose
+    encode is discarded."""
+    n_vec = vectors.shape[0]
+    n_rg = max(1, math.ceil(n_vec / C.N_VECTORS_PER_ROWGROUP))
+    flat = vectors.reshape(-1)
+    schemes, combos_rg, k_rg = (native.init_f64_multi if tc is C.DOUBLE
+                                else native.init_f32_multi)(flat, n_rg)
+    is_rd = schemes == C.SCHEME_ALP_RD
+    rd_states = {
+        rg: rd_encoder_init(
+            flat[rg * C.ROWGROUP_SIZE:
+                 min(n_vec * C.VECTOR_SIZE, (rg + 1) * C.ROWGROUP_SIZE)],
+            0, tc)
+        for rg in np.nonzero(is_rd)[0].tolist()}
+    k_rg = np.where(is_rd, 1, np.maximum(k_rg, 1)).astype(np.int32)
+    keep = (np.arange(C.MAX_K_COMBINATIONS)[None, :] < k_rg[:, None]) \
+        & ~is_rd[:, None]
+    combos_rg = np.where(keep[:, :, None], combos_rg, 0).astype(np.int32)
+    return is_rd, combos_rg, k_rg, rd_states
+
+
+def rd_tables(rd_states: dict, n_rg: int) -> tuple:
+    """The container's ALP_RD rowgroup arrays from the rowgroups' states:
+    (rd_dict u16 [n_rg, 8], rd_dict_size u8 [n_rg], left and right bit
+    widths int64 [n_rg]), zero for ALP rowgroups."""
+    rd_dict = np.zeros((n_rg, C.MAX_RD_DICTIONARY_SIZE), np.uint16)
+    rd_dict_size = np.zeros(n_rg, np.uint8)
+    lbw = np.zeros(n_rg, np.int64)
+    rbw = np.zeros(n_rg, np.int64)
+    for rg, stt in rd_states.items():
+        rd_dict[rg, :stt.actual_dictionary_size] = stt.left_parts_dict
+        rd_dict_size[rg] = stt.actual_dictionary_size
+        lbw[rg], rbw[rg] = stt.left_bit_width, stt.right_bit_width
+    return rd_dict, rd_dict_size, lbw, rbw
+
+
+def compress(data: np.ndarray, device=False, mesh=None) -> CompressedColumn:
     """Compress a 1-D float64/float32 array (adaptive ALP / ALP_RD per
     rowgroup): on the host by default; with ``device`` (``True`` for
     ``"cuda"``, or a device such as ``"cuda:1"``) through
-    ``device_compress.compress_device`` on that device.  Both give the
-    same blob."""
+    ``device_compress.compress_device`` on that device; with ``mesh`` (a
+    ``parallel.make_mesh`` mesh; every rank calls with the same data)
+    through ``parallel.compress_sharded``, the per-vector work split over
+    the mesh's ranks.  All give the same blob."""
+    if mesh is not None:
+        from .parallel import compress_sharded
+        return compress_sharded(data, mesh)
     if device is not False:
         from .device_compress import compress_device
         return compress_device(data, device=None if device is True
@@ -271,20 +345,10 @@ def compress(data: np.ndarray, device=False) -> CompressedColumn:
     f64 = data.dtype == np.float64
     vectors, n_vec = _pad_to_vectors(data)
     n_rg = max(1, math.ceil(n_vec / C.N_VECTORS_PER_ROWGROUP))
-    flat = vectors.reshape(-1)
     vec_rg = np.arange(n_vec) // C.N_VECTORS_PER_ROWGROUP
-
-    # --- planning: the native sampler, top-k search and scheme choice ----
-    schemes, combos_rg, k_rg = (native.init_f64_multi if f64
-                                else native.init_f32_multi)(flat, n_rg)
-    rg_scheme = np.where(schemes == C.SCHEME_ALP_RD, C.SCHEME_ALP_RD,
+    is_rd_rg, combos_rg, k_rg, rd_states = plan_rowgroups(vectors, tc)
+    rg_scheme = np.where(is_rd_rg, C.SCHEME_ALP_RD,
                          C.SCHEME_ALP).astype(np.uint8)
-    rd_states = {
-        rg: rd_encoder_init(
-            flat[rg * C.ROWGROUP_SIZE:
-                 min(n_vec * C.VECTOR_SIZE, (rg + 1) * C.ROWGROUP_SIZE)],
-            0, tc)
-        for rg in np.nonzero(rg_scheme == C.SCHEME_ALP_RD)[0].tolist()}
 
     fac = np.zeros(n_vec, np.uint8)
     exp = np.zeros(n_vec, np.uint8)
@@ -301,13 +365,6 @@ def compress(data: np.ndarray, device=False) -> CompressedColumn:
 
     # --- ALP vectors: one native encode and one ragged pack per column ----
     if alp_idx.size:
-        # an ALP rowgroup offers its first k candidates, an ALP_RD one the
-        # single pair (0, 0) (its encode is discarded)
-        is_alp_rg = rg_scheme == C.SCHEME_ALP
-        k_rg = np.where(is_alp_rg, np.maximum(k_rg, 1), 1).astype(np.int32)
-        keep = (np.arange(C.MAX_K_COMBINATIONS)[None, :] < k_rg[:, None]) \
-            & is_alp_rg[:, None]
-        combos_rg = np.where(keep[:, :, None], combos_rg, 0).astype(np.int32)
         res = (native.encode_f64_multi if f64 else native.encode_f32_multi)(
             vectors, combos_rg, k_rg)
         for key, dst in (("fac", fac), ("exp", exp), ("bit_width", bit_width),
@@ -364,20 +421,13 @@ def compress(data: np.ndarray, device=False) -> CompressedColumn:
             exc_values[v] = left_raw[r][pos]
             exc_count[v] = len(pos)
 
-    rd_dict = np.zeros((n_rg, C.MAX_RD_DICTIONARY_SIZE), np.uint16)
-    rd_dict_size = np.zeros(n_rg, np.uint8)
-    rd_left_bw = np.zeros(n_rg, np.uint8)
-    rd_right_bw = np.zeros(n_rg, np.uint8)
-    for rg, stt in rd_states.items():
-        rd_dict[rg, :stt.actual_dictionary_size] = stt.left_parts_dict
-        rd_dict_size[rg] = stt.actual_dictionary_size
-        rd_left_bw[rg] = stt.left_bit_width
-        rd_right_bw[rg] = stt.right_bit_width
-
+    rd_dict, rd_dict_size, rd_left_bw, rd_right_bw = rd_tables(rd_states,
+                                                               n_rg)
     return CompressedColumn(
         dtype=np.dtype(data.dtype), n_values=len(data), n_vectors=n_vec,
         rg_scheme=rg_scheme, rd_dict=rd_dict, rd_dict_size=rd_dict_size,
-        rd_left_bw=rd_left_bw, rd_right_bw=rd_right_bw,
+        rd_left_bw=rd_left_bw.astype(np.uint8),
+        rd_right_bw=rd_right_bw.astype(np.uint8),
         fac=fac, exp=exp, bit_width=bit_width, base=base,
         exc_count=exc_count, packed=packed, left_packed=left_packed,
         exc_values=exc_values, exc_positions=exc_positions,
@@ -388,11 +438,18 @@ def compress(data: np.ndarray, device=False) -> CompressedColumn:
 # Decompress
 # ---------------------------------------------------------------------------
 
-def decompress(col: CompressedColumn, device=None) -> torch.Tensor:
+def decompress(col: CompressedColumn, device=None,
+               mesh=None) -> torch.Tensor:
     """Bit-exact inverse of :func:`compress`: a 1-D tensor of
     ``col.n_values`` values on ``device``.
 
     ``device=None`` means ``"cuda"`` and raises when no card is present;
-    ``device="cpu"`` runs the kernels' plain PyTorch versions."""
+    ``device="cpu"`` runs the kernels' plain PyTorch versions.  With
+    ``mesh`` (every rank calls with the same column) each rank decodes its
+    share and gathers the whole column on its own device
+    (``parallel.decompress_sharded``)."""
+    if mesh is not None:
+        from .parallel import decompress_sharded
+        return decompress_sharded(col, mesh)
     from .kernels.decode import decompress_device
     return decompress_device(col, device).reshape(-1)[:col.n_values]

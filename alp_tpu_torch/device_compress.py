@@ -40,13 +40,14 @@ JAX package's TPU scorer, on -0.0 samples (``kernels.score``).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
 from . import constants as C
-from .container import CompressedColumn, _pad_to_vectors
+from .container import CompressedColumn, _pad_to_vectors, rd_tables
 from .kernels.decode import resolve_device
 from .kernels.encode import alp_encode_f32, alp_encode_f64
 from .kernels.ffor import ffor_pack_f32, ffor_pack_f64
@@ -203,19 +204,20 @@ def _exceptions(mask, raw) -> tuple:
     return pos, _host(raw[at[:, 0], at[:, 1]])
 
 
-def _pack_rd(vectors, sel: np.ndarray, rbw: int, lbw: int, rd_states: dict,
-             flat, offsets_t) -> tuple:
-    """ALP_RD vectors ``sel`` of one (right, left) bit width: split and
-    look up (``ops.rd``), right parts packed by K10 (K13) at base 0 into
-    ``flat`` (of the patterns' dtype), left indexes by
-    ``ops.fastlanes.ffor_pack``.  Returns (left words [m, lbw * 64] u16,
-    exception positions, raw left parts (u16), counts), on the host."""
+def _pack_rd(vectors, sel: np.ndarray, rgs: np.ndarray, rbw: int, lbw: int,
+             rd_states: dict, flat, offsets_t) -> tuple:
+    """ALP_RD rows ``sel`` of ``vectors`` (of rowgroups ``rgs``) of one
+    (right, left) bit width: split and look up (``ops.rd``), right parts
+    packed by K10 (K13) at base 0 into ``flat`` (of the patterns' dtype),
+    left indexes by ``ops.fastlanes.ffor_pack``.  Returns (left words [m,
+    lbw * 64] u16, exception positions, raw left parts (u16), counts), on
+    the host."""
     dev = vectors.device
     m = len(sel)
     dict_pad = np.full((m, C.MAX_RD_DICTIONARY_SIZE), 0xFFFF, np.int64)
     dict_size = np.zeros(m, np.int64)
-    for j, v in enumerate(sel.tolist()):
-        stt = rd_states[v // RG]
+    for j, rg in enumerate(rgs.tolist()):
+        stt = rd_states[rg]
         dict_pad[j, :stt.actual_dictionary_size] = stt.left_parts_dict
         dict_size[j] = stt.actual_dictionary_size
     sel_t = torch.from_numpy(sel).to(dev)
@@ -233,6 +235,87 @@ def _pack_rd(vectors, sel: np.ndarray, rbw: int, lbw: int, rd_states: dict,
     return lefts, pos, raw.astype(np.uint16), _host(exc_mask.sum(dim=1))
 
 
+@dataclasses.dataclass
+class Encoded:
+    """Steps 2 and 3 over some vectors of a column, in their order: ``meta``
+    int64 [6, m] (fac, exp, bit width, base, enc_max, ALP exception count;
+    0 past fac and exp for ALP_RD vectors), ``exc_count`` u16 [m] (both
+    schemes), ``words`` int64 [m] (packed words of each vector), ``flat``
+    (every vector's packed words in order, on the device) and the
+    per-vector lists of the container."""
+    meta: np.ndarray
+    exc_count: np.ndarray
+    words: np.ndarray
+    flat: torch.Tensor
+    left_packed: list
+    exc_positions: list
+    exc_values: list
+
+
+def encode_pack(vectors, fac, exp, rgs: np.ndarray, is_rd: np.ndarray,
+                rbw_rg: np.ndarray, lbw_rg: np.ndarray,
+                rd_states: dict) -> Encoded:
+    """Encode and pack ``vectors`` [m, 1024] on their device: vector i of
+    rowgroup ``rgs[i]``, ALP_RD where ``is_rd[i]``, ALP with the pair
+    (``exp[i]``, ``fac[i]``) (int32 tensors) elsewhere."""
+    f64 = vectors.dtype == torch.float64
+    tc = C.DOUBLE if f64 else C.FLOAT
+    word = torch.int64 if f64 else torch.int32       # n and packed words
+    lanes = VECTOR // tc.exact_type_bit_size
+    encode = alp_encode_f64 if f64 else alp_encode_f32
+    pack = ffor_pack_f64 if f64 else ffor_pack_f32
+    dev = vectors.device
+    m = vectors.shape[0]
+    is_rd_v = torch.from_numpy(is_rd).to(dev)
+
+    # --- 2. encode -------------------------------------------------------
+    zeros = torch.zeros(m, dtype=torch.int64, device=dev)
+    alp_meta = [zeros] * 4                 # bw, base, enc_max, n_exc
+    if not is_rd.all():
+        n, exc, *stats = encode(vectors, exp, fac, stats=True)
+        bw, base, enc_max, n_exc, fill = finalize_encode_stats(n, *stats)
+        # ALP_RD vectors carry no ALP metadata (as host compress)
+        alp_meta = [torch.where(is_rd_v, 0, x.to(torch.int64))
+                    for x in (bw, base, enc_max, n_exc)]
+    meta = _host(torch.stack([fac.to(torch.int64), exp.to(torch.int64),
+                              *alp_meta]))
+    bw_np, exc_count = meta[2], meta[5].astype(np.uint16)
+
+    # --- 3. pack every vector's words into one flat buffer ----------------
+    words = np.where(is_rd, rbw_rg[rgs], bw_np) * lanes
+    offsets = np.zeros(m + 1, np.int64)
+    np.cumsum(words, out=offsets[1:])
+    flat = torch.empty(int(offsets[-1]), dtype=word, device=dev)
+    offsets_t = torch.from_numpy(offsets[:-1]).to(dev)
+    alp_vec = np.nonzero(~is_rd)[0]
+    for b in np.unique(bw_np[alp_vec]).tolist():
+        if b:
+            sel = torch.from_numpy(alp_vec[bw_np[alp_vec] == b]).to(dev)
+            pack(n, base, b, exc=exc, fill=fill, rows=sel, out=flat,
+                 offsets=offsets_t[sel])
+    exc_positions = [np.empty(0, np.uint16)] * m
+    exc_values = [np.empty(0, tc.pt)] * m
+    if exc_count.any():
+        pos, val = _exceptions(exc & ~is_rd_v[:, None], vectors)
+        has = np.nonzero(exc_count)[0]
+        for v, p, x in zip(has.tolist(), _split(pos, exc_count[has]),
+                           _split(val, exc_count[has])):
+            exc_positions[v], exc_values[v] = p, x
+    left_packed = [np.empty(0, np.uint16)] * m
+    rd_vec = np.nonzero(is_rd)[0]
+    widths = np.stack([rbw_rg[rgs[rd_vec]], lbw_rg[rgs[rd_vec]]], 1)
+    for rbw, lbw in sorted({tuple(w) for w in widths.tolist()}):
+        sel = rd_vec[(widths[:, 0] == rbw) & (widths[:, 1] == lbw)]
+        lefts, pos, raw, counts = _pack_rd(vectors, sel, rgs[sel], rbw, lbw,
+                                           rd_states, flat, offsets_t)
+        for v, lw, p, x, c in zip(sel.tolist(), lefts, _split(pos, counts),
+                                  _split(raw, counts), counts.tolist()):
+            left_packed[v], exc_positions[v], exc_values[v] = lw, p, x
+            exc_count[v] = c
+    return Encoded(meta, exc_count, words, flat, left_packed, exc_positions,
+                   exc_values)
+
+
 def compress_device(data=None, *, values=None, n_values=None,
                     device=None) -> CompressedColumn:
     """Compress a float64 or float32 column with its hot path on a device.
@@ -245,12 +328,7 @@ def compress_device(data=None, *, values=None, n_values=None,
     the last value (``container._pad_to_vectors``).  Other dtypes raise
     ``TypeError``.  The blob equals ``container.compress``'s."""
     vectors, n_values = _stage(data, values, n_values, device)
-    f64 = vectors.dtype == torch.float64
-    tc = C.DOUBLE if f64 else C.FLOAT
-    word = torch.int64 if f64 else torch.int32       # n and packed words
-    lanes = VECTOR // tc.exact_type_bit_size
-    encode = alp_encode_f64 if f64 else alp_encode_f32
-    pack = ffor_pack_f64 if f64 else ffor_pack_f32
+    tc = C.DOUBLE if vectors.dtype == torch.float64 else C.FLOAT
     dev = vectors.device
     n_vec = vectors.shape[0]
     n_rg = math.ceil(n_vec / RG)
@@ -265,67 +343,16 @@ def compress_device(data=None, *, values=None, n_values=None,
     rd_np = rd_np.astype(bool)
     rd_states = _rd_states(strides, sample_ids, rd_np, tc)
     vec_rg_t = torch.from_numpy(vec_rg).to(dev)
-    is_rd_v = rd_rg[vec_rg_t]
     fac, exp = _second_level(strides, combos_rg[vec_rg_t], k_rg[vec_rg_t],
                              bool((k_np > 1).any()))
 
-    # --- 2. encode -------------------------------------------------------
-    alp_any = not rd_np.all()
-    zeros = torch.zeros(n_vec, dtype=torch.int64, device=dev)
-    alp_meta = [zeros] * 4                 # bw, base, enc_max, n_exc
-    if alp_any:
-        n, exc, *stats = encode(vectors, exp, fac, stats=True)
-        bw, base, enc_max, n_exc, fill = finalize_encode_stats(n, *stats)
-        # ALP_RD vectors carry no ALP metadata (as host compress)
-        alp_meta = [torch.where(is_rd_v, 0, x.to(torch.int64))
-                    for x in (bw, base, enc_max, n_exc)]
-    meta = _host(torch.stack([fac.to(torch.int64), exp.to(torch.int64),
-                              *alp_meta]))
-    bw_np, exc_count = meta[2], meta[5].astype(np.uint16)
-
-    # --- 3. pack every vector's words into one flat buffer ----------------
-    rbw_rg = np.zeros(n_rg, np.int64)
-    lbw_rg = np.zeros(n_rg, np.int64)
-    for rg, stt in rd_states.items():
-        rbw_rg[rg], lbw_rg[rg] = stt.right_bit_width, stt.left_bit_width
-    is_rd_np = rd_np[vec_rg]
-    words = np.where(is_rd_np, rbw_rg[vec_rg], bw_np) * lanes
-    offsets = np.zeros(n_vec + 1, np.int64)
-    np.cumsum(words, out=offsets[1:])
-    flat = torch.empty(int(offsets[-1]), dtype=word, device=dev)
-    offsets_t = torch.from_numpy(offsets[:-1]).to(dev)
-    alp_vec = np.nonzero(~is_rd_np)[0]
-    for b in np.unique(bw_np[alp_vec]).tolist():
-        if b:
-            sel = torch.from_numpy(alp_vec[bw_np[alp_vec] == b]).to(dev)
-            pack(n, base, b, exc=exc, fill=fill, rows=sel, out=flat,
-                 offsets=offsets_t[sel])
-    exc_positions = [np.empty(0, np.uint16)] * n_vec
-    exc_values = [np.empty(0, tc.pt)] * n_vec
-    if exc_count.any():
-        pos, val = _exceptions(exc & ~is_rd_v[:, None], vectors)
-        has = np.nonzero(exc_count)[0]
-        for v, p, x in zip(has.tolist(), _split(pos, exc_count[has]),
-                           _split(val, exc_count[has])):
-            exc_positions[v], exc_values[v] = p, x
-    left_packed = [np.empty(0, np.uint16)] * n_vec
-    rd_vec = np.nonzero(is_rd_np)[0]
-    widths = np.stack([rbw_rg[vec_rg[rd_vec]], lbw_rg[vec_rg[rd_vec]]], 1)
-    for rbw, lbw in sorted({tuple(w) for w in widths.tolist()}):
-        sel = rd_vec[(widths[:, 0] == rbw) & (widths[:, 1] == lbw)]
-        lefts, pos, raw, counts = _pack_rd(vectors, sel, rbw, lbw, rd_states,
-                                           flat, offsets_t)
-        for v, lw, p, x, c in zip(sel.tolist(), lefts, _split(pos, counts),
-                                  _split(raw, counts), counts.tolist()):
-            left_packed[v], exc_positions[v], exc_values[v] = lw, p, x
-            exc_count[v] = c
+    # --- 2, 3. encode and pack ------------------------------------------
+    rd_dict, rd_dict_size, lbw_rg, rbw_rg = rd_tables(rd_states, n_rg)
+    enc = encode_pack(vectors, fac, exp, vec_rg, rd_np[vec_rg], rbw_rg,
+                      lbw_rg, rd_states)
 
     # --- 4. assemble -----------------------------------------------------
-    rd_dict = np.zeros((n_rg, C.MAX_RD_DICTIONARY_SIZE), np.uint16)
-    rd_dict_size = np.zeros(n_rg, np.uint8)
-    for rg, stt in rd_states.items():
-        rd_dict[rg, :stt.actual_dictionary_size] = stt.left_parts_dict
-        rd_dict_size[rg] = stt.actual_dictionary_size
+    meta = enc.meta
     return CompressedColumn(
         dtype=np.dtype(tc.pt), n_values=n_values, n_vectors=n_vec,
         rg_scheme=np.where(rd_np, C.SCHEME_ALP_RD,
@@ -334,8 +361,9 @@ def compress_device(data=None, *, values=None, n_values=None,
         rd_left_bw=lbw_rg.astype(np.uint8),
         rd_right_bw=rbw_rg.astype(np.uint8),
         fac=meta[0].astype(np.uint8), exp=meta[1].astype(np.uint8),
-        bit_width=bw_np.astype(np.uint8), base=meta[3].astype(tc.st),
-        exc_count=exc_count,
-        packed=_split(_host(flat).view(tc.ut), words),
-        left_packed=left_packed, exc_values=exc_values,
-        exc_positions=exc_positions, enc_max=meta[4].view(np.uint64).copy())
+        bit_width=meta[2].astype(np.uint8), base=meta[3].astype(tc.st),
+        exc_count=enc.exc_count,
+        packed=_split(_host(enc.flat).view(tc.ut), enc.words),
+        left_packed=enc.left_packed, exc_values=enc.exc_values,
+        exc_positions=enc.exc_positions,
+        enc_max=meta[4].view(np.uint64).copy())

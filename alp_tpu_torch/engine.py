@@ -958,11 +958,12 @@ def _unordered_keys(plan, keys: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(kv.reshape(-1, VECTOR_SIZE)).to(plan.device)
 
 
-def _unordered_host(plan, outs: list, ext: torch.Tensor) -> Groups:
-    """The host join of K19's runs over the whole column."""
-    W = kes.WINDOWS[plan.bits_dtype]
+def _unordered_host(dtype, outs: list, ext: torch.Tensor) -> Groups:
+    """The host join of K19's runs over the whole column (of value
+    ``dtype``): int64 [G, W + 4] runs ``outs``, [G, 2] keys ``ext``."""
+    W = outs[0].shape[1] - 4
     parts = [o.cpu().numpy() for o in outs]
-    ext = ext.cpu().numpy().view(_key_type(plan.dtype))
+    ext = ext.cpu().numpy().view(_key_type(dtype))
     return Groups(_join_windows(parts, [None] * len(parts), W),
                   sum(p[:, W:W + 3] for p in parts),
                   sum(p[:, W + 3] for p in parts), ext[:, 0].copy(),
@@ -971,7 +972,7 @@ def _unordered_host(plan, outs: list, ext: torch.Tensor) -> Groups:
 
 def _unordered_groups(plan, keys: np.ndarray, num_groups: int) -> Groups:
     """K19 over the whole column with the keys in column order."""
-    return _unordered_host(plan, *group_reduce(
+    return _unordered_host(plan.dtype, *group_reduce(
         plan, _unordered_keys(plan, keys), num_groups))
 
 
@@ -1554,5 +1555,5 @@ def make_groupby_step(col, keys, num_groups: int, plan=None):
 
     def fold(res, carry):
         return carry ^ _checksum(*res[0], res[1])
-    return LoopStep(result, fold, lambda res: _unordered_host(plan, *res)), (
-        plan,)
+    return LoopStep(result, fold,
+                    lambda res: _unordered_host(plan.dtype, *res)), (plan,)

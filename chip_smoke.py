@@ -92,7 +92,30 @@ Phases, each printing its wall time:
             the card, ``compress_device(values=decompress(col),
             n_values=...)``.  Prints each column's device and host
             compress walls, launches and the bytes copied to the host.
-11. kernels each kernel against its plain PyTorch version on the card, on
+11. snapshot every column's kept plan (its key extent and K18 totals kept
+            first) through ``plan_store.snapshot`` and ``restore`` on the
+            card: the restored plan's ``run()``, ``exact_sum_totals`` and
+            ``key_count_bins`` (17 thresholds) and its kept key extent and
+            vector sums must equal the built plan's by bits, and the
+            restored plans must launch K1-K8 and K15 (their counts read
+            around those calls).  Prints each blob's bytes beside the ALPT
+            bytes, whether zstd was taken, and the walls of ``snapshot``,
+            ``restore`` (also of the blob without zstd) and a fresh
+            ``build_plan``.
+12. mesh     the sharded paths at a world size of
+            ``torch.cuda.device_count()``, one spawned rank a card over NCCL
+            (``file://`` rendezvous in ``alp_tpu_torch/_build/``), on the
+            five 256 MiB profiles and the other route columns at their
+            source size: ``compress(x, mesh=...)``'s blob must equal host
+            ``compress``'s, ``decompress(col, mesh=...)`` the input's bits,
+            the sharded exact SUM ``math.fsum``, the sharded COUNT the
+            query phase's (its first range), the sharded GROUP-BY at G = 16
+            ``query_groupby`` on one card, by bits, on every rank.  The
+            ranks' launches, counted from their start, must show K1-K10,
+            K12, K13, K15 and K19.  A rank that fails or outlasts
+            MESH_DEADLINE fails the phase; every rank is killed at its end.
+            Prints rank 0's walls.
+13. kernels each kernel against its plain PyTorch version on the card, on
             the same plans, bit for bit (tolerance 0: the codec is
             lossless and the SUM totals are integers); K9-K14 on every
             call of a second ``compress_device`` of every column; K15 (2
@@ -108,7 +131,7 @@ Phases, each printing its wall time:
             ALP_RD bucket (the right parts and the left parts of the
             decode with its exceptions in: it must give the decode back),
             K23 on the decoded bits of every f64 column.
-12. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
+14. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
             their launches as the wrappers made them, without the
             wrappers' synchronising range checks; K11/K14 also by planning
             level, each level with its launches on the dcompress phase,
@@ -153,11 +176,13 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import datetime
 import functools
 import json
 import math
 import multiprocessing
 import os
+import queue
 import struct
 import subprocess
 import sys
@@ -364,6 +389,13 @@ METHODS = ("linear", "lower", "higher", "midpoint", "nearest")
 QUERY_SMALL_K = 7                # TOP-K at n_vectors + 7 on small columns
 # K11/K14, whose rows split their time by planning level
 SCORE_LEVELS = ("score_pairs_f64", "score_pairs_f32")
+MESH_GROUPS = 16                 # the mesh phase's GROUP-BY
+MESH_DEADLINE = 600.0            # seconds the mesh phase's ranks may take
+# kernels the restored plans must launch, and the sharded paths
+SNAPSHOT_KERNELS = (*KERNELS, *SUM_KERNELS, "key_counts")
+MESH_KERNELS = (*KERNELS, *SUM_KERNELS, "alp_encode_f64", "ffor_pack_f64",
+                "alp_encode_f32", "ffor_pack_f32", "key_counts",
+                "group_reduce")
 DC_WRAPPERS = {  # launch-count key -> (module holding it, plain version)
     "alp_encode_f64": ("dc", "encode_plain"),
     "alp_encode_f32": ("dc", "encode_plain_f32"),
@@ -570,6 +602,31 @@ def values_of_keys(keys: np.ndarray, dtype) -> np.ndarray:
             if np.dtype(dtype) == np.float32 else vals)
 
 
+def key_value(keys: np.ndarray, i: int, dtype) -> float:
+    """The value of the i-th of the sorted total-order keys."""
+    return float(values_of_keys(keys[i:i + 1], dtype)[0])
+
+
+def key_count(keys: np.ndarray, lo: float, hi: float, dtype) -> int:
+    """COUNT WHERE lo <= v <= hi from the sorted total-order keys."""
+    kt = keys.dtype.type
+    klo, khi = kt(key_of(lo, dtype)), kt(key_of(hi, dtype))
+    if klo > khi:
+        return 0
+    return int(np.searchsorted(keys, khi, "right")
+               - np.searchsorted(keys, klo, "left"))
+
+
+def count_case(keys: np.ndarray, dtype) -> tuple:
+    """(lo, hi, COUNT WHERE lo <= v <= hi): the first COUNT of the query
+    phase, its bounds the values at a fifth and three fifths of the sorted
+    keys."""
+    n = len(keys)
+    lo, hi = key_value(keys, n // 5, dtype), key_value(keys, 3 * n // 5,
+                                                       dtype)
+    return lo, hi, key_count(keys, lo, hi, dtype)
+
+
 def query_references(x: np.ndarray, keys: np.ndarray, n_vectors: int,
                      small: bool) -> list:
     """The queries of the query phase and their numpy answers from the
@@ -579,21 +636,16 @@ def query_references(x: np.ndarray, keys: np.ndarray, n_vectors: int,
     kt = keys.dtype.type
 
     def val(i):
-        return float(values_of_keys(keys[i:i + 1], x.dtype)[0])
-
-    def count(lo, hi):
-        klo, khi = kt(key_of(lo, x.dtype)), kt(key_of(hi, x.dtype))
-        if klo > khi:
-            return 0
-        return int(np.searchsorted(keys, khi, "right")
-                   - np.searchsorted(keys, klo, "left"))
+        return key_value(keys, i, x.dtype)
 
     refs = []
-    for lo, hi in ((val(n // 5), val(3 * n // 5)), (-0.0, val(9 * n // 10))):
+    top = val(9 * n // 10)
+    for lo, hi, want in (count_case(keys, x.dtype),
+                         (-0.0, top, key_count(keys, -0.0, top, x.dtype))):
         refs.append((f"filter_count[{lo!r}, {hi!r}]",
                      lambda q, c, lo=lo, hi=hi: q.query_filter_count(c, lo,
                                                                      hi),
-                     count(lo, hi), "int"))
+                     want, "int"))
     refs.append(("min", lambda q, c: q.query_min(c),
                  float(values_of_keys(keys[:1], x.dtype)[0]), "float"))
     refs.append(("max", lambda q, c: q.query_max(c),
@@ -967,12 +1019,16 @@ def sliding_reference(x, krow, window: int, hop: int, rng) -> dict:
             "max": values_of_keys(kmax, x.dtype), "checked": checked}
 
 
+def random_group_keys(n: int, seed: list, G: int) -> np.ndarray:
+    """The seeded random group ids in [0, G) of a column of n values."""
+    return np.random.default_rng(seed + [G]).integers(0, G, n)
+
+
 def group_inputs(n: int, seed: list) -> dict:
     """The seeded group ids of the group phase for a column of n values: G
     -> random ids in [0, G) for each of GROUP_SIZES, and "ordered" ->
     ORDERED_RUNS runs in order of random lengths."""
-    out = {G: np.random.default_rng(seed + [G]).integers(0, G, n)
-           for G in GROUP_SIZES}
+    out = {G: random_group_keys(n, seed, G) for G in GROUP_SIZES}
     rng = np.random.default_rng(seed + [0])
     cuts = np.sort(rng.choice(n - 1, ORDERED_RUNS - 1, replace=False) + 1)
     out["ordered"] = np.repeat(np.arange(ORDERED_RUNS),
@@ -1117,6 +1173,92 @@ def dc_reset() -> None:
     _, kenc, kffor, kscore = dc_modules()
     for module in (kenc, kffor, kscore):
         module.reset_launches()
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count so far, by kernel."""
+    from alp_tpu_torch.kernels import (encode, exact_sum, falp, ffor, group,
+                                       keys, score)
+    return {k: v for m in (falp, exact_sum, keys, group, encode, ffor, score)
+            for k, v in m.LAUNCHES.items()}
+
+
+def moved_since(before: dict) -> dict:
+    """The launches since ``before`` (a ``launch_counts()``), by kernel."""
+    return {k: v - before.get(k, 0) for k, v in launch_counts().items()
+            if v != before.get(k, 0)}
+
+
+def shared_array(spec: tuple) -> np.ndarray:
+    """A private copy of the array in shared memory ``spec`` = (name,
+    length, dtype)."""
+    shm = shared_memory.SharedMemory(name=spec[0])
+    try:
+        return np.ndarray((spec[1],), spec[2], buffer=shm.buf).copy()
+    finally:
+        shm.close()
+
+
+def mesh_rank_task(rank: int, world: int, rendezvous: str, specs: dict,
+                   out_q) -> None:
+    """One rank of the mesh phase, a spawned process on card ``rank``: join
+    the NCCL group (``file://`` rendezvous), build the mesh, and for every
+    column of ``specs`` (name -> (input, ALPT blob, seed, (lo, hi)), the
+    arrays in shared memory) run the sharded paths through their entry
+    points: ``compress(x, mesh=...)`` against the blob, ``decompress(col,
+    mesh=...)`` against the input's bits (on the card), the exact SUM, COUNT
+    WHERE lo <= v <= hi and GROUP-BY over MESH_GROUPS seeded random groups.
+    Puts (rank, {name: results and walls}, launches) on ``out_q``."""
+    import torch
+    import torch.distributed as dist
+
+    import alp_tpu_torch
+    from alp_tpu_torch import parallel as par
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{rendezvous}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_DEADLINE))
+    try:
+        mesh = par.make_mesh(world)
+        dev = torch.device("cuda", rank)
+        before = launch_counts()
+        out = {}
+        for name, (x_spec, blob_spec, seed, (lo, hi)) in specs.items():
+            x = shared_array(x_spec)
+            blob = shared_array(blob_spec).tobytes()
+            col = alp_tpu_torch.CompressedColumn.from_bytes(blob)
+            walls = {}
+
+            def timed(label, fn):
+                torch.cuda.synchronize()
+                tw = time.perf_counter()
+                got = fn()
+                torch.cuda.synchronize()
+                walls[label] = time.perf_counter() - tw
+                return got
+
+            packed = timed("compress", lambda: alp_tpu_torch.compress(
+                x, mesh=mesh))
+            values = timed("decompress", lambda: alp_tpu_torch.decompress(
+                col, mesh=mesh))
+            want = torch.from_numpy(x.view(f"i{x.dtype.itemsize}")).to(dev)
+            keys = random_group_keys(len(x), seed, MESH_GROUPS)
+            out[name] = {
+                "blob": packed.to_bytes() == blob,
+                "bits": (values.device == dev and torch.equal(
+                    bits_view(values), want)),
+                "sum": timed("sum", lambda: par.sharded_exact_sum(mesh,
+                                                                  col)),
+                "count": timed("count", lambda: par.sharded_filter_count(
+                    mesh, col, lo, hi)),
+                "groups": timed("groupby", lambda: par.sharded_groupby(
+                    mesh, col, keys, MESH_GROUPS)),
+                "walls": walls}
+            del values, want
+        out_q.put((rank, out, moved_since(before)))
+    finally:
+        dist.destroy_process_group()
 
 
 def int_err(a, b) -> float:
@@ -1435,7 +1577,7 @@ def main() -> int:
     # 3. compress
     t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
-    columns = {}
+    columns, sources = {}, {}
     tile_to = dict(TILE_TO, **{name: BENCH_VECTORS for name in BENCH_PROFILES})
     for name, x in route_columns(rng, SOURCE_VECTORS).items():
         target = tile_to.get(name)
@@ -1458,6 +1600,7 @@ def main() -> int:
               f"exceptions={int(col.exc_count.sum())} "
               f"bits/value={col.bits_per_value():.3f} "
               f"compress={time.perf_counter() - tc:.3f}s{note}", flush=True)
+        sources[name] = x
         expected = x
         if target:
             col = tile_column(col, target)
@@ -1607,13 +1750,16 @@ def main() -> int:
     phase("sum", t0, f"math.fsum references {ref_s:.3f}s, SUM path "
           f"{sum_s:.3f}s launches={sum_launches}")
 
-    # 6. query: the predicate and order queries, through the public entries
+    # 7. query: the predicate and order queries, through the public entries
     t0 = time.perf_counter()
     sorted_keys = {name: np.sort(np_keys(exp))
                    for name, (_, exp) in columns.items()}
     refs = {name: query_references(exp, sorted_keys[name], col.n_vectors,
                                    name not in tile_to)
             for name, (col, exp) in columns.items()}
+    # the first COUNT of each column, which the mesh phase repeats
+    query_counts = {name: count_case(sorted_keys[name], exp.dtype)
+                    for name, (_, exp) in columns.items()}
     ref_s = time.perf_counter() - t0
     for col, _ in columns.values():
         col._plans.clear()            # the first query builds the plan again
@@ -1655,7 +1801,7 @@ def main() -> int:
           f"{query_s:.3f}s launches={query_launches} filtered SUM "
           f"launches={filtered_launches}")
 
-    # 7. quantile: QUANTILE / MEDIAN, through the public entry points
+    # 8. quantile: QUANTILE / MEDIAN, through the public entry points
     t0 = time.perf_counter()
     qrefs = {}
     for name, (_, exp) in columns.items():
@@ -1720,7 +1866,7 @@ def main() -> int:
     phase("quantile", t0, f"numpy references {ref_s:.3f}s, quantile path "
           f"{quantile_s:.3f}s launches={quantile_launches}")
 
-    # 8. group: GROUP-BY, windows, DISTINCT, through the public entries
+    # 9. group: GROUP-BY, windows, DISTINCT, through the public entries
     t0 = time.perf_counter()
     seeds = {name: [args.seed, i] for i, name in enumerate(columns)}
     # the references are independent: one process a (column, query), all
@@ -1875,7 +2021,7 @@ def main() -> int:
     phase("group", t0, f"numpy references {ref_s:.3f}s, group path "
           f"{group_s:.3f}s launches={group_launches}")
 
-    # 8. dcompress: the device compress path, through the public entry
+    # 10. dcompress: the device compress path, through the public entry
     t0 = time.perf_counter()
     host_blobs = {}
     # K11/K14's launches by planning level: the first scores pairs shared by
@@ -1941,7 +2087,179 @@ def main() -> int:
     phase("dcompress", t0, f"device compress path {dc_s:.3f}s "
           f"launches={dc_launches} (two compress_device calls a column)")
 
-    # 9. kernels vs plain versions, on the card, same plans
+    # 11. snapshot: every column's plan kept as a blob and restored
+    t0 = time.perf_counter()
+    from alp_tpu_torch import plan_store
+    torch.cuda.synchronize()
+    snap_launches = {}
+    for name, (col, exp) in columns.items():
+        plan = col.plan(dev)
+        engine._plan_key_extent(plan)
+        engine._plan_vector_sums(plan)
+        thr = column_thresholds(exp, 17)
+        want = (plan.run(), engine.exact_sum_totals(plan),
+                engine.key_count_bins(plan, thr))
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        blob = plan_store.snapshot(plan)
+        snap_s = time.perf_counter() - tw
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        restored = plan_store.restore(blob)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - tw
+        raw = plan_store.snapshot(plan, compress=False)
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        plan_store.restore(raw)
+        torch.cuda.synchronize()
+        raw_s = time.perf_counter() - tw
+        tw = time.perf_counter()
+        fresh = decode.build_plan(col, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - tw
+        del fresh, raw
+        before = launch_counts()
+        got = (restored.run(), engine.exact_sum_totals(restored),
+               engine.key_count_bins(restored, thr))
+        torch.cuda.synchronize()
+        for k, v in moved_since(before).items():
+            snap_launches[k] = snap_launches.get(k, 0) + v
+        for label, a, b in zip(("run()", "exact_sum_totals",
+                                "key_count_bins"), got, want):
+            if a.dtype != b.dtype or not torch.equal(
+                    *(bits_view(t) if t.is_floating_point() else t
+                      for t in (a, b))):
+                raise RuntimeError(f"{name}: the restored plan's {label} "
+                                   f"differs from the built plan's")
+        if restored.key_extent != plan.key_extent or not all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                zip(restored.vector_sums, plan.vector_sums)):
+            raise RuntimeError(f"{name}: the restored key_extent or "
+                               f"vector_sums differ from the built plan's")
+        print(f"  {name}: snapshot {len(blob)} bytes "
+              f"({plan_store.snapshot_codec(blob)}) beside ALPT "
+              f"{len(col.to_bytes())} bytes; snapshot {snap_s:.4f} s, "
+              f"restore {restore_s:.4f} s (of the raw blob "
+              f"{raw_s:.4f} s), fresh build_plan {build_s:.4f} s; "
+              f"run(), exact_sum_totals, key_count_bins (17 "
+              f"thresholds), key_extent and vector_sums == the built "
+              f"plan's", flush=True)
+        del got, want, restored, blob
+    for k in SNAPSHOT_KERNELS:
+        if not snap_launches.get(k):
+            raise RuntimeError(f"kernel {k} was not launched on a restored "
+                               f"plan")
+    phase("snapshot", t0, f"launches on the restored plans={snap_launches}")
+
+    # 12. mesh: the sharded paths, a rank a card over NCCL
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    mesh_cols = {}
+    for name, x in sources.items():
+        if name in BENCH_PROFILES:          # the 256 MiB profiles
+            x = columns[name][1]
+            col = columns[name][0]
+            fsum, count = sums[name], query_counts[name]
+        else:                               # the route columns, small
+            col = alp_tpu_torch.compress(x)
+            fsum = fsum_reference(x)
+            count = (query_counts[name] if name not in tile_to
+                     else count_case(np.sort(np_keys(x)), x.dtype))
+        mesh_cols[name] = (x, host_blobs[name] if name in BENCH_PROFILES
+                           else col.to_bytes(), col, fsum, count)
+    ctx = multiprocessing.get_context("spawn")
+    shms, specs = [], {}
+    out_q = ctx.Queue()
+    procs = []
+    results, launches = {}, {}
+    try:
+        for name, (x, blob, _, _, count) in mesh_cols.items():
+            entry = []
+            for arr in (x, np.frombuffer(blob, np.uint8)):
+                shm = shared_memory.SharedMemory(create=True,
+                                                 size=max(arr.nbytes, 1))
+                shms.append(shm)
+                np.ndarray(arr.shape, arr.dtype, buffer=shm.buf)[:] = arr
+                entry.append((shm.name, len(arr), arr.dtype.str))
+            specs[name] = (*entry, seeds[name], count[:2])
+        rendezvous = str(_build.BUILD_DIR / f"mesh-rendezvous-{os.getpid()}")
+        tm = time.perf_counter()
+        procs = [ctx.Process(target=mesh_rank_task,
+                             args=(r, world, rendezvous, specs, out_q))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        end = time.monotonic() + MESH_DEADLINE
+        while len(results) < world:
+            try:
+                rank, res, moved = out_q.get(timeout=1.0)
+            except queue.Empty:
+                failed = [p.exitcode for p in procs
+                          if p.exitcode not in (None, 0)]
+                if failed:
+                    raise RuntimeError(f"a mesh rank exited with {failed}")
+                if time.monotonic() > end:
+                    raise RuntimeError(f"mesh ranks still ran after "
+                                       f"{MESH_DEADLINE} s")
+                continue
+            results[rank], launches[rank] = res, moved
+        for p in procs:
+            p.join(max(1.0, end - time.monotonic()))
+        mesh_s = time.perf_counter() - tm
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise RuntimeError(f"mesh ranks exited with {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        for shm in shms:
+            shm.close()
+            shm.unlink()
+        if procs and os.path.exists(rendezvous):
+            os.remove(rendezvous)
+    for name, (x, _, col, fsum, count) in mesh_cols.items():
+        want = alp_tpu_torch.query_groupby(
+            col, random_group_keys(len(x), seeds[name], MESH_GROUPS),
+            MESH_GROUPS)
+        for rank in range(world):
+            got = results[rank][name]
+            if not got["blob"]:
+                raise RuntimeError(f"{name}: rank {rank}'s compress(x, "
+                                   f"mesh=...) blob differs from compress")
+            if not got["bits"]:
+                raise RuntimeError(f"{name}: rank {rank}'s decompress(col, "
+                                   f"mesh=...) differs from the input")
+            if not same_float(got["sum"], fsum):
+                raise RuntimeError(f"{name}: rank {rank}'s sharded SUM "
+                                   f"{got['sum']!r} != math.fsum {fsum!r}")
+            if got["count"] != count[2]:
+                raise RuntimeError(f"{name}: rank {rank}'s sharded COUNT "
+                                   f"{got['count']} != {count[2]}")
+            if sorted(got["groups"]) != sorted(want) or any(
+                    got["groups"][a].tobytes() != want[a].tobytes()
+                    for a in want):
+                raise RuntimeError(f"{name}: rank {rank}'s sharded "
+                                   f"GROUP-BY differs from query_groupby")
+        walls = results[0][name]["walls"]
+        print(f"  {name}: {len(x)} values over {world} rank(s): blob, "
+              f"decoded bits, SUM {fsum.hex()}, COUNT {count[2]} and "
+              f"GROUP-BY (G={MESH_GROUPS}) == single card; rank 0 walls s: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()),
+              flush=True)
+    mesh_launches = {k: sum(m.get(k, 0) for m in launches.values())
+                     for k in sorted({k for m in launches.values()
+                                      for k in m})}
+    for k in MESH_KERNELS:
+        if not mesh_launches.get(k):
+            raise RuntimeError(f"kernel {k} was not launched on the sharded "
+                               f"paths")
+    phase("mesh", t0, f"world size {world} (NCCL), ranks {mesh_s:.3f}s, "
+          f"launches over the ranks={mesh_launches}")
+
+    # 13. kernels vs plain versions, on the card, same plans
     t0 = time.perf_counter()
     errors = {k: 0.0 for k in (*KERNELS, *SUM_KERNELS, *DC_KERNELS,
                                *KEY_KERNELS, *RANK_KERNELS, *GROUP_KERNELS,
@@ -2147,7 +2465,7 @@ def main() -> int:
           "keys == plain, K20-K23 == plain (K21 == the decode), every "
           "K9-K14 call of compress_device == plain (tolerance 0)")
 
-    # 10. timing at the 256 MiB shapes
+    # 14. timing at the 256 MiB shapes
     t0 = time.perf_counter()
     timed = {"falp_decode_f64": list(BENCH_PROFILES),
              "falp_decode_f32": ["f32_alp"],

@@ -9,9 +9,11 @@ the key kernels K15/K16/K17 and the filtered SUM against their plain
 versions, every predicate and order query on the card against its answer
 on the CPU, QUANTILE / MEDIAN on the card against ``np.quantile``, and the
 grouped kernels K18/K19 against their plain versions and GROUP-BY, windows
-and DISTINCT on the card against their answers on the CPU.  This file
-imports neither JAX nor ``alp_tpu``, so it runs on a machine with a card
-and no JAX:
+and DISTINCT on the card against their answers on the CPU, a plan
+snapshot restored on the card against the built plan, and the sharded
+paths over NCCL at world sizes 1, 2 and 4 (a size skips on fewer cards)
+against the single-device answers.  This file imports neither JAX nor
+``alp_tpu``, so it runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -1541,3 +1543,86 @@ def test_loop_steps_on_card_equal_queries(name, cuda):
     for make in (engine.make_sum_step, engine.make_exact_sum_step):
         assert benchlib.loop_bench(*make(plan), 3) > 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_snapshot_round_trip_on_card(name, cuda):
+    """A kept plan (its key extent and K18 totals kept) through
+    ``plan_store.snapshot`` and ``restore`` on the card: every view 256-byte
+    aligned, and the decode, SUM totals, K15 bins, key extent and vector
+    sums equal to the built plan's."""
+    from alp_tpu_torch import plan_store
+    col = alp_tpu_torch.compress(COLUMNS[name])
+    plan = col.plan(cuda)
+    engine._plan_key_extent(plan)
+    engine._plan_vector_sums(plan)
+    restored = plan_store.restore(plan_store.snapshot(plan))
+    assert restored.device.type == "cuda"
+    for b in restored.buckets:
+        for t in (b.rows, *b.args):
+            assert t.is_cuda and (not t.numel() or t.data_ptr() % 256 == 0)
+    bits = _bits_dtype(plan)
+    assert torch.equal(restored.run().view(bits), plan.run().view(bits))
+    assert torch.equal(engine.exact_sum_totals(restored),
+                       engine.exact_sum_totals(plan))
+    x = COLUMNS[name]
+    fin = np.sort(x[np.isfinite(x)])
+    thr = np.unique(engine._float_keys(fin[::max(1, len(fin) // 16)],
+                                       x.dtype))
+    assert torch.equal(engine.key_count_bins(restored, thr),
+                       engine.key_count_bins(plan, thr))
+    assert restored.key_extent == plan.key_extent
+    for a, b in zip(restored.vector_sums, plan.vector_sums):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_mesh_on_cards(world, cuda, tmp_path):
+    """The sharded paths over NCCL, a rank a card
+    (``torch_parallel_worker``): every rank's blob equals host compress's,
+    its decode (on its own card) the input's bits, its SUM ``math.fsum``, its
+    COUNT and GROUP-BY the single-device answers, its encode step the
+    plain versions' choice, and its join of SUM rows near 2^62 their
+    Python-integer sum."""
+    import torch_parallel_worker as worker
+    from alp_tpu_torch import device_compress as dc
+    from alp_tpu_torch.kernels import _build
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} NVIDIA GPUs")
+    _build.build()
+    ranks = worker.spawn_ranks(world, "cuda", str(tmp_path))
+    cpu = torch.device("cpu")
+    for name, x in worker.columns().items():
+        col = alp_tpu_torch.compress(x)
+        keys = worker.group_keys(len(x))
+        groups = alp_tpu_torch.query_groupby(col, keys, worker.GROUPS,
+                                             device=cpu)
+        count = alp_tpu_torch.query_filter_count(col, *worker.COUNT_RANGE,
+                                                 device=cpu)
+        for r in ranks:
+            assert r["blob"][name] == col.to_bytes()
+            assert r["decoded"][name] == (f"cuda:{r['rank']}", x.tobytes())
+            assert r["shards"][name] == x.tobytes()
+            assert _same(r["sum"][name], worker.fsum_reference(x))
+            assert r["count"][name] == count
+            for agg, want in groups.items():
+                assert r["groupby"][name][agg].tobytes() == want.tobytes()
+    values, combos, k_count = worker.step_problem()
+    v = torch.from_numpy(values)
+    fac, exp = dc._second_level(v[:, ::32].contiguous(),
+                                torch.from_numpy(combos),
+                                torch.from_numpy(k_count), True)
+    ints, _, *stats = kenc.alp_encode_f64(v, exp, fac, stats=True)
+    bw, base, _, n_exc, _ = dc.finalize_encode_stats(ints, *stats)
+    width = kes.WINDOWS[torch.int64] + 3
+    rows = np.concatenate([worker.join_rows(r, width) for r in range(world)])
+    total = sum(int(t) << (32 * w) for row in rows.tolist()
+                for w, t in enumerate(row[:width - 3]))
+    for r in ranks:
+        step = r["step"]
+        for key, want in (("fac", fac), ("exp", exp), ("bit_width", bw),
+                          ("base", base), ("exc_count", n_exc)):
+            assert np.array_equal(step[key].astype(np.int64),
+                                  want.numpy().astype(np.int64)), key
+        assert step["ok"].all()
+        assert r["join"][0] == total

@@ -8,6 +8,9 @@
 * Decoding with ``device=None`` where no CUDA device exists raises instead
   of falling back to the CPU; ``chip_smoke.py`` exits nonzero without a
   card, and alone in a directory.
+* Importing ``alp_tpu_torch.parallel`` starts no process group and no
+  process; ``make_mesh`` needs the caller's group and its backend, and
+  never picks gloo or the CPU itself.
 """
 
 import pathlib
@@ -94,3 +97,39 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
     done = _run_smoke(tmp_path)
     assert done.returncode != 0
     assert '"ok": true' not in done.stdout
+
+
+def test_parallel_import_starts_no_process_group():
+    code = ("import multiprocessing, sys\n"
+            "import torch.distributed as dist\n"
+            "import alp_tpu_torch.parallel\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+            "             or m.startswith(('jax.', 'alp_tpu.'))\n"
+            "             or m == 'alp_tpu')\n"
+            "started = (dist.is_initialized()\n"
+            "           or bool(multiprocessing.active_children()))\n"
+            "print(bad, started)\n"
+            "sys.exit(1 if bad or started else 0)\n")
+    done = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stdout + done.stderr
+
+
+def test_make_mesh_needs_the_callers_group_and_backend(tmp_path):
+    import torch.distributed as dist
+    from alp_tpu_torch.parallel import make_mesh
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="nccl"):
+            make_mesh()                          # a card mesh needs NCCL
+        with pytest.raises(ValueError):
+            make_mesh(2, "cpu")
+        with pytest.raises(ValueError):
+            make_mesh(device_type="tpu")
+        mesh = make_mesh(1, "cpu")
+        assert mesh.device_type == "cpu" and mesh.mesh_dim_names == ("rg",)
+    finally:
+        dist.destroy_process_group()

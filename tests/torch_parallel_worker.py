@@ -1,0 +1,154 @@
+"""Rank worker of the port's sharded tests (``tests/test_torch_parallel.py``
+on the CPU over gloo, ``tests/test_torch_cuda.py`` on cards over NCCL).
+
+It imports neither JAX nor ``alp_tpu``, so that spawned ranks load
+neither.  ``spawn_ranks`` starts ``world`` processes that each run
+:func:`run_rank`: join the process group by a ``file://`` rendezvous, build
+the mesh, run every sharded path on the columns of :func:`columns` and
+pickle the results to ``out_dir/rank<r>.pkl``; it returns every rank's
+results, or raises when a rank fails or outlasts the deadline.
+"""
+
+from __future__ import annotations
+
+import datetime
+import math
+import multiprocessing
+import os
+import pickle
+import time
+
+import numpy as np
+
+COLUMNS = ("bench_bw20_food_prices", "f64_alp_rd", "f64_mixed_alp_rd",
+           "f32_alp", "f32_alp_rd", "f64_specials_tail")
+N_VECTORS = 250                    # 2.5 rowgroups: both schemes when mixed
+GROUPS = 16
+COUNT_RANGE = (10.0, 50.0)
+JOIN_ROWS = 4                      # synthetic SUM rows a rank
+
+
+def columns() -> dict:
+    from alp_tpu_torch.columns import route_columns
+    cols = route_columns(np.random.default_rng(3), N_VECTORS)
+    return {name: cols[name] for name in COLUMNS}
+
+
+def fsum_reference(x: np.ndarray) -> float:
+    """``math.fsum`` of the values, with IEEE's NaN and infinity rules."""
+    x = x.astype(np.float64)
+    pinf, ninf = bool(np.isposinf(x).any()), bool(np.isneginf(x).any())
+    if np.isnan(x).any() or (pinf and ninf):
+        return math.nan
+    if pinf or ninf:
+        return math.inf if pinf else -math.inf
+    return math.fsum(x.tolist())
+
+
+def group_keys(n: int) -> np.ndarray:
+    return np.random.default_rng(1).integers(0, GROUPS, n)
+
+
+def step_problem() -> tuple:
+    """The encode step's inputs of ``tests/test_parallel.py::problem``:
+    16 vectors of 2-decimal values, candidates (14, 12) and (14, 13)."""
+    rng = np.random.default_rng(0)
+    n_vec = 16
+    values = np.round(rng.uniform(-50, 50, size=(n_vec, 1024)), 2)
+    combos = np.zeros((n_vec, 5, 2), np.int32)
+    combos[:, 0] = (14, 12)
+    combos[:, 1] = (14, 13)
+    return values, combos, np.full(n_vec, 2, np.int32)
+
+
+def join_rows(rank: int, width: int) -> np.ndarray:
+    """Synthetic int64 SUM rows [JOIN_ROWS, width] of ``rank``: every window
+    total within 2^20 of +-2^62, so that four of them overflow int64; the
+    NaN / +Inf / -Inf counts small."""
+    rng = np.random.default_rng([7, rank])
+    w = width - 3
+    sign = np.where(rng.random((JOIN_ROWS, w)) < 0.25, -1, 1)
+    rows = np.zeros((JOIN_ROWS, width), np.int64)
+    rows[:, :w] = sign * (np.int64(1 << 62)
+                          - rng.integers(0, 1 << 20, (JOIN_ROWS, w)))
+    rows[:, w:] = rng.integers(0, 5, (JOIN_ROWS, 3))
+    return rows
+
+
+def run_rank(rank: int, world: int, rendezvous: str, device_type: str,
+             out_dir: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    import alp_tpu_torch
+    from alp_tpu_torch import parallel as par
+    from alp_tpu_torch.kernels import exact_sum as kes
+
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                            init_method=f"file://{rendezvous}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = par.make_mesh(world, device_type)
+        res = {"rank": rank, "world": world, "blob": {}, "decoded": {},
+               "shards": {}, "sum": {}, "count": {}, "groupby": {}}
+        for name, x in columns().items():
+            col = alp_tpu_torch.compress(x)
+            res["blob"][name] = alp_tpu_torch.compress(
+                x, mesh=mesh).to_bytes()
+            out = alp_tpu_torch.decompress(col, mesh=mesh)
+            res["decoded"][name] = (str(out.device),
+                                    out.cpu().numpy().tobytes())
+            # the shares of every bucket decoded a rank (f32 too)
+            res["shards"][name] = par.sharded_decode(
+                mesh, col).cpu().numpy().tobytes()
+            res["sum"][name] = par.sharded_exact_sum(mesh, col)
+            res["count"][name] = par.sharded_filter_count(mesh, col,
+                                                          *COUNT_RANGE)
+            res["groupby"][name] = par.sharded_groupby(
+                mesh, col, group_keys(len(x)), GROUPS)
+        res["step"] = par.sharded_encode_decode_step(
+            mesh, np.float64)(*step_problem())
+        width = kes.WINDOWS[torch.int64] + 3
+        rows = torch.from_numpy(join_rows(rank, width))
+        res["join"] = par.join_rank_totals(mesh, rows, np.float64)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, device_type: str, tmp_dir: str,
+                deadline: float = 240.0) -> list:
+    """Run :func:`run_rank` on ``world`` spawned processes; every rank's
+    results in rank order.  A rank that exits nonzero fails the call; one
+    still running at ``deadline`` seconds is killed, and so is every other."""
+    ctx = multiprocessing.get_context("spawn")
+    rendezvous = os.path.join(tmp_dir, "rendezvous")
+    procs = [ctx.Process(target=run_rank, args=(r, world, rendezvous,
+                                                device_type, tmp_dir))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + deadline
+    try:
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+    if hung:
+        raise TimeoutError(f"{len(hung)} of {world} ranks still ran after "
+                           f"{deadline} s")
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"rank exit codes {codes}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp_dir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
