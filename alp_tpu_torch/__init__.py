@@ -16,7 +16,11 @@ group, a card each (``compress(x, mesh=...)``, ``parallel``).
 Its bench times the card: ``benchlib.loop_bench`` over the loop steps
 ``make_*_step``, the headline ``python -m alp_tpu_torch.bench`` and the
 per-kernel rows ``python -m alp_tpu_torch.bench_speed`` (with K20-K23, the
-kernels of the TPU sites only the bench reaches).
+kernels of the TPU sites only the bench reaches), and the end-to-end rows
+``python -m alp_tpu_torch.bench_e2e`` (ALP on the card against the
+competitor codecs of ``competitors`` and ``native`` on the host).  The CLI
+``python -m alp_tpu_torch file.bin`` compresses a column of your own;
+``utils`` and ``reports`` read datasets and write the reference's CSVs.
 The JAX package ``alp_tpu`` beside it is the reference: the port's blobs
 equal its blobs byte for byte, its decoded values equal its values bit for
 bit, and its query answers equal its answers bit for bit.  This package

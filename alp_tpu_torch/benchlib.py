@@ -23,6 +23,15 @@ import time
 import torch
 
 
+def carry_into_rows(rows: torch.Tensor, carry: torch.Tensor) -> None:
+    """XOR the carry into the first 64-bit word of every row of ``rows``
+    (a contiguous 2-D tensor of 8-byte elements), in place: a second call
+    takes it out again.  A step that perturbs its input this way keeps
+    the data it was given (a full XOR pass would add a read and a write of
+    the whole input to the time)."""
+    rows.view(torch.int64)[:, 0] ^= carry
+
+
 def _device_of(args, device) -> torch.device:
     """``device``, else that of the first argument that has one (a tensor
     or a plan), else the card."""

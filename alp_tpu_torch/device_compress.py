@@ -36,18 +36,25 @@ FP32 compute subnormals, and FP64 |x| in [2^52, 2^104), exactly
 (``csrc/encode.cuh``).  The f32 search follows the host engine, not the
 JAX package's TPU scorer, on -0.0 samples (``kernels.score``).
 ``device="cpu"`` runs every kernel's plain version.
+
+``make_device_compress_step`` (steps 1 and 2 of the ALP rowgroups) and
+``make_pack_step`` (step 3) are the same device work as loop steps for
+``benchlib.loop_bench``, with no host fetch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import constants as C
+from .benchlib import carry_into_rows
 from .container import CompressedColumn, _pad_to_vectors, rd_tables
+from .engine import LoopStep, _checksum
 from .kernels.decode import resolve_device
 from .kernels.encode import alp_encode_f32, alp_encode_f64
 from .kernels.ffor import ffor_pack_f32, ffor_pack_f64
@@ -124,9 +131,10 @@ def _sampled_vectors(n_vectors: int) -> np.ndarray:
     return ids
 
 
-def _first_level(strides, n_vec: int, tc) -> tuple:
-    """Each rowgroup's (combos [n_rg, 5, 2], k [n_rg], is_rd [n_rg]) on the
-    device, and its sampled vector ids (a list of arrays)."""
+def _sample_groups(n_vec: int) -> list:
+    """The vectors the first-level sampler takes a stride of, as int64
+    arrays [rowgroups, sampled vectors]: one for the whole rowgroups, one
+    for a partial last rowgroup."""
     n_full = n_vec // RG
     groups = []
     if n_full:
@@ -134,14 +142,23 @@ def _first_level(strides, n_vec: int, tc) -> tuple:
                       + _sampled_vectors(RG)[None, :])
     if n_vec % RG:
         groups.append(n_full * RG + _sampled_vectors(n_vec % RG)[None, :])
+    return groups
+
+
+def _first_level(strides, groups: list, tc, checked: bool = True) -> tuple:
+    """Each rowgroup's (combos [n_rg, 5, 2], k [n_rg], is_rd [n_rg]) on the
+    device from the strides of its sampled vectors (``groups``: the
+    tensors of :func:`_sample_groups` on the device); an ALP_RD rowgroup's
+    combos and k are zeroed."""
     score = (first_level_scores_f64 if tc is C.DOUBLE
              else first_level_scores_f32)
     parts = []
     for ids in groups:
-        est, ne = score(strides[torch.from_numpy(ids).to(strides.device)])
+        est, ne = score(strides[ids], checked=checked)
         parts.append(first_level_vote(est, ne, SAMPLES, tc))
     combos, k, is_rd = (torch.cat(x) for x in zip(*parts))
-    return combos, k, is_rd, [row for ids in groups for row in ids]
+    return (torch.where(is_rd[:, None, None], 0, combos),
+            torch.where(is_rd, 0, k), is_rd)
 
 
 def finalize_encode_stats(n, exc_count, first, vmin, vmax) -> tuple:
@@ -179,10 +196,12 @@ def _rd_states(strides, sample_ids: list, rd_np: np.ndarray, tc) -> dict:
             zip(rgs.tolist(), _split(samples.reshape(-1), lens))}
 
 
-def _second_level(strides, combos, k, multi_any: bool) -> tuple:
+def _second_level(strides, combos, k, multi_any: bool,
+                  checked: bool = True) -> tuple:
     """Each vector's (fac, exp), int32 [n_vec]: its rowgroup's first pair,
-    or, where the rowgroup kept k > 1 pairs, the accept scan's choice over
-    their scores on the vector's stride."""
+    or, where the rowgroup kept k > 1 pairs and ``multi_any`` says that
+    some did, the accept scan's choice over their scores on the vector's
+    stride."""
     fac = combos[:, 0, 1].contiguous()
     exp = combos[:, 0, 0].contiguous()
     if not multi_any:
@@ -190,9 +209,22 @@ def _second_level(strides, combos, k, multi_any: bool) -> tuple:
     multi = k > 1
     score = (second_level_scores_f64 if strides.dtype == torch.float64
              else second_level_scores_f32)
-    est = score(strides, combos.contiguous(), torch.where(multi, k, 0))
+    est = score(strides, combos.contiguous(), torch.where(multi, k, 0),
+                checked=checked)
     fac2, exp2 = accept_scan(est, combos, k)
     return torch.where(multi, fac2, fac), torch.where(multi, exp2, exp)
+
+
+def _encode_stats(vectors, fac, exp, is_rd_v, checked: bool = True) -> tuple:
+    """Step 2: K9 (K12) and its stats.  Returns (n, exc, base, fill, [bit
+    width, base, enc_max, exception count] int64 [m], zero on the ALP_RD
+    vectors ``is_rd_v``, which carry no ALP metadata, as host compress)."""
+    encode = alp_encode_f64 if vectors.dtype == torch.float64 else \
+        alp_encode_f32
+    n, exc, *stats = encode(vectors, exp, fac, stats=True, checked=checked)
+    bw, base, enc_max, n_exc, fill = finalize_encode_stats(n, *stats)
+    return n, exc, base, fill, [torch.where(is_rd_v, 0, x.to(torch.int64))
+                                for x in (bw, base, enc_max, n_exc)]
 
 
 def _exceptions(mask, raw) -> tuple:
@@ -262,7 +294,6 @@ def encode_pack(vectors, fac, exp, rgs: np.ndarray, is_rd: np.ndarray,
     tc = C.DOUBLE if f64 else C.FLOAT
     word = torch.int64 if f64 else torch.int32       # n and packed words
     lanes = VECTOR // tc.exact_type_bit_size
-    encode = alp_encode_f64 if f64 else alp_encode_f32
     pack = ffor_pack_f64 if f64 else ffor_pack_f32
     dev = vectors.device
     m = vectors.shape[0]
@@ -272,11 +303,8 @@ def encode_pack(vectors, fac, exp, rgs: np.ndarray, is_rd: np.ndarray,
     zeros = torch.zeros(m, dtype=torch.int64, device=dev)
     alp_meta = [zeros] * 4                 # bw, base, enc_max, n_exc
     if not is_rd.all():
-        n, exc, *stats = encode(vectors, exp, fac, stats=True)
-        bw, base, enc_max, n_exc, fill = finalize_encode_stats(n, *stats)
-        # ALP_RD vectors carry no ALP metadata (as host compress)
-        alp_meta = [torch.where(is_rd_v, 0, x.to(torch.int64))
-                    for x in (bw, base, enc_max, n_exc)]
+        n, exc, base, fill, alp_meta = _encode_stats(vectors, fac, exp,
+                                                     is_rd_v)
     meta = _host(torch.stack([fac.to(torch.int64), exp.to(torch.int64),
                               *alp_meta]))
     bw_np, exc_count = meta[2], meta[5].astype(np.uint16)
@@ -336,9 +364,10 @@ def compress_device(data=None, *, values=None, n_values=None,
     strides = vectors[:, ::STRIDE].contiguous()
 
     # --- 1. planning -----------------------------------------------------
-    combos_rg, k_rg, rd_rg, sample_ids = _first_level(strides, n_vec, tc)
-    k_rg = torch.where(rd_rg, 0, k_rg)
-    combos_rg = torch.where(rd_rg[:, None, None], 0, combos_rg)
+    groups = _sample_groups(n_vec)
+    sample_ids = [row for ids in groups for row in ids]
+    combos_rg, k_rg, rd_rg = _first_level(
+        strides, [torch.from_numpy(ids).to(dev) for ids in groups], tc)
     k_np, rd_np = _host(torch.stack([k_rg, rd_rg.to(torch.int32)]))
     rd_np = rd_np.astype(bool)
     rd_states = _rd_states(strides, sample_ids, rd_np, tc)
@@ -367,3 +396,141 @@ def compress_device(data=None, *, values=None, n_values=None,
         left_packed=enc.left_packed, exc_values=enc.exc_values,
         exc_positions=enc.exc_positions,
         enc_max=meta[4].view(np.uint64).copy())
+
+
+# ---------------------------------------------------------------------------
+# Loop steps of the device compress (alp_tpu/device_compress.py
+# make_device_compress_step, make_pack_step)
+# ---------------------------------------------------------------------------
+
+def _f64_vectors(values) -> None:
+    if values.dtype != torch.float64:
+        raise TypeError(f"the device compress steps take float64 values, "
+                        f"got {values.dtype}")
+    if values.dim() != 2 or values.shape[1] != VECTOR or \
+            not values.is_contiguous():
+        raise ValueError(f"values must be contiguous [n_vec, {VECTOR}], got "
+                         f"{tuple(values.shape)}")
+
+
+class StepMeta(NamedTuple):
+    """The per-vector outcome of :func:`make_device_compress_step`'s
+    result, each a tensor [n_vec] on the values' device (0 on ALP_RD
+    vectors but ``fill``)."""
+    fac: torch.Tensor              # int32
+    exp: torch.Tensor              # int32
+    bit_width: torch.Tensor        # int64, as the rest
+    base: torch.Tensor
+    enc_max: torch.Tensor
+    exc_count: torch.Tensor
+    fill: torch.Tensor
+
+
+def make_device_compress_step(values, k_max: int = 5) -> tuple:
+    """Loop step of ``compress_device``'s device work on float64 vectors
+    ``values`` [n_vec, 1024] already on the device.  Returns ``(step,
+    (values,))`` for ``benchlib.loop_bench``.
+
+    ``step.result(carry, values)`` runs, as ``compress_device`` does: the
+    32-value strides, the first planning level (K11 over every sampled
+    stride and pair, ``first_level_vote``), the second (K11 over each
+    vector's pairs, ``accept_scan``) and K9's encode with its stats and
+    ``finalize_encode_stats``; it returns a :class:`StepMeta`.  Nothing
+    is fetched to the host and nothing synchronises: the kernels are
+    called with ``checked=False`` (the planner's pairs lie in the tables by
+    construction), and the host value that ``compress_device`` fetches to
+    choose its second level is the static ``k_max`` here: ``k_max == 1``
+    leaves the second level out (the reference skips it at k == 1,
+    encoder.hpp:404), which equals ``compress_device`` only where every
+    rowgroup keeps one pair; ``k_max > 1`` runs it.  ALP_RD rowgroups get
+    zero metadata and no exception count: their dictionaries, which
+    ``compress_device`` builds on the host, are left out.
+
+    The carry is XORed into the first value of every vector before the
+    work and out again after it, so ``values`` is left as it was and, at
+    carry 0, the result equals ``compress_device``'s per-vector metadata
+    (and host ``compress``'s)."""
+    _f64_vectors(values)
+    if not 1 <= k_max <= C.MAX_K_COMBINATIONS:
+        raise ValueError(f"k_max must be in 1..{C.MAX_K_COMBINATIONS}")
+    dev = values.device
+    n_vec = values.shape[0]
+    groups = [torch.from_numpy(ids).to(dev) for ids in _sample_groups(n_vec)]
+    vec_rg = torch.arange(n_vec, device=dev) // RG
+
+    def result(carry, values):
+        carry_into_rows(values, carry)
+        strides = values[:, ::STRIDE].contiguous()
+        combos, k, is_rd = _first_level(strides, groups, C.DOUBLE,
+                                        checked=False)
+        fac, exp = _second_level(strides, combos[vec_rg], k[vec_rg],
+                                 k_max > 1, checked=False)
+        _, _, _, fill, meta = _encode_stats(values, fac, exp, is_rd[vec_rg],
+                                            checked=False)
+        carry_into_rows(values, carry)
+        return StepMeta(fac, exp, *meta, fill)
+
+    return LoopStep(result, lambda m, carry: carry ^ _checksum(*m)), (values,)
+
+
+def make_pack_step(col: CompressedColumn, values) -> tuple:
+    """Loop step of ``compress_device``'s pack (step 3 of ``encode_pack``)
+    over ``col``, a float64 column of ALP rowgroups, and ``values``, its
+    vectors [n_vec, 1024] on the device.  Returns ``(step, args)``.
+
+    Set-up, once: K9 encodes ``values`` with ``col``'s pairs and
+    ``finalize_encode_stats`` gives the bases and fills, which must give
+    ``col``'s bit widths and bases; the flat word buffer takes ``col``'s
+    offsets.  ``step.result(carry, *args)`` is K10 over each bit width's
+    vectors, with the exception fill fused into the pack, into that buffer,
+    which it returns; at carry 0 it equals ``col.packed`` flattened.  The
+    carry is XORed into the first encoded word of every vector and out
+    again after the pack.
+
+    Each bucket's vectors are K10's ``rows``: the kernel reads them where
+    they lie, so there is no gather and no pass over the other vectors
+    (the JAX step packs every row once a bit width when there are at most
+    four, a workaround for the TPU's gather)."""
+    _f64_vectors(values)
+    if col.dtype != np.float64:
+        raise TypeError("make_pack_step takes a float64 column")
+    if (col.rg_scheme != C.SCHEME_ALP).any():
+        raise ValueError("make_pack_step takes a column of ALP rowgroups")
+    if values.shape[0] != col.n_vectors:
+        raise ValueError(f"{values.shape[0]} vectors for a column of "
+                         f"{col.n_vectors}")
+    dev = values.device
+    bw_np = col.bit_width.astype(np.int64)
+    fac = torch.from_numpy(col.fac.astype(np.int32)).to(dev)
+    exp = torch.from_numpy(col.exp.astype(np.int32)).to(dev)
+    n, exc, base, fill, meta = _encode_stats(
+        values, fac, exp, torch.zeros(col.n_vectors, dtype=torch.bool,
+                                      device=dev))
+    got_bw, got_base = _host(torch.stack(meta[:2]))
+    if not (np.array_equal(got_bw, bw_np)
+            and np.array_equal(got_base, col.base.astype(np.int64))):
+        raise ValueError("values do not encode to the column's bit widths "
+                         "and bases")
+    words = bw_np * (VECTOR // 64)
+    offsets = np.zeros(col.n_vectors + 1, np.int64)
+    np.cumsum(words, out=offsets[1:])
+    flat = torch.zeros(int(offsets[-1]), dtype=torch.int64, device=dev)
+    buckets = []
+    for b in np.unique(bw_np[bw_np > 0]).tolist():
+        sel = np.nonzero(bw_np == b)[0]
+        buckets.append((b, torch.from_numpy(sel).to(dev),
+                        torch.from_numpy(offsets[sel]).to(dev)))
+    firsts = torch.from_numpy(offsets[:-1][words > 0]).to(dev)
+
+    def result(carry, n, exc, fill, base, flat):
+        carry_into_rows(n, carry)
+        for b, rows, at in buckets:
+            ffor_pack_f64(n, base, b, exc=exc, fill=fill, rows=rows,
+                          out=flat, offsets=at, checked=False)
+        carry_into_rows(n, carry)
+        return flat
+
+    def fold(flat, carry):
+        return carry ^ flat[firsts].sum()
+
+    return LoopStep(result, fold), (n, exc, fill, base, flat)

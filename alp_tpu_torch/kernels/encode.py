@@ -191,7 +191,7 @@ def encode_plain_f32(values, e, f, stats=True) -> tuple:
     return (n, exc) + _stats(n, exc, INT32_MIN, INT32_MAX)
 
 
-def _encode(values, e, f, stats, tc) -> tuple:
+def _encode(values, e, f, stats, tc, checked) -> tuple:
     f64 = tc is C.DOUBLE
     ftype, itype = ((torch.float64, torch.int64) if f64
                     else (torch.float32, torch.int32))
@@ -200,8 +200,9 @@ def _encode(values, e, f, stats, tc) -> tuple:
     _check("values", values, ftype, (n_vec, VECTOR_SIZE), device)
     _check("e", e, torch.int32, (n_vec,), device)
     _check("f", f, torch.int32, (n_vec,), device)
-    check_pairs("e", e, tc)
-    check_pairs("f", f, tc)
+    if checked:
+        check_pairs("e", e, tc)
+        check_pairs("f", f, tc)
     if _device_kind(values) == "cpu":
         return (encode_plain if f64 else encode_plain_f32)(values, e, f,
                                                            stats)
@@ -222,21 +223,23 @@ def _encode(values, e, f, stats, tc) -> tuple:
     return out
 
 
-def alp_encode_f64(values, e, f, stats=True) -> tuple:
+def alp_encode_f64(values, e, f, stats=True, *, checked=True) -> tuple:
     """K9.  values: float64 [n, 1024]; e, f: int32 [n], each vector's
     exponent and factor.  Returns n (int64 [n, 1024], the encoded
     integers, exception slots not patched) and exc (bool [n, 1024]); with
     ``stats``, also per vector the exception count (int32), the first
     non-exception index in value order (int32, 1024 when none) and the
     int64 min and max of n over the non-exceptions (INT64_MAX and
-    INT64_MIN when none)."""
-    return _encode(values, e, f, stats, C.DOUBLE)
+    INT64_MIN when none).  ``checked=False`` skips the synchronising read
+    of the pairs' range, for callers whose pairs lie in the tables by
+    construction (the device planner's)."""
+    return _encode(values, e, f, stats, C.DOUBLE, checked)
 
 
-def alp_encode_f32(values, e, f, stats=True) -> tuple:
+def alp_encode_f32(values, e, f, stats=True, *, checked=True) -> tuple:
     """K12, the float32 twin of K9.  values: float32 [n, 1024]; e, f: int32
     [n] in 0..10.  Returns n (int32 [n, 1024]) and exc (bool [n, 1024]);
     with ``stats``, also the exception count and first non-exception index
     (int32) and the int32 min and max of n over the non-exceptions
-    (INT32_MAX and INT32_MIN when none)."""
-    return _encode(values, e, f, stats, C.FLOAT)
+    (INT32_MAX and INT32_MIN when none); ``checked`` as K9's."""
+    return _encode(values, e, f, stats, C.FLOAT, checked)

@@ -50,27 +50,29 @@ def _word_index(offsets, bw, lanes):
 
 
 def ffor_pack_f64(values, base, bw, *, exc=None, fill=None, rows=None,
-                  out=None, offsets=None):
+                  out=None, offsets=None, checked=True):
     """K10.  values: int64 [N, 1024]; base: int64 [N], each vector's FOR
     base; bw: the bucket's bit width, 1..64; exc (bool [N, 1024]) with
     fill (int64 [N]): exception slots read the vector's fill before the
     subtract.  rows: int64 [m], the vectors of the bucket (all N when
     None).  Returns the [m, 16 * bw] int64 words; or, with ``out`` (flat
     int64) and ``offsets`` (int64 [m]), writes row r's words from
-    ``out[offsets[r]]`` and returns ``out``."""
+    ``out[offsets[r]]`` and returns ``out``.  ``checked=False`` skips the
+    synchronising reads of the range of ``rows`` and ``offsets``, for
+    callers that built them in range (a loop step)."""
     return _pack(values, base, bw, exc, fill, rows, out, offsets,
-                 torch.int64)
+                 torch.int64, checked)
 
 
 def ffor_pack_f32(values, base, bw, *, exc=None, fill=None, rows=None,
-                  out=None, offsets=None):
+                  out=None, offsets=None, checked=True):
     """K13, the 32-bit twin of K10: values, base, fill and out int32; bw
     1..32; 32 * bw words a vector (rows and offsets stay int64)."""
     return _pack(values, base, bw, exc, fill, rows, out, offsets,
-                 torch.int32)
+                 torch.int32, checked)
 
 
-def _pack(values, base, bw, exc, fill, rows, out, offsets, word):
+def _pack(values, base, bw, exc, fill, rows, out, offsets, word, checked):
     S, name = _WORDS[word]
     lanes = VECTOR_SIZE // S
     n = values.shape[0]
@@ -85,7 +87,7 @@ def _pack(values, base, bw, exc, fill, rows, out, offsets, word):
     m = n if rows is None else rows.shape[0]
     if rows is not None:
         _check("rows", rows, torch.int64, (m,), device)
-        if m:
+        if m and checked:
             lo, hi = (int(x) for x in torch.aminmax(rows))
             if lo < 0 or hi >= n:
                 raise ValueError("rows reach outside values")
@@ -100,7 +102,7 @@ def _pack(values, base, bw, exc, fill, rows, out, offsets, word):
             raise ValueError("out must be flat")
         _check("out", out, word, out.shape, device)
         _check("offsets", offsets, torch.int64, (m,), device)
-        if m:
+        if m and checked:
             lo, hi = (int(x) for x in torch.aminmax(offsets))
             if lo < 0 or hi + lanes * bw > out.numel():
                 raise ValueError("offsets reach outside out")

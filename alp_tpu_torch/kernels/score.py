@@ -34,6 +34,8 @@ plain runs do not count.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import constants as C
@@ -102,7 +104,7 @@ def _live(est, non_exc, ef, k_count) -> tuple:
     return torch.where(live, est, 0), torch.where(live, non_exc, 0)
 
 
-def _score(samples, ef, k_count, tc) -> tuple:
+def _score(samples, ef, k_count, tc, checked) -> tuple:
     f64 = tc is C.DOUBLE
     n = samples.shape[0]
     device = samples.device
@@ -111,7 +113,8 @@ def _score(samples, ef, k_count, tc) -> tuple:
     if ef.dim() != 3 or ef.shape[0] not in (1, n) or ef.shape[2] != 2:
         raise ValueError(f"ef must be [n or 1, C, 2], got {tuple(ef.shape)}")
     _check("ef", ef, torch.int32, ef.shape, device)
-    check_pairs("ef", ef, tc)
+    if checked:
+        check_pairs("ef", ef, tc)
     n_cand = ef.shape[1]
     if k_count is not None:
         _check("k_count", k_count, torch.int32, (n,), device)
@@ -128,53 +131,64 @@ def _score(samples, ef, k_count, tc) -> tuple:
     return est, non_exc
 
 
-def score_pairs_f64(samples, ef, k_count=None) -> tuple:
+def score_pairs_f64(samples, ef, k_count=None, *, checked=True) -> tuple:
     """K11.  samples: float64 [n, 32], one segment per row; ef: int32
     [n, C, 2] candidate pairs (e, f) of each segment, or [1, C, 2] shared
     by all; k_count: int32 [n] or None, the candidates of a segment past
     its count are not scored and read 0.  Returns (est, non_exc), int32
-    [n, C]."""
-    return _score(samples, ef, k_count, C.DOUBLE)
+    [n, C].  ``checked=False`` skips the synchronising read of the pairs'
+    range, for pairs that lie in the tables by construction."""
+    return _score(samples, ef, k_count, C.DOUBLE, checked)
 
 
-def score_pairs_f32(samples, ef, k_count=None) -> tuple:
+def score_pairs_f32(samples, ef, k_count=None, *, checked=True) -> tuple:
     """K14, the float32 twin of K11: samples float32 [n, 32], pairs in
     0..10."""
-    return _score(samples, ef, k_count, C.FLOAT)
+    return _score(samples, ef, k_count, C.FLOAT, checked)
 
 
 def _all_pairs(tc, device) -> torch.Tensor:
-    es, fs = ef_pairs_arrays(tc)
+    return _pairs_on(tc is C.DOUBLE, str(device))
+
+
+@functools.cache
+def _pairs_on(f64: bool, device: str) -> torch.Tensor:
+    """The [1, P, 2] pairs, uploaded once a device (an upload syncs)."""
+    es, fs = ef_pairs_arrays(C.DOUBLE if f64 else C.FLOAT)
     pairs = torch.stack([torch.from_numpy(es), torch.from_numpy(fs)], -1)
     return pairs[None].to(device)
 
 
-def first_level_scores_f64(samples) -> tuple:
+def first_level_scores_f64(samples, *, checked=True) -> tuple:
     """samples: float64 [R, V, 32], V sampled vectors of R rowgroups.
     Returns (est, non_exc), int32 [R, V, P] over the P pairs of
     ``ef_pairs_arrays`` (feed ``ops.alp.first_level_vote``)."""
     R, V, _ = samples.shape
     est, ne = score_pairs_f64(samples.reshape(R * V, SAMPLES),
-                              _all_pairs(C.DOUBLE, samples.device))
+                              _all_pairs(C.DOUBLE, samples.device),
+                              checked=checked)
     return est.reshape(R, V, -1), ne.reshape(R, V, -1)
 
 
-def first_level_scores_f32(samples) -> tuple:
+def first_level_scores_f32(samples, *, checked=True) -> tuple:
     """The float32 twin of ``first_level_scores_f64``: samples float32
     [R, V, 32]; P = 66 pairs."""
     R, V, _ = samples.shape
     est, ne = score_pairs_f32(samples.reshape(R * V, SAMPLES),
-                              _all_pairs(C.FLOAT, samples.device))
+                              _all_pairs(C.FLOAT, samples.device),
+                              checked=checked)
     return est.reshape(R, V, -1), ne.reshape(R, V, -1)
 
 
-def second_level_scores_f64(strides, combos, k_count) -> torch.Tensor:
+def second_level_scores_f64(strides, combos, k_count, *,
+                            checked=True) -> torch.Tensor:
     """strides: float64 [n, 32], each vector's 32-value stride; combos:
     int32 [n, 5, 2] its candidates (e, f); k_count: int32 [n], how many
     are real.  Returns est, int32 [n, 5] (feed ``ops.alp.accept_scan``)."""
-    return score_pairs_f64(strides, combos, k_count)[0]
+    return score_pairs_f64(strides, combos, k_count, checked=checked)[0]
 
 
-def second_level_scores_f32(strides, combos, k_count) -> torch.Tensor:
+def second_level_scores_f32(strides, combos, k_count, *,
+                            checked=True) -> torch.Tensor:
     """The float32 twin of ``second_level_scores_f64``."""
-    return score_pairs_f32(strides, combos, k_count)[0]
+    return score_pairs_f32(strides, combos, k_count, checked=checked)[0]

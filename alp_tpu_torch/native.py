@@ -1,12 +1,15 @@
-"""ctypes loader for the host engine in ``native/alpcore.cpp``.
+"""ctypes loader for the host engines in ``native/``.
 
 The port plans and encodes columns on the host through the same C++
-engine the JAX package uses, built from the unchanged source by this
-loader of its own.  The library is built with g++ on first use into
-``native/.cache/``, under a name keyed by a hash of the source, the flags,
-g++'s resolved target and the CPU's feature flags, so a stale or foreign
-binary is never loaded.  A build that fails raises ``NativeBuildError``;
-there is no other planner to fall back to.
+engine the JAX package uses (``native/alpcore.cpp``), and times the
+competitor codecs through the same C++ codecs (``native/competitors.cpp``:
+Gorillas, Chimp, Chimp128, Patas and PDE, one core a stream, OpenMP over
+chunks), each built from its unchanged source by this loader of its own.
+A library is built with g++ on first use into ``native/.cache/``, under a
+name keyed by a hash of the source, the flags, g++'s resolved target and
+the CPU's feature flags, so a stale or foreign binary is never loaded.  A
+build that fails raises ``NativeBuildError``; there is nothing to fall
+back to.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from . import constants as C
 
 _ROOT = pathlib.Path(__file__).resolve().parent.parent
 _SRC = _ROOT / "native" / "alpcore.cpp"
+_SRC_COMPETITORS = _ROOT / "native" / "competitors.cpp"
 _CACHE_DIR = _ROOT / "native" / ".cache"
 # -ffp-contract=off: a contracted multiply-add would change the encoder's
 # magic-number rounding; -march=native vectorises the encode loop, so the
@@ -37,7 +41,7 @@ _I = ctypes.c_int
 
 
 class NativeBuildError(RuntimeError):
-    """g++ is missing or refused ``native/alpcore.cpp``."""
+    """g++ is missing or refused a source of ``native/``."""
 
 
 def _host_key() -> bytes:
@@ -56,13 +60,11 @@ def _host_key() -> bytes:
 
 
 @functools.cache
-def build() -> tuple[pathlib.Path, float]:
-    """Build (or find) the library; returns (path, seconds spent building,
-    0.0 when the cached build was current)."""
+def _build(src: pathlib.Path) -> tuple[pathlib.Path, float]:
     digest = hashlib.sha256(
-        _SRC.read_bytes() + " ".join(_FLAGS).encode()
+        src.read_bytes() + " ".join(_FLAGS).encode()
         + _host_key()).hexdigest()[:16]
-    lib_file = _CACHE_DIR / f"libalpcore-{digest}.so"
+    lib_file = _CACHE_DIR / f"lib{src.stem}-{digest}.so"
     if lib_file.exists():
         return lib_file, 0.0
     _CACHE_DIR.mkdir(parents=True, exist_ok=True)
@@ -70,15 +72,26 @@ def build() -> tuple[pathlib.Path, float]:
     t0 = time.perf_counter()
     try:
         subprocess.run(["g++", *_FLAGS, "-shared", "-fPIC", "-o", str(tmp),
-                        str(_SRC)], check=True, capture_output=True,
+                        str(src)], check=True, capture_output=True,
                        text=True)
     except subprocess.CalledProcessError as e:
         raise NativeBuildError(
-            f"g++ failed on {_SRC.name}:\n{e.stderr}") from e
+            f"g++ failed on {src.name}:\n{e.stderr}") from e
     except OSError as e:
         raise NativeBuildError(f"g++ is not usable: {e}") from e
     os.replace(tmp, lib_file)
     return lib_file, time.perf_counter() - t0
+
+
+def build() -> tuple[pathlib.Path, float]:
+    """Build (or find) the host engine; returns (path, seconds spent
+    building, 0.0 when the cached build was current)."""
+    return _build(_SRC)
+
+
+def build_competitors() -> tuple[pathlib.Path, float]:
+    """Build (or find) the competitor codecs, as :func:`build`."""
+    return _build(_SRC_COMPETITORS)
 
 
 @functools.cache
@@ -212,3 +225,184 @@ def ffor_ragged32(encoded: np.ndarray, bw: np.ndarray, base: np.ndarray):
     """The 32-bit twin of :func:`ffor_ragged`."""
     return _ffor_ragged(lib().alp_ffor_ragged_u32, encoded, bw, base,
                         np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# Competitor codecs (native/competitors.cpp): the XOR-family and PDE codecs
+# the reference times against ALP, one core a stream (table 6).
+# ---------------------------------------------------------------------------
+
+_CODEC_IDS = {"gorillas": 0, "chimp": 1, "chimp128": 2, "patas": 3,
+              "pde": 4}
+_RING_CODECS = {"chimp128", "patas"}       # need a [2^14] int64 scratch
+PDE_EXCEPTION = 23                         # PDE's exponent code of a patch
+
+
+@functools.cache
+def competitors_lib() -> ctypes.CDLL:
+    dll = ctypes.CDLL(str(build_competitors()[0]))
+    for name in ("gorillas", "chimp", "chimp128", "patas"):
+        enc = getattr(dll, f"cmp_{name}_encode_f64")
+        enc.argtypes = [_P, _L, _P] + ([_P] if name in _RING_CODECS else [])
+        enc.restype = _L
+        dec = getattr(dll, f"cmp_{name}_decode_f64")
+        dec.argtypes = [_P, _L, _P]
+        dec.restype = None
+    sigs = {
+        "cmp_pde_decode_f64": ([_P, _P, _L, _P], None),
+        "cmp_pde_encode_f64": ([_P, _L, _P, _P], _L),
+        "cmp_chunked_decode_f64": ([_I, _P, _P, _P, _P, _L, _P, _I], None),
+        "cmp_chunked_encode_f64": ([_I, _P, _P, _P, _L, _P, _P, _P, _I],
+                                   None),
+    }
+    for name, (argtypes, restype) in sigs.items():
+        fn = getattr(dll, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return dll
+
+
+def _codec(name: str) -> str:
+    if name not in _CODEC_IDS:
+        raise ValueError(f"unknown competitor codec {name!r}; one of "
+                         f"{sorted(_CODEC_IDS)}")
+    return name
+
+
+def _f64_bits(data: np.ndarray) -> np.ndarray:
+    data = np.ascontiguousarray(data)
+    if data.dtype != np.float64:
+        raise TypeError(f"the native competitors take float64, got "
+                        f"{data.dtype}")
+    return data.view(np.uint64)
+
+
+def _xor_capacity(n):
+    """Words that hold any stream of n values (~88 bits a value at worst)."""
+    return n + (n * 88) // 64 + 4
+
+
+def competitor_encode(name: str, data: np.ndarray) -> tuple:
+    """Encode float64 ``data`` with a native XOR-family codec (gorillas,
+    chimp, chimp128, patas).  Returns (stream words u64, bits)."""
+    if _codec(name) == "pde":
+        raise ValueError("PDE streams come from competitors.pde_codec")
+    bits = _f64_bits(data)
+    n = len(bits)
+    out = np.zeros(_xor_capacity(n), np.uint64)
+    fn = getattr(competitors_lib(), f"cmp_{name}_encode_f64")
+    if name in _RING_CODECS:
+        scratch = np.zeros(1 << 14, np.int64)
+        nbits = fn(_p(bits), n, _p(out), _p(scratch))
+    else:
+        nbits = fn(_p(bits), n, _p(out))
+    return out[:(nbits + 63) // 64], int(nbits)
+
+
+def competitor_decode(name: str, stream: np.ndarray, n: int,
+                      out: np.ndarray | None = None) -> np.ndarray:
+    """Decode ``n`` doubles of a native XOR-family stream.  ``out``: a u64
+    [n] buffer to decode into (a bench passes one whose pages are touched
+    already: a fresh page faults on first write, which would be timed as
+    the codec's work)."""
+    if _codec(name) == "pde":
+        raise ValueError("PDE decodes through pde_decode")
+    if out is None:
+        out = np.empty(n, np.uint64)
+    if out.dtype != np.uint64 or out.shape != (n,):
+        raise ValueError(f"out must be u64 [{n}]")
+    stream = np.ascontiguousarray(stream, np.uint64)
+    getattr(competitors_lib(), f"cmp_{name}_decode_f64")(
+        _p(stream), n, _p(out))
+    return out.view(np.float64)
+
+
+def pde_decode(sig: np.ndarray, exp: np.ndarray,
+               patches: np.ndarray) -> np.ndarray:
+    """Native PDE decode (``sig * 10^-exp``, one core) and the patch
+    scatter; equal to ``competitors.pde_codec.pde_decode`` bit for bit."""
+    n = len(sig)
+    out = np.empty(n, np.float64)
+    exp = np.ascontiguousarray(exp, np.uint8)
+    competitors_lib().cmp_pde_decode_f64(
+        _p(np.ascontiguousarray(sig, np.int32)), _p(exp), n, _p(out))
+    if len(patches):
+        out[exp == PDE_EXCEPTION] = patches
+    return out
+
+
+def pde_chunk_stream(sig: np.ndarray, exp: np.ndarray) -> np.ndarray:
+    """One PDE chunk as the chunked decoder reads it: sig (i32 [n]) then
+    exp (u8 [n]), each padded to whole u64 words."""
+    n = len(sig)
+    sig_words = (n + 1) // 2
+    buf = np.zeros(sig_words + (n + 7) // 8, np.uint64)
+    buf[:sig_words].view(np.int32)[:n] = sig
+    buf[sig_words:].view(np.uint8)[:n] = exp
+    return buf
+
+
+def competitor_decode_chunked(name: str, streams: list, ns: np.ndarray,
+                              out: np.ndarray, threads: int) -> None:
+    """Decode independent chunk streams on ``threads`` OpenMP threads (the
+    reference's morsels at 1, 8 and 16 threads): stream c holds ``ns[c]``
+    values and decodes into ``out`` (u64 [sum(ns)], the float64 bits) at
+    their place.  PDE's patches are the caller's to scatter afterwards."""
+    ns = np.ascontiguousarray(ns, np.int64)
+    if len(streams) != len(ns):
+        raise ValueError("a value count a stream")
+    if out.dtype != np.uint64 or out.shape != (int(ns.sum()),):
+        raise ValueError(f"out must be u64 [{int(ns.sum())}]")
+    word_off = np.zeros(len(streams) + 1, np.int64)
+    np.cumsum([len(s) for s in streams], out=word_off[1:])
+    flat = (np.concatenate(streams).astype(np.uint64, copy=False)
+            if streams else np.zeros(1, np.uint64))
+    out_off = np.zeros(len(streams), np.int64)
+    np.cumsum(ns[:-1], out=out_off[1:])
+    competitors_lib().cmp_chunked_decode_f64(
+        _CODEC_IDS[_codec(name)], _p(flat), _p(word_off), _p(ns),
+        _p(out_off), len(streams), _p(out), threads)
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(name: str, n: int, dtype) -> np.ndarray:
+    """A reused output buffer of at least ``n`` elements, grown
+    geometrically: a fresh buffer a call would fault its pages in on
+    every call, and a bench would time the faults."""
+    buf = _SCRATCH.get(name)
+    if buf is None or buf.size < n:
+        buf = np.empty(max(n, 2 * (buf.size if buf is not None else 0)),
+                       dtype)
+        _SCRATCH[name] = buf
+    return buf[:n]
+
+
+def competitor_encode_chunked(name: str, data: np.ndarray, chunk: int,
+                              threads: int) -> tuple:
+    """Encode float64 ``data`` in independent chunks of ``chunk`` values
+    on ``threads`` OpenMP threads (a PDE chunk is its
+    :func:`pde_chunk_stream`, patches not taken out).  Returns (flat u64
+    words, word_off i64 [chunks], out_words i64 [chunks], ns i64
+    [chunks]): chunk c's stream is ``flat[word_off[c]:word_off[c] +
+    out_words[c]]``.  ``flat`` is a reused buffer: the next call
+    overwrites it."""
+    bits = _f64_bits(data)
+    n = len(bits)
+    n_chunks = -(-n // chunk)
+    ns = np.full(n_chunks, chunk, np.int64)
+    if n % chunk:
+        ns[-1] = n % chunk
+    in_off = np.zeros(n_chunks, np.int64)
+    np.cumsum(ns[:-1], out=in_off[1:])
+    caps = ((ns + 1) // 2 + (ns + 7) // 8 if _codec(name) == "pde"
+            else _xor_capacity(ns))
+    cap_off = np.zeros(n_chunks, np.int64)
+    np.cumsum(caps[:-1], out=cap_off[1:])
+    out = _scratch("cmp_enc", int(caps.sum()), np.uint64)
+    out_words = np.zeros(n_chunks, np.int64)
+    competitors_lib().cmp_chunked_encode_f64(
+        _CODEC_IDS[name], _p(bits), _p(in_off), _p(ns), n_chunks, _p(out),
+        _p(cap_off), _p(out_words), threads)
+    return out, cap_off, out_words, ns

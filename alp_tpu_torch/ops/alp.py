@@ -19,6 +19,8 @@ included, so device planning picks what host compress picks:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -49,6 +51,15 @@ def ef_pairs_arrays(tc) -> tuple:
             np.array([p[1] for p in pairs], np.int32))
 
 
+@functools.cache
+def _pair_columns(f64: bool, device: str) -> tuple:
+    """The pairs' e and f as int64 tensors, uploaded once a device (an
+    upload syncs with the device)."""
+    es, fs = ef_pairs_arrays(C.DOUBLE if f64 else C.FLOAT)
+    return (torch.from_numpy(es).to(device, torch.int64),
+            torch.from_numpy(fs).to(device, torch.int64))
+
+
 def first_level_vote(est: torch.Tensor, non_exc: torch.Tensor, S: int, tc):
     """The vote and rank of find_top_k_combinations over the estimates
     ``est`` and non-exception counts ``non_exc`` [R, V, P] of R rowgroups,
@@ -56,10 +67,8 @@ def first_level_vote(est: torch.Tensor, non_exc: torch.Tensor, S: int, tc):
     order.  Returns (combos int32 [R, 5, 2] (e, f), zero past k; k int32
     [R]; is_rd bool [R])."""
     dev = est.device
-    es_np, fs_np = ef_pairs_arrays(tc)
-    es = torch.from_numpy(es_np).to(dev, torch.int64)
-    fs = torch.from_numpy(fs_np).to(dev, torch.int64)
-    P = len(es_np)
+    es, fs = _pair_columns(tc is C.DOUBLE, str(dev))
+    P = es.numel()
     est = est.to(torch.int64)
     worst = (S * (tc.exception_size + C.EXCEPTION_POSITION_SIZE)
              + S * tc.exception_size)

@@ -115,7 +115,24 @@ Phases, each printing its wall time:
             K12, K13, K15 and K19.  A rank that fails or outlasts
             MESH_DEADLINE fails the phase; every rank is killed at its end.
             Prints rank 0's walls.
-13. kernels each kernel against its plain PyTorch version on the card, on
+13. periphery  the port's periphery on the card (its launch counts read
+            around each part, and the kernels of each part required):
+            ``python -m alp_tpu_torch`` (its ``main``) on generated .bin
+            (2 M values) and .csv (100,000 values) columns, f64 and f32,
+            each decoding on the card and printing its bit-exact line (K1,
+            K2); ``make_device_compress_step`` (k_max 1 where it gives
+            ``compress_device``'s pairs, else 5) and ``make_pack_step`` at
+            carry 0 on the four 256 MiB f64 ALP profiles against
+            ``compress_device``'s column of the same decoded values
+            (per-vector metadata and packed words by bits), then one
+            ``benchlib.loop_bench`` of each beside its bytes' bound and
+            its device time an iteration under ``torch.profiler`` (K9,
+            K10, K11); and every row of ``bench_e2e.rows`` on the card, its
+            correctness companions asserted, with its host and competitor
+            rows at 64 MiB of values (``PERIPHERY_HOST_VECTORS``; 256 MiB
+            when ``python -m alp_tpu_torch.bench_e2e`` runs alone) to keep
+            the script well inside its time limit.
+14. kernels each kernel against its plain PyTorch version on the card, on
             the same plans, bit for bit (tolerance 0: the codec is
             lossless and the SUM totals are integers); K9-K14 on every
             call of a second ``compress_device`` of every column; K15 (2
@@ -131,7 +148,7 @@ Phases, each printing its wall time:
             ALP_RD bucket (the right parts and the left parts of the
             decode with its exceptions in: it must give the decode back),
             K23 on the decoded bits of every f64 column.
-14. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
+15. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
             their launches as the wrappers made them, without the
             wrappers' synchronising range checks; K11/K14 also by planning
             level, each level with its launches on the dcompress phase,
@@ -166,7 +183,8 @@ Phases, each printing its wall time:
             scores ALP, sums exactly or counts keys of the compressed form,
             so ``library_ms`` is null.
 
-Then the nvidia-smi line, one JSON line with every kernel's numbers and,
+Then the nvidia-smi line, one JSON line with every kernel's numbers (each
+row with its launches in the periphery phase, ``periphery_launches``) and,
 last, ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
 that line.  Without a CUDA device, or without the package beside this
 file, it exits nonzero at once.
@@ -1285,8 +1303,10 @@ def glue_left(bits, rbw: int):
 
 
 def dc_plain(name, args, kwargs):
-    """The plain version's outputs of one K9-K14 wrapper call."""
+    """The plain version's outputs of one K9-K14 wrapper call (``checked``,
+    the wrappers' range reads, is not the plain versions' argument)."""
     _, kenc, kffor, kscore = dc_modules()
+    kwargs = {k: v for k, v in kwargs.items() if k != "checked"}
     if name.startswith("alp_encode"):
         return getattr(kenc, DC_WRAPPERS[name][1])(*args, **kwargs)
     if name.startswith("score_pairs"):
@@ -1392,6 +1412,153 @@ def dc_work(name, args, kwargs) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+
+# kernels the periphery phase must launch: K1/K2 through the CLI, K9-K11
+# through the device compress loop steps, K5 through the uncompressed row,
+# the rest through bench_e2e's query rows
+PERIPHERY_KERNELS = ("falp_decode_f64", "falp_decode_f32", "alp_encode_f64",
+                     "ffor_pack_f64", "score_pairs_f64", "exact_sum_f64",
+                     "falp_decode_f64_exact_sum", "variant_sum_f64",
+                     "key_counts", "key_extremes", "rank_pass",
+                     "vector_sum_extremes", "group_reduce")
+PERIPHERY_STEPS = ("bench_bw11_city_temperature", "bench_bw20_food_prices",
+                   "bench_bw30_bitcoin", "bench_bw42_nyc29")
+CLI_VALUES = 2 << 20             # values of the CLI's .bin columns
+CLI_CSV_VALUES = 100_000         # and of its .csv columns
+# bench_e2e's host and competitor rows at 64 MiB of values here (256 MiB
+# when it runs alone), to keep the script well inside its time limit
+PERIPHERY_HOST_VECTORS = 8 * 1024
+
+
+def cli_on_card(sources: dict) -> dict:
+    """``python -m alp_tpu_torch`` (its ``main``) on the card on generated
+    .bin and .csv columns, f64 (the bw20 profile's values) and f32 (the
+    f32 ALP column's): each must exit 0 and print the bit-exact line.
+    Returns the launches of the CLI runs."""
+    import contextlib
+    import io
+    import tempfile
+    from alp_tpu_torch import __main__ as cli
+    before = launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for f32 in (False, True):
+            dt = np.float32 if f32 else np.float64
+            x = sources["f32_alp" if f32 else "bench_bw20_food_prices"]
+            binary = os.path.join(tmp, f"col{dt.__name__}.bin")
+            np.resize(x, CLI_VALUES).astype(dt).tofile(binary)
+            text = os.path.join(tmp, f"col{dt.__name__}.csv")
+            with open(text, "w") as f:
+                f.write("".join(f"{v!r},\n" for v in
+                                x[:CLI_CSV_VALUES].astype(dt).tolist()))
+            for path in (binary, text):
+                argv = [path] + (["--f32"] if f32 else [])
+                out = io.StringIO()
+                tw = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main(argv)
+                wall = time.perf_counter() - tw
+                lines = out.getvalue().splitlines()
+                if rc != 0 or lines[-1:] != ["round-trip: bit-exact OK"]:
+                    raise RuntimeError(f"CLI {argv}: rc {rc}, output "
+                                       f"{lines!r}")
+                cmd = " ".join(["python -m alp_tpu_torch", *argv[1:],
+                                os.path.basename(path)])
+                print(f"  {cmd}: {wall:.3f} s; " + " | ".join(lines),
+                      flush=True)
+    return moved_since(before)
+
+
+def device_busy_ms(step, args, dev, iters: int = 5) -> str:
+    """The device time of one iteration of a loop step under
+    ``torch.profiler`` (the sum of its device events' self time, over
+    ``iters`` iterations) and its device events a call, or "not measured"
+    where the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    carry = torch.zeros((), dtype=torch.int64, device=dev)
+    carry = step(carry, *args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            carry = step(carry, *args)
+        torch.cuda.synchronize()
+    busy_us, events = 0.0, 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            busy_us += t
+            events += e.count
+    if not busy_us:
+        return "not measured"
+    return (f"{busy_us / iters / 1e3:.4f} ms in {events / iters:.0f} device "
+            f"events")
+
+
+def step_checks(columns: dict, dev, hbm_per_s: float) -> dict:
+    """``make_device_compress_step`` and ``make_pack_step`` at carry 0 on
+    the card against ``compress_device``'s column of the same decoded
+    values (per-vector metadata and packed words by bits), then one
+    ``loop_bench`` of each (CUDA events) beside its bytes' bound.  Returns
+    the launches of the steps alone."""
+    import torch
+    from alp_tpu_torch import benchlib
+    from alp_tpu_torch import device_compress as dc
+    launched = {}
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    for name in PERIPHERY_STEPS:
+        col = columns[name][0]
+        values = col.plan(dev).run()
+        want = dc.compress_device(values=values)
+        for k_max in (1, 5):
+            step, args = dc.make_device_compress_step(values, k_max)
+            before = launch_counts()
+            meta = step.result(zero, *args)
+            torch.cuda.synchronize()
+            for k, v in moved_since(before).items():
+                launched[k] = launched.get(k, 0) + v
+            same = all(np.array_equal(getattr(meta, f).cpu().numpy(),
+                                      getattr(want, f).astype(np.int64))
+                       for f in ("fac", "exp", "bit_width", "base",
+                                 "exc_count"))
+            if same:
+                break
+            if k_max == 5:
+                raise RuntimeError(f"{name}: the device compress step's "
+                                   f"metadata differs from compress_device's")
+        pack, pack_args = dc.make_pack_step(want, values)
+        before = launch_counts()
+        flat = pack.result(zero, *pack_args)
+        torch.cuda.synchronize()
+        for k, v in moved_since(before).items():
+            launched[k] = launched.get(k, 0) + v
+        if not np.array_equal(flat.cpu().numpy().view(np.uint64),
+                              np.concatenate(want.packed)):
+            raise RuntimeError(f"{name}: the pack step's words differ from "
+                               f"compress_device's")
+        n = values.numel()
+        words = flat.numel() * 8
+        step_ms = benchlib.loop_bench(step, args, 10) * 1e3
+        pack_ms = benchlib.loop_bench(pack, pack_args, 10) * 1e3
+        # the step reads the values, writes n and the exception mask; the
+        # pack reads n and the mask and writes the words
+        step_bound = n * (8 + 8 + 1) / hbm_per_s * 1e3
+        pack_bound = (n * (8 + 1) + words) / hbm_per_s * 1e3
+        busy = [device_busy_ms(s, a, dev) for s, a in ((step, args),
+                                                        (pack, pack_args))]
+        print(f"  {name}: device compress step (k_max={k_max}) and pack "
+              f"step at carry 0 == compress_device's metadata and "
+              f"{flat.numel()} words; step {step_ms:.4f} ms (bound "
+              f"{step_bound:.4f} ms, {n * 8 / step_ms / 1e6:.2f} GB/s), pack "
+              f"{pack_ms:.4f} ms (bound {pack_bound:.4f} ms, "
+              f"{n * 8 / pack_ms / 1e6:.2f} GB/s); device busy an "
+              f"iteration (torch.profiler): step {busy[0]}, pack {busy[1]}",
+              flush=True)
+        del values, want, flat, step, args, pack, pack_args
+    return launched
+
 
 def bench_rows(plans, columns, dev, errors, launches, int32_per_s,
                fp64_per_s, fp32_per_s) -> list:
@@ -2259,7 +2426,34 @@ def main() -> int:
     phase("mesh", t0, f"world size {world} (NCCL), ranks {mesh_s:.3f}s, "
           f"launches over the ranks={mesh_launches}")
 
-    # 13. kernels vs plain versions, on the card, same plans
+    # 13. periphery: the CLI, the device compress loop steps, bench_e2e
+    t0 = time.perf_counter()
+    from alp_tpu_torch import bench_e2e
+    torch.cuda.synchronize()
+    all_before = launch_counts()
+    cli_launches = cli_on_card(sources)
+    step_launches = step_checks(columns, dev, HBM_BYTES_PER_S)
+    before = launch_counts()
+    te = time.perf_counter()
+    e2e_rows = bench_e2e.rows(dev, args.seed,
+                              host_vectors=PERIPHERY_HOST_VECTORS)
+    e2e_s = time.perf_counter() - te
+    torch.cuda.synchronize()
+    e2e_launches = moved_since(before)
+    periphery_launches = moved_since(all_before)
+    for label, got, want in (
+            ("the CLI", cli_launches, ("falp_decode_f64", "falp_decode_f32")),
+            ("the device compress steps", step_launches,
+             ("alp_encode_f64", "ffor_pack_f64", "score_pairs_f64")),
+            ("bench_e2e", e2e_launches, PERIPHERY_KERNELS)):
+        for k in want:
+            if not got.get(k):
+                raise RuntimeError(f"kernel {k} was not launched by {label}")
+    phase("periphery", t0, f"bench_e2e {len(e2e_rows)} rows in "
+          f"{e2e_s:.3f}s (companions passed); launches: CLI {cli_launches}, "
+          f"device compress steps {step_launches}, bench_e2e {e2e_launches}")
+
+    # 14. kernels vs plain versions, on the card, same plans
     t0 = time.perf_counter()
     errors = {k: 0.0 for k in (*KERNELS, *SUM_KERNELS, *DC_KERNELS,
                                *KEY_KERNELS, *RANK_KERNELS, *GROUP_KERNELS,
@@ -2465,7 +2659,7 @@ def main() -> int:
           "keys == plain, K20-K23 == plain (K21 == the decode), every "
           "K9-K14 call of compress_device == plain (tolerance 0)")
 
-    # 14. timing at the 256 MiB shapes
+    # 15. timing at the 256 MiB shapes
     t0 = time.perf_counter()
     timed = {"falp_decode_f64": list(BENCH_PROFILES),
              "falp_decode_f32": ["f32_alp"],
@@ -2988,6 +3182,8 @@ def main() -> int:
         rows.append(row)
     rows += bench_rows(plans, columns, dev, errors, bench_launches,
                        int32_per_s, fp64_per_s, fp32_per_s)
+    for row in rows:
+        row["periphery_launches"] = periphery_launches.get(row["name"], 0)
     phase("timing", t0)
     phase("total", t_all)
 

@@ -10,9 +10,11 @@ versions, every predicate and order query on the card against its answer
 on the CPU, QUANTILE / MEDIAN on the card against ``np.quantile``, and the
 grouped kernels K18/K19 against their plain versions and GROUP-BY, windows
 and DISTINCT on the card against their answers on the CPU, a plan
-snapshot restored on the card against the built plan, and the sharded
+snapshot restored on the card against the built plan, the sharded
 paths over NCCL at world sizes 1, 2 and 4 (a size skips on fewer cards)
-against the single-device answers.  This file imports neither JAX nor
+against the single-device answers, the device compress loop steps against
+``compress_device``, and the native competitor codecs' round trip on the
+card's host.  This file imports neither JAX nor
 ``alp_tpu``, so it runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -1626,3 +1628,83 @@ def test_mesh_on_cards(world, cuda, tmp_path):
                                   want.numpy().astype(np.int64)), key
         assert step["ok"].all()
         assert r["join"][0] == total
+
+
+def _step_column(multi: bool) -> np.ndarray:
+    """Three rowgroups of decimals: each rowgroup keeps one pair, or (with
+    ``multi``) three, its sampled vectors taking three precisions."""
+    rng = np.random.default_rng(21)
+    n = 3 * C.N_VECTORS_PER_ROWGROUP * C.VECTOR_SIZE
+    x = np.round(rng.uniform(-20, 180, n), 1)
+    if multi:
+        turn = np.arange(n) // C.VECTOR_SIZE // 12 % 3
+        x[turn == 1] = np.round(rng.uniform(0, 100, int((turn == 1).sum())),
+                                4)
+        x[turn == 2] = np.round(rng.uniform(0, 1e4, int((turn == 2).sum())),
+                                1)
+    return x
+
+
+@pytest.mark.parametrize("multi,k_max", [(False, 1), (False, 5), (True, 5)])
+def test_device_compress_steps_on_card_equal_compress_device(multi, k_max,
+                                                             cuda):
+    """``make_device_compress_step`` and ``make_pack_step`` at carry 0 on
+    the card: the per-vector metadata and the packed words of
+    ``compress_device`` (and of host compress), K9-K11 launched; the
+    steps leave their inputs as they were under ``loop_bench``."""
+    from alp_tpu_torch import benchlib
+    from alp_tpu_torch import device_compress as dc
+    x = _step_column(multi)
+    values = torch.from_numpy(x.reshape(-1, C.VECTOR_SIZE).copy()).to(cuda)
+    want = alp_tpu_torch.compress_device(values=values)
+    assert want.to_bytes() == alp_tpu_torch.compress(x).to_bytes()
+    zero = torch.zeros((), dtype=torch.int64, device=cuda)
+    before = {**kscore.LAUNCHES, **kenc.LAUNCHES, **kffor.LAUNCHES}
+    step, args = dc.make_device_compress_step(values, k_max)
+    meta = step.result(zero, *args)
+    for field in ("fac", "exp", "bit_width", "base", "exc_count"):
+        assert np.array_equal(getattr(meta, field).cpu().numpy(),
+                              getattr(want, field).astype(np.int64)), field
+    pack, pack_args = dc.make_pack_step(want, values)
+    words = np.concatenate(want.packed)
+    assert np.array_equal(
+        pack.result(zero, *pack_args).cpu().numpy().view(np.uint64), words)
+    after = {**kscore.LAUNCHES, **kenc.LAUNCHES, **kffor.LAUNCHES}
+    for k in ("score_pairs_f64", "alp_encode_f64", "ffor_pack_f64"):
+        assert after[k] > before[k], k
+    assert benchlib.loop_bench(step, args, 3) > 0
+    assert benchlib.loop_bench(pack, pack_args, 3) > 0
+    assert np.array_equal(values.cpu().numpy().reshape(-1), x)
+    assert np.array_equal(
+        pack.result(zero, *pack_args).cpu().numpy().view(np.uint64), words)
+
+
+@pytest.mark.parametrize("codec", ["gorillas", "chimp", "chimp128", "patas",
+                                   "pde"])
+def test_native_competitor_round_trip(codec, cuda):
+    """The competitor codecs of ``native/competitors.cpp``, built by the
+    port's loader on the card's host: chunked encode and decode at 1 and 8
+    threads give the input's bits back (PDE with its patches)."""
+    from alp_tpu_torch import native
+    x = np.concatenate([_step_column(False)[:50000],
+                        np.random.default_rng(2).standard_normal(20000)])
+    bits = x.view(np.uint64)
+    for threads in (1, 8):
+        flat, off, words, ns = native.competitor_encode_chunked(
+            codec, x, 10240, threads)
+        streams = [flat[off[c]:off[c] + words[c]].copy()
+                   for c in range(len(ns))]
+        out = np.zeros(len(x), np.uint64)
+        native.competitor_decode_chunked(codec, streams, ns, out, threads)
+        if codec == "pde":
+            for c, s in enumerate(streams):
+                n, at = int(ns[c]), c * 10240
+                exp = s[(n + 1) // 2:].view(np.uint8)[:n]
+                sel = exp == native.PDE_EXCEPTION
+                out[at:at + n][sel] = bits[at:at + n][sel]
+        assert np.array_equal(out, bits)
+        if codec != "pde":
+            stream, _ = native.competitor_encode(codec, x)
+            assert np.array_equal(
+                native.competitor_decode(codec, stream, len(x)).view(
+                    np.uint64), bits)

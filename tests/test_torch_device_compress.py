@@ -22,7 +22,13 @@ with no tolerance (the codec is lossless: bytes and integers are equal):
   scorer's bit-equality encode departs from the reference search, it
   equals the oracle's encode_value_safe / decode_value;
 * ``first_level_vote`` and ``accept_scan`` equal ``alp_tpu.ops.alp``'s on
-  estimates with ties.
+  estimates with ties;
+* the loop steps ``make_device_compress_step`` (at ``k_max`` 1 and 5, on
+  columns whose rowgroups keep one pair and three, and a mixed ALP /
+  ALP_RD one) and ``make_pack_step`` at carry 0 equal
+  ``alp_tpu.container.compress``'s per-vector metadata and packed words,
+  ``benchlib.loop_bench(device="cpu")`` runs them, and they leave their
+  inputs as they were.
 
 ``tests/test_torch_cuda.py`` holds the CUDA kernels against these plain
 versions on the card.
@@ -43,6 +49,7 @@ from alp_tpu.ops import alp as jalp
 from alp_tpu.oracle import core as ocore
 
 import alp_tpu_torch
+from alp_tpu_torch import benchlib
 from alp_tpu_torch import constants as C
 from alp_tpu_torch import device_compress as dc
 from alp_tpu_torch.columns import route_columns
@@ -416,3 +423,106 @@ def test_wrappers_check_their_arguments():
     with pytest.raises(ValueError, match="together"):
         kffor.ffor_pack_f64(ints, base, 3, exc=torch.zeros((2, 1024),
                                                            dtype=torch.bool))
+
+
+# ---------------------------------------------------------------------------
+# the loop steps make_device_compress_step and make_pack_step
+# ---------------------------------------------------------------------------
+
+def _step_columns() -> dict:
+    rng = np.random.default_rng(21)
+    n = 3 * RG * 1024
+    one = np.round(rng.uniform(-20, 180, n), 1)
+    # the sampled vectors (every 12th) take three precisions in turn, so
+    # every rowgroup keeps three pairs
+    multi = np.round(rng.uniform(0, 100, n), 2)
+    turn = np.arange(n) // 1024 // 12 % 3
+    multi[turn == 1] = np.round(rng.uniform(0, 100, int((turn == 1).sum())),
+                                4)
+    multi[turn == 2] = np.round(rng.uniform(0, 1e4, int((turn == 2).sum())),
+                                1)
+    return {"k1": one, "k_multi": multi,
+            "mixed_alp_rd": COLUMNS["f64_mixed_alp_rd"]}
+
+
+STEP_COLUMNS = _step_columns()
+ZERO = torch.zeros((), dtype=torch.int64)
+
+
+def _kept_pairs(x) -> np.ndarray:
+    return alp_tpu_torch.container.plan_rowgroups(x.reshape(-1, 1024),
+                                                  tc)[2]
+
+
+def test_step_columns_keep_the_pairs_they_are_for():
+    assert (_kept_pairs(STEP_COLUMNS["k1"]) == 1).all()
+    assert (_kept_pairs(STEP_COLUMNS["k_multi"]) > 1).all()
+
+
+@pytest.mark.parametrize("name,k_max", [("k1", 1), ("k1", 5),
+                                        ("k_multi", 5), ("mixed_alp_rd", 5)])
+def test_device_compress_step_equals_the_reference(name, k_max):
+    x = STEP_COLUMNS[name]
+    want = jcontainer.compress(x)
+    values = torch.from_numpy(x.reshape(-1, 1024).copy())
+    step, args = dc.make_device_compress_step(values, k_max)
+    meta = step.result(ZERO, *args)
+    for field in ("fac", "exp", "bit_width", "base"):
+        assert np.array_equal(getattr(meta, field).numpy(),
+                              getattr(want, field).astype(np.int64)), field
+    assert np.array_equal(meta.enc_max.numpy().view(np.uint64), want.enc_max)
+    # an ALP_RD vector's exceptions come from its dictionary, which the
+    # step leaves out: it counts ALP exceptions alone
+    alp = want.rg_scheme[np.arange(want.n_vectors) // RG] == C.SCHEME_ALP
+    assert np.array_equal(meta.exc_count.numpy()[alp], want.exc_count[alp])
+    assert not meta.exc_count.numpy()[~alp].any()
+    assert benchlib.loop_bench(step, args, 2, device="cpu") > 0
+    assert np.array_equal(values.numpy().reshape(-1), x)   # left as it was
+
+
+def test_device_compress_step_at_k_max_1_takes_the_first_pair():
+    x = STEP_COLUMNS["k_multi"]
+    combos = alp_tpu_torch.container.plan_rowgroups(x.reshape(-1, 1024),
+                                                    tc)[1]
+    values = torch.from_numpy(x.reshape(-1, 1024).copy())
+    meta = dc.make_device_compress_step(values, 1)[0].result(ZERO, values)
+    first = combos[np.arange(values.shape[0]) // RG, 0]
+    assert np.array_equal(meta.exp.numpy(), first[:, 0])
+    assert np.array_equal(meta.fac.numpy(), first[:, 1])
+    assert not np.array_equal(meta.fac.numpy(),
+                              jcontainer.compress(x).fac.astype(np.int32))
+
+
+@pytest.mark.parametrize("name", ["k1", "k_multi"])
+def test_pack_step_equals_the_reference(name):
+    x = STEP_COLUMNS[name]
+    want = np.concatenate(jcontainer.compress(x).packed)
+    col = alp_tpu_torch.compress(x)
+    values = torch.from_numpy(x.reshape(-1, 1024).copy())
+    step, args = dc.make_pack_step(col, values)
+    assert np.array_equal(step.result(ZERO, *args).numpy().view(np.uint64),
+                          want)
+    assert benchlib.loop_bench(step, args, 2, device="cpu") > 0
+    assert np.array_equal(step.result(ZERO, *args).numpy().view(np.uint64),
+                          want)
+
+
+def test_steps_refuse_what_they_cannot_take():
+    x = STEP_COLUMNS["k1"]
+    values = torch.from_numpy(x.reshape(-1, 1024).copy())
+    with pytest.raises(TypeError):
+        dc.make_device_compress_step(values.float())
+    with pytest.raises(ValueError):
+        dc.make_device_compress_step(values.reshape(-1))
+    for k_max in (0, 6):
+        with pytest.raises(ValueError):
+            dc.make_device_compress_step(values, k_max)
+    col = alp_tpu_torch.compress(x)
+    with pytest.raises(ValueError, match="vectors"):
+        dc.make_pack_step(col, values[:100].contiguous())
+    with pytest.raises(ValueError, match="encode"):
+        dc.make_pack_step(col, (values + 0.5).contiguous())
+    mixed = STEP_COLUMNS["mixed_alp_rd"]
+    with pytest.raises(ValueError, match="ALP rowgroups"):
+        dc.make_pack_step(alp_tpu_torch.compress(mixed), torch.from_numpy(
+            mixed.reshape(-1, 1024).copy()))

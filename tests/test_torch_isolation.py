@@ -2,7 +2,9 @@
 
 * Importing ``alp_tpu_torch`` and every module of it (and ``chip_smoke``)
   in a fresh interpreter leaves ``jax`` and ``alp_tpu`` out of
-  ``sys.modules``.
+  ``sys.modules``; the modules include the periphery (the competitor
+  codecs, ``utils``, ``reports``, the CLI and ``bench_e2e``), which keeps
+  its own copies of the JAX package's numpy-only modules.
 * A source scan of the package and ``chip_smoke.py`` finds no import of
   either.
 * Decoding with ``device=None`` where no CUDA device exists raises instead
@@ -56,6 +58,39 @@ def test_import_leaves_jax_and_alp_tpu_unloaded():
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_sources_import_neither_jax_nor_alp_tpu(path):
     assert not FORBIDDEN.findall(path.read_text())
+
+
+PERIPHERY = ("alp_tpu_torch.__main__", "alp_tpu_torch.bench_e2e",
+             "alp_tpu_torch.reports", "alp_tpu_torch.native",
+             "alp_tpu_torch.competitors.xor_codecs",
+             "alp_tpu_torch.competitors.pde_codec",
+             "alp_tpu_torch.competitors.elf_codec",
+             "alp_tpu_torch.competitors.zstd_codec",
+             "alp_tpu_torch.utils.datasets", "alp_tpu_torch.utils.io",
+             "alp_tpu_torch.utils.published")
+
+
+@pytest.mark.parametrize("module", PERIPHERY)
+def test_periphery_modules_are_imported_and_scanned(module):
+    assert module in MODULES
+    path = ROOT.joinpath(*module.split(".")).with_suffix(".py")
+    assert path in SOURCES
+
+
+def test_periphery_packages_import_nothing_of_alp_tpu():
+    code = ("import sys\n"
+            "import alp_tpu_torch.competitors, alp_tpu_torch.utils\n"
+            "from alp_tpu_torch.competitors import ALL_CODECS\n"
+            "assert set(ALL_CODECS) >= {'gorillas', 'chimp', 'chimp128',\n"
+            "                           'patas', 'elf'}\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+            "             or m.startswith(('jax.', 'alp_tpu.'))\n"
+            "             or m == 'alp_tpu')\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    done = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stdout + done.stderr
 
 
 def test_scan_pattern_catches_the_forbidden_imports():
