@@ -18,7 +18,9 @@ Its bench times the card: ``benchlib.loop_bench`` over the loop steps
 per-kernel rows ``python -m alp_tpu_torch.bench_speed`` (with K20-K23, the
 kernels of the TPU sites only the bench reaches), and the end-to-end rows
 ``python -m alp_tpu_torch.bench_e2e`` (ALP on the card against the
-competitor codecs of ``competitors`` and ``native`` on the host).  The CLI
+competitor codecs of ``competitors`` and ``native`` on the host).  The host
+decoder ``decompress_host`` decodes a column into numpy through the native
+engine (``native/alpcore.cpp``) without a card.  The CLI
 ``python -m alp_tpu_torch file.bin`` compresses a column of your own;
 ``utils`` and ``reports`` read datasets and write the reference's CSVs.
 The JAX package ``alp_tpu`` beside it is the reference: the port's blobs
@@ -27,7 +29,8 @@ bit, and its query answers equal its answers bit for bit.  This package
 imports neither JAX nor ``alp_tpu``.
 """
 
-from .container import CompressedColumn, compress, decompress
+from .container import (CompressedColumn, compress, decompress,
+                        decompress_host)
 from .device_compress import compress_device
 from .plan_store import load_plan, save_plan
 from .engine import (groupby_keys, make_exact_sum_step, make_filter_step,
@@ -41,7 +44,8 @@ from .engine import (groupby_keys, make_exact_sum_step, make_filter_step,
 from . import benchlib
 
 __all__ = ["CompressedColumn", "bench", "benchlib", "compress",
-           "compress_device", "decompress", "groupby_keys", "load_plan",
+           "compress_device", "decompress", "decompress_host",
+           "groupby_keys", "load_plan",
            "make_exact_sum_step", "make_filter_step", "make_groupby_step",
            "make_histogram_step", "make_sum_step", "make_topk_step",
            "query_compression", "query_count_exceptions", "query_distinct",

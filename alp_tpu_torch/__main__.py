@@ -8,9 +8,10 @@ benchmarks/bench_your_dataset.cpp flow): load a raw little-endian binary or
 one-value-per-line CSV column, compress it on the host with adaptive
 scheme selection, print the cost-model ratio and the serialized size,
 decode it on the card (the wall of ``decompress``: plan build, copies and
-kernels) and check the round trip bit for bit.  ``--device cpu`` decodes
-with the kernels' plain versions instead; without a card and without it
-the CLI exits nonzero.
+kernels) and on the host (``decompress_host``, the native engine, as
+``python -m alp_tpu`` does), and check both round trips bit for bit.
+``--device cpu`` decodes with the kernels' plain versions instead of the
+card; without a card and without it the CLI exits nonzero.
 """
 
 import argparse
@@ -34,7 +35,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from . import constants as C
-    from .container import compress, decompress
+    from .container import compress, decompress, decompress_host
     from .kernels.decode import resolve_device
     from .utils import io as uio
 
@@ -72,13 +73,17 @@ def main(argv=None) -> int:
     dec_dt = time.perf_counter() - t0
     print(f"decompress: {data.nbytes / dec_dt / 1e9:.3f} GB/s ({dev} wall: "
           f"plan build, copies, kernels)")
+    t0 = time.perf_counter()
+    host = decompress_host(cc)
+    host_dt = time.perf_counter() - t0
+    print(f"decompress: {data.nbytes / host_dt / 1e9:.3f} GB/s (host)")
 
     if not args.no_verify:
         ut = np.uint64 if dtype == np.float64 else np.uint32
-        got = out.cpu().numpy()
-        if not (got.view(ut) == data.view(ut)).all():
-            print("round-trip: MISMATCH", file=sys.stderr)
-            return 1
+        for where, got in ((str(dev), out.cpu().numpy()), ("host", host)):
+            if not (got.view(ut) == data.view(ut)).all():
+                print(f"round-trip: MISMATCH ({where})", file=sys.stderr)
+                return 1
         print("round-trip: bit-exact OK")
     return 0
 

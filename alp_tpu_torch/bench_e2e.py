@@ -39,10 +39,11 @@ compression, the input) bytes.  The rows, in order:
   (Gorillas, Chimp, Chimp128, Patas, PDE) over 102,400-value chunks at 1,
   8 and 16 threads, best of 3, every output checked bit for bit (PDE
   patched); then zstd level 3 over the same chunks;
-* host compress (the native engine) of the f64 values and of them as
-  float32 (128 MiB), and the port's ``decompress`` of both: the port has
-  no host decoder, so its wall is the card's (plan build, copies,
-  kernels);
+* host compress and host decompress (``decompress_host``: the native
+  engine, OpenMP over the host's cores, best of 5, bits checked) of the
+  f64 values and of them as float32 (128 MiB), the JAX script's "ALP host
+  engine" rows, and beside them the card's ``decompress`` wall of both
+  (plan build, copies, kernels);
 * the device compress as two loop steps, ``make_device_compress_step``
   (planning and encode) and ``make_pack_step``, on 32,000 vectors (320
   rowgroups, 250 MiB) decoded on the card from the tiled column, beside
@@ -76,7 +77,7 @@ import torch
 from . import columns, engine, native, plan_store
 from .benchlib import carry_into_rows, loop_bench
 from .competitors import pde_codec, zstd_codec
-from .container import compress, decompress
+from .container import compress, decompress, decompress_host
 from .device_compress import (compress_device, make_device_compress_step,
                               make_pack_step)
 from .engine import LoopStep, carried
@@ -368,8 +369,9 @@ def _competitor_decode_rows(r, data: np.ndarray, alp_gbps: float) -> None:
 
 
 def _host_rows(r, data: np.ndarray, dev) -> float:
-    """Host compress and the port's decompress, f64 and f32; returns the
-    f64 host compress GB/s."""
+    """Host compress and decompress through the native engine, and the
+    card's decompress wall, f64 and f32; returns the f64 host compress
+    GB/s."""
     cores = os.cpu_count()
     host_gbps = 0.0
     for dtype, scheme in ((np.float64, "ALP host engine (OpenMP)"),
@@ -382,6 +384,12 @@ def _host_rows(r, data: np.ndarray, dev) -> float:
         host_gbps = host_gbps or g
         col = compress(x)
         ut = np.uint64 if dtype == np.float64 else np.uint32
+        decompress_host(col)                          # page-warm
+        dt = _best(lambda: decompress_host(col), 5)
+        if not np.array_equal(decompress_host(col).view(ut), x.view(ut)):
+            raise AssertionError(f"decompress_host of "
+                                 f"{np.dtype(dtype).name} differs")
+        r.add("DECOMPRESSION", scheme, f"{cores} cores", x.nbytes / dt / 1e9)
         got = decompress(col, dev).cpu().numpy()
         if not np.array_equal(got.view(ut), x.view(ut)):
             raise AssertionError(f"decompress of {np.dtype(dtype).name} "

@@ -14,7 +14,10 @@ exceptions) or ALP_RD (dictionary-coded left bits, raw right bits).
   instead (``device_compress``, float64), to the same bytes.
 * ``decompress`` decodes on a device through the plan in
   ``kernels.decode``: the hand-written CUDA kernels on a card, their plain
-  PyTorch versions when the caller asks for the CPU.
+  PyTorch versions when the caller asks for the CPU (the tests' route).
+* ``decompress_host`` decodes on the host into numpy through the native
+  engine's falp and ALP_RD decoders (OpenMP over vectors), as the JAX
+  package's ``decompress`` does.
 """
 
 from __future__ import annotations
@@ -453,3 +456,80 @@ def decompress(col: CompressedColumn, device=None,
         return decompress_sharded(col, mesh)
     from .kernels.decode import decompress_device
     return decompress_device(col, device).reshape(-1)[:col.n_values]
+
+
+def decompress_host(col: CompressedColumn) -> np.ndarray:
+    """Bit-exact inverse of :func:`compress` on the host: a 1-D numpy
+    array of ``col.n_values`` values, decoded by the native engine
+    (``alp_tpu/container.py:_decompress``).
+
+    The ALP vectors go through one ``falp`` call over their mixed bit
+    widths, their exceptions written in with one scatter; ALP_RD goes one
+    (right bw, left bw) bucket at a time through ``rd_decode``, each
+    exception's left part glued onto its right bits.  A failed build of
+    the engine raises ``native.NativeBuildError``."""
+    tc = constants_for(col.dtype)
+    f64 = tc is C.DOUBLE
+    n_vec = col.n_vectors
+    out = np.empty((n_vec, C.VECTOR_SIZE), col.dtype)
+    vec_rg = np.arange(n_vec) // C.N_VECTORS_PER_ROWGROUP
+    scheme = col.rg_scheme[vec_rg]
+
+    alp_idx = np.nonzero(scheme == C.SCHEME_ALP)[0]
+    if alp_idx.size:
+        packed_flat = np.concatenate(
+            [col.packed[v] for v in alp_idx]).astype(tc.ut, copy=False)
+        sizes = col.bit_width[alp_idx].astype(np.int64) * (
+            C.VECTOR_SIZE // tc.exact_type_bit_size)
+        offsets = np.zeros(alp_idx.size, np.int32)
+        np.cumsum(sizes[:-1], out=offsets[1:])
+        full = alp_idx.size == n_vec
+        dest = out if full else np.empty((alp_idx.size, C.VECTOR_SIZE),
+                                         col.dtype)
+        # the float FACT table is MAX_EXPONENT long: a stored index of a
+        # value that round-tripped never passes it, but the read is kept
+        # inside the table
+        facts = tc.fact_arr[np.minimum(col.fac[alp_idx],
+                                       len(tc.fact_arr) - 1)]
+        (native.falp_f64 if f64 else native.falp_f32)(
+            packed_flat, offsets, col.bit_width[alp_idx],
+            col.base[alp_idx].astype(tc.st), facts,
+            tc.frac_arr[col.exp[alp_idx]], out=dest)
+        exc_vecs = alp_idx[col.exc_count[alp_idx] > 0]
+        if exc_vecs.size:
+            rows = exc_vecs if full else np.searchsorted(alp_idx, exc_vecs)
+            vv = np.repeat(rows, col.exc_count[exc_vecs].astype(np.int64))
+            pp = np.concatenate([col.exc_positions[v] for v in exc_vecs])
+            vals = np.concatenate([col.exc_values[v] for v in exc_vecs])
+            dest[vv, pp.astype(np.int64)] = vals
+        if not full:
+            out[alp_idx] = dest
+
+    rd_idx = np.nonzero(scheme == C.SCHEME_ALP_RD)[0]
+    if rd_idx.size:
+        rbws = col.rd_right_bw[vec_rg[rd_idx]]
+        lbws = col.rd_left_bw[vec_rg[rd_idx]]
+        for rbw, lbw in sorted({(int(r), int(l))
+                                for r, l in zip(rbws, lbws)}):
+            sel = rd_idx[(rbws == rbw) & (lbws == lbw)]
+            vals = native.rd_decode(
+                np.stack([col.packed[v] for v in sel]),
+                np.stack([col.left_packed[v] for v in sel]),
+                col.rd_dict[vec_rg[sel]], col.rd_dict_size[vec_rg[sel]],
+                rbw, lbw, tc.ut)
+            exc_sel = sel[col.exc_count[sel] > 0]
+            if exc_sel.size:
+                rows = np.searchsorted(sel, exc_sel)
+                vv = np.repeat(rows,
+                               col.exc_count[exc_sel].astype(np.int64))
+                pp = np.concatenate(
+                    [col.exc_positions[v] for v in exc_sel]).astype(
+                        np.int64)
+                left = np.concatenate(
+                    [col.exc_values[v] for v in exc_sel]).astype(tc.ut)
+                shift = tc.ut.type(rbw)
+                mask = tc.ut.type((1 << rbw) - 1)
+                vals[vv, pp] = (left << shift) | (vals[vv, pp] & mask)
+            out[sel] = vals.view(col.dtype)
+
+    return out.reshape(-1)[:col.n_values]

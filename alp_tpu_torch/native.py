@@ -1,7 +1,9 @@
 """ctypes loader for the host engines in ``native/``.
 
-The port plans and encodes columns on the host through the same C++
-engine the JAX package uses (``native/alpcore.cpp``), and times the
+The port plans, encodes and decodes columns on the host through the same
+C++ engine the JAX package uses (``native/alpcore.cpp``: the planner, the
+encoder, FFOR, and the falp and ALP_RD decoders, OpenMP over vectors, that
+``container.decompress_host`` calls), and times the
 competitor codecs through the same C++ codecs (``native/competitors.cpp``:
 Gorillas, Chimp, Chimp128, Patas and PDE, one core a stream, OpenMP over
 chunks), each built from its unchanged source by this loader of its own.
@@ -38,6 +40,7 @@ _FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fopenmp"]
 _P = ctypes.c_void_p
 _L = ctypes.c_long
 _I = ctypes.c_int
+_UINT = {16: ctypes.c_uint16, 32: ctypes.c_uint32, 64: ctypes.c_uint64}
 
 
 class NativeBuildError(RuntimeError):
@@ -109,15 +112,30 @@ def lib() -> ctypes.CDLL:
                                  ctypes.c_float, ctypes.c_float] + [_P] * 9,
         "alp_ffor_ragged_u64": [_P, _P, _P, _P, _P, _L],
         "alp_ffor_ragged_u32": [_P, _P, _P, _P, _P, _L],
+        # the host decode engine and the per-bucket FFOR of one bit width
+        "alp_falp_f64": [_P] * 7 + [_I],
+        "alp_falp_f32": [_P] * 7 + [_I],
+        "alp_rd_decode_f64": [_P, _P, _P, _P, _I, _I, _P, _I],
+        "alp_rd_decode_f32": [_P, _P, _P, _P, _I, _I, _P, _I],
+        "alp_ffor_u64_pv": [_P, _P, _I, _P, _I],
+        "alp_init_f64": [_P, _L, _L, _P, _P, _P, ctypes.c_double, _I, _L,
+                         _P, _P],
+        "alp_encode_f64": [_P, _I, _P, _I, _P, _P, _P,
+                           ctypes.c_double] + [_P] * 8,
     }
+    for bits, ct in _UINT.items():
+        for op in ("ffor", "unffor"):
+            sigs[f"alp_{op}_u{bits}"] = [_P, _P, _I, ct, _I]
     for name, argtypes in sigs.items():
         fn = getattr(dll, name)
         fn.argtypes = argtypes
-        fn.restype = None
+        fn.restype = _I if name == "alp_init_f64" else None
     return dll
 
 
 def _p(a: np.ndarray) -> int:
+    """The address of ``a``'s data.  The caller keeps ``a`` alive until
+    the native call returns: a temporary would be freed at once."""
     if not a.flags.c_contiguous:
         raise ValueError("native arrays must be C-contiguous")
     return a.ctypes.data
@@ -209,8 +227,9 @@ def _ffor_ragged(fn, encoded, bw, base, ut):
     off = np.zeros(n + 1, np.int64)
     np.cumsum(bw.astype(np.int64) * lanes, out=off[1:])
     flat = np.empty(int(off[-1]), ut)
-    fn(_p(np.ascontiguousarray(encoded).view(ut)), _p(flat), _p(bw),
-       _p(np.ascontiguousarray(base).view(ut)), _p(off), n)
+    encoded = np.ascontiguousarray(encoded).view(ut)
+    base = np.ascontiguousarray(base).view(ut)
+    fn(_p(encoded), _p(flat), _p(bw), _p(base), _p(off), n)
     return flat, off
 
 
@@ -225,6 +244,135 @@ def ffor_ragged32(encoded: np.ndarray, bw: np.ndarray, base: np.ndarray):
     """The 32-bit twin of :func:`ffor_ragged`."""
     return _ffor_ragged(lib().alp_ffor_ragged_u32, encoded, bw, base,
                         np.uint32)
+
+
+def ffor(values: np.ndarray, bw: int, base) -> np.ndarray:
+    """FFOR-pack [n, 1024] unsigned ints (u16, u32 or u64) at one bit
+    width and base: [n, bw * L] words in the FastLanes layout."""
+    values = np.ascontiguousarray(values)
+    ut = values.dtype
+    bits = ut.itemsize * 8
+    out = np.zeros((values.shape[0], bw * (C.VECTOR_SIZE // bits)), ut)
+    getattr(lib(), f"alp_ffor_u{bits}")(_p(values), _p(out), int(bw),
+                                        int(base), values.shape[0])
+    return out
+
+
+def ffor_pv(values: np.ndarray, bw: int, bases: np.ndarray) -> np.ndarray:
+    """FFOR-pack [n, 1024] 64-bit ints at one bit width, each vector with
+    its own base: [n, bw * 16] u64 words."""
+    values = np.ascontiguousarray(values).view(np.uint64)
+    bases = np.ascontiguousarray(bases).view(np.uint64)
+    out = np.zeros((values.shape[0], bw * 16), np.uint64)
+    lib().alp_ffor_u64_pv(_p(values), _p(out), int(bw), _p(bases),
+                          values.shape[0])
+    return out
+
+
+def unffor(packed: np.ndarray, bw: int, base, ut) -> np.ndarray:
+    """The inverse of :func:`ffor`: [n, bw * L] words -> [n, 1024] ``ut``."""
+    ut = np.dtype(ut)
+    packed = np.ascontiguousarray(packed, ut)
+    out = np.empty((packed.shape[0], C.VECTOR_SIZE), ut)
+    getattr(lib(), f"alp_unffor_u{ut.itemsize * 8}")(
+        _p(packed), _p(out), int(bw), int(base), packed.shape[0])
+    return out
+
+
+def rd_decode(right_packed: np.ndarray, left_packed: np.ndarray,
+              dicts: np.ndarray, dict_size: np.ndarray, rbw: int,
+              lbw: int, ut) -> np.ndarray:
+    """ALP_RD decode of one (right bw, left bw) bucket of n vectors:
+    [n, rbw * L] right words, [n, lbw * 64] u16 dictionary-index words
+    and [n, 8] u16 dictionaries -> [n, 1024] glued bits of ``ut``, before
+    the exceptions are written in (an index is clamped to
+    dict_size - 1)."""
+    ut = np.dtype(ut)
+    # every converted copy is bound to a name: it must outlive the call
+    args = (np.ascontiguousarray(right_packed, ut),
+            np.ascontiguousarray(left_packed, np.uint16),
+            np.ascontiguousarray(dicts, np.uint16),
+            np.ascontiguousarray(dict_size, np.int32))
+    n = args[0].shape[0]
+    out = np.empty((n, C.VECTOR_SIZE), ut)
+    fn = (lib().alp_rd_decode_f64 if ut.itemsize == 8
+          else lib().alp_rd_decode_f32)
+    fn(*map(_p, args), int(rbw), int(lbw), _p(out), n)
+    return out
+
+
+def _falp(fn, tc, packed_flat, offsets, bws, bases, facts, fracs, out):
+    n = len(bws)
+    if out is None:
+        out = np.empty((n, C.VECTOR_SIZE), tc.pt)
+    if out.shape != (n, C.VECTOR_SIZE) or out.dtype != tc.pt:
+        raise ValueError(f"out must be {np.dtype(tc.pt).name} "
+                         f"[{n}, {C.VECTOR_SIZE}]")
+    args = [np.ascontiguousarray(a, dt) for a, dt in (
+        (packed_flat, tc.ut), (offsets, np.int32), (bws, np.uint8),
+        (bases, tc.st), (facts, tc.st), (fracs, tc.pt))]
+    fn(*map(_p, args), _p(out), n)
+    return out
+
+
+def falp_f64(packed_flat: np.ndarray, offsets: np.ndarray, bws: np.ndarray,
+             bases: np.ndarray, facts: np.ndarray, fracs: np.ndarray,
+             out: np.ndarray | None = None) -> np.ndarray:
+    """ALP decode of n vectors of mixed bit widths in one call (OpenMP
+    over the vectors above 32): vector i's words start at ``offsets[i]``
+    of ``packed_flat``; it is unpacked at ``bws[i]`` around ``bases[i]``,
+    multiplied by ``facts[i]`` and by ``fracs[i]``.  Decodes into ``out``
+    (f64 [n, 1024], C-contiguous) when given; returns it."""
+    return _falp(lib().alp_falp_f64, C.DOUBLE, packed_flat, offsets, bws,
+                 bases, facts, fracs, out)
+
+
+def falp_f32(packed_flat: np.ndarray, offsets: np.ndarray, bws: np.ndarray,
+             bases: np.ndarray, facts: np.ndarray, fracs: np.ndarray,
+             out: np.ndarray | None = None) -> np.ndarray:
+    """The float twin of :func:`falp_f64` (int32 bases and facts, float32
+    fracs)."""
+    return _falp(lib().alp_falp_f32, C.FLOAT, packed_flat, offsets, bws,
+                 bases, facts, fracs, out)
+
+
+def init_f64(data: np.ndarray, offset: int):
+    """Planning of the rowgroup at ``offset`` of ``data``: sampling, top-k
+    (e, f) search and the ALP / ALP_RD choice.  Returns (scheme, combos
+    [max(k, 1), 2] int32, k)."""
+    tc = C.DOUBLE
+    data = np.ascontiguousarray(data, np.float64)
+    combos = np.zeros((C.MAX_K_COMBINATIONS, 2), np.int32)
+    k = np.zeros(1, np.int32)
+    scheme = lib().alp_init_f64(
+        _p(data), len(data), int(offset), _p(tc.exp_arr), _p(tc.frac_arr),
+        _p(tc.fact_arr), tc.magic_number, tc.max_exponent,
+        int(tc.rd_size_threshold_limit), _p(combos), _p(k))
+    return scheme, combos[:max(int(k[0]), 1)], int(k[0])
+
+
+def encode_f64(vectors: np.ndarray, combos: np.ndarray) -> dict:
+    """ALP encode of [n, 1024] doubles sharing the candidates ``combos``
+    ([k, 2] int32 (e, f)).  Returns the per-vector metadata, the encoded
+    ints (exception slots filled) and the exceptions, dense [n, 1024] with
+    ``exc_count`` valid entries a row."""
+    tc = C.DOUBLE
+    vectors = np.ascontiguousarray(vectors, np.float64)
+    combos = np.ascontiguousarray(combos, np.int32)
+    n = vectors.shape[0]
+    out = {
+        "fac": np.empty(n, np.uint8), "exp": np.empty(n, np.uint8),
+        "bit_width": np.empty(n, np.uint8), "base": np.empty(n, np.int64),
+        "encoded": np.empty((n, C.VECTOR_SIZE), np.int64),
+        "exc_values": np.empty((n, C.VECTOR_SIZE), np.float64),
+        "exc_positions": np.empty((n, C.VECTOR_SIZE), np.uint16),
+        "exc_count": np.empty(n, np.uint16),
+    }
+    lib().alp_encode_f64(
+        _p(vectors), n, _p(combos), combos.shape[0], _p(tc.exp_arr),
+        _p(tc.frac_arr), _p(tc.fact_arr), tc.magic_number,
+        *(_p(a) for a in out.values()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -324,8 +472,8 @@ def pde_decode(sig: np.ndarray, exp: np.ndarray,
     n = len(sig)
     out = np.empty(n, np.float64)
     exp = np.ascontiguousarray(exp, np.uint8)
-    competitors_lib().cmp_pde_decode_f64(
-        _p(np.ascontiguousarray(sig, np.int32)), _p(exp), n, _p(out))
+    sig = np.ascontiguousarray(sig, np.int32)
+    competitors_lib().cmp_pde_decode_f64(_p(sig), _p(exp), n, _p(out))
     if len(patches):
         out[exp == PDE_EXCEPTION] = patches
     return out

@@ -132,7 +132,14 @@ Phases, each printing its wall time:
             rows at 64 MiB of values (``PERIPHERY_HOST_VECTORS``; 256 MiB
             when ``python -m alp_tpu_torch.bench_e2e`` runs alone) to keep
             the script well inside its time limit.
-14. kernels each kernel against its plain PyTorch version on the card, on
+14. host    ``alp_tpu_torch.decompress_host`` (the native engine's falp
+            and ALP_RD decoders, OpenMP over the host's cores) on every
+            column of the decode phase, best of HOST_REPS; each output's
+            bits must equal the input's and those of the card's
+            ``decompress`` of the same column.  Prints each column's GB/s
+            beside the card's ``decompress`` wall, with ``os.cpu_count()``
+            and the host CPU's model name (``/proc/cpuinfo``).
+15. kernels each kernel against its plain PyTorch version on the card, on
             the same plans, bit for bit (tolerance 0: the codec is
             lossless and the SUM totals are integers); K9-K14 on every
             call of a second ``compress_device`` of every column; K15 (2
@@ -148,7 +155,7 @@ Phases, each printing its wall time:
             ALP_RD bucket (the right parts and the left parts of the
             decode with its exceptions in: it must give the decode back),
             K23 on the decoded bits of every f64 column.
-15. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
+16. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
             their launches as the wrappers made them, without the
             wrappers' synchronising range checks; K11/K14 also by planning
             level, each level with its launches on the dcompress phase,
@@ -1428,6 +1435,7 @@ CLI_CSV_VALUES = 100_000         # and of its .csv columns
 # bench_e2e's host and competitor rows at 64 MiB of values here (256 MiB
 # when it runs alone), to keep the script well inside its time limit
 PERIPHERY_HOST_VECTORS = 8 * 1024
+HOST_REPS = 3                    # the host phase's calls a column
 
 
 def cli_on_card(sources: dict) -> dict:
@@ -1466,6 +1474,79 @@ def cli_on_card(sources: dict) -> dict:
                 print(f"  {cmd}: {wall:.3f} s; " + " | ".join(lines),
                       flush=True)
     return moved_since(before)
+
+
+def host_cpu_model() -> str:
+    """The host CPU's model name from /proc/cpuinfo, else its vendor,
+    family and model numbers there, else ``lscpu``'s model name."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, _, value = ln.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    if fields.get("model name", "unknown") != "unknown":
+        return fields["model name"]
+    if fields.get("vendor_id"):
+        return (f"{fields['vendor_id']} family {fields.get('cpu family')} "
+                f"model {fields.get('model')}")
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    for ln in out.splitlines():
+        if ln.startswith("Model name:"):
+            return ln.split(":", 1)[1].strip()
+    return "unknown"
+
+
+def host_decode(columns: dict, dev) -> str:
+    """``decompress_host`` on every column, best of HOST_REPS, each output
+    held against the input and the card's ``decompress`` by bits; returns
+    the phase's line."""
+    import torch
+    import alp_tpu_torch
+    cores, model = os.cpu_count(), host_cpu_model()
+    rates = []
+    for name, (col, expected) in columns.items():
+        ut = np.dtype(f"u{expected.dtype.itemsize}")
+        want = expected.view(ut)
+        best = math.inf
+        for _ in range(HOST_REPS):
+            tw = time.perf_counter()
+            got = alp_tpu_torch.decompress_host(col)
+            best = min(best, time.perf_counter() - tw)
+            if (not isinstance(got, np.ndarray) or got.dtype != expected.dtype
+                    or got.shape != expected.shape):
+                raise RuntimeError(f"{name}: decompress_host gave "
+                                   f"{type(got).__name__} {got.dtype} "
+                                   f"{got.shape}")
+            if not np.array_equal(got.view(ut), want):
+                bad = int((got.view(ut) != want).sum())
+                raise RuntimeError(f"{name}: {bad} values of decompress_host "
+                                   f"differ from the input bits")
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        card = alp_tpu_torch.decompress(col, dev)
+        torch.cuda.synchronize()
+        card_wall = time.perf_counter() - tw
+        card = card.cpu().numpy().view(ut)
+        if not np.array_equal(got.view(ut), card):
+            bad = int((got.view(ut) != card).sum())
+            raise RuntimeError(f"{name}: {bad} values of decompress_host "
+                               f"differ from the card's decompress")
+        gbps = expected.nbytes / best / 1e9
+        rates.append(f"{name} {gbps:.3f}")
+        print(f"  {name}: {col.n_values} values, host == input == card by "
+              f"bits; decompress_host best of {HOST_REPS} {best:.4f} s = "
+              f"{gbps:.3f} GB/s on {cores} cores ({model}); card decompress "
+              f"wall {card_wall:.4f} s = "
+              f"{expected.nbytes / card_wall / 1e9:.3f} GB/s", flush=True)
+    return (f"decompress_host GB/s on {cores} cores of {model!r}, "
+            f"best of {HOST_REPS}: " + ", ".join(rates))
 
 
 def device_busy_ms(step, args, dev, iters: int = 5) -> str:
@@ -2453,7 +2534,12 @@ def main() -> int:
           f"{e2e_s:.3f}s (companions passed); launches: CLI {cli_launches}, "
           f"device compress steps {step_launches}, bench_e2e {e2e_launches}")
 
-    # 14. kernels vs plain versions, on the card, same plans
+    # 14. host: the host decode engine on every column, beside the card
+    t0 = time.perf_counter()
+    host_line = host_decode(columns, dev)
+    phase("host", t0, host_line)
+
+    # 15. kernels vs plain versions, on the card, same plans
     t0 = time.perf_counter()
     errors = {k: 0.0 for k in (*KERNELS, *SUM_KERNELS, *DC_KERNELS,
                                *KEY_KERNELS, *RANK_KERNELS, *GROUP_KERNELS,
@@ -2659,7 +2745,7 @@ def main() -> int:
           "keys == plain, K20-K23 == plain (K21 == the decode), every "
           "K9-K14 call of compress_device == plain (tolerance 0)")
 
-    # 15. timing at the 256 MiB shapes
+    # 16. timing at the 256 MiB shapes
     t0 = time.perf_counter()
     timed = {"falp_decode_f64": list(BENCH_PROFILES),
              "falp_decode_f32": ["f32_alp"],

@@ -13,13 +13,15 @@
   equal here too), and a sidecar naming the CPU.
 * ``python -m alp_tpu_torch`` with ``--device cpu`` prints
   ``python -m alp_tpu``'s lines on .bin and .csv columns, float64 and
-  float32, apart from the two timing lines; without a card and without
-  ``--device cpu`` it exits nonzero, as ``python -m
-  alp_tpu_torch.bench_e2e`` does.
+  float32, apart from the timing lines; it prints the host decode's
+  ``decompress: ... GB/s (host)`` line (``decompress_host``) and fails
+  when that decode's bits differ; without a card and without ``--device
+  cpu`` it exits nonzero, as ``python -m alp_tpu_torch.bench_e2e`` does.
 """
 
 import dataclasses
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -188,6 +190,36 @@ def test_cli_equals_the_reference(suffix, f32, tmp_path, capsys):
     assert got[-1] == "round-trip: bit-exact OK"
 
 
+@pytest.mark.parametrize("f32", [False, True])
+def test_cli_prints_and_checks_the_host_decode(f32, tmp_path, capsys,
+                                              monkeypatch):
+    from alp_tpu_torch import container
+    rng = np.random.default_rng(7)
+    x = np.round(rng.uniform(-40, 60, 102400 + 999), 2)
+    path = tmp_path / "col.bin"
+    x.astype(np.float32 if f32 else np.float64).tofile(path)
+    argv = [str(path), "--device", "cpu"] + (["--f32"] if f32 else [])
+    assert cli.main(argv) == 0
+    lines = capsys.readouterr().out.splitlines()
+    host = [ln for ln in lines if ln.endswith("(host)")]
+    assert [ln.split(":")[0] for ln in host] == ["compress", "decompress"]
+    assert re.fullmatch(r"decompress: \d+\.\d{3} GB/s \(host\)", host[1])
+    assert lines[-1] == "round-trip: bit-exact OK"
+
+    real = container.decompress_host
+
+    def off_by_one_bit(col):
+        out = real(col)
+        out.view(np.uint32 if f32 else np.uint64)[-1] ^= 1
+        return out
+
+    monkeypatch.setattr(container, "decompress_host", off_by_one_bit)
+    assert cli.main(argv) == 1
+    captured = capsys.readouterr()
+    assert "round-trip: MISMATCH (host)" in captured.err
+    assert "bit-exact OK" not in captured.out
+
+
 def test_cli_without_a_card_exits_nonzero(tmp_path, monkeypatch, capsys):
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -221,9 +253,12 @@ def test_bench_e2e_rows_run_on_the_cpu():
     rows = bench_e2e.rows(torch.device("cpu"), 0, vectors=200,
                           host_vectors=200, dc_vectors=200, out=out)
     queries = [r[0] for r in rows]
-    assert len(rows) == len(out.getvalue().splitlines()) - 2 == 62
+    assert len(rows) == len(out.getvalue().splitlines()) - 2 == 64
     # rates are rounded to 0.01 GB/s, which a loaded CPU can fall under
     assert all(len(r) == len(bench_e2e.HEADER) and r[3] >= 0 for r in rows)
     assert queries.count("SUM-scan decode") == 15
     assert queries.count("DECODE") == 2
+    assert [r[1] for r in rows if r[0] == "DECOMPRESSION"
+            and r[1].startswith("ALP host engine")] == [
+        "ALP host engine (OpenMP)", "ALP host engine f32"]
     assert any(r[1].startswith("ALP device e2e") for r in rows)
