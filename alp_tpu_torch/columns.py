@@ -58,11 +58,21 @@ def route_columns(rng: np.random.Generator, n_vectors: int) -> dict:
     return cols
 
 
-def tile_column(col: CompressedColumn, n_vectors: int) -> CompressedColumn:
+def tile_column(col: CompressedColumn, n_vectors: int,
+                n_values: int | None = None) -> CompressedColumn:
     """Repeat a column of whole rowgroups and no tail, cut to exactly
-    ``n_vectors`` vectors (``bench.py:tile_column``, to an exact size)."""
+    ``n_vectors`` vectors (``bench.py:tile_column``, to an exact size).
+    ``n_values`` (default ``n_vectors * 1024``) cuts the last vector to a
+    tail: value i of the result is value ``i % col.n_values`` of ``col``,
+    the last vector's words stay whole and its values past ``n_values``
+    are the pad."""
     if col.n_vectors % RG_VECTORS or col.n_values != col.n_vectors * VECTOR:
         raise ValueError("tile_column needs whole rowgroups and no tail")
+    if n_values is None:
+        n_values = n_vectors * VECTOR
+    if not (n_vectors - 1) * VECTOR < n_values <= n_vectors * VECTOR:
+        raise ValueError(f"n_values {n_values} does not end in vector "
+                         f"{n_vectors - 1}")
     reps = -(-n_vectors // col.n_vectors)
     n_rg = -(-n_vectors // RG_VECTORS)
 
@@ -73,7 +83,7 @@ def tile_column(col: CompressedColumn, n_vectors: int) -> CompressedColumn:
         return np.tile(a, reps)[:n_vectors]
 
     return CompressedColumn(
-        dtype=col.dtype, n_values=n_vectors * VECTOR, n_vectors=n_vectors,
+        dtype=col.dtype, n_values=n_values, n_vectors=n_vectors,
         rg_scheme=rg(col.rg_scheme), rd_dict=rg(col.rd_dict),
         rd_dict_size=rg(col.rd_dict_size), rd_left_bw=rg(col.rd_left_bw),
         rd_right_bw=rg(col.rd_right_bw), fac=vec(col.fac), exp=vec(col.exp),

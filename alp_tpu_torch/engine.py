@@ -925,29 +925,143 @@ def group_reduce(plan, keys: torch.Tensor, num_groups: int, rows=None,
 
 @dataclasses.dataclass
 class Groups:
-    """Host totals of G groups (or window cells): ``totals`` {g: the exact
-    sum times 2^B, a Python int} for the groups whose sum is nonzero;
-    ``sp`` int64 [G, 3] NaN, +Inf and -Inf counts; ``ct`` int64 [G] row
-    counts; ``kmn`` / ``kmx`` [G] least and largest unsigned keys (all ones
-    and 0 for an empty group)."""
-    totals: dict
+    """Host totals of G groups (or window cells): ``limbs`` int64 [G, L],
+    each group's exact sum times 2^B as carried base-2^32 limbs (limb j
+    weighs 2^(32 (base + j)); every limb but the last in [0, 2^32), the
+    last signed); ``sp`` int64 [G, 3] NaN, +Inf and -Inf counts; ``ct``
+    int64 [G] row counts; ``kmn`` / ``kmx`` [G] least and largest unsigned
+    keys (all ones and 0 for an empty group).  ``totals`` gives the same
+    sums as Python ints, {g: sum} for the nonzero ones."""
+    limbs: np.ndarray
+    base: int
     sp: np.ndarray
     ct: np.ndarray
     kmn: np.ndarray
     kmx: np.ndarray
 
+    @functools.cached_property
+    def totals(self) -> dict:
+        rows = np.flatnonzero(self.limbs.any(1))
+        shifts = [32 * (self.base + j) for j in range(self.limbs.shape[1])]
+        return {g: sum(v << k for v, k in zip(row, shifts) if v)
+                for g, row in zip(rows.tolist(), self.limbs[rows].tolist())}
 
-def _join_windows(parts: list, at: list, W: int) -> dict:
-    """{g: sum over the parts of part[i, w] << 32 w} over the nonzero
-    windows; part i is group ``at[i]`` (``at`` None: group i)."""
-    totals = {}
+    def grand_total(self) -> int:
+        """The sum of every group's total (times 2^B), a Python int."""
+        return sum(int(v) << (32 * (self.base + j))
+                   for j, v in enumerate(self.limbs.sum(0).tolist()))
+
+
+def _carry(limbs: np.ndarray) -> np.ndarray:
+    """Carry int64 limbs [G, L] in place (every limb but the last into
+    [0, 2^32), the last signed), their values unchanged; each limb must
+    stay within 2^62."""
+    for j in range(limbs.shape[1] - 1):
+        limbs[:, j + 1] += limbs[:, j] >> 32
+        limbs[:, j] &= 0xFFFFFFFF
+    return limbs
+
+
+def _join_limbs(parts: list, at: list, W: int, G: int) -> tuple:
+    """(limbs, base) of :class:`Groups`: the sum over the parts of
+    part[i, w] << 32 w, part i being group ``at[i]`` (``at`` None: group
+    i, else distinct groups), over the windows any part uses.  Each window
+    total splits into its low and high 32 bits, added into two limbs."""
+    used = np.zeros(W, bool)
+    for part in parts:
+        used |= np.bitwise_or.reduce(part[:, :W], axis=0) != 0
+    if not used.any():
+        return np.zeros((G, 1), np.int64), 0
+    lo, hi = np.flatnonzero(used)[[0, -1]].tolist()
+    k = hi - lo + 1
+    limbs = np.zeros((G, k + 3), np.int64)  # room for the carries
     for part, where in zip(parts, at):
-        gz, wz = np.nonzero(part[:, :W])
-        groups = gz if where is None else where[gz]
-        for g, w, t in zip(groups.tolist(), wz.tolist(),
-                           part[gz, wz].tolist()):
-            totals[g] = totals.get(g, 0) + (t << (32 * w))
-    return totals
+        t = part[:, lo:hi + 1]
+        rows = slice(None) if where is None else where
+        limbs[rows, :k] += t & 0xFFFFFFFF
+        limbs[rows, 1:k + 1] += t >> 32
+    return _carry(limbs), lo
+
+
+def _round_window(top, mid, low, sticky, h, scale: int) -> tuple:
+    """Round nonnegative integers over 2^scale to doubles, once, to
+    nearest even: each is ``top`` 2^(32 h) + ``mid`` 2^(32 (h - 1)) +
+    ``low`` 2^(32 (h - 2)) plus a part below, nonzero where ``sticky``
+    (uint64 limbs below 2^32, ``top`` nonzero).  (the doubles, the mask of
+    those that are normal: the others, subnormal or past the largest
+    double, read 0.0)."""
+    one = np.uint64(1)
+    bl = np.frexp(top.astype(np.float64))[1].astype(np.uint64)  # 1 .. 32
+    lead = (top << (np.uint64(64) - bl)) | (mid << (np.uint64(32) - bl)) \
+        | (low >> bl)
+    sticky = sticky | ((low & ((one << bl) - one)) != 0) \
+        | ((lead & np.uint64(0x3FF)) != 0)
+    mant = lead >> np.uint64(11)
+    guard = ((lead >> np.uint64(10)) & one) == one
+    mant += (guard & (sticky | ((mant & one) == one))).astype(np.uint64)
+    e = 32 * (h - 2) + bl.astype(np.int64) + 11 - scale
+    ok = (e >= -1074) & (e <= 970)
+    return np.ldexp(mant.astype(np.float64),
+                    np.where(ok, e, 0).astype(np.int32)) * ok, ok
+
+
+def _rounded(gr: Groups, scale: int, rows: np.ndarray, aggs) -> dict:
+    """{"sum", "mean"} (those in ``aggs``) -> float64 [G]: the exact total
+    of each group in ``rows`` (a bool mask) over 2^scale, or over its count
+    times 2^scale, rounded once to nearest even, as ``int / int`` rounds
+    it; 0.0 for a zero total and outside ``rows``.  Vectorised over the
+    groups' limbs; a result outside the normal range goes through Python's
+    ``int / int`` (which raises ``OverflowError`` past DBL_MAX), as does a
+    mean over 2^32 rows or more."""
+    G = gr.ct.shape[0]
+    out = {a: np.zeros(G, np.float64) for a in ("sum", "mean") if a in aggs}
+    limbs = gr.limbs
+    idx = np.flatnonzero(rows & limbs.any(1))
+    if not idx.size or not out:
+        return out
+    m = limbs[idx]
+    neg = m[:, -1] < 0
+    m[neg] = _carry(-m[neg])
+    R, L = m.shape
+    nz = m != 0
+    h = L - 1 - np.argmax(nz[:, ::-1], axis=1)       # the top limb
+    least = np.argmax(nz, axis=1)                    # the lowest nonzero
+    # every limb now in [0, 2^32); three zero limbs below limb 0
+    m = np.concatenate([np.zeros((R, 3), np.int64), m], axis=1).view(
+        np.uint64).ravel()
+    at = np.arange(R) * (L + 3) + 3
+
+    def limb(j):
+        return m[at + j]
+
+    for a, res in out.items():
+        slow = np.zeros(R, bool)
+        if a == "sum":
+            val, ok = _round_window(limb(h), limb(h - 1), limb(h - 2),
+                                    least < h - 2, gr.base + h, scale)
+        else:
+            ct = gr.ct[idx].astype(np.uint64)
+            slow |= ct >= np.uint64(1 << 32)
+            d = np.maximum(ct, np.uint64(1))
+            rem = np.zeros(R, np.uint64)
+            q = []
+            for j in range(4):       # the four limbs from the top, by d
+                cur = (rem << np.uint64(32)) | limb(h - j)
+                q.append(cur // d)
+                rem = cur % d
+            lead = q[0] != 0
+            val, ok = _round_window(
+                np.where(lead, q[0], q[1]), np.where(lead, q[1], q[2]),
+                np.where(lead, q[2], q[3]),
+                (rem != 0) | (least < h - 3) | (lead & (q[3] != 0)),
+                gr.base + np.where(lead, h, h - 1), scale)
+        res[idx] = np.where(neg, -val, val)
+        for i in np.flatnonzero(slow | ~ok).tolist():
+            g = int(idx[i])
+            t = sum(int(v) << (32 * (gr.base + j))
+                    for j, v in enumerate(limbs[g].tolist()))
+            res[g] = t / ((int(gr.ct[g]) if a == "mean" else 1) << scale)
+    return out
 
 
 def _unordered_keys(plan, keys: np.ndarray) -> torch.Tensor:
@@ -964,7 +1078,8 @@ def _unordered_host(dtype, outs: list, ext: torch.Tensor) -> Groups:
     W = outs[0].shape[1] - 4
     parts = [o.cpu().numpy() for o in outs]
     ext = ext.cpu().numpy().view(_key_type(dtype))
-    return Groups(_join_windows(parts, [None] * len(parts), W),
+    return Groups(*_join_limbs(parts, [None] * len(parts), W,
+                               parts[0].shape[0]),
                   sum(p[:, W:W + 3] for p in parts),
                   sum(p[:, W + 3] for p in parts), ext[:, 0].copy(),
                   ext[:, 1].copy())
@@ -989,10 +1104,11 @@ class _OrderedLayout:
     touched: np.ndarray            # [T] the groups those ids stand for
 
 
-def _ordered_layout(plan, bounds: np.ndarray, group_of) -> _OrderedLayout:
+def _ordered_layout(plan, bounds: np.ndarray, cross_keys) -> _OrderedLayout:
     """The whole vectors of each group and the crossed vectors with their
-    keys ``group_of(vector ids)`` (numpy int64 [m, 1024]), relabelled to
-    the groups they touch."""
+    keys, relabelled to the groups they touch: ``cross_keys(vector ids)``
+    gives (the groups, int32 [m, 1024] each row's index among them, -1 past
+    the last row), as :func:`_keys_of` and :func:`_cells_of` make them."""
     n, nv, dev = plan.n_values, plan.n_vectors, plan.device
     G = len(bounds) - 1
     V = VECTOR_SIZE
@@ -1011,11 +1127,7 @@ def _ordered_layout(plan, bounds: np.ndarray, group_of) -> _OrderedLayout:
     touched = np.zeros(0, np.int64)
     lk = np.zeros((0, V), np.int32)
     if cross.size:
-        gk = group_of(cross)
-        valid = (cross[:, None] * V + np.arange(V)) < n
-        touched, local = np.unique(gk[valid], return_inverse=True)
-        lk = np.full(gk.shape, -1, np.int32)
-        lk[valid] = local
+        touched, lk = cross_keys(cross)
     up = functools.partial(torch.as_tensor, device=dev)
     return _OrderedLayout(bounds, up(lo_v), up(hi_v), up(owner),
                           up(cross.astype(np.int64)), up(lk), touched)
@@ -1072,20 +1184,20 @@ def _ordered_host(plan, lay: _OrderedLayout, parts: list, at: list,
         else:
             sp[where] += p[:, W:W + 3]
     ext = ext.cpu().numpy().view(_key_type(plan.dtype))
-    return Groups(_join_windows(parts, at, W), sp, np.diff(lay.bounds),
+    return Groups(*_join_limbs(parts, at, W, G), sp, np.diff(lay.bounds),
                   ext[:, 0].copy(), ext[:, 1].copy())
 
 
-def _ordered_groups(plan, bounds: np.ndarray, group_of) -> Groups:
+def _ordered_groups(plan, bounds: np.ndarray, cross_keys) -> Groups:
     """Contiguous groups, group g the rows bounds[g] .. bounds[g + 1] - 1.
     The vectors that lie whole in a group add their K18 totals (kept on
     the plan) through an int64 prefix sum over the vectors and two gathers
     a group, in runs of fewer than 2^31 values, and their keys through a
     segmented least and largest; the vectors that a group boundary crosses
-    go through K19 with their keys ``group_of(vector ids)`` (numpy int64
-    [m, 1024]), relabelled to the groups they touch.  K18 skips the pad,
+    go through K19 with their keys ``cross_keys(vector ids)``, relabelled
+    to the groups they touch (:func:`_ordered_layout`).  K18 skips the pad,
     so a partial last vector needs nothing of its own."""
-    lay = _ordered_layout(plan, bounds, group_of)
+    lay = _ordered_layout(plan, bounds, cross_keys)
     return _ordered_host(plan, lay, *_ordered_device(
         plan, lay, *_plan_vector_sums(plan)))
 
@@ -1097,30 +1209,24 @@ def _finish_groups(gr: Groups, aggs, dtype) -> dict:
     exact rational mean, rounded the same way, NaN for an empty group; NaN,
     or +Inf with -Inf, gives NaN and an infinity wins otherwise
     (``_finish_sum``); MIN / MAX the values of the least and largest keys
-    (+0.0 for a group of zeros), NaN for an empty group.  Python's
-    ``int / int`` rounds the exact quotient once, as ``float(Fraction(...))``
-    does after reducing it, at a tenth of its cost a group."""
+    (+0.0 for a group of zeros), NaN for an empty group.  The roundings
+    are those of ``float(Fraction(...))``, vectorised over the groups
+    (``_rounded``).  A group with a NaN or an infinity is decided by those
+    alone, before any division: its finite part may pass DBL_MAX, where
+    the division would raise ``OverflowError`` (as a finite group past
+    DBL_MAX does, in both packages)."""
     dtype = np.dtype(dtype)
-    G = gr.ct.shape[0]
     scale = _SCALE[dtype]
-    special = np.flatnonzero(gr.sp.any(1)).tolist()
-    sp = gr.sp.tolist()
+    special = gr.sp.any(1)
+    decided = [(g, _finish_sum(0, *sp, scale)) for g, sp in zip(
+        np.flatnonzero(special).tolist(), gr.sp[special].tolist())]
     res = {"count": gr.ct.astype(np.int64)}
-    if "sum" in aggs:
-        sums = np.zeros(G, np.float64)
-        for g, t in gr.totals.items():
-            sums[g] = t / (1 << scale)
-        for g in special:
-            sums[g] = _finish_sum(0, *sp[g], scale)
-        res["sum"] = sums.astype(dtype)
-    if "mean" in aggs:
-        means = np.full(G, np.nan, dtype)
-        means[gr.ct > 0] = 0.0
-        for g, t in gr.totals.items():
-            means[g] = dtype.type(t / (int(gr.ct[g]) << scale))
-        for g in special:
-            means[g] = _finish_sum(0, *sp[g], scale)
-        res["mean"] = means
+    for a, vals in _rounded(gr, scale, ~special, aggs).items():
+        for g, v in decided:
+            vals[g] = v
+        if a == "mean":
+            vals[gr.ct == 0] = np.nan
+        res[a] = vals.astype(dtype)
     nan = np.array(np.nan, dtype)
     with np.errstate(invalid="ignore"):     # an f32 NaN through a double
         for a, k in (("max", gr.kmx), ("min", gr.kmn)):
@@ -1185,10 +1291,50 @@ def _key_bounds(keys: np.ndarray, num_groups: int):
 
 
 def _keys_of(keys: np.ndarray, n: int):
-    """vector ids -> the int64 [m, 1024] keys of their values (a partial
-    last vector's pad takes the last key)."""
-    return lambda vecs: keys[np.minimum(
-        vecs[:, None] * VECTOR_SIZE + np.arange(VECTOR_SIZE), n - 1)]
+    """The ``cross_keys`` of :func:`_ordered_layout` from the int64 key of
+    every row: vector ids -> (the groups their rows hold, int32 [m, 1024]
+    each row's index among them, -1 in a partial last vector's pad)."""
+    def cross_keys(vecs):
+        rows = vecs[:, None] * VECTOR_SIZE + np.arange(VECTOR_SIZE)
+        valid = rows < n
+        touched, local = np.unique(keys[rows[valid]], return_inverse=True)
+        lk = np.full(rows.shape, -1, np.int32)
+        lk[valid] = local
+        return touched, lk
+    return cross_keys
+
+
+# crossed vectors whose cell ids a step of _cells_of makes (int64 on the
+# device: 512 MiB)
+_CELL_CHUNK = 1 << 16
+
+
+def _cells_of(n: int, hop: int, dev):
+    """The ``cross_keys`` of :func:`_ordered_layout` for cells of ``hop``
+    rows over n rows, made on ``dev`` (no [m, 1024] array on the host): the
+    cells of vector v are a range from (1024 v) // hop, and row j of it
+    lies ((1024 v) % hop + j) // hop cells after the first."""
+    def cross_keys(vecs):
+        V = VECTOR_SIZE
+        first = vecs * V // hop
+        span = (np.minimum(vecs * V + V, n) - 1) // hop - first + 1
+        cells = np.repeat(first - np.cumsum(span) + span, span) \
+            + np.arange(int(span.sum()))
+        keep = np.ones(cells.size, bool)      # ascending: drop repeats
+        keep[1:] = cells[1:] != cells[:-1]
+        touched = cells[keep]
+        at = torch.as_tensor(np.searchsorted(touched, first), device=dev)
+        off = torch.as_tensor(vecs * V % hop, device=dev)
+        row = torch.arange(V, device=dev)
+        lk = torch.empty((len(vecs), V), dtype=torch.int32, device=dev)
+        for c in range(0, len(vecs), _CELL_CHUNK):
+            s = slice(c, c + _CELL_CHUNK)
+            lk[s] = at[s, None] + (off[s, None] + row) // hop
+        tail = n - int(vecs[-1]) * V
+        if tail < V:
+            lk[-1, tail:] = -1
+        return touched, lk
+    return cross_keys
 
 
 def query_groupby(col, keys, num_groups: int,
@@ -1213,8 +1359,8 @@ def window_totals(col, window: int, hop: int | None = None, device=None):
     """The exact per-window totals of :func:`query_window` before the
     host's rounding (a :class:`Groups`; None for an empty column), with its
     argument checks.  Cells of ``hop`` rows are contiguous, so they take
-    the ordered route of :func:`group_totals` with keys computed for the
-    few vectors a cell boundary crosses (no n-sized keys array); a sliding
+    the ordered route of :func:`group_totals`, the cell ids of the vectors
+    a cell boundary crosses made on the device (:func:`_cells_of`); a sliding
     window adds its cells' integer totals, counts and special counts and
     takes the least and largest of their keys, on the host."""
     if window <= 0:
@@ -1231,8 +1377,7 @@ def window_totals(col, window: int, hop: int | None = None, device=None):
     if n == 0:
         return None
     bounds = np.minimum(np.arange(ncells + 1, dtype=np.int64) * hop, n)
-    cells = _ordered_groups(col.plan(dev), bounds, lambda vecs: (
-        vecs[:, None] * VECTOR_SIZE + np.arange(VECTOR_SIZE)) // hop)
+    cells = _ordered_groups(col.plan(dev), bounds, _cells_of(n, hop, dev))
     if hop == window:
         return cells
     k = window // hop
@@ -1241,21 +1386,18 @@ def window_totals(col, window: int, hop: int | None = None, device=None):
 
     def windowed(a):             # sums of cells i .. i + k - 1, clipped
         c = np.concatenate([np.zeros((1,) + a.shape[1:], a.dtype),
-                            np.cumsum(a, axis=0)])
-        return c[end] - c[:nw]
+                            np.cumsum(a, axis=0)])  # may wrap: the
+        return c[end] - c[:nw]                      # differences do not
 
-    prefix = [0]
-    for i in range(ncells):
-        prefix.append(prefix[-1] + cells.totals.get(i, 0))
-    totals = {i: prefix[e] - prefix[i]
-              for i, e in enumerate(end.tolist()) if prefix[e] != prefix[i]}
     kmn = np.full(nw, ~_key_type(col.dtype)(0))
     kmx = np.zeros(nw, _key_type(col.dtype))
     for j in range(k):
         at = np.minimum(np.arange(nw) + j, ncells - 1)
         kmn = np.minimum(kmn, cells.kmn[at])
         kmx = np.maximum(kmx, cells.kmx[at])
-    return Groups(totals, windowed(cells.sp), windowed(cells.ct), kmn, kmx)
+    # a window's limb adds at most k carried limbs, each below 2^32
+    return Groups(_carry(windowed(cells.limbs)), cells.base,
+                  windowed(cells.sp), windowed(cells.ct), kmn, kmx)
 
 
 def query_window(col, window: int,
@@ -1274,25 +1416,50 @@ def query_window(col, window: int,
     return _finish_groups(gr, aggs, col.dtype)
 
 
+# values sorted at once by DISTINCT: ``torch.sort`` refuses more than
+# INT_MAX elements, and a chunk's sort holds its keys twice and int64
+# indices beside them (16 GiB at 2^29 f64 values)
+DISTINCT_CHUNK = 1 << 29
+
+
 def query_distinct(col, device=None) -> int:
     """COUNT(DISTINCT v) (``alp_tpu/engine.py:2217``): -0.0 equals 0.0 and
     every NaN counts as one value.  The plan's decode (K1-K4, the
-    exceptions written in), the total-order keys with every NaN folded onto
-    one, ``torch.sort`` and a count of adjacent unequal keys, on the
-    device; the JAX package does the same in XLA, outside any kernel."""
+    exceptions written in), then, a chunk of DISTINCT_CHUNK values at a
+    time, the total-order keys with every NaN folded onto one,
+    ``torch.sort`` and the distinct keys (adjacent unequal ones); a chunk
+    counts those that no earlier chunk holds (``torch.searchsorted`` in
+    each earlier chunk's distinct keys), on the device.  The JAX package
+    sorts the whole column in XLA, outside any kernel."""
     dev = resolve_device(device)
     if col.n_values == 0:
         return 0
     plan = col.plan(dev)
     bits = plan.run().view(plan.bits_dtype).reshape(-1)[:col.n_values]
-    keys = biased_keys(bits)
-    del bits
-    inf = np.array([math.inf, -math.inf], col.dtype)
-    pinf, ninf = biased_keys(torch.from_numpy(
-        inf.view(f"i{inf.itemsize}")).to(dev))
-    keys = torch.where((keys > pinf) | (keys < ninf), pinf + 1, keys)
-    keys = torch.sort(keys).values
-    return int((keys[1:] != keys[:-1]).sum()) + 1
+    it = np.dtype(f"i{np.dtype(col.dtype).itemsize}")
+    pinf, ninf = np.array([math.inf, -math.inf], col.dtype).view(it).tolist()
+    ninf ^= int(np.iinfo(it).max)        # biased_keys of +Inf and -Inf
+    n, seen, count = col.n_values, [], 0
+    for lo in range(0, n, DISTINCT_CHUNK):
+        last = lo + DISTINCT_CHUNK >= n
+        keys = biased_keys(bits[lo:lo + DISTINCT_CHUNK])
+        if last:
+            del bits             # the decode, once the last keys are made
+        keys = torch.where((keys > pinf) | (keys < ninf), pinf + 1, keys)
+        keys = torch.sort(keys).values
+        if not seen and last:    # one chunk: nothing to search
+            return int((keys[1:] != keys[:-1]).sum()) + 1
+        step = torch.ones_like(keys, dtype=torch.bool)
+        step[1:] = keys[1:] != keys[:-1]
+        unique = keys[step]
+        del keys, step
+        new = torch.ones_like(unique, dtype=torch.bool)
+        for prev in seen:
+            at = torch.searchsorted(prev, unique).clamp_(max=prev.shape[0] - 1)
+            new &= prev[at] != unique
+        count += int(new.sum())
+        seen.append(unique)
+    return count
 
 
 def groupby_keys(kcol, device=None) -> tuple:

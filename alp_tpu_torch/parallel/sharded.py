@@ -24,10 +24,10 @@ itself a column, so every path runs the single-card code on it.  The SUM
 and GROUP-BY partials are gathered, never all-reduced: each row is the
 total of fewer than 2^31 values, which is what keeps it inside int64
 (``kernels/exact_sum.py``), and a sum of rows over ranks can wrap.  So every
-rank gathers every rank's rows and joins them on the host as Python
-integers, as one card joins its runs (``engine.join_totals``,
-``engine._join_windows``).  Ragged tensors travel as bytes: their sizes
-first, then padded to the largest.
+rank gathers every rank's rows and joins them on the host exactly, as
+one card joins its runs (``engine.join_totals`` in Python integers,
+``engine._join_limbs`` in carried int64 limbs).  Ragged tensors travel as
+bytes: their sizes first, then padded to the largest.
 """
 
 from __future__ import annotations
@@ -278,8 +278,8 @@ def sharded_groupby(mesh: DeviceMesh, col: CompressedColumn, keys,
                     aggs=("sum", "count", "min", "max", "mean")) -> dict:
     """GROUP-BY over the mesh, the answer of ``engine.query_groupby`` by
     bits: each share's K19 runs ([G, W + 4] int64 a run) and keys, gathered;
-    the runs joined on the host as Python integers
-    (``engine._join_windows``), the keys merged in the total order."""
+    the runs joined exactly on the host (``engine._join_limbs``), the keys
+    merged in the total order."""
     keys = engine._checked_keys(col, keys, num_groups)
     if col.n_values == 0:
         return engine._empty_groups(num_groups, aggs, col.dtype)

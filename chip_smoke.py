@@ -139,7 +139,33 @@ Phases, each printing its wall time:
             ``decompress`` of the same column.  Prints each column's GB/s
             beside the card's ``decompress`` wall, with ``os.cpu_count()``
             and the host CPU's model name (``/proc/cpuinfo``).
-15. kernels each kernel against its plain PyTorch version on the card, on
+15. limits  the reference's size limits on the card (the launch counts
+            read around each part): (a) the bw-11 f64 ALP profile and f64
+            ALP_RD, each tiled in compressed form (``tile_column`` with a
+            tail) to LIMIT_VALUES = 2^31 + 333 values, more than 2^31:
+            ``decompress`` (its bits compared on the card chunk by chunk
+            with the source's), SUM, MEAN, COUNT WHERE and SUM WHERE on one
+            range, MIN, MAX, TOP-K at k = 128 both ways, a 16-edge
+            histogram, QUANTILE at (0, 0.5, 1 - 1e-9, 1), MEDIAN,
+            ``query_window`` with one cell over the whole column,
+            tumbling at 2^30 and tumbling at 512 rows (a boundary inside
+            every full vector: K19 sums their 2^31 values in two runs), and DISTINCT (sorted in chunks of 2^29 values),
+            each equal by bits to an analytic reference from the source
+            column alone (``TiledInput``: counts and exact totals T times
+            the source's plus the prefix's, ranks from its sorted keys with
+            T times their multiplicity, every 512-row cell from the
+            source's cells); (b) GROUP-BY at G = 2^24 (the reference's
+            largest) with seeded random keys and in 2^24 ordered runs of
+            random length on the 256 MiB f64 bw-11 and f32 ALP columns:
+            every count, MIN and MAX from numpy, SUM and MEAN of every
+            group of at most two values by one IEEE add (``pair_sums``)
+            and of 256 seeded groups by ``math.fsum``, the integer totals
+            joined to the column's exact total; its numpy references run
+            in worker processes after (a) and before (b)'s timed calls, so
+            that no timed call shares the host's cores with them.  Prints
+            each part's wall, launches and
+            ``torch.cuda.max_memory_allocated()``.
+16. kernels each kernel against its plain PyTorch version on the card, on
             the same plans, bit for bit (tolerance 0: the codec is
             lossless and the SUM totals are integers); K9-K14 on every
             call of a second ``compress_device`` of every column; K15 (2
@@ -155,7 +181,7 @@ Phases, each printing its wall time:
             ALP_RD bucket (the right parts and the left parts of the
             decode with its exceptions in: it must give the decode back),
             K23 on the decoded bits of every f64 column.
-16. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
+17. timing  CUDA-event time of each kernel at the 256 MiB shapes (K9-K14:
             their launches as the wrappers made them, without the
             wrappers' synchronising range checks; K11/K14 also by planning
             level, each level with its launches on the dcompress phase,
@@ -942,10 +968,12 @@ def exact_totals(x: np.ndarray, g: np.ndarray, G: int) -> tuple:
     return totals, sp
 
 
-def rounded(total: int, sp, count: int, dtype, mean: bool) -> float:
-    """A group's exact SUM (or MEAN) rounded once to a double, then to the
-    column dtype: NaN for a NaN or +Inf with -Inf (and a MEAN of no value),
-    the infinity, 0.0, or the exact rational over 2^B (times ``count``)."""
+def rounded(total: int, sp, count: int, dtype, mean: bool,
+            cast: bool = True) -> float:
+    """A group's exact SUM (or MEAN) rounded once to a double, then
+    (``cast``) to the column dtype: NaN for a NaN or +Inf with -Inf (and a
+    MEAN of no value), the infinity, 0.0, or the exact rational over 2^B
+    (times ``count``)."""
     nan, pinf, ninf = (int(v) for v in sp)
     if (mean and count == 0) or nan or (pinf and ninf):
         r = math.nan
@@ -956,18 +984,19 @@ def rounded(total: int, sp, count: int, dtype, mean: bool) -> float:
     else:
         scale = 1075 if np.dtype(dtype) == np.float64 else 150
         r = float(Fraction(total, (count if mean else 1) << scale))
-    return float(np.dtype(dtype).type(r))
+    return float(np.dtype(dtype).type(r)) if cast else r
 
 
 def group_reference(x, krow, G: int, every: bool, rng, g=None,
-                    bounds=None) -> dict:
+                    bounds=None, pairs: bool = False) -> dict:
     """Reference answers of a grouping of the whole input ``x`` (``krow``
     its total-order keys in row order) by group ids ``g``, or into the
     contiguous groups of ``bounds``: counts and the least and largest
     values of every group (numpy over the rows ordered by group), and for
     every group (``every``) or up to GROUP_SAMPLES seeded ones of at most
     SAMPLE_VALUES values in all the exact SUM and MEAN (``exact_totals``,
-    also returned as "exact") and ``math.fsum`` of the group's values."""
+    also returned as "exact") and ``math.fsum`` of the group's values;
+    with ``pairs``, ``pair_sums`` of the groups of at most two values."""
     if bounds is None:
         counts = np.bincount(g, minlength=G)
         small = np.uint8 if G <= 256 else np.uint16 if G <= 65536 else None
@@ -1008,7 +1037,10 @@ def group_reference(x, krow, G: int, every: bool, rng, g=None,
                       rounded(totals[i], sp[i], c, x.dtype, True),
                       float(x.dtype.type(fsum_reference(parts[j])))
                       if c else 0.0)
-    return {"count": counts, **ends, "checked": checked, "exact": exact}
+    out = {"count": counts, **ends, "checked": checked, "exact": exact}
+    if pairs:
+        out["pairs"] = pair_sums(xs, bounds, counts, x.dtype)
+    return out
 
 
 def sliding_reference(x, krow, window: int, hop: int, rng) -> dict:
@@ -1101,8 +1133,9 @@ def group_reference_task(spec: tuple, every: bool, seed: list,
 
 def check_group_answer(label: str, got: dict, ref: dict, dtype) -> None:
     """A GROUP-BY or window answer against its reference, by bits (NaN by
-    isnan): every count, least and largest value, and the checked groups'
-    SUM (the exact one and ``math.fsum``) and MEAN."""
+    isnan): every count, least and largest value, every SUM and MEAN where
+    the reference has them all, and the checked groups' SUM (the exact one
+    and ``math.fsum``) and MEAN."""
     G = len(ref["count"])
     if list(got) != ["sum", "count", "min", "max", "mean"]:
         raise RuntimeError(f"{label}: aggregates {list(got)}")
@@ -1117,6 +1150,10 @@ def check_group_answer(label: str, got: dict, ref: dict, dtype) -> None:
         if not same_quantile(got[a], ref[a], dtype) or np.any(
                 (got[a] == 0) & (np.signbit(got[a]) != np.signbit(ref[a]))):
             raise RuntimeError(f"{label}: {a} differs from numpy")
+    for a in ("sum", "mean"):
+        if a in ref and (not same_quantile(got[a], ref[a], dtype) or np.any(
+                (got[a] == 0) & (np.signbit(got[a]) != np.signbit(ref[a])))):
+            raise RuntimeError(f"{label}: {a} differs from the exact one")
     for g, (total, mean, fsum) in ref["checked"].items():
         s, mu = float(got["sum"][g]), float(got["mean"][g])
         if not (same_float(s, total) and same_float(mu, mean)
@@ -1756,6 +1793,482 @@ def bench_rows(plans, columns, dev, errors, launches, int32_per_s,
     return out
 
 
+# ---------------------------------------------------------------------------
+# limits: columns of more than 2^31 values and GROUP-BY at 2^24 groups
+# ---------------------------------------------------------------------------
+
+LIMIT_VALUES = (1 << 31) + 333   # > 2^31 values: the last vector is a tail
+LIMIT_COLUMNS = ("bench_bw11_city_temperature", "f64_alp_rd")
+LIMIT_QS = (0.0, 0.5, 1 - 1e-9, 1.0)
+LIMIT_TUMBLING = 1 << 30
+LIMIT_CELLS = 512                # tumbling cells that split every vector:
+#                                  K19 sums every value, in two runs
+LIMIT_TOPK = 128
+LIMIT_EDGES = 16
+LIMIT_CHUNK = 1 << 27            # values a step of the decode check
+LIMIT_GROUPS = 1 << 24           # the reference's largest num_groups
+LIMIT_GROUP_COLUMNS = ("bench_bw11_city_temperature", "f32_alp")
+
+
+class TiledInput:
+    """The input of a column made of ``T`` copies of ``b`` and then the
+    prefix ``b[:r]`` (``tile_column`` with ``n_values``), never made: every
+    reference of the limits phase comes from ``b``.  A count is T times
+    b's and the prefix's, an exact total the same as Python integers, an
+    extreme b's (the prefix lies in b), and the value at a rank comes from
+    b's distinct keys with T times their multiplicity plus the prefix's."""
+
+    def __init__(self, b: np.ndarray, n: int):
+        self.b, self.n, self.dtype = b, n, b.dtype
+        self.T, self.r = divmod(n, len(b))
+        if self.T < 1:
+            raise ValueError("a tiled input holds b at least once")
+        self.kb = np.sort(np_keys(b))
+        self.kp = np.sort(np_keys(b[:self.r]))
+        self.uk, mult = np.unique(self.kb, return_counts=True)
+        self.mult = self.T * mult + (np.searchsorted(self.kp, self.uk, "right")
+                                     - np.searchsorted(self.kp, self.uk))
+        self.cum = np.cumsum(self.mult)
+        self._whole = exact_totals(b, np.zeros(len(b), np.int64), 1)
+
+    def count_below(self, key, side: str = "left") -> int:
+        """The values whose key is below ``key`` (``side`` "right": at most
+        ``key``)."""
+        key = self.kb.dtype.type(key)
+        return (self.T * int(np.searchsorted(self.kb, key, side))
+                + int(np.searchsorted(self.kp, key, side)))
+
+    def count(self, lo: float, hi: float) -> int:
+        """COUNT WHERE lo <= v <= hi."""
+        klo, khi = key_of(lo, self.dtype), key_of(hi, self.dtype)
+        if klo > khi:
+            return 0
+        return self.count_below(khi, "right") - self.count_below(klo)
+
+    def key_at(self, i: int):
+        """The key of rank i (0-based) of the sorted input."""
+        return self.uk[int(np.searchsorted(self.cum, i, "right"))]
+
+    def value_at(self, i: int) -> float:
+        return float(values_of_keys(np.array([self.key_at(i)]),
+                                    self.dtype)[0])
+
+    def topk(self, k: int, largest: bool) -> np.ndarray:
+        """The k largest (or smallest) values in order."""
+        uk, mult = (self.uk[::-1], self.mult[::-1]) if largest else (
+            self.uk, self.mult)
+        j = int(np.searchsorted(np.cumsum(mult), k)) + 1
+        return values_of_keys(np.repeat(uk[:j], mult[:j])[:k], self.dtype)
+
+    def histogram(self, edges) -> np.ndarray:
+        """``np.histogram(x, edges)[0]``: bins [e_i, e_i+1), the last
+        closed, the edges rounded to the column dtype."""
+        ek = [key_of(e, self.dtype) for e in edges]
+        left = np.array([self.count_below(k) for k in ek], np.int64)
+        out = np.diff(left)
+        out[-1] += self.count_below(ek[-1], "right") - left[-1]
+        return out
+
+    def quantile(self, q: float) -> float:
+        """``np.quantile(x, q)`` (linear): numpy's virtual index (n - 1) q in
+        double, then numpy's own interpolation between the values at its
+        two ranks (``np.quantile`` of those two values at the index's
+        fraction, which numpy computes as the same lerp); NaN if x holds
+        one."""
+        if np.isnan(self.b).any():
+            return math.nan
+        virtual = np.float64(self.n - 1) * np.float64(q)
+        if virtual >= self.n - 1:
+            return self.value_at(self.n - 1)
+        lo = int(np.floor(virtual))
+        pair = np.array([self.value_at(lo), self.value_at(lo + 1)],
+                        self.dtype)
+        return float(np.quantile(pair, virtual - lo))
+
+    def exact(self, lo=None, hi=None) -> tuple:
+        """(the exact sum times 2^B, [NaN, +Inf, -Inf counts]) of the
+        input, or of its values in [lo, hi]."""
+        parts = [(self.b, self.T), (self.b[:self.r], 1)]
+        total, sp = 0, np.zeros(3, np.int64)
+        for x, times in parts:
+            if lo is not None:
+                k = np_keys(x)
+                x = x[(k >= k.dtype.type(key_of(lo, self.dtype)))
+                      & (k <= k.dtype.type(key_of(hi, self.dtype)))]
+            if x is self.b:
+                t, s = self._whole
+            else:
+                t, s = exact_totals(x, np.zeros(len(x), np.int64), 1)
+            total += times * t[0]
+            sp += times * s[0]
+        return total, sp
+
+    def pieces(self, s: int, e: int) -> tuple:
+        """Rows [s, e) as (whole copies of b, [slices of b])."""
+        m, whole, parts, pos = len(self.b), 0, [], s
+        while pos < e:
+            off = pos % m
+            take = min(m - off, e - pos)
+            if take == m:
+                whole += 1
+            else:
+                parts.append(self.b[off:off + take])
+            pos += take
+        return whole, parts
+
+    def windows(self, bounds) -> dict:
+        """The reference of contiguous groups, group g the rows bounds[g] ..
+        bounds[g + 1] - 1, in ``check_group_answer``'s form: every count,
+        least and largest value, and every group's exact SUM and MEAN."""
+        G = len(bounds) - 1
+        counts = np.diff(np.asarray(bounds, np.int64))
+        kmin = np.zeros(G, self.kb.dtype)
+        kmax = np.zeros(G, self.kb.dtype)
+        checked = {}
+        for g in range(G):
+            whole, parts = self.pieces(int(bounds[g]), int(bounds[g + 1]))
+            total, sp = whole * self._whole[0][0], whole * self._whole[1][0]
+            lows, highs = ([self.kb[0]], [self.kb[-1]]) if whole else ([], [])
+            for x in parts:
+                t, s = exact_totals(x, np.zeros(len(x), np.int64), 1)
+                total, sp = total + t[0], sp + s[0]
+                k = np_keys(x)
+                lows.append(k.min())
+                highs.append(k.max())
+            kmin[g], kmax[g] = min(lows), max(highs)
+            c = int(counts[g])
+            checked[g] = (rounded(total, sp, c, self.dtype, False),
+                          rounded(total, sp, c, self.dtype, True), None)
+        return {"count": counts, "min": values_of_keys(kmin, self.dtype),
+                "max": values_of_keys(kmax, self.dtype), "checked": checked}
+
+    def cells(self, hop: int) -> dict:
+        """The reference of the tumbling windows of ``hop`` rows, ``hop``
+        dividing len(b), in ``check_group_answer``'s form with every cell's
+        SUM and MEAN: cell i of a copy of b is b's cell i, and the prefix
+        holds b's first cells and a part of the next one."""
+        m, dt = len(self.b), self.dtype
+        if m % hop:
+            raise ValueError("the cells must tile b")
+        per = m // hop
+        full, part = divmod(self.r, hop)
+        x = np.concatenate([self.b, self.b[full * hop:self.r]])
+        g = np.repeat(np.arange(per + 1), [hop] * per + [part])
+        G = per + int(part > 0)
+        totals, sp = exact_totals(x, g, G)
+        counts = np.bincount(g, minlength=G)
+        bounds = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        k = np_keys(x)
+        out = {"count": counts,
+               "min": values_of_keys(np.minimum.reduceat(k, bounds), dt),
+               "max": values_of_keys(np.maximum.reduceat(k, bounds), dt)}
+        for a, mean in (("sum", False), ("mean", True)):
+            out[a] = np.array([rounded(totals[i], sp[i], int(counts[i]), dt,
+                                       mean) for i in range(G)], dt)
+        at = np.concatenate([np.tile(np.arange(per), self.T),
+                             np.arange(full + int(part > 0))])
+        if part:
+            at[-1] = per
+        return {**{a: v[at] for a, v in out.items()}, "checked": {}}
+
+
+def limit_queries(ref: TiledInput, tumbling: int = LIMIT_TUMBLING) -> list:
+    """The queries of the limits phase on a column of ``ref``'s input and
+    their references: [(label, call(package, column, device), answer,
+    kind)], kind "int", "float", "array" (``same_answer``), "quantile"
+    (``same_quantile``) or "groups" (``check_group_answer``); the tumbling
+    windows ``tumbling`` rows long."""
+    n, dt = ref.n, ref.dtype
+    total, sp = ref.exact()
+    lo, hi = ref.value_at(n // 5), ref.value_at(3 * n // 5)
+    slo, shi = ref.value_at(n // 2), ref.value_at(6 * n // 10)
+    fin = ref.b[np.isfinite(ref.b)]
+    edges = np.linspace(float(fin.min()) - 1, float(fin.max()) + 1,
+                        LIMIT_EDGES)
+    qs = [ref.quantile(q) for q in LIMIT_QS]
+    refs = [
+        ("sum", lambda q, c, d: q.query_sum(c, d),
+         rounded(total, sp, n, dt, False, cast=False), "float"),
+        ("mean", lambda q, c, d: q.query_mean(c, d),
+         rounded(total, sp, n, dt, True, cast=False), "float"),
+        (f"filter_count[{lo!r}, {hi!r}]",
+         lambda q, c, d: q.query_filter_count(c, lo, hi, d),
+         ref.count(lo, hi), "int"),
+        (f"filter_sum[{slo!r}, {shi!r}]",
+         lambda q, c, d: q.query_filter_sum(c, slo, shi, d),
+         dt.type(rounded(*ref.exact(slo, shi), 0, dt, False)), "float"),
+        ("min", lambda q, c, d: q.query_min(c, d), ref.value_at(0), "float"),
+        ("max", lambda q, c, d: q.query_max(c, d), ref.value_at(n - 1),
+         "float")]
+    for largest in (True, False):
+        refs.append((f"topk[k={LIMIT_TOPK}, largest={largest}]",
+                     lambda q, c, d, lg=largest: q.query_topk(
+                         c, LIMIT_TOPK, lg, d),
+                     ref.topk(LIMIT_TOPK, largest), "array"))
+    refs += [
+        (f"histogram[{LIMIT_EDGES} edges]",
+         lambda q, c, d: q.query_histogram(c, edges, d),
+         ref.histogram(edges), "array"),
+        (f"quantile{list(LIMIT_QS)}",
+         lambda q, c, d: q.query_quantile(c, list(LIMIT_QS), device=d),
+         np.array(qs, dt), "quantile"),
+        ("median", lambda q, c, d: q.query_median(c, d),
+         np.array(ref.quantile(0.5), dt), "quantile"),
+        ("window[whole column]",
+         lambda q, c, d: q.query_window(c, n, device=d),
+         ref.windows([0, n]), "groups"),
+        (f"window[{tumbling}]",
+         lambda q, c, d: q.query_window(c, tumbling, device=d),
+         ref.windows(np.minimum(np.arange(-(-n // tumbling) + 1)
+                                * tumbling, n)), "groups"),
+        (f"window[{LIMIT_CELLS}]",
+         lambda q, c, d: q.query_window(c, LIMIT_CELLS, device=d),
+         ref.cells(LIMIT_CELLS), "groups"),
+        ("distinct", lambda q, c, d: q.query_distinct(c, d),
+         distinct_reference(ref.kb, dt), "int")]
+    return refs
+
+
+def limit_answer_ok(label: str, got, want, kind, dtype) -> None:
+    """A limits-phase answer against its reference, by bits; raises."""
+    if kind == "groups":
+        check_group_answer(label, got, want, dtype)
+    elif kind == "quantile":
+        if not same_quantile(got, want, dtype):
+            raise RuntimeError(f"{label}: {got!r} != reference {want!r}")
+    elif not same_answer(got, want, kind):
+        raise RuntimeError(f"{label}: {got!r} != reference {want!r}")
+
+
+def limit_group_keys(n: int, seed: list, ordered: bool) -> np.ndarray:
+    """The seeded int64 keys of the limits phase's GROUP-BY at LIMIT_GROUPS
+    groups, as ``group_inputs`` makes them: random ids, or LIMIT_GROUPS runs
+    in order of random lengths."""
+    G = LIMIT_GROUPS
+    if not ordered:
+        return random_group_keys(n, seed, G)
+    rng = np.random.default_rng(seed + [0])
+    cuts = np.sort(rng.choice(n - 1, G - 1, replace=False) + 1)
+    return np.repeat(np.arange(G), np.diff(np.concatenate([[0], cuts, [n]])))
+
+
+def pair_sums(xs: np.ndarray, bounds: np.ndarray, counts: np.ndarray,
+              dtype) -> tuple:
+    """(the groups of at most two values, their SUM, their MEAN) from the
+    values ``xs`` ordered by group (group g the rows bounds[g] ..
+    bounds[g + 1] - 1).  One IEEE add of two doubles (of two floats,
+    widened) rounds their exact sum once, as the port's SUM does before an
+    f32 column's second rounding, and half of a normal double is exact; an
+    exact zero is +0.0, an empty group sums +0.0 with MEAN NaN."""
+    ids = np.flatnonzero(counts <= 2)
+    c = counts[ids]
+    last = max(len(xs) - 1, 0)
+    at = bounds[ids]
+    first = np.where(c >= 1, xs[np.minimum(at, last)].astype(np.float64), 0.0)
+    second = np.where(c == 2, xs[np.minimum(at + 1, last)].astype(np.float64),
+                      0.0)
+    with np.errstate(invalid="ignore"):
+        s = first + second
+        s = np.where(s == 0, 0.0, s)
+        live = s[np.isfinite(s) & (s != 0)]
+        if live.size and np.abs(live).min() < 2 * np.finfo(np.float64).tiny:
+            raise RuntimeError("pair_sums: a subnormal half")
+        mean = np.where(c == 0, np.nan, s / np.maximum(c, 1))
+    return ids, s.astype(dtype), mean.astype(dtype)
+
+
+def limit_group_task(spec: tuple, seed: list, ordered: bool) -> tuple:
+    """The reference of one GROUP-BY of the limits phase, in a worker
+    process: (``ordered``, ``group_reference`` of the column in shared
+    memory ``spec`` by ``limit_group_keys``, with ``pair_sums`` of every
+    group of at most two values as "pairs")."""
+    shm = shared_memory.SharedMemory(name=spec[0])
+    try:
+        x = np.ndarray((spec[1],), spec[2], buffer=shm.buf)
+        g = limit_group_keys(len(x), seed, ordered)
+        rng = np.random.default_rng(seed + [3, int(ordered)])
+        if ordered:
+            bounds = np.searchsorted(g, np.arange(LIMIT_GROUPS + 1))
+            ref = group_reference(x, np_keys(x), LIMIT_GROUPS, False, rng,
+                                  bounds=bounds, pairs=True)
+        else:
+            ref = group_reference(x, np_keys(x), LIMIT_GROUPS, False, rng,
+                                  g=g, pairs=True)
+        ref.pop("exact", None)
+        del x
+        return ordered, ref
+    finally:
+        shm.close()
+
+
+def limit_group_references(columns: dict, gseeds: dict) -> dict:
+    """(name, ordered) -> ``limit_group_task``'s reference, for every column
+    of LIMIT_GROUP_COLUMNS, in worker processes that end before this
+    returns."""
+    shms = {name: shared_memory.SharedMemory(create=True,
+                                             size=columns[name][1].nbytes)
+            for name in LIMIT_GROUP_COLUMNS}
+    try:
+        with concurrent.futures.ProcessPoolExecutor(
+                max_workers=2 * len(LIMIT_GROUP_COLUMNS),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            jobs = {}
+            for name in LIMIT_GROUP_COLUMNS:
+                exp = columns[name][1]
+                np.ndarray(exp.shape, exp.dtype, buffer=shms[name].buf)[:] = exp
+                spec = (shms[name].name, len(exp), exp.dtype.str)
+                for ordered in (False, True):
+                    jobs[name, ordered] = pool.submit(
+                        limit_group_task, spec, gseeds[name], ordered)
+            return {key: job.result()[1] for key, job in jobs.items()}
+    finally:
+        for shm in shms.values():
+            shm.close()
+            shm.unlink()
+
+
+def limits_phase(sources: dict, columns: dict, dev, seed: int) -> str:
+    """The limits phase: (a) each of LIMIT_COLUMNS tiled in compressed form
+    to LIMIT_VALUES values, its decode compared with the source on the card
+    chunk by chunk and every query of ``limit_queries`` with its analytic
+    reference; (b) GROUP-BY at LIMIT_GROUPS groups, random and in ordered
+    runs, on the 256 MiB columns of LIMIT_GROUP_COLUMNS against numpy
+    (``group_reference`` with ``pair_sums``), its integer totals joined to
+    the column's exact total.  The numpy references of (b) run in worker
+    processes between (a) and (b), so that no timed call shares the host
+    with them.  Prints each part's wall, launches and peak card memory;
+    returns the phase's line."""
+    import torch
+    import alp_tpu_torch
+    from alp_tpu_torch import engine
+    from alp_tpu_torch.columns import tile_column
+
+    def peak() -> str:
+        return f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+
+    notes = [f"card memory held before the phase "
+             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB"]
+
+    # (a) columns of more than 2^31 values
+    for name in LIMIT_COLUMNS:
+        tc = time.perf_counter()
+        b = sources[name]
+        src = alp_tpu_torch.compress(b)
+        n_vec = -(-LIMIT_VALUES // VECTOR)
+        col = tile_column(src, n_vec, LIMIT_VALUES)
+        ref = TiledInput(b, LIMIT_VALUES)
+        queries = limit_queries(ref)
+        setup_s = time.perf_counter() - tc
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        tw = time.perf_counter()
+        out = alp_tpu_torch.decompress(col)
+        torch.cuda.synchronize()
+        walls = [f"decompress {time.perf_counter() - tw:.3f}"]
+        ut = torch.int64 if b.dtype == np.float64 else torch.int32
+        if out.shape != (LIMIT_VALUES,) or out.device.type != "cuda":
+            raise RuntimeError(f"limits {name}: decoded "
+                               f"{tuple(out.shape)} on {out.device}")
+        src_bits = torch.from_numpy(b.view(f"i{b.itemsize}")).to(dev)
+        bits = out.view(ut)
+        for lo in range(0, LIMIT_VALUES, LIMIT_CHUNK):
+            hi = min(LIMIT_VALUES, lo + LIMIT_CHUNK)
+            want = src_bits[torch.arange(lo, hi, device=dev) % len(b)]
+            if not torch.equal(bits[lo:hi], want):
+                bad = int((bits[lo:hi] != want).sum())
+                raise RuntimeError(f"limits {name}: {bad} decoded values "
+                                   f"of rows {lo}..{hi} differ")
+        del out, bits, want, src_bits
+        walls[-1] += f" (checked, peak {peak()})"
+        for label, call, want, kind in queries:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tw = time.perf_counter()
+            got = call(alp_tpu_torch, col, None)
+            wall = time.perf_counter() - tw
+            limit_answer_ok(f"limits {name}: {label}", got, want, kind,
+                            b.dtype)
+            walls.append(f"{label} {wall:.3f} (peak {peak()})")
+        moved = moved_since(before)
+        del col
+        torch.cuda.empty_cache()
+        print(f"  {name}: {LIMIT_VALUES} values ({ref.T} copies of "
+              f"{len(b)} and {ref.r}), decode bits and "
+              f"{len(queries)} queries == analytic references; set-up "
+              f"{setup_s:.3f} s; card memory held before {held:.2f} GiB; "
+              f"walls s: {'; '.join(walls)}; "
+              f"launches={moved}", flush=True)
+
+    # (b) GROUP-BY at LIMIT_GROUPS groups
+    gseeds = {name: [seed, 20, i] for i, name in
+              enumerate(LIMIT_GROUP_COLUMNS)}
+    tr = time.perf_counter()
+    grefs = limit_group_references(columns, gseeds)
+    notes.append(f"GROUP-BY numpy references {time.perf_counter() - tr:.3f} "
+                 f"s in {2 * len(LIMIT_GROUP_COLUMNS)} processes, before "
+                 f"the timed calls")
+    raw = []
+    real_finish = engine._finish_groups
+
+    def keep_totals(gr, aggs, dtype):
+        tf = time.perf_counter()
+        answer = real_finish(gr, aggs, dtype)
+        raw.append((gr, time.perf_counter() - tf))
+        return answer
+
+    engine._finish_groups = keep_totals
+    try:
+        for name in LIMIT_GROUP_COLUMNS:
+            col, exp = columns[name]
+            col_total = engine.join_totals(engine.exact_sum_totals(
+                col.plan(dev)).tolist(), exp.dtype)
+            for ordered in (False, True):
+                label = (f"groupby[G={LIMIT_GROUPS}, "
+                         f"{'ordered runs' if ordered else 'random'}]")
+                keys = limit_group_keys(len(exp), gseeds[name], ordered)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = launch_counts()
+                tw = time.perf_counter()
+                got = alp_tpu_torch.query_groupby(col, keys, LIMIT_GROUPS)
+                wall = time.perf_counter() - tw
+                moved = moved_since(before)
+                mem = peak()
+                del keys
+                gref = grefs.pop((name, ordered))
+                check_group_answer(f"limits {name}: {label}", got, gref,
+                                   exp.dtype)
+                ids, psum, pmean = gref["pairs"]
+                for a, want in (("sum", psum), ("mean", pmean)):
+                    if not same_quantile(got[a][ids], want, exp.dtype) \
+                            or np.any(np.signbit(got[a][ids])
+                                      != np.signbit(want)):
+                        raise RuntimeError(
+                            f"limits {name}: {label}: a group of at "
+                            f"most two values has another {a}")
+                gr, finish_s = raw[-1]
+                if (gr.grand_total(), *gr.sp.sum(0).tolist()) != \
+                        col_total[:4] or int(gr.ct.sum()) != len(exp):
+                    raise RuntimeError(f"limits {name}: {label}'s integer "
+                                       f"totals do not join to the "
+                                       f"column's exact total")
+                raw.clear()
+                del got, gref
+                print(f"  {name}: {label} on {len(exp)} values == numpy "
+                      f"(every count, MIN, MAX; SUM and MEAN of the "
+                      f"{len(ids)} groups of at most two values and of "
+                      f"{GROUP_SAMPLES} sampled groups by math.fsum), "
+                      f"integer totals joined == the column's; wall "
+                      f"{wall:.3f} s (host finish {finish_s:.3f} s), "
+                      f"peak {mem}, launches={moved}", flush=True)
+    finally:
+        engine._finish_groups = real_finish
+    torch.cuda.empty_cache()
+    return "; ".join(notes)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2247,7 +2760,7 @@ def main() -> int:
                 col_total = engine.join_totals(engine.exact_sum_totals(
                     col.plan(dev)).tolist(), exp.dtype)
             raw = raw_totals[-1][0]
-            if (sum(raw.totals.values()), *raw.sp.sum(0).tolist()) != \
+            if (raw.grand_total(), *raw.sp.sum(0).tolist()) != \
                     col_total[:4] or int(raw.ct.sum()) != len(exp):
                 raise RuntimeError(f"{name}: {label}'s integer totals do not "
                                    f"join to the column's exact total")
@@ -2539,7 +3052,12 @@ def main() -> int:
     host_line = host_decode(columns, dev)
     phase("host", t0, host_line)
 
-    # 15. kernels vs plain versions, on the card, same plans
+    # 15. limits: the reference's size limits, 2^31 values and 2^24 groups
+    t0 = time.perf_counter()
+    limits_line = limits_phase(sources, columns, dev, args.seed)
+    phase("limits", t0, limits_line)
+
+    # 16. kernels vs plain versions, on the card, same plans
     t0 = time.perf_counter()
     errors = {k: 0.0 for k in (*KERNELS, *SUM_KERNELS, *DC_KERNELS,
                                *KEY_KERNELS, *RANK_KERNELS, *GROUP_KERNELS,
@@ -2745,7 +3263,7 @@ def main() -> int:
           "keys == plain, K20-K23 == plain (K21 == the decode), every "
           "K9-K14 call of compress_device == plain (tolerance 0)")
 
-    # 16. timing at the 256 MiB shapes
+    # 17. timing at the 256 MiB shapes
     t0 = time.perf_counter()
     timed = {"falp_decode_f64": list(BENCH_PROFILES),
              "falp_decode_f32": ["f32_alp"],

@@ -1410,6 +1410,61 @@ def test_group_queries_never_take_the_plain_versions(cuda, monkeypatch):
         kgroup.LAUNCHES["group_reduce"], kgroup.LAUNCHES
 
 
+def _ieee_sum(part: np.ndarray) -> float:
+    """A group's SUM by IEEE's rules: NaN for a NaN or +Inf with -Inf, an
+    infinity, else ``math.fsum``."""
+    pinf, ninf = bool(np.isposinf(part).any()), bool(np.isneginf(part).any())
+    if np.isnan(part).any() or (pinf and ninf):
+        return math.nan
+    if pinf or ninf:
+        return math.inf if pinf else -math.inf
+    return math.fsum(part.tolist())
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["alp_rd", "alp"])
+def test_f3_special_groups_beside_an_overflowing_sum_on_card(cuda, dense):
+    """Fault F3: a group or window with NaN or an infinity beside finite
+    values past DBL_MAX answers NaN or the infinity on the card, as on the
+    CPU, and never raises."""
+    import torch_parallel_worker as worker
+
+    n = 4 * 1024 + 500
+    kinds = [worker.F3_KINDS[g % 5] for g in range(300)]
+    for G in (1, 5, 300):
+        keys = np.random.default_rng(G).integers(0, G, n)
+        x = worker.f3_column(keys, ["nan"] if G == 1 else kinds[:G], dense,
+                             G)
+        col = alp_tpu_torch.compress(x)
+        got = alp_tpu_torch.query_groupby(col, keys, G)
+        assert _same_groups(got, alp_tpu_torch.query_groupby(
+            col, keys, G, device="cpu"))
+        for g in range(G):
+            assert _same(float(got["sum"][g]), _ieee_sum(x[keys == g]))
+    for window, hop in ((1000, None), (1000, 250)):
+        x = worker.f3_column(np.arange(n) // (hop or window), kinds, dense, 7)
+        col = alp_tpu_torch.compress(x)
+        got = alp_tpu_torch.query_window(col, window, hop=hop)
+        assert _same_groups(got, alp_tpu_torch.query_window(
+            col, window, hop=hop, device="cpu"))
+        step = hop or window
+        for i, s in enumerate(range(0, n - window + step, step)):
+            assert _same(float(got["sum"][i]), _ieee_sum(x[s:s + window]))
+
+
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_distinct_in_chunks_on_card(name, cuda, monkeypatch):
+    """DISTINCT sorts DISTINCT_CHUNK values at a time and counts a chunk's
+    keys that no earlier chunk holds: in one chunk and in small ones it
+    equals numpy's count (-0.0 equal to 0.0, every NaN one value)."""
+    x = COLUMNS[name]
+    want = len(np.unique(x[~np.isnan(x)])) + int(np.isnan(x).any())
+    col = alp_tpu_torch.compress(x)
+    assert alp_tpu_torch.query_distinct(col) == want
+    for chunk in (3000, 1 << 16):
+        monkeypatch.setattr(engine, "DISTINCT_CHUNK", chunk)
+        assert alp_tpu_torch.query_distinct(col) == want
+
+
 # ---------------------------------------------------------------------------
 # The bench's kernels K20-K23 and the loop steps
 # ---------------------------------------------------------------------------

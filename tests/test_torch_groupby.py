@@ -251,3 +251,70 @@ def test_k18_rows_equal_site_33(name):
         assert (int(vkeys[v, 0]), int(vkeys[v, 1])) == (least, largest), v
         checked += 1
     assert checked == whole
+
+
+def _random_total(rng, scale: int) -> int:
+    """A signed exact total times 2^scale: random bits of any length, ties
+    (an odd multiple of half a unit in the last place), powers of two and
+    runs of ones, the smallest rounding to subnormals or to zero, the
+    largest past DBL_MAX."""
+    kind = rng.integers(0, 5)
+    sign = int(rng.choice([-1, 1]))
+    if kind == 0:
+        return sign * int.from_bytes(rng.bytes(int(rng.integers(1, 280))),
+                                     "little")
+    if kind == 1:
+        m = int(rng.integers(1 << 52, 1 << 53))
+        return sign * ((2 * m + 1) << int(rng.integers(0, scale + 970)))
+    if kind == 2:
+        return sign << int(rng.integers(0, scale + 1030))
+    if kind == 3:
+        return sign * (((1 << int(rng.integers(54, 400))) - 1)
+                       << int(rng.integers(0, scale + 600)))
+    return sign * int.from_bytes(rng.bytes(int(rng.integers(1, 40))),
+                                 "little")
+
+
+def _limbs_of_totals(totals: dict, G: int) -> np.ndarray:
+    """The carried int64 limbs of ``engine.Groups`` (base 0) from {g:
+    Python int}."""
+    L = max((abs(t).bit_length() for t in totals.values()), default=0)
+    L = L // 32 + 2
+    limbs = np.zeros((G, L), np.int64)
+    for g, t in totals.items():
+        row = np.frombuffer(abs(t).to_bytes(4 * L, "little"), "<u4")
+        limbs[g] = -row.astype(np.int64) if t < 0 else row
+    return engine._carry(limbs)
+
+
+@pytest.mark.parametrize("mean", [False, True], ids=["sum", "mean"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_finish_rounds_every_group_as_int_division(dtype, mean):
+    """``engine._rounded``, the vectorised rounding of the groups' limbs,
+    equals Python's ``int / int`` (one rounding to nearest even) on every
+    group: ties, subnormal and zero results, counts up to 2^33; a result
+    past DBL_MAX raises ``OverflowError`` as the division does."""
+    rng = np.random.default_rng(21 + mean)
+    scale = engine._SCALE[np.dtype(dtype)]
+    G = 3000
+    totals = {g: _random_total(rng, scale) for g in range(G)}
+    ct = rng.choice([1, 2, 3, 7, 1000, (1 << 31) + 5, (1 << 32) - 1, 1 << 33],
+                    G).astype(np.int64)
+    gr = engine.Groups(_limbs_of_totals(totals, G), 0,
+                       np.zeros((G, 3), np.int64), ct,
+                       np.zeros(G, np.uint64), np.zeros(G, np.uint64))
+    assert gr.totals == {g: t for g, t in totals.items() if t}
+    assert gr.grand_total() == sum(totals.values())
+    want = np.zeros(G)
+    fits = np.ones(G, bool)
+    for g, t in totals.items():
+        try:
+            want[g] = t / ((int(ct[g]) if mean else 1) << scale)
+        except OverflowError:
+            fits[g] = False
+    agg = "mean" if mean else "sum"
+    got = engine._rounded(gr, scale, fits, (agg,))[agg]
+    assert np.array_equal(got.view(np.uint64), want.view(np.uint64))
+    if not fits.all():
+        with pytest.raises(OverflowError):
+            engine._rounded(gr, scale, ~fits, (agg,))

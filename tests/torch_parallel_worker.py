@@ -1,5 +1,6 @@
 """Rank worker of the port's sharded tests (``tests/test_torch_parallel.py``
-on the CPU over gloo, ``tests/test_torch_cuda.py`` on cards over NCCL).
+and ``tests/test_torch_conformance.py`` on the CPU over gloo,
+``tests/test_torch_cuda.py`` on cards over NCCL).
 
 It imports neither JAX nor ``alp_tpu``, so that spawned ranks load
 neither.  ``spawn_ranks`` starts ``world`` processes that each run
@@ -7,6 +8,8 @@ neither.  ``spawn_ranks`` starts ``world`` processes that each run
 the mesh, run every sharded path on the columns of :func:`columns` and
 pickle the results to ``out_dir/rank<r>.pkl``; it returns every rank's
 results, or raises when a rank fails or outlasts the deadline.
+:func:`run_groupby_rank` runs the sharded GROUP-BY alone, on the cases of
+fault F3 (:func:`f3_groupby_cases`).
 """
 
 from __future__ import annotations
@@ -75,6 +78,83 @@ def join_rows(rank: int, width: int) -> np.ndarray:
     return rows
 
 
+F3_KINDS = ("plain", "nan", "pinf", "ninf", "both")
+F3_VALUES = 100 * 1024 + 500           # a rowgroup and a tail: two shares
+
+
+def f3_column(cell: np.ndarray, kinds, dense: bool, seed: int) -> np.ndarray:
+    """Values of rows in groups ``cell`` (ids into ``kinds``): 2-decimal
+    values, and in each group of a kind other than "plain" finite values
+    of 9e307 and 1e308 whose sum passes DBL_MAX (every row when ``dense``,
+    which makes ALP_RD rowgroups, else four rows: ALP exceptions) and its
+    special at its first row: NaN ("nan"), +Inf ("pinf"), -Inf ("ninf"),
+    or +Inf there and -Inf at its last row ("both").  A kind "overflow"
+    has the large values and no special."""
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.uniform(-50, 50, len(cell)), 2)
+    for c, kind in enumerate(kinds):
+        rows = np.flatnonzero(cell == c)
+        if kind == "plain" or not rows.size:
+            continue
+        big = rows if dense else rows[:4]
+        x[big] = np.where(np.arange(len(big)) % 2, 1e308, 9e307)
+        if kind in ("nan", "pinf", "ninf", "both"):
+            x[rows[0]] = {"nan": np.nan, "ninf": -np.inf}.get(kind, np.inf)
+        if kind == "both":
+            x[rows[-1]] = -np.inf
+    return x
+
+
+def f3_groupby_cases() -> dict:
+    """name -> (values, keys, G): GROUP-BY cases of fault F3 (a group with
+    NaN or an infinity beside finite values past DBL_MAX) for the sharded
+    path, in a rowgroup and a tail (two rowgroups, so two ranks' shares)."""
+    out = {}
+    for G, dense in ((5, True), (5, False), (300, True)):
+        keys = np.random.default_rng(G).integers(0, G, F3_VALUES)
+        kinds = [F3_KINDS[g % 5] for g in range(G)]
+        out[f"G{G}_{'dense' if dense else 'sparse'}"] = (
+            f3_column(keys, kinds, dense, G), keys, G)
+    return out
+
+
+def run_groupby_rank(rank: int, world: int, rendezvous: str,
+                     device_type: str, out_dir: str) -> None:
+    """``sharded_groupby`` of every case of :func:`f3_groupby_cases`, each
+    answer or the name of the exception it raised."""
+    import torch.distributed as dist
+
+    import alp_tpu_torch
+    from alp_tpu_torch import parallel as par
+
+    _join(rank, world, rendezvous, device_type)
+    try:
+        mesh = par.make_mesh(world, device_type)
+        res = {"rank": rank, "world": world, "groupby": {}}
+        for name, (x, keys, G) in f3_groupby_cases().items():
+            try:
+                res["groupby"][name] = par.sharded_groupby(
+                    mesh, alp_tpu_torch.compress(x), keys, G)
+            except (OverflowError, ValueError) as e:
+                res["groupby"][name] = type(e).__name__
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _join(rank: int, world: int, rendezvous: str, device_type: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                            init_method=f"file://{rendezvous}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+
+
 def run_rank(rank: int, world: int, rendezvous: str, device_type: str,
              out_dir: str) -> None:
     import torch
@@ -84,12 +164,7 @@ def run_rank(rank: int, world: int, rendezvous: str, device_type: str,
     from alp_tpu_torch import parallel as par
     from alp_tpu_torch.kernels import exact_sum as kes
 
-    if device_type == "cuda":
-        torch.cuda.set_device(rank)
-    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
-                            init_method=f"file://{rendezvous}", rank=rank,
-                            world_size=world,
-                            timeout=datetime.timedelta(seconds=120))
+    _join(rank, world, rendezvous, device_type)
     try:
         mesh = par.make_mesh(world, device_type)
         res = {"rank": rank, "world": world, "blob": {}, "decoded": {},
@@ -121,14 +196,15 @@ def run_rank(rank: int, world: int, rendezvous: str, device_type: str,
 
 
 def spawn_ranks(world: int, device_type: str, tmp_dir: str,
-                deadline: float = 240.0) -> list:
-    """Run :func:`run_rank` on ``world`` spawned processes; every rank's
-    results in rank order.  A rank that exits nonzero fails the call; one
-    still running at ``deadline`` seconds is killed, and so is every other."""
+                deadline: float = 240.0, target=run_rank) -> list:
+    """Run ``target`` (:func:`run_rank`, or :func:`run_groupby_rank`) on
+    ``world`` spawned processes; every rank's results in rank order.  A
+    rank that exits nonzero fails the call; one still running at
+    ``deadline`` seconds is killed, and so is every other."""
     ctx = multiprocessing.get_context("spawn")
     rendezvous = os.path.join(tmp_dir, "rendezvous")
-    procs = [ctx.Process(target=run_rank, args=(r, world, rendezvous,
-                                                device_type, tmp_dir))
+    procs = [ctx.Process(target=target, args=(r, world, rendezvous,
+                                              device_type, tmp_dir))
              for r in range(world)]
     for p in procs:
         p.start()
