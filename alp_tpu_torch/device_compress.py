@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from . import constants as C
+from . import tracing
 from .benchlib import carry_into_rows
 from .container import CompressedColumn, _pad_to_vectors, rd_tables
 from .engine import LoopStep, _checksum
@@ -70,17 +71,23 @@ RG = C.N_VECTORS_PER_ROWGROUP
 SAMPLES = C.SAMPLES_PER_VECTOR
 STRIDE = VECTOR // SAMPLES
 # bytes compress_device copied from a card to the host (reset_to_host)
-TO_HOST = {"bytes": 0}
+TO_HOST = tracing.Counters("alp.compress.to_host.", ("bytes",))
+reset_to_host = TO_HOST.reset
 
 
-def reset_to_host() -> None:
-    TO_HOST["bytes"] = 0
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
+def _host(t: torch.Tensor, site: str) -> np.ndarray:
+    """``t`` copied to the host, the fetch ``alp.fetch.compress.<site>``."""
     if t.is_cuda:
         TO_HOST["bytes"] += t.numel() * t.element_size()
-    return t.cpu().numpy()
+    with tracing.span("alp.fetch.compress." + site):
+        return t.cpu().numpy()
+
+
+def _up(a: np.ndarray, device, site: str) -> torch.Tensor:
+    """``a`` uploaded to ``device``, the fetch ``alp.fetch.compress.<site>``
+    (an upload from pageable memory waits for the stream)."""
+    with tracing.span("alp.fetch.compress." + site):
+        return torch.from_numpy(a).to(device)
 
 
 def _float_only(dtype) -> None:
@@ -99,7 +106,7 @@ def _stage(data, values, n_values, device) -> tuple:
         if data.ndim != 1:
             raise ValueError("data must be 1-D")
         vectors, _ = _pad_to_vectors(data)
-        return torch.from_numpy(vectors).to(resolve_device(device)), len(data)
+        return _up(vectors, resolve_device(device), "stage"), len(data)
     _float_only(values.dtype)
     if device is not None:
         want = resolve_device(device)
@@ -190,7 +197,8 @@ def _rd_states(strides, sample_ids: list, rd_np: np.ndarray, tc) -> dict:
     if not rgs.size:
         return {}
     ids = np.concatenate([sample_ids[rg] for rg in rgs])
-    samples = _host(strides[torch.from_numpy(ids).to(strides.device)])
+    samples = _host(strides[_up(ids, strides.device, "rd_sample_ids")],
+                    "rd_samples")
     lens = [len(sample_ids[rg]) * SAMPLES for rg in rgs]
     return {rg: rd_state_from_sample(sample, tc) for rg, sample in
             zip(rgs.tolist(), _split(samples.reshape(-1), lens))}
@@ -231,9 +239,11 @@ def _exceptions(mask, raw) -> tuple:
     """The exceptions of ``mask`` [n, 1024] in row-major order: their
     positions in the row (u16) and their entries of ``raw`` [n, 1024], as
     host arrays."""
-    at = mask.nonzero()
-    pos = _host(at[:, 1].to(torch.int16)).view(np.uint16)
-    return pos, _host(raw[at[:, 0], at[:, 1]])
+    with tracing.span("alp.fetch.compress.exception_mask"):
+        at = mask.nonzero()
+    pos = _host(at[:, 1].to(torch.int16), "exception_positions")
+    return pos.view(np.uint16), _host(raw[at[:, 0], at[:, 1]],
+                                      "exception_values")
 
 
 def _pack_rd(vectors, sel: np.ndarray, rgs: np.ndarray, rbw: int, lbw: int,
@@ -252,19 +262,19 @@ def _pack_rd(vectors, sel: np.ndarray, rgs: np.ndarray, rbw: int, lbw: int,
         stt = rd_states[rg]
         dict_pad[j, :stt.actual_dictionary_size] = stt.left_parts_dict
         dict_size[j] = stt.actual_dictionary_size
-    sel_t = torch.from_numpy(sel).to(dev)
+    sel_t = _up(sel, dev, "rd_rows")
     right, left_idx, exc_mask, left_raw = rd_encode_vectors(
         vectors[sel_t].view(flat.dtype), torch.full((m,), rbw, device=dev),
-        torch.from_numpy(dict_pad).to(dev),
-        torch.from_numpy(dict_size).to(dev))
+        _up(dict_pad, dev, "rd_dict"), _up(dict_size, dev, "rd_dict_size"))
     pack = ffor_pack_f64 if flat.dtype == torch.int64 else ffor_pack_f32
     pack(right, torch.zeros(m, dtype=flat.dtype, device=dev), rbw, out=flat,
          offsets=offsets_t[sel_t])
     lefts = _host(fl.ffor_pack(left_idx,
                                torch.zeros(m, dtype=torch.int16, device=dev),
-                               lbw)).view(np.uint16)
+                               lbw), "rd_lefts").view(np.uint16)
     pos, raw = _exceptions(exc_mask, left_raw)
-    return lefts, pos, raw.astype(np.uint16), _host(exc_mask.sum(dim=1))
+    return lefts, pos, raw.astype(np.uint16), _host(exc_mask.sum(dim=1),
+                                                    "rd_exception_counts")
 
 
 @dataclasses.dataclass
@@ -297,53 +307,60 @@ def encode_pack(vectors, fac, exp, rgs: np.ndarray, is_rd: np.ndarray,
     pack = ffor_pack_f64 if f64 else ffor_pack_f32
     dev = vectors.device
     m = vectors.shape[0]
-    is_rd_v = torch.from_numpy(is_rd).to(dev)
 
     # --- 2. encode -------------------------------------------------------
-    zeros = torch.zeros(m, dtype=torch.int64, device=dev)
-    alp_meta = [zeros] * 4                 # bw, base, enc_max, n_exc
-    if not is_rd.all():
-        n, exc, base, fill, alp_meta = _encode_stats(vectors, fac, exp,
-                                                     is_rd_v)
-    meta = _host(torch.stack([fac.to(torch.int64), exp.to(torch.int64),
-                              *alp_meta]))
-    bw_np, exc_count = meta[2], meta[5].astype(np.uint16)
+    with tracing.span("alp.compress.encode"):
+        is_rd_v = _up(is_rd, dev, "is_rd")
+        zeros = torch.zeros(m, dtype=torch.int64, device=dev)
+        alp_meta = [zeros] * 4                 # bw, base, enc_max, n_exc
+        if not is_rd.all():
+            n, exc, base, fill, alp_meta = _encode_stats(vectors, fac, exp,
+                                                         is_rd_v)
+        meta = _host(torch.stack([fac.to(torch.int64), exp.to(torch.int64),
+                                  *alp_meta]), "meta")
+        bw_np, exc_count = meta[2], meta[5].astype(np.uint16)
 
     # --- 3. pack every vector's words into one flat buffer ----------------
-    words = np.where(is_rd, rbw_rg[rgs], bw_np) * lanes
-    offsets = np.zeros(m + 1, np.int64)
-    np.cumsum(words, out=offsets[1:])
-    flat = torch.empty(int(offsets[-1]), dtype=word, device=dev)
-    offsets_t = torch.from_numpy(offsets[:-1]).to(dev)
-    alp_vec = np.nonzero(~is_rd)[0]
-    for b in np.unique(bw_np[alp_vec]).tolist():
-        if b:
-            sel = torch.from_numpy(alp_vec[bw_np[alp_vec] == b]).to(dev)
-            pack(n, base, b, exc=exc, fill=fill, rows=sel, out=flat,
-                 offsets=offsets_t[sel])
+    with tracing.span("alp.compress.pack"):
+        words = np.where(is_rd, rbw_rg[rgs], bw_np) * lanes
+        offsets = np.zeros(m + 1, np.int64)
+        np.cumsum(words, out=offsets[1:])
+        flat = torch.empty(int(offsets[-1]), dtype=word, device=dev)
+        offsets_t = _up(offsets[:-1], dev, "offsets")
+        alp_vec = np.nonzero(~is_rd)[0]
+        for b in np.unique(bw_np[alp_vec]).tolist():
+            if b:
+                sel = _up(alp_vec[bw_np[alp_vec] == b], dev, "pack_rows")
+                pack(n, base, b, exc=exc, fill=fill, rows=sel, out=flat,
+                     offsets=offsets_t[sel])
     exc_positions = [np.empty(0, np.uint16)] * m
     exc_values = [np.empty(0, tc.pt)] * m
-    if exc_count.any():
-        pos, val = _exceptions(exc & ~is_rd_v[:, None], vectors)
-        has = np.nonzero(exc_count)[0]
-        for v, p, x in zip(has.tolist(), _split(pos, exc_count[has]),
-                           _split(val, exc_count[has])):
-            exc_positions[v], exc_values[v] = p, x
+    with tracing.span("alp.compress.exceptions"):
+        if exc_count.any():
+            pos, val = _exceptions(exc & ~is_rd_v[:, None], vectors)
+            has = np.nonzero(exc_count)[0]
+            for v, p, x in zip(has.tolist(), _split(pos, exc_count[has]),
+                               _split(val, exc_count[has])):
+                exc_positions[v], exc_values[v] = p, x
     left_packed = [np.empty(0, np.uint16)] * m
     rd_vec = np.nonzero(is_rd)[0]
     widths = np.stack([rbw_rg[rgs[rd_vec]], lbw_rg[rgs[rd_vec]]], 1)
-    for rbw, lbw in sorted({tuple(w) for w in widths.tolist()}):
-        sel = rd_vec[(widths[:, 0] == rbw) & (widths[:, 1] == lbw)]
-        lefts, pos, raw, counts = _pack_rd(vectors, sel, rgs[sel], rbw, lbw,
-                                           rd_states, flat, offsets_t)
-        for v, lw, p, x, c in zip(sel.tolist(), lefts, _split(pos, counts),
-                                  _split(raw, counts), counts.tolist()):
-            left_packed[v], exc_positions[v], exc_values[v] = lw, p, x
-            exc_count[v] = c
+    with tracing.span("alp.compress.rd"):
+        for rbw, lbw in sorted({tuple(w) for w in widths.tolist()}):
+            sel = rd_vec[(widths[:, 0] == rbw) & (widths[:, 1] == lbw)]
+            lefts, pos, raw, counts = _pack_rd(vectors, sel, rgs[sel], rbw,
+                                               lbw, rd_states, flat,
+                                               offsets_t)
+            for v, lw, p, x, c in zip(sel.tolist(), lefts,
+                                      _split(pos, counts),
+                                      _split(raw, counts), counts.tolist()):
+                left_packed[v], exc_positions[v], exc_values[v] = lw, p, x
+                exc_count[v] = c
     return Encoded(meta, exc_count, words, flat, left_packed, exc_positions,
                    exc_values)
 
 
+@tracing.spanned("alp.compress")
 def compress_device(data=None, *, values=None, n_values=None,
                     device=None) -> CompressedColumn:
     """Compress a float64 or float32 column with its hot path on a device.
@@ -355,33 +372,40 @@ def compress_device(data=None, *, values=None, n_values=None,
     ``n_values`` real values; a missing partial last vector is padded with
     the last value (``container._pad_to_vectors``).  Other dtypes raise
     ``TypeError``.  The blob equals ``container.compress``'s."""
-    vectors, n_values = _stage(data, values, n_values, device)
+    with tracing.span("alp.compress.stage"):
+        vectors, n_values = _stage(data, values, n_values, device)
     tc = C.DOUBLE if vectors.dtype == torch.float64 else C.FLOAT
     dev = vectors.device
     n_vec = vectors.shape[0]
     n_rg = math.ceil(n_vec / RG)
     vec_rg = np.arange(n_vec) // RG
-    strides = vectors[:, ::STRIDE].contiguous()
 
     # --- 1. planning -----------------------------------------------------
-    groups = _sample_groups(n_vec)
-    sample_ids = [row for ids in groups for row in ids]
-    combos_rg, k_rg, rd_rg = _first_level(
-        strides, [torch.from_numpy(ids).to(dev) for ids in groups], tc)
-    k_np, rd_np = _host(torch.stack([k_rg, rd_rg.to(torch.int32)]))
-    rd_np = rd_np.astype(bool)
-    rd_states = _rd_states(strides, sample_ids, rd_np, tc)
-    vec_rg_t = torch.from_numpy(vec_rg).to(dev)
-    fac, exp = _second_level(strides, combos_rg[vec_rg_t], k_rg[vec_rg_t],
-                             bool((k_np > 1).any()))
+    with tracing.span("alp.compress.first_level"):
+        strides = vectors[:, ::STRIDE].contiguous()
+        groups = _sample_groups(n_vec)
+        sample_ids = [row for ids in groups for row in ids]
+        combos_rg, k_rg, rd_rg = _first_level(
+            strides, [_up(ids, dev, "sample_ids") for ids in groups], tc)
+        k_np, rd_np = _host(torch.stack([k_rg, rd_rg.to(torch.int32)]),
+                            "first_level")
+        rd_np = rd_np.astype(bool)
+    with tracing.span("alp.compress.rd_states"):
+        rd_states = _rd_states(strides, sample_ids, rd_np, tc)
+        rd_dict, rd_dict_size, lbw_rg, rbw_rg = rd_tables(rd_states, n_rg)
+    with tracing.span("alp.compress.second_level"):
+        vec_rg_t = _up(vec_rg, dev, "vector_rowgroups")
+        fac, exp = _second_level(strides, combos_rg[vec_rg_t],
+                                 k_rg[vec_rg_t], bool((k_np > 1).any()))
 
     # --- 2, 3. encode and pack ------------------------------------------
-    rd_dict, rd_dict_size, lbw_rg, rbw_rg = rd_tables(rd_states, n_rg)
     enc = encode_pack(vectors, fac, exp, vec_rg, rd_np[vec_rg], rbw_rg,
                       lbw_rg, rd_states)
 
     # --- 4. assemble -----------------------------------------------------
     meta = enc.meta
+    with tracing.span("alp.compress.assemble"):
+        packed = _split(_host(enc.flat, "words").view(tc.ut), enc.words)
     return CompressedColumn(
         dtype=np.dtype(tc.pt), n_values=n_values, n_vectors=n_vec,
         rg_scheme=np.where(rd_np, C.SCHEME_ALP_RD,
@@ -392,7 +416,7 @@ def compress_device(data=None, *, values=None, n_values=None,
         fac=meta[0].astype(np.uint8), exp=meta[1].astype(np.uint8),
         bit_width=meta[2].astype(np.uint8), base=meta[3].astype(tc.st),
         exc_count=enc.exc_count,
-        packed=_split(_host(enc.flat).view(tc.ut), enc.words),
+        packed=packed,
         left_packed=enc.left_packed, exc_values=enc.exc_values,
         exc_positions=enc.exc_positions,
         enc_max=meta[4].view(np.uint64).copy())
@@ -506,7 +530,7 @@ def make_pack_step(col: CompressedColumn, values) -> tuple:
     n, exc, base, fill, meta = _encode_stats(
         values, fac, exp, torch.zeros(col.n_vectors, dtype=torch.bool,
                                       device=dev))
-    got_bw, got_base = _host(torch.stack(meta[:2]))
+    got_bw, got_base = _host(torch.stack(meta[:2]), "step_meta")
     if not (np.array_equal(got_bw, bw_np)
             and np.array_equal(got_base, col.base.astype(np.int64))):
         raise ValueError("values do not encode to the column's bit widths "

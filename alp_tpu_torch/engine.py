@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from . import constants as C
+from . import tracing
 from .kernels import exact_sum as kes
 from .kernels import group as kgroup
 from .kernels import keys as kkeys
@@ -78,6 +79,7 @@ from .ops.keys import bias, biased_keys
 _SCALE = {np.dtype(np.float64): 1075, np.dtype(np.float32): 150}
 
 
+@tracing.spanned("alp.engine.query_sum")
 def query_sum(col, device=None) -> float:
     """SUM(column), correctly rounded: bit-identical to ``math.fsum`` of
     the column's values.  NaN, or +Inf with -Inf, gives NaN; an empty
@@ -86,9 +88,12 @@ def query_sum(col, device=None) -> float:
     dev = resolve_device(device)
     if col.n_values == 0:
         return 0.0
-    return _finish_sum(*_sum_raw(col, dev))
+    rows = _sum_rows(col, dev)
+    with tracing.span("alp.engine.sum.join"):
+        return _finish_sum(*join_totals(rows, col.dtype))
 
 
+@tracing.spanned("alp.engine.query_mean")
 def query_mean(col, device=None) -> float:
     """MEAN(column), correctly rounded: the exact rational ``sum / n``
     rounded once (one rounding fewer than ``math.fsum(x) / n``).  An empty
@@ -96,12 +101,14 @@ def query_mean(col, device=None) -> float:
     dev = resolve_device(device)
     if col.n_values == 0:
         return float("nan")
-    total, nan_c, pinf, ninf, scale = _sum_raw(col, dev)
-    if nan_c or pinf or ninf:
-        return _finish_sum(total, nan_c, pinf, ninf, scale)
-    if total == 0:
-        return 0.0
-    return float(Fraction(total, col.n_values << scale))
+    rows = _sum_rows(col, dev)
+    with tracing.span("alp.engine.sum.join"):
+        total, nan_c, pinf, ninf, scale = join_totals(rows, col.dtype)
+        if nan_c or pinf or ninf:
+            return _finish_sum(total, nan_c, pinf, ninf, scale)
+        if total == 0:
+            return 0.0
+        return float(Fraction(total, col.n_values << scale))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,9 +212,12 @@ def join_totals(totals: list, dtype) -> tuple:
     return (total, *counts, _SCALE[np.dtype(dtype)])
 
 
-def _sum_raw(col, dev) -> tuple:
-    plan = col.plan(dev)
-    return join_totals(exact_sum_totals(plan).tolist(), col.dtype)
+def _sum_rows(col, dev) -> list:
+    """The column's SUM totals, fetched: ``exact_sum_totals(plan)`` as
+    lists, for ``join_totals``."""
+    totals = exact_sum_totals(col.plan(dev))
+    with tracing.span("alp.fetch.sum.totals"):
+        return totals.tolist()
 
 
 def _finish_sum(total: int, nan_c: int, pinf: int, ninf: int,
@@ -419,8 +429,10 @@ def _key_tensor(plan, keys) -> torch.Tensor:
     """Unsigned keys (numpy) as the signed words the kernels take, on the
     plan's device."""
     kt = _key_type(plan.dtype)
-    return torch.from_numpy(np.ascontiguousarray(keys, kt).view(
-        f"i{kt().itemsize}")).to(plan.device)
+    words = torch.from_numpy(np.ascontiguousarray(keys, kt).view(
+        f"i{kt().itemsize}"))
+    with tracing.span("alp.fetch.keys.upload"):
+        return words.to(plan.device)
 
 
 def key_count_bins(plan, thresholds: np.ndarray) -> torch.Tensor:
@@ -444,7 +456,9 @@ def prefix_counts(plan, thresholds) -> np.ndarray:
     if not thr.size:
         return np.zeros(0, np.int64)
     uniq = np.unique(thr)
-    bins = key_count_bins(plan, uniq).cpu().numpy()
+    bins = key_count_bins(plan, uniq)
+    with tracing.span("alp.fetch.prefix_counts"):
+        bins = bins.cpu().numpy()
     return np.cumsum(bins)[:-1][np.searchsorted(uniq, thr)]
 
 
@@ -470,6 +484,7 @@ def _count_keys(plan, klo: int, khi: int) -> int:
     return upto - below
 
 
+@tracing.spanned("alp.engine.query_filter_count")
 def query_filter_count(col, lo: float, hi: float, device=None) -> int:
     """SELECT COUNT(*) WHERE lo <= v <= hi (``alp_tpu/engine.py:1336``).
     ``lo``/``hi`` are rounded to the column dtype first, and +-0.0 compare
@@ -487,7 +502,8 @@ def key_extent(plan) -> tuple:
     ext = bias(vector_extremes(plan))
     ends = bias(torch.stack([ext[:, 0].min(), ext[:, 1].max()]))
     mask = (1 << (64 if plan.f64 else 32)) - 1
-    lo, hi = ends.tolist()
+    with tracing.span("alp.fetch.key_extent"):
+        lo, hi = ends.tolist()
     return lo & mask, hi & mask
 
 
@@ -511,6 +527,7 @@ def _extreme_key(col, device, largest: bool) -> int:
     return _plan_key_extent(col.plan(dev))[1 if largest else 0]
 
 
+@tracing.spanned("alp.engine.query_min")
 def query_min(col, device=None) -> float:
     """MIN(column) in the total order (-NaN < -Inf < ... < +Inf < +NaN; an
     all-zero column gives +0.0), from K16's per-vector least keys (the
@@ -518,11 +535,13 @@ def query_min(col, device=None) -> float:
     return _key_float(_extreme_key(col, device, False), col.dtype)
 
 
+@tracing.spanned("alp.engine.query_max")
 def query_max(col, device=None) -> float:
     """MAX(column) in the same order, from K16's per-vector largest keys."""
     return _key_float(_extreme_key(col, device, True), col.dtype)
 
 
+@tracing.spanned("alp.engine.query_topk")
 def query_topk(col, k: int, largest: bool = True,
                device=None) -> np.ndarray:
     """TOP-K(column): the k largest (or smallest) values, sorted, in the
@@ -555,24 +574,33 @@ def query_topk(col, k: int, largest: bool = True,
         ext = bias(vector_extremes(plan))
         vbest = work(ext[:, 1] if largest else ext[:, 0])
         t = torch.topk(vbest, k).values[-1]
-        cands = torch.nonzero(vbest > t).flatten()
+        with tracing.span("alp.fetch.topk.candidates"):
+            cands = torch.nonzero(vbest > t).flatten()
         vals = plan.decode_vectors(cands).view(plan.bits_dtype)
         pos = (cands[:, None] * VECTOR_SIZE
                + torch.arange(VECTOR_SIZE, device=dev))
-        w = work(biased_keys(vals))[pos < col.n_values]
-        above = torch.sort(w[w > t], descending=True).values
+        w = work(biased_keys(vals))
+        with tracing.span("alp.fetch.topk.valid"):
+            w = w[pos < col.n_values]
+        with tracing.span("alp.fetch.topk.above"):
+            w = w[w > t]
+        above = torch.sort(w, descending=True).values
         n_above = above.shape[0]
         if n_above < k:
-            tk = int(bias(work(t))) & mask        # t as an unsigned key
+            with tracing.span("alp.fetch.topk.threshold"):
+                tk = int(bias(work(t))) & mask    # t as an unsigned key
             ties = _count_keys(plan, tk, tk)
             if ties < k - n_above:
                 raise RuntimeError(f"TOP-K: {ties} values equal the "
                                    f"threshold, {k - n_above} needed")
         best = torch.cat([above, t.expand(max(k - n_above, 0))])[:k]
-    keys = bias(work(best)).cpu().numpy().view(kt)
+    best = bias(work(best))
+    with tracing.span("alp.fetch.topk.result"):
+        keys = best.cpu().numpy().view(kt)
     return _keys_to_values(keys, col.dtype)
 
 
+@tracing.spanned("alp.engine.query_histogram")
 def query_histogram(col, edges, device=None) -> np.ndarray:
     """GROUP-BY-bin COUNT, ``np.histogram``-compatible: ``len(edges) - 1``
     bins ``[edges[i], edges[i + 1])`` with the last bin closed, bounds
@@ -601,6 +629,7 @@ def _histogram_counts(p: np.ndarray, E: int) -> np.ndarray:
     return out
 
 
+@tracing.spanned("alp.engine.query_filter_sum")
 def query_filter_sum(col, lo: float, hi: float, device=None):
     """SELECT SUM(v) WHERE lo <= v <= hi, exact: the correctly rounded sum
     of the selected values (``math.fsum`` of them), as the column dtype's
@@ -614,8 +643,11 @@ def query_filter_sum(col, lo: float, hi: float, device=None):
     if klo > khi:
         return 0.0
     totals = exact_sum_totals(col.plan(dev), key_range=(klo, khi))
-    return np.dtype(col.dtype).type(
-        _finish_sum(*join_totals(totals.tolist(), col.dtype)))
+    with tracing.span("alp.fetch.filter_sum.totals"):
+        rows = totals.tolist()
+    with tracing.span("alp.engine.sum.join"):
+        return np.dtype(col.dtype).type(
+            _finish_sum(*join_totals(rows, col.dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -623,8 +655,15 @@ def query_filter_sum(col, lo: float, hi: float, device=None):
 # ---------------------------------------------------------------------------
 
 # the K17 passes of the last rank selection (every chunk of its ranks),
-# beside ``keys.LAUNCHES["rank_pass"]``
-LAST_RANK_PASSES = 0
+# beside ``keys.LAUNCHES["rank_pass"]``: ``LAST_RANK_PASSES`` reads the
+# counter ``alp.engine.rank.last_passes``
+_RANK = tracing.Counters("alp.engine.rank.", ("last_passes",))
+
+
+def __getattr__(name):
+    if name == "LAST_RANK_PASSES":
+        return _RANK["last_passes"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def rank_pass_bins(plan, thresholds: np.ndarray,
@@ -728,35 +767,41 @@ def _rank_bisect(plan, ranks: list) -> tuple:
         if passes >= limit:
             raise RuntimeError(f"QUANTILE: {R} rank brackets still open "
                                f"after {limit} passes")
-        active = [r for r in range(R) if lo[r] < hi[r]] or list(range(R))
-        probes = [_rank_probes(lo[r], hi[r], c_lo[r], c_hi[r], ranks[r],
-                               j, len(active), plan.dtype)
-                  for j, r in enumerate(active) if lo[r] < hi[r]]
-        if passes == 0:
-            probes.append(np.array(specials, kt))
-        thr = np.unique(np.concatenate(probes))
-        bins, mm = rank_pass_bins(plan, thr, [(lo[r], hi[r])
-                                              for r in active])
-        fetched = torch.cat([bins, mm.reshape(-1).to(torch.int64)]).cpu()
-        fetched = fetched.numpy()
-        counts = np.cumsum(fetched[:thr.shape[0]])
-        mm = fetched[thr.shape[0] + 1:].astype(kt).reshape(-1, 2)
-        for r in range(R):
-            e = int(np.searchsorted(counts, ranks[r], "left"))
-            if e < thr.shape[0]:           # the first count >= rank
-                hi[r] = min(hi[r], int(thr[e]))
-                c_hi[r] = min(c_hi[r], int(counts[e]))
-            if e > 0:
-                lo[r] = max(lo[r], int(thr[e - 1]) + 1)
-                c_lo[r] = max(c_lo[r], int(counts[e - 1]))
-        for r, (least, largest) in zip(active, mm.tolist()):
-            if least > largest:
-                raise RuntimeError(f"QUANTILE: rank {ranks[r]}'s bracket "
-                                   f"holds no value")
-            lo[r], hi[r] = max(lo[r], least), min(hi[r], largest)
-        if passes == 0:
-            at = np.searchsorted(thr, np.array(specials, kt))
-            negnan, le_pinf = int(counts[at[0]]), int(counts[at[1]])
+        with tracing.span("alp.engine.rank.pass"):
+            with tracing.span("alp.engine.rank.probes"):
+                active = ([r for r in range(R) if lo[r] < hi[r]]
+                          or list(range(R)))
+                probes = [_rank_probes(lo[r], hi[r], c_lo[r], c_hi[r],
+                                       ranks[r], j, len(active), plan.dtype)
+                          for j, r in enumerate(active) if lo[r] < hi[r]]
+                if passes == 0:
+                    probes.append(np.array(specials, kt))
+                thr = np.unique(np.concatenate(probes))
+            bins, mm = rank_pass_bins(plan, thr, [(lo[r], hi[r])
+                                                  for r in active])
+            fetched = torch.cat([bins, mm.reshape(-1).to(torch.int64)])
+            with tracing.span("alp.fetch.rank.bins"):
+                fetched = fetched.cpu().numpy()
+            with tracing.span("alp.engine.rank.narrow"):
+                counts = np.cumsum(fetched[:thr.shape[0]])
+                mm = fetched[thr.shape[0] + 1:].astype(kt).reshape(-1, 2)
+                for r in range(R):
+                    e = int(np.searchsorted(counts, ranks[r], "left"))
+                    if e < thr.shape[0]:       # the first count >= rank
+                        hi[r] = min(hi[r], int(thr[e]))
+                        c_hi[r] = min(c_hi[r], int(counts[e]))
+                    if e > 0:
+                        lo[r] = max(lo[r], int(thr[e - 1]) + 1)
+                        c_lo[r] = max(c_lo[r], int(counts[e - 1]))
+                for r, (least, largest) in zip(active, mm.tolist()):
+                    if least > largest:
+                        raise RuntimeError(f"QUANTILE: rank {ranks[r]}'s "
+                                           f"bracket holds no value")
+                    lo[r], hi[r] = max(lo[r], least), min(hi[r], largest)
+                if passes == 0:
+                    at = np.searchsorted(thr, np.array(specials, kt))
+                    negnan = int(counts[at[0]])
+                    le_pinf = int(counts[at[1]])
         passes += 1
     return lo, negnan, le_pinf, passes
 
@@ -765,7 +810,6 @@ def _select_rank_keys(col, plan, ranks) -> tuple:
     """The exact keys at the ascending 1-based ``ranks``, chunked by
     ``MAX_RANKS``: ({rank: key}, n_negnan, n_posnan).  Sets
     ``LAST_RANK_PASSES``."""
-    global LAST_RANK_PASSES
     keys, passes = {}, 0
     negnan = le_pinf = 0
     for s in range(0, len(ranks), kkeys.MAX_RANKS):
@@ -773,10 +817,11 @@ def _select_rank_keys(col, plan, ranks) -> tuple:
         got, negnan, le_pinf, p = _rank_bisect(plan, chunk)
         keys.update(zip(chunk, got))
         passes += p
-    LAST_RANK_PASSES = passes
+    _RANK["last_passes"] = passes
     return keys, negnan, col.n_values - le_pinf
 
 
+@tracing.spanned("alp.engine.query_quantile")
 def query_quantile(col, q, interpolation: str = "linear", device=None):
     """QUANTILE(column, q), numpy-compatible (``alp_tpu/engine.py:3710``):
     ``q`` a scalar or sequence in [0, 1], the methods ``linear``,
@@ -846,6 +891,7 @@ def query_quantile(col, q, interpolation: str = "linear", device=None):
     return dt(out[0]) if scalar else out
 
 
+@tracing.spanned("alp.engine.query_median")
 def query_median(col, device=None):
     """MEDIAN(column): ``query_quantile(col, 0.5)``, ``np.median``'s
     answer."""
@@ -863,10 +909,12 @@ def group_calls(plan, vectors=None) -> list:
     if vectors is None:
         return key_calls(plan)
     mark = torch.zeros(plan.n_vectors, dtype=torch.bool, device=plan.device)
-    mark[vectors] = True
+    with tracing.span("alp.fetch.groups.mark"):   # True goes up as a tensor
+        mark[vectors] = True
     parts = []
     for b in plan.buckets:
-        sel = torch.nonzero(mark[b.rows]).flatten()
+        with tracing.span("alp.fetch.groups.select"):
+            sel = torch.nonzero(mark[b.rows]).flatten()
         if sel.numel():
             parts.append(dataclasses.replace(
                 b, rows=b.rows[sel], args=tuple(a[sel] for a in b.args)))
@@ -1069,15 +1117,17 @@ def _unordered_keys(plan, keys: np.ndarray) -> torch.Tensor:
     device, -1 in the pad."""
     kv = np.full(plan.n_vectors * VECTOR_SIZE, -1, np.int32)
     kv[:plan.n_values] = keys
-    return torch.from_numpy(kv.reshape(-1, VECTOR_SIZE)).to(plan.device)
+    with tracing.span("alp.fetch.groups.keys_upload"):
+        return torch.from_numpy(kv.reshape(-1, VECTOR_SIZE)).to(plan.device)
 
 
 def _unordered_host(dtype, outs: list, ext: torch.Tensor) -> Groups:
     """The host join of K19's runs over the whole column (of value
     ``dtype``): int64 [G, W + 4] runs ``outs``, [G, 2] keys ``ext``."""
     W = outs[0].shape[1] - 4
-    parts = [o.cpu().numpy() for o in outs]
-    ext = ext.cpu().numpy().view(_key_type(dtype))
+    with tracing.span("alp.fetch.groups.unordered"):
+        parts = [o.cpu().numpy() for o in outs]
+        ext = ext.cpu().numpy().view(_key_type(dtype))
     return Groups(*_join_limbs(parts, [None] * len(parts), W,
                                parts[0].shape[0]),
                   sum(p[:, W:W + 3] for p in parts),
@@ -1129,8 +1179,9 @@ def _ordered_layout(plan, bounds: np.ndarray, cross_keys) -> _OrderedLayout:
     if cross.size:
         touched, lk = cross_keys(cross)
     up = functools.partial(torch.as_tensor, device=dev)
-    return _OrderedLayout(bounds, up(lo_v), up(hi_v), up(owner),
-                          up(cross.astype(np.int64)), up(lk), touched)
+    with tracing.span("alp.fetch.groups.layout_upload"):
+        return _OrderedLayout(bounds, up(lo_v), up(hi_v), up(owner),
+                              up(cross.astype(np.int64)), up(lk), touched)
 
 
 def _ordered_device(plan, lay: _OrderedLayout, vs: torch.Tensor,
@@ -1162,7 +1213,8 @@ def _ordered_device(plan, lay: _OrderedLayout, vs: torch.Tensor,
                                   lay.cross)
         parts += outs
         at += [lay.touched] * len(outs)
-        t_at = torch.from_numpy(lay.touched).to(dev)
+        with tracing.span("alp.fetch.groups.touched_upload"):
+            t_at = torch.from_numpy(lay.touched).to(dev)
         merged = bias(ext[t_at])
         cext = bias(cext)
         ext[t_at] = bias(torch.stack([torch.minimum(merged[:, 0], cext[:, 0]),
@@ -1176,14 +1228,15 @@ def _ordered_host(plan, lay: _OrderedLayout, parts: list, at: list,
     """The host join of the ordered route's device part."""
     G = len(lay.bounds) - 1
     W = kes.WINDOWS[plan.bits_dtype]
-    parts = [p.cpu().numpy() for p in parts]
+    with tracing.span("alp.fetch.groups.ordered"):
+        parts = [p.cpu().numpy() for p in parts]
+        ext = ext.cpu().numpy().view(_key_type(plan.dtype))
     sp = np.zeros((G, 3), np.int64)
     for p, where in zip(parts, at):
         if where is None:
             sp += p[:, W:W + 3]
         else:
             sp[where] += p[:, W:W + 3]
-    ext = ext.cpu().numpy().view(_key_type(plan.dtype))
     return Groups(*_join_limbs(parts, at, W, G), sp, np.diff(lay.bounds),
                   ext[:, 0].copy(), ext[:, 1].copy())
 
@@ -1202,6 +1255,7 @@ def _ordered_groups(plan, bounds: np.ndarray, cross_keys) -> Groups:
         plan, lay, *_plan_vector_sums(plan)))
 
 
+@tracing.spanned("alp.engine.groups.finish")
 def _finish_groups(gr: Groups, aggs, dtype) -> dict:
     """The aggregates ``aggs`` of every group as the JAX package gives them
     (``alp_tpu/engine.py:2814-2864``): counts int64; SUM the exact sum
@@ -1323,8 +1377,9 @@ def _cells_of(n: int, hop: int, dev):
         keep = np.ones(cells.size, bool)      # ascending: drop repeats
         keep[1:] = cells[1:] != cells[:-1]
         touched = cells[keep]
-        at = torch.as_tensor(np.searchsorted(touched, first), device=dev)
-        off = torch.as_tensor(vecs * V % hop, device=dev)
+        with tracing.span("alp.fetch.groups.cells_upload"):
+            at = torch.as_tensor(np.searchsorted(touched, first), device=dev)
+            off = torch.as_tensor(vecs * V % hop, device=dev)
         row = torch.arange(V, device=dev)
         lk = torch.empty((len(vecs), V), dtype=torch.int32, device=dev)
         for c in range(0, len(vecs), _CELL_CHUNK):
@@ -1337,6 +1392,7 @@ def _cells_of(n: int, hop: int, dev):
     return cross_keys
 
 
+@tracing.spanned("alp.engine.query_groupby")
 def query_groupby(col, keys, num_groups: int,
                   aggs=("sum", "count", "min", "max", "mean"),
                   device=None) -> dict:
@@ -1400,6 +1456,7 @@ def window_totals(col, window: int, hop: int | None = None, device=None):
                   windowed(cells.sp), windowed(cells.ct), kmn, kmx)
 
 
+@tracing.spanned("alp.engine.query_window")
 def query_window(col, window: int,
                  aggs=("sum", "count", "min", "max", "mean"),
                  hop: int | None = None, device=None) -> dict:
@@ -1422,6 +1479,7 @@ def query_window(col, window: int,
 DISTINCT_CHUNK = 1 << 29
 
 
+@tracing.spanned("alp.engine.query_distinct")
 def query_distinct(col, device=None) -> int:
     """COUNT(DISTINCT v) (``alp_tpu/engine.py:2217``): -0.0 equals 0.0 and
     every NaN counts as one value.  The plan's decode (K1-K4, the
@@ -1448,20 +1506,25 @@ def query_distinct(col, device=None) -> int:
         keys = torch.where((keys > pinf) | (keys < ninf), pinf + 1, keys)
         keys = torch.sort(keys).values
         if not seen and last:    # one chunk: nothing to search
-            return int((keys[1:] != keys[:-1]).sum()) + 1
+            steps = (keys[1:] != keys[:-1]).sum()
+            with tracing.span("alp.fetch.distinct.count"):
+                return int(steps) + 1
         step = torch.ones_like(keys, dtype=torch.bool)
         step[1:] = keys[1:] != keys[:-1]
-        unique = keys[step]
+        with tracing.span("alp.fetch.distinct.unique"):
+            unique = keys[step]
         del keys, step
         new = torch.ones_like(unique, dtype=torch.bool)
         for prev in seen:
             at = torch.searchsorted(prev, unique).clamp_(max=prev.shape[0] - 1)
             new &= prev[at] != unique
-        count += int(new.sum())
+        with tracing.span("alp.fetch.distinct.new"):
+            count += int(new.sum())
         seen.append(unique)
     return count
 
 
+@tracing.spanned("alp.engine.groupby_keys")
 def groupby_keys(kcol, device=None) -> tuple:
     """Dense GROUP-BY keys of a compressed column (``alp_tpu/engine.py
     :2984``): ``(keys, uniques)`` with ``uniques[keys[i]]`` the i-th value
@@ -1469,16 +1532,20 @@ def groupby_keys(kcol, device=None) -> tuple:
     ``np.unique(..., return_inverse=True)`` on the host, as the JAX package
     does."""
     from .container import decompress
-    vals = decompress(kcol, device).cpu().numpy()
+    vals = decompress(kcol, device)
+    with tracing.span("alp.fetch.groupby_keys.values"):
+        vals = vals.cpu().numpy()
     uniques, keys = np.unique(vals, return_inverse=True)
     return keys.astype(np.int64), uniques
 
 
+@tracing.spanned("alp.engine.query_count_exceptions")
 def query_count_exceptions(col) -> int:
     """The number of exceptions, from the metadata alone."""
     return int(np.asarray(col.exc_count, np.int64).sum())
 
 
+@tracing.spanned("alp.engine.query_scan")
 def query_scan(col, device=None) -> tuple:
     """SCAN: (the kept plan, its full decode [n_vectors, 1024] of values
     on the device), for downstream operators."""
@@ -1486,6 +1553,7 @@ def query_scan(col, device=None) -> tuple:
     return plan, plan.run()
 
 
+@tracing.spanned("alp.engine.query_compression")
 def query_compression(data: np.ndarray, *, device=False) -> tuple:
     """COMPRESSION: (the compressed column, {"seconds",
     "throughput_gbps", "bits_per_value"}); ``device`` as in

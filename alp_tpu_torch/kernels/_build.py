@@ -30,6 +30,8 @@ import shutil
 import subprocess
 import time
 
+from .. import tracing
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -186,10 +188,11 @@ def build() -> dict:
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     t0 = time.perf_counter()
     try:
-        log = _compile_all(nvcc, sources, objs)
-        subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
-                        *map(str, objs)], check=True, capture_output=True,
-                       text=True, timeout=600)
+        with tracing.span("alp.build"):
+            log = _compile_all(nvcc, sources, objs)
+            subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                            *map(str, objs)], check=True,
+                           capture_output=True, text=True, timeout=600)
     except subprocess.CalledProcessError as e:
         raise KernelBuildError(
             f"nvcc failed:\n{e.stdout}\n{e.stderr}") from e
@@ -199,6 +202,7 @@ def build() -> dict:
         for obj in objs:
             obj.unlink(missing_ok=True)
     os.replace(tmp, lib_file)
+    tracing.count("alp.builds")
     return {"path": lib_file, "seconds": time.perf_counter() - t0,
             "log": log}
 

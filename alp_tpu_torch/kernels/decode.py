@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from .. import tracing
 from ..constants import constants_for
 from ..ops.fastlanes import low_mask, narrow, words_from_numpy
 from . import exact_sum as kes
@@ -136,6 +137,7 @@ class DecodePlan:
         that reads it."""
         return _csr(self.rd_exc_index, self.n_vectors, self.device)
 
+    @tracing.spanned("alp.plan.decode_vectors")
     def decode_vectors(self, vec_ids: torch.Tensor) -> torch.Tensor:
         """The exact values of vectors ``vec_ids`` (int64 [m], distinct),
         [m, 1024] on the plan's device, their exceptions in (the pad of a
@@ -150,7 +152,8 @@ class DecodePlan:
         slot[vec_ids] = torch.arange(m, device=self.device)
         for bucket in self.buckets:
             picked = slot[bucket.rows]
-            sel = torch.nonzero(picked >= 0).flatten()
+            with tracing.span("alp.fetch.decode_vectors.select"):
+                sel = torch.nonzero(picked >= 0).flatten()
             if not sel.numel():
                 continue
             part = dataclasses.replace(
@@ -158,11 +161,12 @@ class DecodePlan:
                 args=tuple(a[sel] for a in bucket.args))
             self.launch(part, out, rows=picked[sel])
         bits = out.view(self.bits_dtype)
-        kes.patch_exceptions(bits, vec_ids, self.exc_ptr, self.exc_index,
-                             self.exc_bits)
-        patch_rd_exceptions(bits, vec_ids, self.rd_exc_ptr,
-                            self.rd_exc_index, self.rd_exc_left,
-                            self.rd_exc_rbw)
+        with tracing.span("alp.plan.patch"):
+            kes.patch_exceptions(bits, vec_ids, self.exc_ptr, self.exc_index,
+                                 self.exc_bits)
+            patch_rd_exceptions(bits, vec_ids, self.rd_exc_ptr,
+                                self.rd_exc_index, self.rd_exc_left,
+                                self.rd_exc_rbw)
         return out
 
     @functools.cached_property
@@ -181,6 +185,7 @@ class DecodePlan:
                  + self.rd_exc_index % VECTOR_SIZE)
         return rows, vec, index
 
+    @tracing.spanned("alp.plan.decode_rd")
     def decode_rd(self) -> tuple:
         """The ALP_RD vectors alone, decoded (K3/K4) into a compact scratch
         with their exceptions in: (bit patterns [n_rd, 1024], the vector
@@ -192,9 +197,11 @@ class DecodePlan:
         rd = [b for b in self.buckets if b.scheme == C.SCHEME_ALP_RD]
         for bucket, r in zip(rd, rows):
             self.launch(bucket, scratch, rows=r)
-        self.patch_rd(scratch.view(-1), index)
+        with tracing.span("alp.plan.patch"):
+            self.patch_rd(scratch.view(-1), index)
         return scratch, vec
 
+    @tracing.spanned("alp.plan.run")
     def run(self) -> torch.Tensor:
         """The full bit-exact decode: [n_vectors, 1024] values on the
         plan's device (one launch per bucket, then the exception scatter of
@@ -204,9 +211,10 @@ class DecodePlan:
         for bucket in self.buckets:
             self.launch(bucket, out)
         flat = out.view(self.bits_dtype).view(-1)
-        if self.exc_index.numel():
-            flat[self.exc_index] = self.exc_bits
-        self.patch_rd(flat, self.rd_exc_index)
+        with tracing.span("alp.plan.patch"):
+            if self.exc_index.numel():
+                flat[self.exc_index] = self.exc_bits
+            self.patch_rd(flat, self.rd_exc_index)
         return out
 
 
@@ -262,8 +270,31 @@ def _stack(parts: list, width: int, dt) -> np.ndarray:
 
 def build_plan(col, device=None) -> DecodePlan:
     """Bucket a compressed column (``container.CompressedColumn``) and move
-    each bucket's words and metadata to ``device``."""
+    each bucket's words and metadata to ``device``: every host array is
+    made first (``alp.plan.build.stack``), then uploaded
+    (``alp.plan.build.upload``)."""
     dev = resolve_device(device)
+    with tracing.span("alp.plan.build"):
+        with tracing.span("alp.plan.build.stack"):
+            buckets, exceptions = _host_plan(col)
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return words_from_numpy(a).to(dev) if a.dtype.kind in "ui" else \
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        with tracing.span("alp.plan.build.upload"):
+            return DecodePlan(
+                np.dtype(col.dtype), col.n_values, col.n_vectors, dev,
+                [Bucket(scheme, bw, lbw, put(rows), tuple(map(put, arrays)))
+                 for scheme, bw, lbw, rows, arrays in buckets],
+                *map(put, exceptions))
+
+
+def _host_plan(col) -> tuple:
+    """The host arrays of :func:`build_plan`: ([(scheme, bw, lbw, vector
+    ids, the wrapper's arrays) of each bucket], (ALP exceptions' flat
+    positions and bits, ALP_RD exceptions' flat positions, raw left parts
+    and right bit widths))."""
     tc = constants_for(col.dtype)
     S = tc.exact_type_bit_size
     L = VECTOR_SIZE // S
@@ -273,10 +304,6 @@ def build_plan(col, device=None) -> DecodePlan:
     alp_idx = np.nonzero(scheme == C.SCHEME_ALP)[0]
     rd_idx = np.nonzero(scheme == C.SCHEME_ALP_RD)[0]
 
-    def put(a: np.ndarray) -> torch.Tensor:
-        return words_from_numpy(a).to(dev) if a.dtype.kind in "ui" else \
-            torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
     buckets = []
     bws = col.bit_width[alp_idx].astype(np.int64)
     for bw in np.unique(bws).tolist():
@@ -284,24 +311,23 @@ def build_plan(col, device=None) -> DecodePlan:
         # the float FACT table has 10 entries (reference OOB quirk): clamp
         # the index as the host decode does (container.py:586-590)
         fac = np.minimum(col.fac[sel], len(tc.fact_arr) - 1)
-        buckets.append(Bucket(C.SCHEME_ALP, bw, 0, put(sel.astype(np.int64)), (
-            put(_stack([col.packed[v] for v in sel], bw * L, tc.ut)),
-            put(col.base[sel].astype(tc.st)),
-            put(tc.fact_arr[fac].astype(tc.st)),
-            put(tc.frac_arr[col.exp[sel]].astype(tc.pt)))))
+        buckets.append((C.SCHEME_ALP, bw, 0, sel.astype(np.int64), (
+            _stack([col.packed[v] for v in sel], bw * L, tc.ut),
+            col.base[sel].astype(tc.st),
+            tc.fact_arr[fac].astype(tc.st),
+            tc.frac_arr[col.exp[sel]].astype(tc.pt))))
 
     rbws = col.rd_right_bw[vec_rg[rd_idx]].astype(np.int64)
     lbws = col.rd_left_bw[vec_rg[rd_idx]].astype(np.int64)
     for rbw, lbw in sorted(set(zip(rbws.tolist(), lbws.tolist()))):
         sel = rd_idx[(rbws == rbw) & (lbws == lbw)]
         rgs = vec_rg[sel]
-        buckets.append(Bucket(C.SCHEME_ALP_RD, rbw, lbw,
-                              put(sel.astype(np.int64)), (
-            put(_stack([col.packed[v] for v in sel], rbw * L, tc.ut)),
-            put(_stack([col.left_packed[v] for v in sel],
-                       lbw * (VECTOR_SIZE // 16), np.uint16)),
-            put(col.rd_dict[rgs].astype(np.uint16)),
-            put(col.rd_dict_size[rgs].astype(np.int32)))))
+        buckets.append((C.SCHEME_ALP_RD, rbw, lbw, sel.astype(np.int64), (
+            _stack([col.packed[v] for v in sel], rbw * L, tc.ut),
+            _stack([col.left_packed[v] for v in sel],
+                   lbw * (VECTOR_SIZE // 16), np.uint16),
+            col.rd_dict[rgs].astype(np.uint16),
+            col.rd_dict_size[rgs].astype(np.int32))))
 
     def exceptions(idx):
         idx = idx[col.exc_count[idx] > 0]
@@ -320,10 +346,7 @@ def build_plan(col, device=None) -> DecodePlan:
                else np.zeros(0, np.int64))
     rd_rbw = np.repeat(col.rd_right_bw[vec_rg[rd_vecs]].astype(np.int64),
                        rd_counts)
-
-    return DecodePlan(np.dtype(col.dtype), col.n_values, n_vec, dev, buckets,
-                      put(alp_flat), put(alp_bits), put(rd_flat),
-                      put(rd_left), put(rd_rbw))
+    return buckets, (alp_flat, alp_bits, rd_flat, rd_left, rd_rbw)
 
 
 def decompress_device(col, device=None) -> torch.Tensor:

@@ -30,11 +30,13 @@ import functools
 
 import torch
 
+from .. import tracing
 from .. import constants as C
 from ..ops.fastlanes import narrow
 from .falp import VECTOR_SIZE, _check, _device_kind, _launch, _ptr
 
-LAUNCHES = {"alp_encode_f64": 0, "alp_encode_f32": 0}
+LAUNCHES = tracing.Counters("alp.launch.", (
+    "alp_encode_f64", "alp_encode_f32"))
 INT64_MIN = -(1 << 63)
 INT64_MAX = (1 << 63) - 1
 INT32_MIN = -(1 << 31)
@@ -43,9 +45,7 @@ _TWO63 = 2.0 ** 63
 _TWO31 = 2.0 ** 31
 
 
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+reset_launches = LAUNCHES.reset
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +76,8 @@ def check_pairs(name: str, idx: torch.Tensor, tc=C.DOUBLE) -> None:
     """Exponents and factors index the tables: each must lie in
     0..max_exponent (one synchronising read of their range)."""
     if idx.numel():
-        lo, hi = (int(x) for x in torch.aminmax(idx))
+        with tracing.span("alp.fetch.check_pairs"):
+            lo, hi = (int(x) for x in torch.aminmax(idx))
         if lo < 0 or hi > tc.max_exponent:
             raise ValueError(f"{name}: exponents and factors lie in "
                              f"0..{tc.max_exponent}, got {lo}..{hi}")
@@ -223,6 +224,7 @@ def _encode(values, e, f, stats, tc, checked) -> tuple:
     return out
 
 
+@tracing.kernel
 def alp_encode_f64(values, e, f, stats=True, *, checked=True) -> tuple:
     """K9.  values: float64 [n, 1024]; e, f: int32 [n], each vector's
     exponent and factor.  Returns n (int64 [n, 1024], the encoded
@@ -236,6 +238,7 @@ def alp_encode_f64(values, e, f, stats=True, *, checked=True) -> tuple:
     return _encode(values, e, f, stats, C.DOUBLE, checked)
 
 
+@tracing.kernel
 def alp_encode_f32(values, e, f, stats=True, *, checked=True) -> tuple:
     """K12, the float32 twin of K9.  values: float32 [n, 1024]; e, f: int32
     [n] in 0..10.  Returns n (int32 [n, 1024]) and exc (bool [n, 1024]);

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops.fastlanes import widen
 from ..ops.keys import in_key_range
 from .falp import (VECTOR_SIZE, _check, _device_kind, _launch, _ptr,
@@ -43,17 +44,16 @@ WINDOWS = {torch.int64: 66, torch.int32: 9}   # bit-pattern dtype -> W
 # call sums fewer than MAX_VALUES values (its rows times 1024) into ``out``
 # and ``engine.exact_sum_totals`` gives each such run its own total
 MAX_VALUES = 1 << 31
-LAUNCHES = {"exact_sum_f64": 0, "exact_sum_f32": 0,
-            "falp_decode_f64_exact_sum": 0, "falp_decode_f32_exact_sum": 0}
+LAUNCHES = tracing.Counters("alp.launch.", (
+    "exact_sum_f64", "exact_sum_f32", "falp_decode_f64_exact_sum",
+    "falp_decode_f32_exact_sum"))
 
 _M32 = 0xFFFFFFFF
 # bit-pattern dtype -> (word bits, exponent bits, mantissa bits)
 _FIELDS = {torch.int64: (64, 11, 52), torch.int32: (32, 8, 23)}
 
 
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+reset_launches = LAUNCHES.reset
 
 
 def totals(dtype: torch.dtype, device) -> torch.Tensor:
@@ -161,6 +161,7 @@ def _exact_sum(bits, vec, n_values, out, kernel, key_range):
     return out
 
 
+@tracing.kernel
 def exact_sum_f64(bits, vec, n_values, out=None, key_range=None):
     """K5.  bits: int64 [n, 1024] decoded f64 patterns; vec: int64 [n],
     the vector id of each row; adds into ``out`` (int64 [69]); with
@@ -170,6 +171,7 @@ def exact_sum_f64(bits, vec, n_values, out=None, key_range=None):
     return _exact_sum(bits, vec, n_values, out, "exact_sum_f64", key_range)
 
 
+@tracing.kernel
 def exact_sum_f32(bits, vec, n_values, out=None, key_range=None):
     """K6: the f32 twin of K5 (int32 patterns; ``out`` int64 [12])."""
     if bits.dtype != torch.int32:
@@ -183,7 +185,8 @@ def csr_entries(exc_ptr, rows) -> tuple:
     exc_ptr[v + 1]."""
     first = exc_ptr[rows]
     count = exc_ptr[rows + 1] - first
-    total = int(count.sum())
+    with tracing.span("alp.fetch.csr.total"):
+        total = int(count.sum())
     starts = torch.cumsum(count, 0) - count
     entry = (torch.repeat_interleave(first - starts, count)
              + torch.arange(total, device=rows.device))
@@ -263,6 +266,7 @@ def _falp_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
     return out
 
 
+@tracing.kernel
 def falp_decode_f64_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr,
                               exc_index, exc_bits, n_values, out=None,
                               key_range=None):
@@ -277,6 +281,7 @@ def falp_decode_f64_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr,
                            torch.float64)
 
 
+@tracing.kernel
 def falp_decode_f32_exact_sum(packed, bw, base, fact, frac, rows, exc_ptr,
                               exc_index, exc_bits, n_values, out=None,
                               key_range=None):

@@ -35,19 +35,18 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops.fastlanes import narrow, unffor_unpack, widen
 from . import _build
 
 VECTOR_SIZE = 1024
-LAUNCHES = {"falp_decode_f64": 0, "falp_decode_f32": 0,
-            "rd_decode_dict_f64": 0, "rd_decode_dict_f32": 0,
-            "variant_sum_f64": 0, "rd_glue_f64": 0, "rd_glue_f32": 0}
+LAUNCHES = tracing.Counters("alp.launch.", (
+    "falp_decode_f64", "falp_decode_f32", "rd_decode_dict_f64",
+    "rd_decode_dict_f32", "variant_sum_f64", "rd_glue_f64", "rd_glue_f32"))
 LANES_F64 = VECTOR_SIZE // 64           # FastLanes lanes of an f64 vector
 
 
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+reset_launches = LAUNCHES.reset
 
 
 def _check(name, t, dtype, shape, device):
@@ -144,12 +143,14 @@ def falp_plain(packed, bw, base, fact, frac) -> torch.Tensor:
     return m.to(frac.dtype) * frac[:, None]
 
 
+@tracing.kernel
 def falp_decode_f64(packed, bw, base, fact, frac, out=None, rows=None):
     """K1.  packed: int64 [n, bw * 16] FFOR words; base, fact: int64 [n]
     (FOR base, 10^fac); frac: float64 [n] (10^-exp); bw in 0..64."""
     return _falp(packed, bw, base, fact, frac, out, rows, torch.float64)
 
 
+@tracing.kernel
 def falp_decode_f32(packed, bw, base, fact, frac, out=None, rows=None):
     """K2.  packed: int32 [n, bw * 32]; base, fact: int32 [n]; frac:
     float32 [n]; bw in 0..32."""
@@ -201,6 +202,7 @@ def rd_plain(right, rbw, left, lbw, dictionary, dict_size) -> torch.Tensor:
     return narrow((entries << rbw) | r if rbw < S else r, S)
 
 
+@tracing.kernel
 def rd_decode_dict_f64(right, rbw, left, lbw, dictionary, dict_size,
                        out=None, rows=None):
     """K3.  right: int64 [n, rbw * 16] words of the right parts; left:
@@ -212,6 +214,7 @@ def rd_decode_dict_f64(right, rbw, left, lbw, dictionary, dict_size,
     return _rd(right, rbw, left, lbw, dictionary, dict_size, out, rows)
 
 
+@tracing.kernel
 def rd_decode_dict_f32(right, rbw, left, lbw, dictionary, dict_size,
                        out=None, rows=None):
     """K4: the f32 twin of K3 (int32 words, f32 bit patterns)."""
@@ -252,6 +255,7 @@ def variant_sum_plain(packed, bw, base, fact, frac) -> torch.Tensor:
     return acc
 
 
+@tracing.kernel
 def variant_sum_f64(packed, bw, base, fact, frac) -> torch.Tensor:
     """K20 over one f64 ALP bucket (K1's arguments): float32 [n, 16]."""
     n = packed.shape[0]
@@ -309,6 +313,7 @@ def _rd_glue(right, rbw, left):
     return out
 
 
+@tracing.kernel
 def rd_glue_f64(right, rbw, left) -> torch.Tensor:
     """K21 over f64 vectors.  right: int64 [n, rbw * 16] words of the
     right parts (FFOR base 0); left: int32 [n, 1024], each value's left
@@ -319,6 +324,7 @@ def rd_glue_f64(right, rbw, left) -> torch.Tensor:
     return _rd_glue(right, rbw, left)
 
 
+@tracing.kernel
 def rd_glue_f32(right, rbw, left) -> torch.Tensor:
     """K21 over f32 vectors: int32 [n, rbw * 32] words, rbw in 0..32 (0:
     the left words are the bits).  Returns int32 [n, 1024] bit patterns."""

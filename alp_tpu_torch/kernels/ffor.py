@@ -21,17 +21,17 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops.fastlanes import ffor_pack, unffor_unpack, word_bits
 from .falp import VECTOR_SIZE, _check, _device_kind, _launch, _ptr
 
-LAUNCHES = {"ffor_pack_f64": 0, "ffor_pack_f32": 0, "unffor": 0}
+LAUNCHES = tracing.Counters("alp.launch.", (
+    "ffor_pack_f64", "ffor_pack_f32", "unffor"))
 # word dtype -> (word bits, C entry)
 _WORDS = {torch.int64: (64, "ffor_pack_f64"), torch.int32: (32, "ffor_pack_f32")}
 
 
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+reset_launches = LAUNCHES.reset
 
 
 def ffor_plain(values, base, bw, exc=None, fill=None, rows=None):
@@ -49,6 +49,7 @@ def _word_index(offsets, bw, lanes):
     return offsets[:, None] + torch.arange(lanes * bw, device=offsets.device)
 
 
+@tracing.kernel
 def ffor_pack_f64(values, base, bw, *, exc=None, fill=None, rows=None,
                   out=None, offsets=None, checked=True):
     """K10.  values: int64 [N, 1024]; base: int64 [N], each vector's FOR
@@ -64,6 +65,7 @@ def ffor_pack_f64(values, base, bw, *, exc=None, fill=None, rows=None,
                  torch.int64, checked)
 
 
+@tracing.kernel
 def ffor_pack_f32(values, base, bw, *, exc=None, fill=None, rows=None,
                   out=None, offsets=None, checked=True):
     """K13, the 32-bit twin of K10: values, base, fill and out int32; bw
@@ -88,7 +90,8 @@ def _pack(values, base, bw, exc, fill, rows, out, offsets, word, checked):
     if rows is not None:
         _check("rows", rows, torch.int64, (m,), device)
         if m and checked:
-            lo, hi = (int(x) for x in torch.aminmax(rows))
+            with tracing.span("alp.fetch.ffor.rows"):
+                lo, hi = (int(x) for x in torch.aminmax(rows))
             if lo < 0 or hi >= n:
                 raise ValueError("rows reach outside values")
     if (out is None) != (offsets is None):
@@ -103,7 +106,8 @@ def _pack(values, base, bw, exc, fill, rows, out, offsets, word, checked):
         _check("out", out, word, out.shape, device)
         _check("offsets", offsets, torch.int64, (m,), device)
         if m and checked:
-            lo, hi = (int(x) for x in torch.aminmax(offsets))
+            with tracing.span("alp.fetch.ffor.offsets"):
+                lo, hi = (int(x) for x in torch.aminmax(offsets))
             if lo < 0 or hi + lanes * bw > out.numel():
                 raise ValueError("offsets reach outside out")
     if _device_kind(values) == "cpu":
@@ -119,6 +123,7 @@ def _pack(values, base, bw, exc, fill, rows, out, offsets, word, checked):
     return out
 
 
+@tracing.kernel
 def unffor(packed, bw, base) -> torch.Tensor:
     """K22: unFFOR of a bucket of vectors that share the bit width ``bw``.
     packed: int64 [n, 16 * bw] (64-bit elements) or int32 [n, 32 * bw]

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops.keys import bias, biased_keys
 from .exact_sum import WINDOWS, _check_size, digit_rows, falp_bits_plain
 from .falp import VECTOR_SIZE, _check, _device_kind, _launch, _ptr
@@ -55,13 +56,11 @@ from .keys import _WORDS, _check_alp, _check_rd, _valid, extremes_of_bits
 from .keys import rd_bits_plain
 
 MAX_GROUPS = 1 << 24            # csrc/group.cu kMaxGroups: 24-bit group ids
-LAUNCHES = {"vector_sum_extremes": 0, "group_reduce": 0,
-            "key_extremes_bits": 0}
+LAUNCHES = tracing.Counters("alp.launch.", (
+    "vector_sum_extremes", "group_reduce", "key_extremes_bits"))
 
 
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+reset_launches = LAUNCHES.reset
 
 
 def group_outputs(num_groups: int, dtype, device) -> tuple:
@@ -193,6 +192,7 @@ def _group_reduce(scheme, args, n_values, group_keys, num_groups, out, ext):
     return out, ext
 
 
+@tracing.kernel
 def vector_sums_alp(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
                     exc_bits, n_values, sums, keys):
     """K18 on an ALP bucket.  K15's arguments (``kernels.keys``) up to
@@ -203,6 +203,7 @@ def vector_sums_alp(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
                                 exc_index, exc_bits), n_values, sums, keys)
 
 
+@tracing.kernel
 def vector_sums_rd(right, rbw, left, lbw, dictionary, dict_size, rows,
                    exc_ptr, exc_index, exc_left, n_values, sums, keys):
     """K18 on an ALP_RD bucket, as :func:`vector_sums_alp`."""
@@ -211,6 +212,7 @@ def vector_sums_rd(right, rbw, left, lbw, dictionary, dict_size, rows,
                         sums, keys)
 
 
+@tracing.kernel
 def group_reduce_alp(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
                      exc_bits, n_values, group_keys, num_groups, out, ext):
     """K19 on an ALP bucket: K15's arguments up to ``n_values``, then the
@@ -222,6 +224,7 @@ def group_reduce_alp(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
                          num_groups, out, ext)
 
 
+@tracing.kernel
 def group_reduce_rd(right, rbw, left, lbw, dictionary, dict_size, rows,
                     exc_ptr, exc_index, exc_left, n_values, group_keys,
                     num_groups, out, ext):
@@ -251,6 +254,7 @@ def key_extremes_bits_plain(bits) -> torch.Tensor:
     return bias(torch.stack([keys.amin(dim=1), keys.amax(dim=1)], dim=1))
 
 
+@tracing.kernel
 def key_extremes_bits_f64(bits) -> torch.Tensor:
     """K23: bits int64 [n, 1024] decoded f64 bit patterns -> int64 [n, 2]
     (least, largest) unsigned keys of each vector."""

@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops.keys import bias, biased_keys
 from .decode import patch_rd_exceptions
 from .exact_sum import falp_bits_plain
@@ -69,13 +70,12 @@ from .falp import VECTOR_SIZE, _check, _device_kind, _launch, _ptr, rd_plain
 
 MAX_THRESHOLDS = 2048           # csrc/keys.cu kMaxThr: a tree of 2047 + 1
 MAX_RANKS = 8                   # csrc/keys.cu kMaxRanks: a register pair each
-LAUNCHES = {"key_counts": 0, "key_extremes": 0, "rank_pass": 0}
+LAUNCHES = tracing.Counters("alp.launch.", (
+    "key_counts", "key_extremes", "rank_pass"))
 _WORDS = {torch.int64: ("f64", 64), torch.int32: ("f32", 32)}
 
 
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+reset_launches = LAUNCHES.reset
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +342,7 @@ def _rank_pass(scheme, args, n_values, thresholds, brackets, bins, mm):
     return bins, mm
 
 
+@tracing.kernel
 def key_counts_alp(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
                    exc_bits, n_values, thresholds, out=None):
     """K15 on an ALP bucket.  K1/K2's arguments (packed int64 [n, bw * 16]
@@ -355,6 +356,7 @@ def key_counts_alp(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
                            exc_index, exc_bits), n_values, thresholds, out)
 
 
+@tracing.kernel
 def key_counts_rd(right, rbw, left, lbw, dictionary, dict_size, rows,
                   exc_ptr, exc_index, exc_left, n_values, thresholds,
                   out=None):
@@ -366,6 +368,7 @@ def key_counts_rd(right, rbw, left, lbw, dictionary, dict_size, rows,
                    thresholds, out)
 
 
+@tracing.kernel
 def key_extremes_alp(packed, bw, base, fact, frac, rows, exc_ptr,
                      exc_index, exc_bits, n_values, out):
     """K16 on an ALP bucket (K15's arguments without thresholds): writes
@@ -375,6 +378,7 @@ def key_extremes_alp(packed, bw, base, fact, frac, rows, exc_ptr,
                              exc_index, exc_bits), n_values, out)
 
 
+@tracing.kernel
 def key_extremes_rd(right, rbw, left, lbw, dictionary, dict_size, rows,
                     exc_ptr, exc_index, exc_left, n_values, out):
     """K16 on an ALP_RD bucket, as :func:`key_extremes_alp`."""
@@ -383,6 +387,7 @@ def key_extremes_rd(right, rbw, left, lbw, dictionary, dict_size, rows,
                      out)
 
 
+@tracing.kernel
 def rank_pass_alp(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
                   exc_bits, n_values, thresholds, brackets, bins, mm):
     """K17 on an ALP bucket: K15's arguments, then R brackets (int64 or
@@ -394,6 +399,7 @@ def rank_pass_alp(packed, bw, base, fact, frac, rows, exc_ptr, exc_index,
                       brackets, bins, mm)
 
 
+@tracing.kernel
 def rank_pass_rd(right, rbw, left, lbw, dictionary, dict_size, rows,
                  exc_ptr, exc_index, exc_left, n_values, thresholds,
                  brackets, bins, mm):

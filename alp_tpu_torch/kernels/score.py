@@ -38,6 +38,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from .. import constants as C
 from ..ops.alp import bit_width_of, ef_pairs_arrays
 from .encode import (INT32_MAX, INT32_MIN, INT64_MAX, INT64_MIN,
@@ -45,15 +46,14 @@ from .encode import (INT32_MAX, INT32_MIN, INT64_MAX, INT64_MIN,
                      round_cast32, tables)
 from .falp import _check, _device_kind, _launch, _ptr
 
-LAUNCHES = {"score_pairs_f64": 0, "score_pairs_f32": 0}
+LAUNCHES = tracing.Counters("alp.launch.", (
+    "score_pairs_f64", "score_pairs_f32"))
 SAMPLES = C.SAMPLES_PER_VECTOR
 EXC_BITS = C.DOUBLE.exception_size + C.EXCEPTION_POSITION_SIZE
 EXC_BITS32 = C.FLOAT.exception_size + C.EXCEPTION_POSITION_SIZE
 
 
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+reset_launches = LAUNCHES.reset
 
 
 def score_plain(samples, ef, k_count=None) -> tuple:
@@ -131,6 +131,7 @@ def _score(samples, ef, k_count, tc, checked) -> tuple:
     return est, non_exc
 
 
+@tracing.kernel
 def score_pairs_f64(samples, ef, k_count=None, *, checked=True) -> tuple:
     """K11.  samples: float64 [n, 32], one segment per row; ef: int32
     [n, C, 2] candidate pairs (e, f) of each segment, or [1, C, 2] shared
@@ -141,6 +142,7 @@ def score_pairs_f64(samples, ef, k_count=None, *, checked=True) -> tuple:
     return _score(samples, ef, k_count, C.DOUBLE, checked)
 
 
+@tracing.kernel
 def score_pairs_f32(samples, ef, k_count=None, *, checked=True) -> tuple:
     """K14, the float32 twin of K11: samples float32 [n, 32], pairs in
     0..10."""

@@ -27,6 +27,7 @@ import time
 import numpy as np
 
 from . import constants as C
+from . import tracing
 
 _ROOT = pathlib.Path(__file__).resolve().parent.parent
 _SRC = _ROOT / "native" / "alpcore.cpp"
@@ -74,15 +75,17 @@ def _build(src: pathlib.Path) -> tuple[pathlib.Path, float]:
     tmp = lib_file.with_name(f"{lib_file.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
-        subprocess.run(["g++", *_FLAGS, "-shared", "-fPIC", "-o", str(tmp),
-                        str(src)], check=True, capture_output=True,
-                       text=True)
+        with tracing.span("alp.build"):
+            subprocess.run(["g++", *_FLAGS, "-shared", "-fPIC", "-o",
+                            str(tmp), str(src)], check=True,
+                           capture_output=True, text=True)
     except subprocess.CalledProcessError as e:
         raise NativeBuildError(
             f"g++ failed on {src.name}:\n{e.stderr}") from e
     except OSError as e:
         raise NativeBuildError(f"g++ is not usable: {e}") from e
     os.replace(tmp, lib_file)
+    tracing.count("alp.builds")
     return lib_file, time.perf_counter() - t0
 
 

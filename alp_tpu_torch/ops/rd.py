@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from .fastlanes import low_mask, narrow, srl, widen, word_bits
 
 
@@ -27,10 +28,12 @@ def rd_encode_vectors(bits: torch.Tensor, right_bw: torch.Tensor,
     b = widen(bits, S)
     right = torch.empty_like(b)
     left_raw = torch.empty_like(b)
-    for rbw in torch.unique(right_bw).tolist():
-        sel = right_bw == rbw
-        right[sel] = b[sel] & low_mask(rbw)
-        left_raw[sel] = srl(b[sel], rbw) & 0xFFFF
+    # the widths' fetch and each mask's nonzero wait on the device
+    with tracing.span("alp.fetch.rd.split"):
+        for rbw in torch.unique(right_bw).tolist():
+            sel = right_bw == rbw
+            right[sel] = b[sel] & low_mask(rbw)
+            left_raw[sel] = srl(b[sel], rbw) & 0xFFFF
     entries = widen(left_dict, 16)
     # only entries below the rowgroup's dictionary size may match: a left
     # part equal to the 0xFFFF padding is an exception, as in rd.hpp:127-144

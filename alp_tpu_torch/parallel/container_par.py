@@ -62,7 +62,7 @@ def compress_sharded(data: np.ndarray, mesh) -> CompressedColumn:
         m = enc.meta
         sections = vector_sections(
             data.dtype, m[0], m[1], m[2], m[3], enc.exc_count,
-            m[4].view(np.uint64), [dc._host(enc.flat).view(tc.ut)],
+            m[4].view(np.uint64), [dc._host(enc.flat, "words").view(tc.ut)],
             enc.left_packed, enc.exc_values, enc.exc_positions)
 
     # ordered gather: every rank's section sizes, then its bytes
