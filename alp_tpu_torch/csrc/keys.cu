@@ -85,7 +85,7 @@
 // warp 0 became the straggler at every barrier; k16_warp_merge.)
 //
 // K17.  One pass of the bisection: K15's bins at T <= 2048 thresholds and,
-// for each of R <= 8 brackets [lo_r, hi_r], the least and the largest key
+// for each of R <= 32 brackets [lo_r, hi_r], the least and the largest key
 // inside it, merged into mm [R, 2] with one atomicMin and one atomicMax a
 // bracket and block (the caller starts mm at (all ones, 0), so a bracket
 // that holds no value of the bucket leaves it untouched).  The first
@@ -105,7 +105,7 @@
 //    and its 16-24 KB more of shared memory cost a block an SM);
 //  - the bins: K15's many-threshold bins (count_bin);
 //  - the brackets: equal brackets are merged (a first pass has R equal
-//    ones), and their ends lo - 1 and hi (at most 16 cut points) split the
+//    ones), and their ends lo - 1 and hi (at most 2R cut points) split the
 //    keys into intervals that lie wholly inside or outside each bracket.
 //    A key outside the brackets' union [min lo, max hi] (two compares in
 //    registers) is in none; one inside reads its bin's first interval and
@@ -117,7 +117,11 @@
 //    moves one, the lanes of that bracket reduce their keys and one
 //    writes (no atomics, no register a bracket: per-thread slots took 32
 //    KB and per-thread registers 16-32 more registers a thread, each a
-//    block an SM);
+//    block an SM).  The bracket tables (the brackets, the slots, the cuts
+//    and their masks) lie in the dynamic shared memory sized by the
+//    launch's R, as the tree is sized by T: a pass of few brackets (MEDIAN:
+//    2) holds only its own, and only a wide pass (up to 32 brackets:
+//    sixteen quantiles in one bisection) pays for its slots;
 //  - the row loop above.
 //
 // What still keeps them from their bounds (kernel_ablations.py on the
@@ -174,7 +178,7 @@ constexpr int kKeyBlocks = 5;                // ... resident an SM, at least
 constexpr int kKeyPer = kVector / kKeyThreads;
 constexpr int kKeyWarps = kKeyThreads / 32;
 constexpr int kMaxThr = 2048;
-constexpr int kMaxRanks = 8;
+constexpr int kMaxRanks = 32;                // a bit of a mask a bracket
 constexpr int kSmall = 2;                    // K15 without a search: E <= 2
 constexpr unsigned kFull = alp::kFullMask;
 
@@ -428,33 +432,50 @@ key_extremes_kernel(V src, const long long* __restrict__ rows, long long n,
 // K17
 // ---------------------------------------------------------------------------
 
-constexpr int kCuts = 32;                    // bracket cut points, padded
+// A bin's first cut interval and its count of cuts share a uint16 (qbin);
+// a bracket is one bit of a 32-bit mask.
+static_assert(2 * kMaxRanks < 256 && kMaxRanks <= 32, "K17's masks");
 
 // K17's dynamic shared memory: the tree at 0, then these byte offsets and
-// the row loop's.
+// the row loop's.  The bracket tables are sized by R: the brackets' ends
+// blo, bhi [R], the warps' slots wlo, whi [kWarps][R] (keys), the cuts ct
+// [2R] (keys), their masks cmask [2R + 1] and first [R].
 struct RankLayout {
   int levels;                                // L
-  unsigned hist, qbin;
+  unsigned hist, qbin, blo, bhi, wlo, whi, ct, cmask, first;
   RowLayout rows;
 };
 
-inline RankLayout rank_layout(int E, unsigned key_bytes, int staged) {
+inline RankLayout rank_layout(int E, int R, unsigned key_bytes, int staged) {
   RankLayout l{};
   l.levels = tree_levels(E);
   l.hist = round16((1u << l.levels) * key_bytes);
   l.qbin = round16(l.hist + (E + 1) * 4u);
-  l.rows = row_layout(l.qbin + (E + 1u) * 2u, key_bytes, staged);
+  l.blo = round16(l.qbin + (E + 1u) * 2u);
+  l.bhi = l.blo + R * key_bytes;
+  l.wlo = l.bhi + R * key_bytes;
+  l.whi = l.wlo + kWarps * R * key_bytes;
+  l.ct = l.whi + kWarps * R * key_bytes;
+  l.cmask = l.ct + 2 * R * key_bytes;
+  l.first = l.cmask + (2 * R + 1) * 4u;
+  l.rows = row_layout(l.first + R * 4u, key_bytes, staged);
   return l;
 }
 
-// #{cuts < key}: the key's interval of the bracket cut points ct[kCuts]
-// (ascending, padded with all ones), five broadcast-friendly steps.
+// #{cuts < key}: the key's interval of the n ascending bracket cut points
+// ct (a binary search; only the tables' set-up calls it).
 template <typename U>
-__device__ __forceinline__ int cut_interval(const U* ct, U key) {
+__device__ __forceinline__ int cut_interval(const U* ct, int n, U key) {
   int q = 0;
-#pragma unroll
-  for (int step = kCuts / 2; step; step >>= 1)
-    q += ct[q + step - 1] < key ? step : 0;
+  while (n > 0) {
+    const int half = n >> 1;
+    if (ct[q + half] < key) {
+      q += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
   return q;
 }
 
@@ -496,7 +517,7 @@ struct RankTables {
   unsigned* hist;
   const uint16_t* qbin;                      // bin -> first interval, cuts
   const U* ct;
-  const uint8_t* cmask;                      // cut interval -> brackets
+  const unsigned* cmask;                     // cut interval -> brackets
   U ulo, uhi;                                // the brackets' union
   U* wlo;                                    // the warp's slots
   U* whi;
@@ -544,11 +565,13 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
   U* tree = reinterpret_cast<U*>(dyn);
   unsigned* hist = reinterpret_cast<unsigned*>(dyn + lay.hist);
   uint16_t* qbin = reinterpret_cast<uint16_t*>(dyn + lay.qbin);
-  __shared__ U blo[kMaxRanks], bhi[kMaxRanks];
-  __shared__ U wlo[kWarps][kMaxRanks], whi[kWarps][kMaxRanks];
-  __shared__ U ct[kCuts];
-  __shared__ uint8_t cmask[kCuts + 1];
-  __shared__ int first[kMaxRanks];           // the first bracket equal to r
+  U* blo = reinterpret_cast<U*>(dyn + lay.blo);
+  U* bhi = reinterpret_cast<U*>(dyn + lay.bhi);
+  U* wlo = reinterpret_cast<U*>(dyn + lay.wlo);   // warp w's at w * R
+  U* whi = reinterpret_cast<U*>(dyn + lay.whi);
+  U* ct = reinterpret_cast<U*>(dyn + lay.ct);
+  unsigned* cmask = reinterpret_cast<unsigned*>(dyn + lay.cmask);
+  int* first = reinterpret_cast<int*>(dyn + lay.first);  // r's first equal
   __shared__ int n_cuts;
   __shared__ U ulo, uhi;
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -559,9 +582,9 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
   const Tree<U> tr{tree, lay.levels, E > kTree, thr[E - 1]};
   tr.build(tree, thr, E);
   for (int j = tid; j <= E; j += kThreads) hist[j] = 0;
-  for (int j = tid; j < kWarps * kMaxRanks; j += kThreads) {
-    wlo[j / kMaxRanks][j % kMaxRanks] = top;
-    whi[j / kMaxRanks][j % kMaxRanks] = 0;
+  for (int j = tid; j < kWarps * R; j += kThreads) {
+    wlo[j] = top;
+    whi[j] = 0;
   }
   if (tid < R) {
     blo[tid] = br[2 * tid];
@@ -576,8 +599,8 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
   }
   __syncthreads();
   // the cut points: lo - 1 and hi of every distinct bracket that holds a
-  // key, ascending and distinct, padded with all ones; every interval
-  // between two of them lies wholly inside or outside each bracket
+  // key, ascending and distinct; every interval between two of them lies
+  // wholly inside or outside each bracket
   if (tid == 0) {
     int nc = 0;
     U lo = top, hi = 0;
@@ -588,7 +611,7 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
       if (blo[r] > 0) ct[nc++] = blo[r] - 1;
       if (bhi[r] < top) ct[nc++] = bhi[r];
     }
-    for (int a = 1; a < nc; ++a)             // insertion sort, <= 16 cuts
+    for (int a = 1; a < nc; ++a)             // insertion sort, <= 2R cuts
       for (int b = a; b > 0 && ct[b] < ct[b - 1]; --b) {
         const U x = ct[b];
         ct[b] = ct[b - 1];
@@ -597,7 +620,6 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
     int d = 0;
     for (int a = 0; a < nc; ++a)
       if (d == 0 || ct[a] != ct[d - 1]) ct[d++] = ct[a];
-    for (int a = d; a < kCuts; ++a) ct[a] = top;
     n_cuts = d;
     ulo = lo;
     uhi = hi;
@@ -614,7 +636,7 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
       if (first[r] == r && blo[r] <= bhi[r] && lower >= blo[r] &&
           upper <= bhi[r])
         m |= 1u << r;
-    cmask[tid] = static_cast<uint8_t>(m);
+    cmask[tid] = m;
   }
   // bin p holds the keys in [lower, upper] = (thr[p - 1], thr[p]]: its
   // first cut interval and the number of cuts that split it (low and high
@@ -623,12 +645,13 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
     const U lower = p > 0 ? static_cast<U>(thr[p - 1] + (thr[p - 1] < top))
                           : U(0);
     const U upper = p < E ? thr[p] : top;
-    const int ql = cut_interval(ct, lower), qu = cut_interval(ct, upper);
+    const int ql = cut_interval(ct, ncut, lower);
+    const int qu = cut_interval(ct, ncut, upper);
     qbin[p] = static_cast<uint16_t>(ql | (lower <= upper ? (qu - ql) << 8
                                                          : 0));
   }
-  const RankTables<U> tab{tr, hist, qbin, ct, cmask, ulo, uhi, wlo[warp],
-                          whi[warp]};
+  const RankTables<U> tab{tr, hist, qbin, ct, cmask, ulo, uhi, wlo + warp * R,
+                          whi + warp * R};
   for_each_row<kThreads>(src, rows, n, n_values, dyn, lay.rows,
                          [&](long long, const U (&key)[kPer],
                              const bool (&real)[kPer]) {
@@ -641,8 +664,8 @@ rank_pass_kernel(V src, const long long* __restrict__ rows, long long n,
   if (tid < R) {
     U l = top, h = 0;
     for (int w = 0; w < kWarps; ++w) {
-      l = umin(l, wlo[w][first[tid]]);
-      h = umax(h, whi[w][first[tid]]);
+      l = umin(l, wlo[w * R + first[tid]]);
+      h = umax(h, whi[w * R + first[tid]]);
     }
     if (l <= h) merge_key(mm + 2 * tid, l, h);  // else: none in the bracket
   }
@@ -699,7 +722,7 @@ int launch_rank(const V& src, const void* rows, long long n,
   if (n < 0 || n_values < 0 || E < 1 || E > kMaxThr || R < 1 ||
       R > kMaxRanks)
     return static_cast<int>(cudaErrorInvalidValue);
-  const RankLayout lay = rank_layout(E, sizeof(U), src.staged_bytes());
+  const RankLayout lay = rank_layout(E, R, sizeof(U), src.staged_bytes());
   return launch_rows<kThreads>(rank_pass_kernel<V>, n, lay.rows.bytes, dev,
                                stream, src,
                                static_cast<const long long*>(rows), n,
@@ -719,7 +742,7 @@ int launch_rank(const V& src, const void* rows, long long n,
 // unsigned keys (uint64 for f64, uint32 for f32), 1 <= E <= 2048.  K16
 // writes out (keys, [n_vectors, 2]) at rows rows[i].  K17 adds into bins
 // as K15 and merges into mm (keys, [R, 2]) the least and largest key in
-// each bracket of br (keys, [R, 2]: lo, hi), 1 <= R <= 8.  Every entry
+// each bracket of br (keys, [R, 2]: lo, hi), 1 <= R <= 32.  Every entry
 // returns cudaGetLastError() (or the error of its device query).
 
 extern "C" int alp_key_counts_alp_f64(ALP_ARGS, const void* thr, int E,

@@ -655,14 +655,18 @@ def query_filter_sum(col, lo: float, hi: float, device=None):
 # ---------------------------------------------------------------------------
 
 # the K17 passes of the last rank selection (every chunk of its ranks),
-# beside ``keys.LAUNCHES["rank_pass"]``: ``LAST_RANK_PASSES`` reads the
-# counter ``alp.engine.rank.last_passes``
-_RANK = tracing.Counters("alp.engine.rank.", ("last_passes",))
+# beside ``keys.LAUNCHES["rank_pass"]``, and its bisections (chunks of
+# ``MAX_RANKS`` ranks): ``LAST_RANK_PASSES`` and ``LAST_RANK_BISECTIONS``
+# read the counters ``alp.engine.rank.last_passes`` and ``.last_bisections``
+_RANK = tracing.Counters("alp.engine.rank.", ("last_passes",
+                                              "last_bisections"))
+_RANK_VIEWS = {"LAST_RANK_PASSES": "last_passes",
+               "LAST_RANK_BISECTIONS": "last_bisections"}
 
 
 def __getattr__(name):
-    if name == "LAST_RANK_PASSES":
-        return _RANK["last_passes"]
+    if name in _RANK_VIEWS:
+        return _RANK[_RANK_VIEWS[name]]
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -808,16 +812,18 @@ def _rank_bisect(plan, ranks: list) -> tuple:
 
 def _select_rank_keys(col, plan, ranks) -> tuple:
     """The exact keys at the ascending 1-based ``ranks``, chunked by
-    ``MAX_RANKS``: ({rank: key}, n_negnan, n_posnan).  Sets
-    ``LAST_RANK_PASSES``."""
+    ``MAX_RANKS``, one bisection a chunk: ({rank: key}, n_negnan,
+    n_posnan).  Sets ``LAST_RANK_PASSES`` and ``LAST_RANK_BISECTIONS``."""
     keys, passes = {}, 0
     negnan = le_pinf = 0
-    for s in range(0, len(ranks), kkeys.MAX_RANKS):
+    starts = range(0, len(ranks), kkeys.MAX_RANKS)
+    for s in starts:
         chunk = list(ranks[s:s + kkeys.MAX_RANKS])
         got, negnan, le_pinf, p = _rank_bisect(plan, chunk)
         keys.update(zip(chunk, got))
         passes += p
     _RANK["last_passes"] = passes
+    _RANK["last_bisections"] = len(starts)
     return keys, negnan, col.n_values - le_pinf
 
 

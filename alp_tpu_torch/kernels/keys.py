@@ -69,7 +69,9 @@ from .exact_sum import falp_bits_plain
 from .falp import VECTOR_SIZE, _check, _device_kind, _launch, _ptr, rd_plain
 
 MAX_THRESHOLDS = 2048           # csrc/keys.cu kMaxThr: a tree of 2047 + 1
-MAX_RANKS = 8                   # csrc/keys.cu kMaxRanks: a register pair each
+MAX_RANKS = 32                  # csrc/keys.cu kMaxRanks: a bit of a mask a
+                                # bracket; each warp's slots of the brackets
+                                # in shared memory, sized by the launch's R
 LAUNCHES = tracing.Counters("alp.launch.", (
     "key_counts", "key_extremes", "rank_pass"))
 _WORDS = {torch.int64: ("f64", 64), torch.int32: ("f32", 32)}

@@ -30,8 +30,9 @@ calls, seconds and seconds of ``alp.fetch.*`` descendants of each name;
 and the counters).
 
 Counters: ``count(name, n)``.  The kernel modules' ``LAUNCHES``
-(``alp.launch.<kernel>``), ``engine.LAST_RANK_PASSES``
-(``alp.engine.rank.last_passes``) and ``device_compress.TO_HOST``
+(``alp.launch.<kernel>``), ``engine.LAST_RANK_PASSES`` and
+``engine.LAST_RANK_BISECTIONS`` (``alp.engine.rank.last_passes``,
+``.last_bisections``), and ``device_compress.TO_HOST``
 (``alp.compress.to_host.bytes``) are views of counters here
 (:class:`Counters`); ``alp.builds`` counts builds that compiled.
 """

@@ -174,7 +174,8 @@ Phases, each printing its wall time:
             a bucket) and K16 on every bucket of every column, K17 on
             every bucket of
             every column at the thresholds and brackets of a real first
-            pass of the quantile bisection, K5-K8 with a key range on
+            pass of the quantile bisection, a later one, and 8 and 32
+            disjoint brackets, K5-K8 with a key range on
             every SUM call, K18 and K19 (G = 16, 65,536 and 1,000 ordered
             runs) on every bucket of every column; K20 and K22 on every
             ALP bucket of every column (K20 on the f64 ones), K21 on every
@@ -200,7 +201,8 @@ Phases, each printing its wall time:
             at R = 8 brackets and T = 2048 thresholds, twice: 8 disjoint
             brackets spanning the column, and a later bisection pass (8
             bands of 0.1 % of the column, the thresholds spread inside
-            them), each with ``torch.bucketize`` + ``torch.bincount`` and
+            them), and both again at R = 2 (MEDIAN) and 20 (ten
+            quantiles), each with ``torch.bucketize`` + ``torch.bincount`` and
             a masked ``amin``/``amax`` a bracket as its yardstick and its
             bound by RANK_SEARCH and RANK_OPS beside the first design's
             count (RANK_ALL), the filtered
@@ -396,6 +398,7 @@ RANK_OPS = (2, 2, 1, 2)          # (union test compares, a value inside it,
                                  #  value inside a bracket)
 KEY_COUNTS_TIMED = (2, 17, 2048)  # K15's thresholds: few, the tree, full
 RANK_TIMED = (8, 2048)           # (R, T) of K17's timing rows
+RANK_WIDTHS = (2, 20)            # K17's other R: MEDIAN's, ten quantiles'
 RANK_BAND = 1e-3                 # the later-pass row: a bracket's share
 QUANTILE_QS = (0.0, 1e-6, 0.001, 0.1, 0.25, 0.5, 0.75, 0.9, 0.999, 1.0)
 # K18/K19: launch-count key -> the TPU site it replaces (None: no site)
@@ -3133,13 +3136,14 @@ def main() -> int:
                                    f"plain version")
         # K17 at a real first pass (every bracket the key extent), at the
         # first later pass whose brackets differ (narrowed by the snap),
-        # and at R disjoint brackets inside the column's extent
+        # and at 8 and 32 disjoint brackets inside the column's extent
         seen = rank_passes(engine, alp_tpu_torch, col)
         later = [p for p in seen[1:] if len(np.unique(p[1], axis=0)) > 1]
         R, T = RANK_TIMED
         checks = [("first pass", *seen[0])] + [
             ("later pass", *p) for p in later[:1]] + [
-            ("disjoint", column_thresholds(exp, T), disjoint_brackets(exp, R))]
+            ("disjoint", column_thresholds(exp, T),
+             disjoint_brackets(exp, r)) for r in (R, kkeys.MAX_RANKS)]
         for label, thr, br in checks:
             thr_t, br_t = (thresholds_tensor(thr, plan),
                            thresholds_tensor(br, plan))
@@ -3570,10 +3574,11 @@ def main() -> int:
             for E in KEY_COUNTS_TIMED[1:]:
                 row.update({f"{f}_E{E}": v for f, v in cells[E].items()})
         rows.append(row)
-    R, T = RANK_TIMED
+    R0, T = RANK_TIMED
     for k, (site, others) in RANK_KERNELS.items():
         cells = {}
-        for label in ("disjoint", "later"):
+        for R, label in [(r, lb) for r in (R0, *RANK_WIDTHS)
+                         for lb in ("disjoint", "later")]:
             ms, plain_ms, bound_ms, old_ms, yard_ms, b_bytes_l, b_ops_l = (
                 [] for _ in range(7))
             for name in key_timed:
@@ -3650,7 +3655,7 @@ def main() -> int:
                       f"{b_old / t_k:.1%}),"
                       f" yardstick {t_y:.4f} ms", flush=True)
                 del bk, outs, hits, split
-            cells[label] = {
+            cells[label + ("" if R == R0 else f"_R{R}")] = {
                 "ms": float(np.mean(ms)), "plain_ms": float(np.mean(plain_ms)),
                 "bound_ms": float(np.mean(bound_ms)),
                 "bound_by": ("bytes" if sum(b_bytes_l) >= sum(b_ops_l)
@@ -3666,8 +3671,9 @@ def main() -> int:
                          "amin/amax a bracket over the decoded keys (not the "
                          "same function: no PyTorch call reads the "
                          "compressed form)",
-            "timed_on": key_timed, "R": R, "T": T,
-            **{f"{f}_later": v for f, v in cells["later"].items()}})
+            "timed_on": key_timed, "R": R0, "T": T,
+            **{f"{f}_{cell}": v for cell, c in cells.items()
+               if cell != "disjoint" for f, v in c.items()}})
     for k, site in GROUP_KERNELS.items():
         cells = {}
         # K19: random ids at G = 16 (shared counters) and 65,536 (device

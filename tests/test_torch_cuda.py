@@ -1052,11 +1052,13 @@ def _brackets(plan, R: int, seed: int) -> torch.Tensor:
 
 @pytest.mark.parametrize("name", sorted(COLUMNS))
 def test_k17_equals_its_plain_version(name, cuda):
+    """R brackets from 1 to ``MAX_RANKS`` (32), on both sides of 8, at a
+    tree of 2 and of 2048 thresholds."""
     col = alp_tpu_torch.compress(COLUMNS[name])
     plan = col.plan(cuda)
     for T in (2, 2048):
         thr = _thresholds(plan, T, T)
-        for R in (1, 4, 8):
+        for R in (1, 4, 8, 9, 20, kkeys.MAX_RANKS):
             br = _brackets(plan, R, R)
             for call in engine.key_calls(plan):
                 before = kkeys.LAUNCHES["rank_pass"]
@@ -1137,6 +1139,34 @@ def test_k17_edges_equal_its_plain_version(name, cuda):
             assert torch.equal(mm, want_mm), (name, label)
 
 
+@pytest.mark.parametrize("name", sorted(COLUMNS))
+def test_k17_wide_first_and_later_passes_equal_its_plain_version(name,
+                                                                 cuda):
+    """A bisection of 20 ranks: a first pass of 20 equal brackets (the key
+    extent) at 2048 thresholds, then a later pass of 20 disjoint brackets
+    with the thresholds spread inside them, on every bucket."""
+    col = alp_tpu_torch.compress(COLUMNS[name])
+    plan = col.plan(cuda)
+    R = 20
+    keys = _all_keys(name, plan)
+    first = np.repeat([[keys[0], keys[-1]]], R, axis=0)
+    ends = keys[np.linspace(0, len(keys) - 1, 2 * R).astype(np.int64)]
+    bands = ends.reshape(R, 2)
+    m = 2046 // R
+    inside = np.unique(np.array(
+        [int(lo) + (int(hi) - int(lo)) * j // m for lo, hi in bands
+         for j in range(m)], ends.dtype))
+    for label, thr, br in (
+            ("first", _thresholds(plan, 2048, 20), _as_words(plan, first)),
+            ("later", _as_words(plan, inside[:2048]), _as_words(plan, bands))):
+        for call in engine.key_calls(plan):
+            bins, mm = call.rank_pass(thr, br, *kkeys.rank_outputs(
+                thr.shape[0], R, plan.bits_dtype, cuda))
+            want_bins, want_mm = call.rank_pass_plain(thr, br)
+            assert torch.equal(bins, want_bins), (name, label)
+            assert torch.equal(mm, want_mm), (name, label)
+
+
 def _quantile_equal(got, want, dtype) -> bool:
     """Bits, a NaN by isnan, a zero by == (numpy returns either sign)."""
     got, want = np.asarray(got), np.asarray(want).astype(dtype)
@@ -1160,6 +1190,7 @@ def test_quantile_on_card_equals_numpy(name, cuda):
         kkeys.reset_launches()
         got = alp_tpu_torch.query_quantile(col, qs, method)
         assert kkeys.LAUNCHES["rank_pass"] >= engine.LAST_RANK_PASSES >= 1
+        assert engine.LAST_RANK_BISECTIONS == 1       # <= 20 ranks
         assert _quantile_equal(got, np.quantile(x, qs, method=method),
                                x.dtype), method
     median = alp_tpu_torch.query_median(col)

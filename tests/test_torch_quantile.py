@@ -237,30 +237,63 @@ def test_rank_keys_equal_a_sort(name):
     assert posnan == int(np.sum(np.isnan(x) & ((_bits(x) & sbit) == 0)))
 
 
+def _spread_ranks(n: int, R: int) -> list:
+    """R distinct 1-based ranks over n values, in pairs of neighbours as
+    quantiles that fall between two ranks ask for them."""
+    pairs = np.linspace(1, n - 1, -(-R // 2)).astype(np.int64)
+    ranks = sorted({int(r) for b in pairs for r in (b, b + 1)})[:R]
+    assert len(ranks) == R
+    return ranks
+
+
+@pytest.mark.parametrize("R", (20, 32, 33))
+@pytest.mark.parametrize("name", ["bw_le32", "bw_53_64", "f32_rd"])
+def test_wide_rank_selections_equal_a_sort(name, R):
+    """Up to ``MAX_RANKS`` (32) ranks are one bisection that closes within
+    ``rank_pass_bound``; one rank more makes two."""
+    x = _column(name)
+    col = alp_tpu_torch.compress(x)
+    k = np.sort(_keys(x))
+    ranks = _spread_ranks(len(x), R)
+    keys, _, _ = engine._select_rank_keys(col, col.plan("cpu"), ranks)
+    assert keys == {r: int(k[r - 1]) for r in ranks}
+    assert engine.LAST_RANK_BISECTIONS == (1 if R <= kkeys.MAX_RANKS else 2)
+    bound = sum(engine.rank_pass_bound(8 * x.itemsize,
+                                       min(kkeys.MAX_RANKS, R - s))
+                for s in range(0, R, kkeys.MAX_RANKS))
+    assert engine.LAST_RANK_BISECTIONS <= engine.LAST_RANK_PASSES <= bound
+
+
 @pytest.mark.parametrize("name", ["bw_le32", "bw_33_52", "f32_rd"])
 def test_ranks_past_one_chunk(name):
-    """21 quantiles: 21 to 40 ranks, so three to five chunks of
+    """41 quantiles: 41 to 80 ranks, so two or three chunks of
     ``MAX_RANKS``, each its own bisection of one pass or more; on the CPU
     no kernel launches."""
     x = _column(name)
     col = alp_tpu_torch.compress(x)
-    qs = np.linspace(0.0, 1.0, 21)
+    qs = np.linspace(0.0, 1.0, 41)
     for m in METHODS:
         kkeys.reset_launches()
         got = alp_tpu_torch.query_quantile(col, qs, m, **CPU)
         assert _equals_numpy(got, x, qs, m), m
-        assert engine.LAST_RANK_PASSES >= 3
+        assert engine.LAST_RANK_BISECTIONS >= 2
+        assert engine.LAST_RANK_PASSES >= engine.LAST_RANK_BISECTIONS
         assert kkeys.LAUNCHES["rank_pass"] == 0
 
 
-@pytest.mark.parametrize("name", ["bw_53_64", "f32_rd"])
-def test_passes_stay_within_the_bound(name):
+@pytest.mark.parametrize("name, n_q", [
+    pytest.param(name, n_q, id=name if n_q is None else f"{name}-{n_q}q")
+    for n_q in (None, 10, 16) for name in ("bw_53_64", "f32_rd")])
+def test_passes_stay_within_the_bound(name, n_q):
     """High-entropy keys (integers over all of int64; f32 normal times
-    1e8): each chunk closes within ``rank_pass_bound``."""
+    1e8): each chunk closes within ``rank_pass_bound``; ten and sixteen
+    quantiles (20 and 32 ranks) are one bisection."""
     x = _column(name)
     col = alp_tpu_torch.compress(x)
     width = 8 * x.itemsize
-    for q in (0.5, [0.1, 0.5, 0.9], np.linspace(0, 1, 9)):
+    lists = ((0.5, [0.1, 0.5, 0.9], np.linspace(0, 1, 9)) if n_q is None
+             else (np.linspace(0.01, 0.99, n_q),))
+    for q in lists:
         got = alp_tpu_torch.query_quantile(col, q, **CPU)
         assert _equals_numpy(got, x, q, "linear")
         n_ranks = 2 * np.size(q)
@@ -268,6 +301,8 @@ def test_passes_stay_within_the_bound(name):
                                                       n_ranks - s))
                     for s in range(0, n_ranks, kkeys.MAX_RANKS))
         assert 1 <= engine.LAST_RANK_PASSES <= bound, (q, bound)
+        if n_q is not None:
+            assert engine.LAST_RANK_BISECTIONS == 1
 
 
 def test_too_many_passes_raise(monkeypatch):
@@ -664,6 +699,29 @@ def test_k17_cut_intervals_give_each_keys_brackets(f64):
     brackets = bias(torch.stack(
         [torch.cat([pick[[0, 1, 2, 3, 5, 0]], ends[:1]]),
          torch.cat([pick[[2, 4, 2, 3, 4, 2]], ends[1:]])], 1))
+    _assert_cut_intervals(thr, keys, brackets)
+
+
+@pytest.mark.parametrize("f64", (True, False))
+def test_k17_cut_intervals_of_32_brackets(f64):
+    """As above at ``MAX_RANKS`` = 32 brackets, a later pass's: 16
+    disjoint, one equal to the first, and 15 that overlap them and each
+    other; up to 64 cuts, and bracket 31 in bit 31 of the masks."""
+    thr_u, keys_u = _threshold_case(2048, f64, 5)
+    thr, keys = _signed(thr_u), bias(_signed(keys_u))
+    ends = torch.sort(bias(keys)[torch.randperm(
+        keys.shape[0], generator=torch.Generator().manual_seed(6))[:32]]
+    ).values
+    pairs = ([(2 * i, 2 * i + 1) for i in range(16)] + [(0, 1)]
+             + [(2 * i + 1, min(2 * i + 4, 31)) for i in range(15)])
+    brackets = bias(ends[torch.tensor(pairs)])
+    assert brackets.shape[0] == kkeys.MAX_RANKS
+    _assert_cut_intervals(thr, keys, brackets)
+
+
+def _assert_cut_intervals(thr, keys, brackets) -> None:
+    """Each biased key's cut interval, from its bin, and that interval's
+    mask, against ``torch.searchsorted`` and the brackets themselves."""
     ct, masks, first, cuts = _cut_tables(thr, brackets)
     p = _tree_bins(thr, keys)
     q = first[p].clone()

@@ -209,6 +209,8 @@ def test_rank_pass_spans_count_the_last_rank_passes(col, tmp_path):
     assert after - before == engine.LAST_RANK_PASSES
     assert tracing.totals()["counts"]["alp.engine.rank.last_passes"] == \
         engine.LAST_RANK_PASSES
+    assert tracing.totals()["counts"]["alp.engine.rank.last_bisections"] == \
+        engine.LAST_RANK_BISECTIONS == 1
 
 
 def test_without_a_profiler_no_span_enters_the_profiler(col, monkeypatch):
