@@ -176,13 +176,28 @@ def scan_work(info: ColumnInfo) -> dict:
             "int_ops": ints, "float_ops": flops, "f64": info.f64}
 
 
-def least_seconds(work: dict, device_name: str):
-    """The least time of ``work`` on the card, or None for a card with no
-    entry in ``PEAKS``.  Float operations issue at the FP64 rate on a
-    float64 column, at the FP32 rate on a float32 one."""
+def least_seconds(work: dict, device_name: str, chips: int = 1):
+    """The least time of ``work`` on ``chips`` such cards together, or
+    None for a card with no entry in ``PEAKS``.  Float operations issue at
+    the FP64 rate on a float64 column, at the FP32 rate on a float32
+    one."""
     r = rates(device_name)
     if r is None:
         return None
     hbm, int_rate, fp64_rate, fp32_rate = r
-    return max(work["bytes"] / hbm, work["int_ops"] / int_rate,
-               work["float_ops"] / (fp64_rate if work["f64"] else fp32_rate))
+    return max(work["bytes"] / (hbm * chips),
+               work["int_ops"] / (int_rate * chips),
+               work["float_ops"] / ((fp64_rate if work["f64"] else fp32_rate)
+                                    * chips))
+
+
+def summed(shares: list) -> ColumnInfo:
+    """The whole column's ``ColumnInfo`` from those of its shares (runs of
+    whole rowgroups, compressed apart): every count summed."""
+    widths = {s.value_bytes for s in shares}
+    if len(widths) != 1:
+        raise ValueError(f"shares of other widths: {sorted(widths)}")
+    counts = {f.name: sum(getattr(s, f.name) for s in shares)
+              for f in dataclasses.fields(ColumnInfo)
+              if f.name != "value_bytes"}
+    return ColumnInfo(value_bytes=widths.pop(), **counts)

@@ -5,7 +5,8 @@ until ``seconds`` have passed and at least ``min_requests`` were issued;
 the window ends when the last request answers.  Its latency runs on the
 host clock from the call to the answer (for a scan, the device tensor
 after ``torch.cuda.synchronize()``).  A request that raises has failed:
-it counts as missing every latency limit.
+it counts as missing every latency limit.  On several ranks the loop runs
+in lockstep (``lockstep_loop``): rank 0's clock decides when it ends.
 """
 
 from __future__ import annotations
@@ -76,6 +77,46 @@ def closed_loop(stream, call, seconds: float, min_requests: int = 1,
                               req.params, t0, t_end, ok, error, counters))
         if ok and keep is not None and keep(req):
             answers[req.index] = answer
+    return Window(records, t_begin, t_end, answers)
+
+
+def lockstep_loop(stream, call, seconds: float, min_requests: int,
+                  keep, span, decide, step_span: str) -> Window:
+    """``closed_loop`` on every rank of a cell on several cards, each
+    calling the same requests.  Just before each request, rank 0 decides
+    whether another will follow it (while its clock is short of
+    ``seconds`` or fewer than ``min_requests`` would have been issued);
+    ``decide(go)`` starts the agreement, which runs beside the request,
+    and returns the function that waits for it once the request has
+    answered.  Both lie in spans ``step_span``, outside the request's
+    span and its latency."""
+    records, answers = [], {}
+    t_begin = time.perf_counter_ns()
+    deadline = t_begin + int(seconds * 1e9)
+    t_end = t_begin
+    answer = None
+    go = True
+    while go:
+        req = next(stream)
+        answer = None           # the last answer is freed before the call
+        counters, error = {}, ""
+        with span(step_span):
+            agreed = decide(time.perf_counter_ns() < deadline
+                            or len(records) + 1 < min_requests)
+        t0 = time.perf_counter_ns()
+        try:
+            with span(f"request.{req.template}"):
+                answer, counters = call(req, span)
+            ok = True
+        except Exception as e:  # a failed request is counted, not fatal
+            ok, error = False, f"{type(e).__name__}: {e}"
+        t_end = time.perf_counter_ns()
+        records.append(Record(req.index, req.template, req.op, req.column,
+                              req.params, t0, t_end, ok, error, counters))
+        if ok and keep is not None and keep(req):
+            answers[req.index] = answer
+        with span(step_span):
+            go = agreed()
     return Window(records, t_begin, t_end, answers)
 
 

@@ -16,6 +16,12 @@ It exits nonzero and prints no result where the machine has no CUDA
 card or fewer than the cell asks for, where ``alp_tpu_torch`` cannot be
 imported, and where ``jax``, ``jaxlib``, ``flax`` or ``alp_tpu`` is
 loaded in this process once the window has closed.
+
+A cell whose ``chips`` is above 1 runs as that many ranks, one process a
+card (``harness/ranks.py``): this process is rank 0 and spawns the others
+as this script with hidden arguments; every rank enforces the forbidden
+modules, only rank 0 prints the result, and the run exits nonzero with
+no result when a rank fails or the deadline passes.
 """
 
 import time
@@ -51,21 +57,24 @@ def parse(argv):
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    from harness import ranks
+    ranks.add_arguments(p)
     return p.parse_args(argv)
 
 
 def main(argv=None) -> int:
-    args = parse(argv)
     for var, sub in CACHE_DIRS.items():
         os.environ.setdefault(var, str(ROOT / ".perfbench_cache" / sub))
     sys.path[:0] = [str(HERE), str(ROOT)]
-    from harness import cell, spec
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse(argv)
+    from harness import cell, ranks, spec
 
     bench = spec.Bench(ROOT)
     wl = bench.workload(args.workload)
     import torch
-    if not torch.cuda.is_available() or \
-            torch.cuda.device_count() < wl.chips:
+    if args.device == "cuda" and (not torch.cuda.is_available() or
+                                  torch.cuda.device_count() < wl.chips):
         print(f"perfbench: {args.workload} needs {wl.chips} CUDA card(s); "
               f"this machine has {torch.cuda.device_count()}",
               file=sys.stderr)
@@ -76,13 +85,31 @@ def main(argv=None) -> int:
         print(f"perfbench: the program is not importable: {e}",
               file=sys.stderr)
         return 3
-    result, lines = cell.run(bench, wl, args.seed, args.seconds,
-                             bool(args.trace), "cuda", T_START)
+    if wl.chips == 1:
+        result, lines = cell.run(bench, wl, args.seed, args.seconds,
+                                 bool(args.trace), args.device, T_START)
+    else:
+        try:
+            cell.rows_generator(bench, wl.config)
+        except ValueError as e:
+            print(f"perfbench: {args.workload}: {e}", file=sys.stderr)
+            return 2
+
+        def body(r):
+            return cell.run_ranks(bench, wl, args.seed, args.seconds,
+                                  bool(args.trace), r, T_START)
+
+        got = ranks.run(args, str(HERE / "run.py"), argv, wl.chips, wl.config, body,
+                        T_START)
     found = forbidden_modules(list(sys.modules))
     if found:
         print(f"perfbench: forbidden modules loaded: {', '.join(found)}",
               file=sys.stderr)
         return 4
+    if wl.chips > 1:
+        if got is None:          # a rank other than 0
+            return 0
+        result, lines = got
     for line in lines:
         print(line, file=sys.stderr)
     sys.stderr.flush()
