@@ -103,12 +103,7 @@ def query_mean(col, device=None) -> float:
         return float("nan")
     rows = _sum_rows(col, dev)
     with tracing.span("alp.engine.sum.join"):
-        total, nan_c, pinf, ninf, scale = join_totals(rows, col.dtype)
-        if nan_c or pinf or ninf:
-            return _finish_sum(total, nan_c, pinf, ninf, scale)
-        if total == 0:
-            return 0.0
-        return float(Fraction(total, col.n_values << scale))
+        return _finish_mean(*join_totals(rows, col.dtype), col.n_values)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,6 +227,18 @@ def _finish_sum(total: int, nan_c: int, pinf: int, ninf: int,
     if total == 0:
         return 0.0
     return float(Fraction(total, 1 << scale))
+
+
+def _finish_mean(total: int, nan_c: int, pinf: int, ninf: int, scale: int,
+                 n: int) -> float:
+    """The exact mean ``total / (n 2^scale)`` of ``n`` values, rounded once
+    (a NaN or an infinity as ``_finish_sum`` gives it); ``query_mean`` and
+    the sharded MEAN (``parallel.share_mean``) both finish here."""
+    if nan_c or pinf or ninf:
+        return _finish_sum(total, nan_c, pinf, ninf, scale)
+    if total == 0:
+        return 0.0
+    return float(Fraction(total, n << scale))
 
 
 def _f64_fixed(bits: int):

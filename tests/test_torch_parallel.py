@@ -19,6 +19,13 @@ rowgroups; the tests read every rank's results:
   the JAX package's float32 mean within 1e-5;
 * the cross-rank join of synthetic int64 SUM rows near 2^62 equals their
   Python-integer sum, where an int64 all-reduce would wrap.
+
+The whole-column entry points cut each rank's share of the column
+(``column_share``, a ``ColumnShare``) and run the one body each query has
+on a share (``share_decode``, ``share_filter_count``, ``share_sum``,
+``share_groupby``); ``tests/test_torch_share.py`` holds those bodies, and
+the sharded MEAN and SUM WHERE, on shares that each rank compressed from
+its own rows alone.
 """
 
 import math

@@ -5,7 +5,9 @@ spans, each inside the span its layer declares; the bisection's
 ``alp.engine.rank.pass`` spans count ``engine.LAST_RANK_PASSES``; with
 no profiler a span never calls into the profiler and ``totals()`` counts
 all the same; the kernel modules' ``LAUNCHES`` and ``reset_launches``
-read, write and reset as plain dicts did.
+read, write and reset as plain dicts did; a sharded SUM and COUNT WHERE
+on two gloo ranks open ``alp.parallel.*`` spans around their collectives,
+waits and join, and count the collectives and their bytes.
 
 On the card (marker ``cuda``): each query and a scan run under
 ``torch.cuda.set_sync_debug_mode("error")``, lifted inside
@@ -322,6 +324,46 @@ def test_device_compress_keeps_its_stages_and_bytes_to_host():
         spans["alp.fetch.compress.meta"]["seconds"] > 0
     assert spans["alp.compress"]["fetch_seconds"] > 0
     assert device_compress.TO_HOST["bytes"] == 0        # nothing on a card
+
+
+# the spans a sharded query opens, and the one each lies directly inside
+PARALLEL_PARENTS = {
+    "alp.parallel.all_gather": "alp.parallel.sum",
+    "alp.fetch.parallel.sizes": "alp.parallel.sum",
+    "alp.fetch.parallel.rows": "alp.parallel.sum",
+    "alp.parallel.join": "alp.parallel.sum",
+    "alp.parallel.all_reduce": "alp.parallel.filter_count",
+    "alp.fetch.parallel.count": "alp.parallel.filter_count",
+}
+
+
+def test_sharded_queries_open_their_spans_and_count_what_moved(tmp_path):
+    """A sharded SUM and COUNT WHERE on two gloo ranks (their share made
+    first): each query's span holds its collectives, waits and join, and
+    the counters count three collectives and their bytes: the SUM's two
+    all-gathers (a byte count a rank, then one row of W + 3 int64 a rank)
+    and the COUNT's all-reduce of three int64 bins."""
+    import torch_parallel_worker as worker
+
+    world = 2
+    out = worker.spawn_ranks(world, "cpu", str(tmp_path), deadline=240.0,
+                             target=worker.run_trace_rank)
+    width = exact_sum.WINDOWS[torch.int64] + 3
+    for r in out:
+        spans = sorted(r["spans"], key=lambda s: (s[0], -s[1]))
+        names = {s[2] for s in spans}
+        assert {"alp.parallel.sum", "alp.parallel.filter_count"} <= names
+        assert set(PARALLEL_PARENTS) <= names, set(PARALLEL_PARENTS) - names
+        for s, parent in _parents(spans):
+            if s[2] in PARALLEL_PARENTS:
+                assert parent[2] == PARALLEL_PARENTS[s[2]], (s, parent)
+        totals = r["totals"]
+        assert totals["spans"]["alp.parallel.all_gather"]["calls"] == 2
+        assert totals["spans"]["alp.parallel.all_reduce"]["calls"] == 1
+        assert totals["counts"]["alp.parallel.collectives"] == 3
+        assert totals["counts"]["alp.parallel.bytes"] == \
+            world * 8 + world * width * 8 + 3 * 8
+    assert len({r["sum"] for r in out}) == len({r["count"] for r in out}) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,10 @@ the mesh, run every sharded path on the columns of :func:`columns` and
 pickle the results to ``out_dir/rank<r>.pkl``; it returns every rank's
 results, or raises when a rank fails or outlasts the deadline.
 :func:`run_groupby_rank` runs the sharded GROUP-BY alone, on the cases of
-fault F3 (:func:`f3_groupby_cases`).
+fault F3 (:func:`f3_groupby_cases`); :func:`run_share_rank` the queries
+on each rank's own ``ColumnShare`` (``tests/test_torch_share.py``);
+:func:`run_trace_rank` a sharded SUM and COUNT WHERE under a profiler
+(``tests/test_torch_tracing.py``).
 """
 
 from __future__ import annotations
@@ -195,9 +198,177 @@ def run_rank(rank: int, world: int, rendezvous: str, device_type: str,
         dist.destroy_process_group()
 
 
+def share_rows(n: int, world: int, rank: int) -> tuple:
+    """(lo, hi): rank ``rank``'s rows of an ``n``-row column, a run of
+    whole rowgroups as ``parallel.share`` splits the rowgroups."""
+    from alp_tpu_torch.parallel.sharded import RG_ROWS
+    groups = -(-n // RG_ROWS)
+    return (min(n, groups * rank // world * RG_ROWS),
+            min(n, groups * (rank + 1) // world * RG_ROWS))
+
+
+def share_range(x: np.ndarray) -> tuple:
+    """A range of a column for COUNT WHERE and SUM WHERE: its finite
+    values' 20th and 70th percentiles, rounded to two decimals."""
+    lo, hi = np.quantile(x[np.isfinite(x)].astype(np.float64), [0.2, 0.7])
+    return round(float(lo), 2), round(float(hi), 2)
+
+
+REFUSALS = ("off_boundary", "overlap", "gap", "length", "dtype")
+REFUSAL_ROWS = 8 * 100 * 1024 + 77        # nine rowgroups
+
+
+def refused_share(case: str, world: int, rank: int) -> tuple:
+    """(start, length, n_total, dtype) of rank ``rank``'s share in a
+    refusal ``case``: the last rank's share moved off a rowgroup boundary
+    (the rank before it made longer), moved back over the rank before it,
+    moved on to leave a rowgroup out, or of another length or dtype of the
+    column; ``None`` where the world has no such case."""
+    from alp_tpu_torch.parallel.sharded import RG_ROWS
+    n = REFUSAL_ROWS
+    lo, hi = share_rows(n, world, rank)
+    last = rank == world - 1
+    dtype = np.float64
+    if case == "off_boundary":
+        if last:
+            lo += 1000
+        elif rank == world - 2:
+            hi += 1000
+    elif case == "overlap":
+        if world < 2:
+            return None
+        lo -= RG_ROWS if last else 0
+    elif case == "gap":
+        lo += RG_ROWS if last else 0
+    elif case == "length":
+        if world < 2:
+            return None
+        n += int(last)
+    elif case == "dtype":
+        if world < 2:
+            return None
+        dtype = np.float32 if last else dtype
+    return lo, hi - lo, n, dtype
+
+
+def near_rows(rank: int, width: int, n_rows: int = JOIN_ROWS) -> np.ndarray:
+    """Synthetic int64 SUM rows of ``rank`` whose windows below 32 lie
+    within 2^20 of +-2^62 (four of them overflow int64) and whose other
+    windows and special counts are 0, so that the exact sum is finite."""
+    rows = join_rows(rank, width)[:n_rows]
+    rows[:, 32:] = 0
+    return rows
+
+
+JOIN_N = 3 * 100 * 1024 + 5               # the mean's count of values
+SHARE_THREADS = 2                         # a rank's intra-op threads
+
+
+def run_share_rank(rank: int, world: int, rendezvous: str, device_type: str,
+                   out_dir: str) -> None:
+    """The share path: each rank compresses only its own rows of every
+    column of :func:`columns` and queries its ``ColumnShare``; the refusal
+    cases of :func:`refused_share`; the MEAN and SUM WHERE joins of
+    :func:`near_rows`."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    import alp_tpu_torch
+    from alp_tpu_torch import parallel as par
+    from alp_tpu_torch.kernels import exact_sum as kes
+    from alp_tpu_torch.parallel import sharded
+
+    torch.set_num_threads(SHARE_THREADS)
+    _join(rank, world, rendezvous, device_type)
+    try:
+        mesh = par.make_mesh(world, device_type)
+        res = {"rank": rank, "world": world, "sum": {}, "mean": {},
+               "count": {}, "filter_sum": {}, "refused": {}}
+        for name, x in columns().items():
+            lo, hi = share_rows(len(x), world, rank)
+            col = alp_tpu_torch.compress(x[lo:hi]) if hi > lo else None
+            sh = par.ColumnShare(col, lo, len(x), mesh, dtype=x.dtype)
+            rng = share_range(x)
+            res["sum"][name] = par.share_sum(sh)
+            res["mean"][name] = par.share_mean(sh)
+            res["count"][name] = par.share_filter_count(sh, *rng)
+            res["filter_sum"][name] = par.share_filter_sum(sh, *rng)
+        for case in REFUSALS:
+            got = refused_share(case, world, rank)
+            if got is None:
+                continue
+            start, length, n, dtype = got
+            stand_in = types.SimpleNamespace(dtype=np.dtype(dtype),
+                                             n_values=length)
+            try:
+                par.ColumnShare(stand_in, start, n, mesh)
+                res["refused"][case] = None
+            except ValueError as e:
+                res["refused"][case] = str(e)
+        width = kes.WINDOWS[torch.int64] + 3
+        rows = torch.from_numpy(near_rows(rank, width))
+        res["join_mean"] = sharded.join_mean(mesh, rows, np.float64, JOIN_N)
+        res["join_filter_sum"] = sharded.join_filter_sum(mesh, rows,
+                                                         np.float64)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+TRACE_COLUMN = "bench_bw20_food_prices"
+
+
+def run_trace_rank(rank: int, world: int, rendezvous: str, device_type: str,
+                   out_dir: str) -> None:
+    """A sharded SUM and COUNT WHERE of :data:`TRACE_COLUMN` under a
+    profiler, the share made first: the program's spans of the trace
+    ((start, end, name)) and ``tracing.totals()``."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    import alp_tpu_torch
+    from alp_tpu_torch import parallel as par
+    from alp_tpu_torch import tracing
+
+    torch.set_num_threads(SHARE_THREADS)
+    _join(rank, world, rendezvous, device_type)
+    try:
+        mesh = par.make_mesh(world, device_type)
+        col = alp_tpu_torch.compress(columns()[TRACE_COLUMN])
+        par.column_share(col, mesh).plan
+        tracing.reset()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            total = par.sharded_exact_sum(mesh, col)
+            count = par.sharded_filter_count(mesh, col, *COUNT_RANGE)
+        path = os.path.join(out_dir, f"trace{rank}.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)
+        events = events.get("traceEvents", events) \
+            if isinstance(events, dict) else events
+        names = ("alp.parallel.", "alp.fetch.parallel.")
+        spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                        e["name"]) for e in events
+                       if e.get("ph") == "X"
+                       and e.get("cat") == "user_annotation"
+                       and e["name"].startswith(names))
+        res = {"rank": rank, "world": world, "sum": total, "count": count,
+               "spans": spans, "totals": tracing.totals()}
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
 def spawn_ranks(world: int, device_type: str, tmp_dir: str,
                 deadline: float = 240.0, target=run_rank) -> list:
-    """Run ``target`` (:func:`run_rank`, or :func:`run_groupby_rank`) on
+    """Run ``target`` (:func:`run_rank`, or another ``run_*_rank``) on
     ``world`` spawned processes; every rank's results in rank order.  A
     rank that exits nonzero fails the call; one still running at
     ``deadline`` seconds is killed, and so is every other."""
